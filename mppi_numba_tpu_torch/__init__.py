@@ -10,15 +10,18 @@ Public surface:
 """
 
 from .config import Config, SolverStatic
+from .density import Density, GaussianMixture
 from .mppi import MPPIPlanner
-from .terrain import TDM, quantize_pmf_int8
+from .terrain import (TDM, Terrain, quantize_pmf_int8,
+                      unknown_mask_from_confidence)
 from .types import MapInputs, SolveAux, TerrainTask
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Config", "SolverStatic",
-    "TDM", "quantize_pmf_int8",
+    "Density", "GaussianMixture",
+    "TDM", "Terrain", "quantize_pmf_int8", "unknown_mask_from_confidence",
     "MPPIPlanner",
     "TerrainTask", "MapInputs", "SolveAux",
 ]

@@ -125,18 +125,21 @@ class Config:
 @dataclasses.dataclass(frozen=True)
 class SolverStatic:
     """The structural signature of one solve; one cached solver per value."""
-    mode: str                  # 'tdm' (this port also names 'det_dyn' | 'speed_map' | 'barebone')
+    mode: str                  # 'tdm' | 'det_dyn' | 'speed_map'
     num_steps: int             # T
     num_control_rollouts: int  # K
     num_grid_samples: int      # M
     map_shape: Tuple[int, int]  # padded (H, W)
     num_obstacles: int         # analytic circle obstacles (barebone only)
-    cvar_numel: int            # ceil(M * cvar_alpha); M for alpha == 1
+    cvar_numel: int            # ceil(M * cvar_alpha); M for alpha == 1;
+                               # -1 (solver.DYNAMIC_CVAR): alpha at run time
     num_opt: int               # optimization iterations per solve
     num_vis_state_rollouts: int
-    # 'cuda' (the hand-written rollout kernel) | 'eager' (plain PyTorch
-    # ops, exact trig) | 'auto' ('cuda' for tensors on a CUDA device,
-    # 'eager' on the CPU).
+    # The rollout layout: 'byte' (one word per cell) | 'binned2' |
+    # 'binned' | 'binned8' (2-, 4- and 8-bit cell planes), each a
+    # hand-written CUDA kernel; 'eager' (plain PyTorch ops, exact trig);
+    # 'auto' (solver.resolve_backend: by map size and bin count on a CUDA
+    # device, 'eager' on the CPU); 'cuda', an alias of 'byte'.
     backend: str = "auto"
     # Maclaurin rotation instead of per-step sin/cos in the rollout kernel;
     # the planner enables it when dt * max|wrange| * max_ang_traction <= 0.6.

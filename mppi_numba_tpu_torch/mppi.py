@@ -18,7 +18,7 @@ import torch
 from .config import Config, SolverStatic
 from .ops.costs import (DEFAULT_DIST_WEIGHT, DEFAULT_OBS_COST,
                         DEFAULT_UNKNOWN_COST)
-from .solver import get_terrain_solver
+from .solver import DYNAMIC_CVAR, get_terrain_solver
 from .terrain import resolve_device
 from .types import MapInputs, TerrainTask
 
@@ -63,6 +63,7 @@ class MPPIPlanner:
         self.tdm_set = False
 
         self.u_cur = torch.tensor(self.u_seq0, device=self.device)
+        self.u_prev = self.u_cur
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.seed)
         self._last_aux = None
@@ -129,6 +130,9 @@ class MPPIPlanner:
         if self.use_det_dynamics:
             return "det_dyn"
         if self.use_nom_dynamics_with_speed_map or self.use_costmap:
+            # Costmap mode shares the speed-map solve: nominal dynamics, a
+            # risk byte of 100 (full speed) and the lethal/no-info masks
+            # carrying the penalties (see TDM.set_TDM_from_costmap).
             return "speed_map"
         return "tdm"
 
@@ -139,8 +143,9 @@ class MPPIPlanner:
         if mode != "tdm":
             cvar_numel = 1
         elif getattr(self.cfg, "dynamic_cvar", False):
-            raise NotImplementedError(
-                "Config(dynamic_cvar=True) is a later slice of the port")
+            # Alpha is read from the task at run time: one cached solver
+            # serves every cvar_alpha.
+            cvar_numel = DYNAMIC_CVAR
         else:
             alpha = float(self.params.get("cvar_alpha", 1.0))
             cvar_numel = int(math.ceil(M * alpha))
@@ -152,6 +157,8 @@ class MPPIPlanner:
                    * float(np.max(np.abs(self.params["wrange"]))) * ang_ub)
         return SolverStatic(
             roi_shape=self._roi_shape((H, W)),
+            # The support-compacted bin count (see _compact_planes): what
+            # 'auto' routes the layout on.
             num_pmf_bins=int(self._compact_planes()[4]),
             mode=mode,
             num_steps=self.num_steps,
@@ -167,7 +174,7 @@ class MPPIPlanner:
                        == 'unicycle'),
             model=getattr(self.cfg, "model", "unicycle"),
             # Optional override (set ``cfg.backend`` after construction):
-            # 'eager' or 'cuda'.
+            # 'eager', 'byte', 'binned2', 'binned' or 'binned8'.
             backend=getattr(self.cfg, "backend", "auto"),
         )
 
@@ -282,6 +289,11 @@ class MPPIPlanner:
         # The TDMs expose the batch the solve actually used.
         self.lin_tdm.sample_grid_batch = aux.lin_grids
         self.ang_tdm.sample_grid_batch = aux.ang_grids
+
+        if self.det_dyn:
+            # The reference's quirk, kept as the JAX package keeps it: the
+            # "previous" controls alias the freshly updated ones.
+            self.u_prev = u_new
 
         self._last_useq_np = u_new.cpu().numpy()
         # Hand the caller a copy, so that caller edits cannot defeat

@@ -58,13 +58,45 @@ def terrain_rollout_costs_byte_plain(words, task_vec, v_all, w_all, *, H, W,
     Returns:
       float32 ``(K, M)`` rollout costs incl. terminal, excl. coupling.
     """
+    f32 = torch.float32
+    M = words.shape[0]
+    flat = words.reshape(-1)
+    m_off = (torch.arange(M, device=words.device, dtype=torch.int64)
+             * (H * W))[None, :]
+    tv = task_vec
+    lin_lb, lin_ratio = tv[14], tv[15]
+    ang_lb, ang_ratio = tv[16], tv[17]
+
+    def decode(cell):
+        wd = flat[cell + m_off]
+        lin_tr = lin_lb + lin_ratio * (wd & 0xFF).to(f32)
+        ang_tr = ang_lb + ang_ratio * ((wd >> 8) & 0xFF).to(f32)
+        obs = ((wd >> 16) & 1).to(f32)
+        unk = ((wd >> 17) & 1).to(f32)
+        risk = ((wd >> 18) & 0xFF).to(f32) if speed_map else None
+        return lin_tr, ang_tr, obs, unk, risk
+
+    return plain_rollout(decode, task_vec, v_all, w_all, M=M, H=H, W=W,
+                         T=T, fast_trig=fast_trig, step_fn=step_fn)
+
+
+def plain_rollout(decode, task_vec, v_all, w_all, *, M, H, W, T,
+                  fast_trig=False, step_fn=None):
+    """The rollout kernels' shared step loop in plain PyTorch, over
+    ``(K, M)`` planes.
+
+    ``decode(cell)`` maps the int64 ``(K, M)`` flat cell indices of the
+    pre-update state to ``(lin_tr, ang_tr, obs, unk, risk)`` float32
+    planes, ``risk`` being the raw risk byte in speed-map mode and None
+    otherwise.  Returns float32 ``(K, M)`` costs incl. terminal, excl.
+    coupling.
+    """
     step_fn = unicycle_step if step_fn is None else step_fn
     assert not (fast_trig and step_fn is not unicycle_step), \
         "fast_trig hard-codes the unicycle rotation update"
     f32 = torch.float32
-    M = words.shape[0]
     K = v_all.shape[1]
-    dev = words.device
+    dev = v_all.device
     tv = task_vec
     x0x, x0y, x0th = tv[0], tv[1], tv[2]
     gx, gy = tv[3], tv[4]
@@ -76,11 +108,8 @@ def terrain_rollout_costs_byte_plain(words, task_vec, v_all, w_all, *, H, W,
     inv_res = tv[11]
     xlim0, ylim0 = tv[12], tv[13]
     lin_lb, lin_ratio = tv[14], tv[15]
-    ang_lb, ang_ratio = tv[16], tv[17]
     tol2 = tol * tol
 
-    flat = words.reshape(-1)
-    m_off = (torch.arange(M, device=dev, dtype=torch.int64) * (H * W))[None, :]
     km = (K, M)
     x = x0x.expand(km)
     y = x0y.expand(km)
@@ -96,12 +125,7 @@ def terrain_rollout_costs_byte_plain(words, task_vec, v_all, w_all, *, H, W,
         w_t = w_all[t][:, None]
         xi = torch.floor((x - xlim0) * inv_res).clamp(0, W - 1).to(torch.int64)
         yi = torch.floor((y - ylim0) * inv_res).clamp(0, H - 1).to(torch.int64)
-        wd = flat[yi * W + xi + m_off]
-
-        lin_tr = lin_lb + lin_ratio * (wd & 0xFF).to(f32)
-        ang_tr = ang_lb + ang_ratio * ((wd >> 8) & 0xFF).to(f32)
-        obs = ((wd >> 16) & 1).to(f32)
-        unk = ((wd >> 17) & 1).to(f32)
+        lin_tr, ang_tr, obs, unk, risk = decode(yi * W + xi)
 
         if fast_trig:
             dth = dt * ang_tr * w_t
@@ -118,8 +142,8 @@ def terrain_rollout_costs_byte_plain(words, task_vec, v_all, w_all, *, H, W,
 
         dx, dy = gx - x_new, gy - y_new
         dist2_new = dx * dx + dy * dy
-        if speed_map:
-            eff = lin_lb + lin_ratio * ((wd >> 18) & 0xFF).to(f32)
+        if risk is not None:
+            eff = lin_lb + lin_ratio * risk
             dt_eff = dt / (eff + 1e-6)
         else:
             dt_eff = dt

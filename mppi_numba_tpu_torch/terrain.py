@@ -1,12 +1,14 @@
-"""Terrain layer: the Traction Distribution Map (TDM).
+"""Terrain layer: semantic terrains and the Traction Distribution Map (TDM).
 
 The TDM owns a padded ``(bins, H, W)`` int8 PMF grid whose bins sum to 100
 per cell, and pads the perimeter with a zero-traction ring sized
 ``ceil(max_speed * dt / res)`` cells so that rollouts never index outside
-the map.  Host work is numpy, as in ``mppi_numba_tpu.terrain``; only the
-staging of the padded planes moves to tensors on the TDM's device.
-
-This slice builds the stochastic (tdm) TDM from an external PMF grid.
+the map.  It is built from an external PMF grid, a semantic-id grid or an
+occupancy costmap, under each planning mode: the full PMF (tdm), a one-hot
+at the CVaR traction bin (det_dyn), or nominal traction plus a CVaR risk
+speed map (speed_map; the costmap path).  Host work is numpy, as in
+``mppi_numba_tpu.terrain``; only the staging of the padded planes moves to
+tensors on the TDM's device.
 """
 
 from __future__ import annotations
@@ -29,6 +31,99 @@ def resolve_device(device):
     return torch.device(device)
 
 
+class Terrain:
+    """A semantic terrain type holding linear and angular traction densities
+    (reference: mppi_numba/terrain.py:24-66)."""
+
+    def __init__(self, name, rgb, lin_density, ang_density, cvar_alpha=0.1,
+                 cvar_front=True, num_saved_samples=1e4):
+        self.name = name
+        self.lin_density = lin_density
+        self.ang_density = ang_density
+        self.num_saved_samples = num_saved_samples
+        self.lin_saved_samples = self.lin_density.sample(num_saved_samples)
+        self.ang_saved_samples = self.ang_density.sample(num_saved_samples)
+
+        self.cvar_alpha = cvar_alpha
+        self.cvar_front = cvar_front
+        self.rgb = rgb
+
+        self.lin_mean = self.lin_density.mean(self.lin_saved_samples)
+        self.lin_var = self.lin_density.var(self.lin_saved_samples)
+        self.lin_std = np.sqrt(self.lin_var)
+        self.lin_cvar, self.lin_cvar_thres = self.lin_density.cvar(
+            self.cvar_alpha, samples=self.lin_saved_samples, front=cvar_front)
+
+        self.ang_mean = self.ang_density.mean(self.ang_saved_samples)
+        self.ang_var = self.ang_density.var(self.ang_saved_samples)
+        self.ang_std = np.sqrt(self.ang_var)
+        self.ang_cvar, self.ang_cvar_thres = self.ang_density.cvar(
+            self.cvar_alpha, samples=self.ang_saved_samples, front=cvar_front)
+
+    def update_cvar_alpha(self, alpha):
+        assert alpha > 0 and alpha <= 1.0
+        self.cvar_alpha = alpha
+        self.lin_cvar, self.lin_cvar_thres = self.lin_density.cvar(
+            self.cvar_alpha, samples=self.lin_saved_samples, front=self.cvar_front)
+        self.ang_cvar, self.ang_cvar_thres = self.ang_density.cvar(
+            self.cvar_alpha, samples=self.ang_saved_samples, front=self.cvar_front)
+
+    def sample_traction(self, num_samples):
+        return (self.lin_density.sample(num_samples),
+                self.ang_density.sample(num_samples))
+
+    def __repr__(self):
+        return ("Terrain {} has the following properties for linear and "
+                "angular tractions.\n".format(self.name) +
+                "mean=({:.2f}, {:.2f}), std=({:.2f}, {:.2f}), "
+                "cvar({:.2f})=({:.2f}, {:.2f}) (computed from {} saved samples)"
+                .format(self.lin_mean, self.ang_mean, self.lin_std,
+                        self.ang_std, self.cvar_alpha, self.lin_cvar,
+                        self.ang_cvar, self.num_saved_samples))
+
+
+# ---------------------------------------------------------------------------
+# PMF condensation math (host-side, vectorized; oracles in tests/)
+# ---------------------------------------------------------------------------
+
+def cvar_bin_for_terrain_pmf(values, pmf, alpha):
+    """Bin index whose value first reaches CVaR_alpha of a terrain PMF.
+
+    Semantic-grid det-dynamics condensation (reference:
+    mppi_numba/terrain.py:225-259): with alpha == 1 the target is the plain
+    expectation; otherwise the conditional mean of the worst-alpha prefix of
+    the CDF.  Returns the first bin whose value >= the target.
+    """
+    values = np.asarray(values, dtype=float)
+    pmf = np.asarray(pmf, dtype=float)
+    if alpha == 1.0:
+        expected = float(np.sum(pmf * values))
+    else:
+        cum = np.cumsum(pmf)
+        L = int(np.argmax(cum >= alpha))
+        cs = cum[L]
+        expected = float(np.sum((pmf * values)[:L + 1]))
+        if cs > 0:
+            expected /= cs
+    return int(np.argmax(expected <= values))
+
+
+def cvar_value_for_terrain_pmf(values, pmf, alpha, eps=0.0):
+    """CVaR_alpha (worst-alpha conditional mean) of a terrain PMF.
+
+    ``eps`` matches the reference's denominators: 0 on the semantic-grid
+    path (reference: mppi_numba/terrain.py:300), 1e-6 on the external-PMF
+    path (reference: mppi_numba/terrain.py:443,487).
+    """
+    values = np.asarray(values, dtype=float)
+    pmf = np.asarray(pmf, dtype=float)
+    if alpha == 1.0:
+        return float(np.sum(pmf * values))
+    cum = np.cumsum(pmf)
+    L = int(np.argmax(cum >= alpha))
+    return float(np.sum((pmf * values)[:L + 1]) / (cum[L] + eps))
+
+
 def quantize_pmf_int8(pmf):
     """Quantize a float PMF to int8 percentages whose sum is exactly 100.
 
@@ -40,13 +135,74 @@ def quantize_pmf_int8(pmf):
     return q
 
 
+def condense_pmf_grid_det(pmf_grid, bin_values, alpha, eps=1e-6):
+    """External-PMF det-dynamics condensation: per-cell one-hot at the bin
+    approximating CVaR_alpha of traction (reference:
+    mppi_numba/terrain.py:416-448).
+
+    Args:
+      pmf_grid: int8 ``(B, R, C)``, bins sum to 100.
+      bin_values: float ``(B,)`` ascending bin traction values.
+      alpha: det_dynamics_cvar_alpha in (0, 1].
+
+    Returns:
+      int8 ``(B, R, C)`` one-hot-per-column (value 100).
+    """
+    B, R, C = pmf_grid.shape
+    bin_values = np.asarray(bin_values, dtype=float)
+    pmf_cumsum = 0.01 * pmf_grid.cumsum(axis=0).astype(float)
+    weighted_v_cumsum = np.cumsum(
+        0.01 * pmf_grid.astype(float) * bin_values.reshape(-1, 1, 1), axis=0)
+
+    if alpha == 1.0:
+        targets = weighted_v_cumsum[-1]
+    else:
+        upto = np.argmax(pmf_cumsum >= alpha, axis=0)
+        num = np.take_along_axis(weighted_v_cumsum, upto[None], axis=0)[0]
+        den = np.take_along_axis(pmf_cumsum, upto[None], axis=0)[0] + eps
+        targets = num / den
+
+    which = np.argmax(targets[None] <= bin_values.reshape(-1, 1, 1), axis=0)
+    out = np.zeros((B, R, C), dtype=np.int8)
+    np.put_along_axis(out, which[None], np.int8(100), axis=0)
+    return out
+
+
+def risk_map_from_pmf_grid(pmf_grid, bin_values, bin_values_bounds, alpha,
+                           eps=1e-6):
+    """Per-cell CVaR_alpha of traction encoded int8 0..100 (risk speed map).
+
+    External-PMF speed-map path (reference: mppi_numba/terrain.py:467-490);
+    the semantic path computes the same quantity per unique terrain with
+    ``eps=0`` via ``cvar_value_for_terrain_pmf``.
+    """
+    _, R, C = pmf_grid.shape
+    bin_values = np.asarray(bin_values, dtype=float)
+    pmf_cumsum = 0.01 * pmf_grid.cumsum(axis=0).astype(float)
+    weighted_v_cumsum = np.cumsum(
+        0.01 * pmf_grid.astype(float) * bin_values.reshape(-1, 1, 1), axis=0)
+    traction_range = float(bin_values_bounds[1]) - float(bin_values_bounds[0])
+
+    if alpha == 1.0:
+        cvars = weighted_v_cumsum[-1]
+    else:
+        upto = np.argmax(pmf_cumsum >= alpha, axis=0)
+        num = np.take_along_axis(weighted_v_cumsum, upto[None], axis=0)[0]
+        den = np.take_along_axis(pmf_cumsum, upto[None], axis=0)[0] + eps
+        cvars = num / den
+
+    return (100 * (cvars - float(bin_values_bounds[0])) / traction_range
+            ).astype(np.int8).reshape(1, R, C)
+
+
 class TDM:
     """Traction Distribution Map.
 
     Typical workflow:
       1. Initialize with a shared ``Config`` (and a device).
       2. ``reset()``
-      3. ``set_TDM_from_PMF_grid(...)``
+      3. ``set_TDM_from_PMF_grid(...)``, ``set_TDM_from_semantic_grid(...)``
+         or ``set_TDM_from_costmap(...)``
       4. Pass to the planner.
       5. Repeat from 2 when the traction map changes.
     """
@@ -57,6 +213,10 @@ class TDM:
         self.dt = cfg.dt
         self.max_speed_padding = cfg.max_speed_padding
         self.max_map_dim = cfg.max_map_dim
+        self.use_tdm = cfg.use_tdm
+        self.use_det_dynamics = cfg.use_det_dynamics
+        self.use_nom_dynamics_with_speed_map = cfg.use_nom_dynamics_with_speed_map
+        self.use_costmap = cfg.use_costmap
         self.det_dyn = cfg.det_dyn
         # Monotone content token, bumped whenever the staged planes change;
         # MPPIPlanner._compact_planes keys its memo on it.
@@ -65,6 +225,13 @@ class TDM:
 
     def reset(self):
         self._content_version += 1
+        self.semantic_grid = None
+        self.semantic_grid_initialized = False
+        self.id2name = None
+        self.name2terrain = None
+        self.id2terrain_fn = None
+        self.terrain2pmf = None
+
         self.pmf_grid = None            # unpadded host int8 (B, R, C)
         self.bin_values = None
         self.bin_values_bounds = None
@@ -94,13 +261,88 @@ class TDM:
 
     # -- construction -----------------------------------------------------
 
-    def set_TDM_from_semantic_grid(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TDM.set_TDM_from_semantic_grid is a later slice of the port")
+    def set_TDM_from_semantic_grid(self, sg, res, num_pmf_bins, bin_values,
+                                   bin_values_bounds, xlimits, ylimits,
+                                   id2name, name2terrain, terrain2pmf,
+                                   det_dynamics_cvar_alpha=None,
+                                   obstacle_map=None, unknown_map=None):
+        """Build the PMF grid from a semantic-id grid (simulation benchmarks).
 
-    def set_TDM_from_costmap(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TDM.set_TDM_from_costmap is a later slice of the port")
+        Per algorithm mode (reference: mppi_numba/terrain.py:183-343):
+          * det-dynamics: per-cell one-hot at the CVaR_alpha traction bin;
+          * speed-map: one-hot at the LAST bin (nominal traction) plus a
+            separate CVaR risk/speed map;
+          * tdm: the full quantized PMF.
+        """
+        if det_dynamics_cvar_alpha is None:
+            assert self.use_tdm or self.use_costmap
+        else:
+            assert 0 < det_dynamics_cvar_alpha <= 1.0
+
+        self.semantic_grid = np.asarray(sg).copy()
+        self.id2name = id2name
+        self.name2terrain = name2terrain
+        self.id2terrain_fn = lambda sid: self.name2terrain[self.id2name[sid]]
+        self.terrain2pmf = terrain2pmf
+        self.semantic_grid_initialized = True
+        self.cell_dimensions = (res, res)
+        self.xlimits = xlimits
+        self.ylimits = ylimits
+        num_rows, num_cols = self.semantic_grid.shape
+        self.num_pmf_bins = num_pmf_bins
+        self.bin_values = np.asarray(bin_values).astype(np.float32)
+        self.bin_values_bounds = np.asarray(bin_values_bounds).astype(np.float32)
+        self.res = res
+
+        assert bin_values[0] == 0, "Assume minimum bin value is 0 for now"
+        assert bin_values_bounds[0] == 0, "Assume minimum traction is 0 for now"
+
+        self.pmf_grid = np.zeros((num_pmf_bins, num_rows, num_cols), dtype=np.int8)
+        unique_ids = np.unique(self.semantic_grid)
+
+        risk_traction_map = None
+        if self.use_det_dynamics:
+            # One-hot at the CVaR bin, computed once per unique terrain and
+            # painted onto its cells (cells of one terrain share the PMF).
+            for sid in unique_ids:
+                values, pmf = self.terrain2pmf[self.id2terrain_fn(sid)]
+                bi = cvar_bin_for_terrain_pmf(values, pmf, det_dynamics_cvar_alpha)
+                mask = self.semantic_grid == sid
+                self.pmf_grid[bi, mask] = np.int8(100)
+            assert (self.pmf_grid.sum(axis=0) == 100).all()
+
+        elif self.use_nom_dynamics_with_speed_map:
+            # Nominal dynamics: all mass in the last bin (traction = 1).
+            self.pmf_grid[-1, :, :] = np.int8(100)
+            traction_range = float(self.bin_values_bounds[1] - self.bin_values_bounds[0])
+            risk = np.zeros((num_rows, num_cols), dtype=np.int8)
+            for sid in unique_ids:
+                values, pmf = self.terrain2pmf[self.id2terrain_fn(sid)]
+                cv = cvar_value_for_terrain_pmf(values, pmf,
+                                                det_dynamics_cvar_alpha, eps=0.0)
+                q = np.int8(100 * (cv - float(self.bin_values_bounds[0])) / traction_range)
+                risk[self.semantic_grid == sid] = q
+            risk_traction_map = risk.reshape(1, num_rows, num_cols)
+
+        elif self.use_tdm:
+            for sid in unique_ids:
+                values, pmf = self.terrain2pmf[self.id2terrain_fn(sid)]
+                q = quantize_pmf_int8(pmf)
+                mask = self.semantic_grid == sid
+                self.pmf_grid[:, mask] = q.reshape(-1, 1)
+            assert (self.pmf_grid.sum(axis=0) == 100).all()
+
+        else:
+            assert False, "TDM cannot be set up"
+
+        self._finalize(risk_traction_map, obstacle_map, unknown_map,
+                       num_rows, num_cols, res)
+
+        # Crop the stored semantic map to the padded extent actually kept
+        # (reference: mppi_numba/terrain.py:338-341).
+        rows_p, cols_p = self.pmf_grid_device.shape[1:]
+        self.semantic_grid = self.semantic_grid[
+            :rows_p - 2 * self.pad_cells, :cols_p - 2 * self.pad_cells].copy()
 
     def set_TDM_from_PMF_grid(self, pmf_grid, tdm_dict, obstacle_map=None,
                               unknown_map=None):
@@ -109,11 +351,11 @@ class TDM:
         ``pmf_grid`` has shape ``(num_bins, height, width)`` with bins
         summing to 100 per cell; ``tdm_dict`` provides res / xlimits /
         ylimits / bin_values / bin_values_bounds / det_dynamics_cvar_alpha.
+        Per mode: tdm keeps the PMF; det_dyn condenses each cell to a
+        one-hot at the CVaR bin (``condense_pmf_grid_det``); speed_map
+        puts all mass in the last bin and stages the CVaR risk speed map
+        (``risk_map_from_pmf_grid``).
         """
-        if self.det_dyn:
-            raise NotImplementedError(
-                "the det_dyn / speed_map / costmap TDMs are a later slice of "
-                "the port; this slice builds the stochastic (use_tdm) TDM")
         alpha = tdm_dict["det_dynamics_cvar_alpha"]
         if not (0 < alpha <= 1.0):
             print("WARNING: TDM cannot be setup since alpha is not in (0,1]")
@@ -135,9 +377,75 @@ class TDM:
             print("WARNING: the provided PMF has columns that don't sum up to "
                   "100: {}".format(np.argwhere(np.sum(pmf_grid, axis=0) != 100)))
 
-        self.pmf_grid = pmf_grid.astype(np.int8)
-        self._finalize(None, obstacle_map, unknown_map, num_rows, num_cols,
-                       res)
+        risk_traction_map = None
+        if self.use_det_dynamics:
+            self.pmf_grid = condense_pmf_grid_det(pmf_grid, self.bin_values, alpha)
+        elif self.use_nom_dynamics_with_speed_map:
+            self.pmf_grid = np.zeros_like(pmf_grid, dtype=np.int8)
+            self.pmf_grid[-1] = np.int8(100)
+            risk_traction_map = risk_map_from_pmf_grid(
+                pmf_grid, self.bin_values, self.bin_values_bounds, alpha)
+        else:
+            self.pmf_grid = pmf_grid.astype(np.int8)
+
+        if (np.sum(self.pmf_grid, axis=0) != 100).any():
+            print("WARNING: some PMF columns do not sum to 100: {}".format(
+                np.argwhere(np.sum(self.pmf_grid, axis=0) != 100)))
+
+        self._finalize(risk_traction_map, obstacle_map, unknown_map,
+                       num_rows, num_cols, res)
+
+    def set_TDM_from_costmap(self, costmap_dict, obstacle_map=None,
+                             unknown_map=None):
+        """Initialize from an occupancy costmap (the ROS costmap2d-shaped
+        interface).
+
+        Working completion of the reference's abandoned path
+        (reference: mppi_numba/terrain.py:698-747 is fully commented out
+        and its ``solve()`` asserts False for ``use_costmap``,
+        mppi.py:209-211).  Semantics follow that draft: a costmap carries
+        no traction information, so dynamics are NOMINAL (2-bin PMF, all
+        mass at traction 1); cells equal to ``no_info_value`` (default 255)
+        carry no information and become the unknown mask; cells above
+        ``costmap_lethal_threshold`` become the obstacle mask; the risk
+        speed map is 100 (= full speed) elsewhere.  The planner routes
+        costmap mode through the speed-map solve, where decode(100) = 1
+        keeps the time cost nominal and the masks carry the penalties —
+        the behavior the draft's -1/-2 risk codes were reaching for.
+
+        ``costmap_dict`` keys: costmap (uint8 (rows, cols)), res, xlimits,
+        ylimits, costmap_lethal_threshold, optional no_info_value.
+        """
+        assert self.use_costmap, \
+            "set_TDM_from_costmap is invoked when self.use_costmap is not True"
+        costmap = np.asarray(costmap_dict["costmap"])
+        assert costmap.ndim == 2, "costmap must be 2D (rows, cols)"
+        res = costmap_dict["res"]
+        self.res = res
+        self.cell_dimensions = (res, res)
+        self.xlimits = costmap_dict["xlimits"]
+        self.ylimits = costmap_dict["ylimits"]
+        num_rows, num_cols = costmap.shape
+
+        self.num_pmf_bins = 2
+        self.bin_values = np.array([0.0, 1.0], dtype=np.float32)
+        self.bin_values_bounds = np.array([0.0, 1.0], dtype=np.float32)
+        self.pmf_grid = np.zeros((2, num_rows, num_cols), dtype=np.int8)
+        self.pmf_grid[-1] = np.int8(100)
+
+        no_info_value = costmap_dict.get("no_info_value", 255)
+        no_info = costmap == no_info_value
+        lethal = ((costmap > costmap_dict["costmap_lethal_threshold"])
+                  & ~no_info)
+        obstacle = lethal.astype(np.int8)
+        if obstacle_map is not None:
+            obstacle = obstacle | np.asarray(obstacle_map).astype(np.int8)
+        unknown = no_info.astype(np.int8)
+        if unknown_map is not None:
+            unknown = unknown | np.asarray(unknown_map).astype(np.int8)
+
+        risk = np.full((1, num_rows, num_cols), 100, dtype=np.int8)
+        self._finalize(risk, obstacle, unknown, num_rows, num_cols, res)
 
     def _finalize(self, risk_traction_map, obstacle_map, unknown_map,
                   num_rows, num_cols, res):
@@ -268,3 +576,21 @@ class TDM:
         print("Padded grid has not been initialized yet.")
         return None
 
+
+def unknown_mask_from_confidence(normalized_confidence, conf_thres,
+                                 unknown_colors_mask=None):
+    """Unknown-cell mask from a terrain detector's confidence scores.
+
+    The reference's confidence-score workflow (reference: README.md:115,
+    tdm_models/*/tdm_info.pickle fields ``normalized_confidence`` and
+    ``unknown_colors_mask``) marks cells whose detector confidence falls
+    below ``conf_thres`` — plus cells with no semantic observation at all —
+    as "unknown", which the rollout penalizes via ``unknown_penalty``.
+
+    Returns an int8 ``(H, W)`` mask suitable for
+    ``TDM.set_TDM_from_PMF_grid(..., unknown_map=...)``.
+    """
+    mask = np.asarray(normalized_confidence) < conf_thres
+    if unknown_colors_mask is not None:
+        mask = mask | (np.asarray(unknown_colors_mask) != 0)
+    return mask.astype(np.int8)

@@ -37,6 +37,17 @@ _CPU_SOLVE = textwrap.dedent("""
                        wrange=np.array([-1.0, 1.0])), lin, ang)
     u = planner.solve()
     assert u.shape == (10, 2) and np.isfinite(u).all()
+    # Every module of the port, and chip_smoke.py (its main() runs only
+    # as a script).
+    import importlib, pkgutil
+    names = [m.name for m in pkgutil.walk_packages(port.__path__,
+                                                   port.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    for name in ("mppi_numba_tpu_torch.density",
+                 "mppi_numba_tpu_torch.ops.kernels.rollout_binned"):
+        assert name in names, name
+    import chip_smoke
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "mppi_numba_tpu" or m.startswith("mppi_numba_tpu."))

@@ -14,6 +14,7 @@ import mppi_numba_tpu as jpkg
 import mppi_numba_tpu.mppi as jmppi
 import mppi_numba_tpu_torch as tpkg
 import mppi_numba_tpu_torch.mppi as tmppi
+from mppi_numba_tpu_torch.solver import DYNAMIC_CVAR
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples"))
@@ -126,18 +127,24 @@ def test_closed_loop_on_cpu():
 def test_planner_later_slices_raise():
     tp = _make(tpkg, False, device="cpu")
     tp.solve()
+    # Visualisation rollouts are still a later slice.
     with pytest.raises(NotImplementedError):
         tp.get_state_rollout()
+    # The det_dyn TDM is ported: a one-hot per cell.
     cfg = tpkg.Config(T=2.0, dt=0.1, use_det_dynamics=True)
-    with pytest.raises(NotImplementedError):
-        tpkg.TDM(cfg, device="cpu").set_TDM_from_PMF_grid(
-            *_grid(False)[:1], dict(res=RES, xlimits=(0, 20), ylimits=(0, 15),
-                                    bin_values=np.linspace(0, 1, NUM_BINS),
-                                    bin_values_bounds=(0.0, 1.0),
-                                    det_dynamics_cvar_alpha=1.0))
+    det = tpkg.TDM(cfg, device="cpu")
+    det.set_TDM_from_PMF_grid(
+        *_grid(False)[:1], dict(res=RES, xlimits=(0, 20), ylimits=(0, 15),
+                                bin_values=np.linspace(0, 1, NUM_BINS),
+                                bin_values_bounds=(0.0, 1.0),
+                                det_dynamics_cvar_alpha=1.0))
+    assert det.pmf_grid_initialized
+    assert ((det.pmf_grid == 100).sum(0) == 1).all()
+    # So is run-time CVaR alpha: one solver serves every alpha.
     tp.cfg.dynamic_cvar = True
-    with pytest.raises(NotImplementedError):
-        tp._static()
+    assert tp._static().cvar_numel == DYNAMIC_CVAR
+    u = tp.solve()
+    assert u.shape == (tp.num_steps, 2) and np.isfinite(u).all()
 
 
 def test_quantize_pmf_int8_equal():

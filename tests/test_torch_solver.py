@@ -13,7 +13,8 @@ from bench import build_flagship
 from mppi_numba_tpu.solver import get_terrain_solver as j_get_solver
 from mppi_numba_tpu_torch.config import SolverStatic
 from mppi_numba_tpu_torch.convert import to_numpy, to_port
-from mppi_numba_tpu_torch.solver import (get_terrain_solver, resolve_backend)
+from mppi_numba_tpu_torch.solver import (DYNAMIC_CVAR, get_terrain_solver,
+                                         resolve_backend)
 
 K, M, T = 128, 16, 20
 RTOL, ATOL = 2e-4, 2e-5       # the JAX package's whole-solve tolerance
@@ -53,7 +54,8 @@ def test_solve_matches_jax(num_opt, jax_backend, port_backend, fast_trig):
     uniforms, eps = _jax_draws(key, jstatic)
     t_maps, t_task, t_u0 = to_port(maps, task, u0, "cpu")
     solver = get_terrain_solver(_port_static(jstatic, port_backend), "cpu")
-    assert solver.backend == port_backend
+    # 'cuda' is the byte layout's older name.
+    assert solver.backend == {"cuda": "byte"}.get(port_backend, port_backend)
     u, aux = solver.solve_from_draws(
         torch.tensor(uniforms), [torch.tensor(e) for e in eps], t_maps,
         t_task, t_u0)
@@ -106,11 +108,20 @@ def test_backend_routing_and_later_slices():
     jstatic, _, _ = build_flagship(K=K, M=M, T=T)
     auto = _port_static(jstatic, "auto")
     assert resolve_backend(auto, "cpu") == "eager"
-    assert resolve_backend(auto, "cuda") == "cuda"
-    assert resolve_backend(_port_static(jstatic, "cuda"), "cpu") == "cuda"
+    assert resolve_backend(auto, "cuda") == "byte"      # 11x11 flagship
+    # 'cuda' stays an alias of 'byte'; explicit layouts are kept as named.
+    assert resolve_backend(_port_static(jstatic, "cuda"), "cpu") == "byte"
+    for name in ("eager", "byte", "binned2", "binned", "binned8"):
+        assert resolve_backend(_port_static(jstatic, name), "cpu") == name
     with pytest.raises(ValueError):
         resolve_backend(_port_static(jstatic, "pallas"), "cpu")
-    for change in (dict(mode="det_dyn"), dict(mode="speed_map"),
-                   dict(roi_shape=(5, 5)), dict(cvar_numel=-1)):
-        with pytest.raises(NotImplementedError):
-            get_terrain_solver(dataclasses.replace(auto, **change), "cpu")
+    # The det_dyn and speed_map modes and run-time alpha are ported.
+    for change in (dict(mode="det_dyn", num_grid_samples=1, cvar_numel=1),
+                   dict(mode="speed_map", num_grid_samples=1, cvar_numel=1),
+                   dict(cvar_numel=DYNAMIC_CVAR)):
+        static = dataclasses.replace(auto, **change)
+        solver = get_terrain_solver(static, "cpu")
+        assert solver.static == static and solver.backend == "eager"
+    # The reachable-window crop is still a later slice.
+    with pytest.raises(NotImplementedError):
+        get_terrain_solver(dataclasses.replace(auto, roi_shape=(5, 5)), "cpu")
