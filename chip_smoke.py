@@ -7,31 +7,44 @@ version, drive the planner's main paths, and time them.
 
 Phases (any failure exits non-zero; no error is swallowed):
 
-1. Build ``csrc/rollout_byte.cu`` and ``csrc/rollout_binned.cu`` with
-   nvcc for sm_90a, both at once, and print each ptxas report (registers,
-   spills) and the card's name and power limit.
-2. Each rollout kernel against its plain version at full K: the byte
-   layout cases of the JAX package's on-chip parity record; the binned
-   layouts (2-, 4- and 8-bit cells) x {tdm, speed_map} x {fast, exact
-   trig}, with draws one past the last bin; each binned layout against the
-   byte kernel, bit for bit, on maps whose columns sum to 100.  Then one
-   small whole solve, the kernel path against its plain version on the
-   card and against the CPU (``small_solve_witness``).
-3. The main paths: ``MPPIPlanner`` on ``device="cuda"`` through ``setup``,
-   ``solve`` and ``shift_and_update``, 20 closed-loop solves in each world
-   of ``WORLDS`` -- the flagship 11x11 (byte kernel), a 250x250 external
-   PMF (8-bit cells), a forest-size 140x84 learned-model PMF under tdm
-   (4-bit cells), det_dyn and speed_map (2- or 4-bit cells, M = 1), a
-   140x84 costmap (2-bit cells), and the reference benchmark's 9x9
-   semantic world under all three methods (byte kernel).  Both kernels'
-   launch counts are set to 0 just before each world and read just after.
-4. Timing with CUDA events: each kernel against its plain version, the
-   binned kernel in turns with the byte kernel on the same inputs at the
-   forest, 250x250 and speed-map worlds' shapes; then per timed world, in
-   turns, chained solves on the device clock beside the host's time to
-   enqueue them and planner ``solve()`` times on the host clock, and the
-   device's busy time per solve by kernel.  Each figure is printed as a
-   JSON line with the card's name and power limit.
+1. Build ``csrc/rollout_byte.cu``, ``csrc/rollout_binned.cu`` and
+   ``csrc/gather_probe.cu`` with nvcc for sm_90a, all at once, and print
+   each ptxas report (registers, spills) and the card's name and power
+   limit.
+2. Each kernel against its plain version: the byte layout cases of the
+   JAX package's on-chip parity record; the binned layouts (2-, 4- and
+   8-bit cells) x {tdm, speed_map} x {fast, exact trig}, with draws one
+   past the last bin; the bicycle model (exact trig, steering within
+   +-0.5 rad) on the byte kernel and each binned layout, in tdm and
+   speed_map at the default wheelbase and in tdm at a car's; each binned
+   layout against the byte kernel, bit for bit, on maps whose columns sum
+   to 100.  Then one small whole solve, the kernel path against its plain
+   version on the card and against the CPU (``small_solve_witness``).
+3. The main paths, each with every kernel's launch count set to 0 just
+   before it and read just after: ``MPPIPlanner`` on ``device="cuda"``
+   through ``setup``, ``solve``, ``shift_and_update`` and, after the last
+   solve, ``get_state_rollout``, 20 closed-loop solves in each world of
+   ``WORLDS`` -- the flagship 11x11 (byte kernel), a 250x250 external PMF
+   (8-bit cells), a forest-size 140x84 learned-model PMF under tdm (4-bit
+   cells), det_dyn and speed_map (2- or 4-bit cells, M = 1), the forest
+   under tdm with the bicycle model (4-bit cells, exact trig), a 140x84
+   costmap (2-bit cells), and the reference benchmark's 9x9 semantic world
+   under all three methods (byte kernel); ``BareboneMPPI`` on
+   ``examples/barebone_mppi.py``'s task (no kernel: plain torch ops), 20
+   closed-loop solves; and the gather probe's entry point
+   (``probes.gather_probe.run``), every (mode, table size, rows), each
+   case's 512-step chain held bit for bit against the plain chain.
+4. Timing with CUDA events: each rollout kernel against its plain
+   version, the binned kernel in turns with the byte kernel on the same
+   inputs at the forest, 250x250 and speed-map worlds' shapes, the bicycle
+   against the unicycle (both exact trig) at the forest's shape; the
+   probe's ns per chain step at every (mode, S, R) beside its bound; then
+   per timed world, in turns, chained solves on the device clock beside
+   the host's time to enqueue them and planner ``solve()`` times on the
+   host clock, and the device's busy time per solve by kernel; the host
+   time of ``get_state_rollout`` in the forest world; the barebone chained
+   solve.  Each figure is printed as a JSON line with the card's name and
+   power limit.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -41,7 +54,6 @@ import concurrent.futures
 import dataclasses
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -51,14 +63,21 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM float32, non-tensor-core
 
 # float32 operations per lane-step of the rollout kernels, counted from
-# csrc/rollout_byte.cu and csrc/rollout_binned.cu (a sqrtf, sinf or cosf
-# counts as one): cell index 10, decode 4 (lb + ratio * value for lin and
-# ang; none where a 2- or 4-bit cell reads the LUT), dynamics (fast-trig
-# rotation 24 | exact 11; x and y share the product dt*lin_tr*v), goal
-# distance 5, stage cost 7, masking 9; speed_map adds 4.  Per lane once: 6
-# for the terminal cost, plus the start heading's cosf/sinf in fast-trig
-# mode.
+# csrc/rollout_byte.cu and csrc/rollout_binned.cu (a sqrtf, sinf, cosf or
+# tanf counts as one): cell index 10, decode 4 (lb + ratio * value for lin
+# and ang; none where a 2- or 4-bit cell reads the LUT), dynamics (fast-trig
+# rotation 24 | exact unicycle 11, x and y sharing the product dt*lin_tr*v
+# | exact bicycle 14: v_eff and dt*v_eff shared 2, x 3, y 3, heading
+# dt*ang_tr*v*tanf(w)/wheelbase + th 6), goal distance 5, stage cost 7,
+# masking 9; speed_map adds 4.  Per lane once: 6 for the terminal cost,
+# plus the start heading's cosf/sinf in fast-trig mode.
 OPS_STEP_FAST, OPS_STEP_EXACT, OPS_SPEED_MAP, OPS_DECODE = 59, 46, 4, 4
+OPS_STEP_BICYCLE = OPS_STEP_EXACT + 3
+# The gather chain: 3 integer operations per lane-step (the two % and the
+# ^), counted at the card's non-tensor-core float32 rate, the only
+# non-tensor-core rate the data sheet gives: a faster rate than the
+# integer units', so the bound stays a lower bound.
+OPS_GATHER_STEP = 3
 CELLS_PER_WORD = {2: 8, 4: 4, 8: 2}
 SOLVES = 20
 # World -> (planning mode, the layout 'auto' must route it to); None: 2-
@@ -69,6 +88,7 @@ WORLDS = {
     "forest_140x84": ("tdm", "binned"),
     "forest_140x84_det_dyn": ("det_dyn", None),
     "forest_140x84_speed_map": ("speed_map", "binned2"),
+    "forest_140x84_bicycle": ("tdm", "binned"),
     "costmap_140x84": ("costmap", "binned2"),
     "benchmark_9x9_tdm": ("tdm", "byte"),
     "benchmark_9x9_det_dyn": ("det_dyn", "byte"),
@@ -76,7 +96,18 @@ WORLDS = {
 }
 TIMED_WORLDS = ("flagship_11x11", "external_250x250", "forest_140x84",
                 "forest_140x84_speed_map")
+# The gather probe's case in the kernels line: the TPU probe's own (column
+# gather, its largest table, its 32-row tile).
+PROBE_TIMED_AT = "column_S6568_R32"
 FOREST_ROWS, FOREST_COLS, FOREST_RES, FOREST_BINS = 138, 82, 0.5, 12
+# Steering range of the bicycle cases and world (rad): a vehicle's, and far
+# from tan's pole at pi/2.
+STEER = 0.5
+WHEELBASE = 0.5
+# A car's wheelbase (m): its float32 reciprocal is inexact, so a kernel
+# that ignored its wheelbase argument, or divided otherwise than the plain
+# version, shows there.
+CAR_WHEELBASE = 2.7
 
 
 class SmokeFailure(Exception):
@@ -88,16 +119,8 @@ def check(ok, msg):
         raise SmokeFailure(msg)
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    check(len(out) >= 1, "nvidia-smi printed nothing")
-    return out[0].strip()
-
-
-def rollout_bound_ms(K, M, T, H, W, fast_trig, speed_map, cell_bits=None):
+def rollout_bound_ms(K, M, T, H, W, fast_trig, speed_map, cell_bits=None,
+                     bicycle=False):
     """Least time for one rollout call: the larger of its bytes over HBM
     bandwidth and its float32 operations over the float32 peak.  Bytes:
     the map planes, task and controls in, the costs out.  The byte layout
@@ -113,10 +136,24 @@ def rollout_bound_ms(K, M, T, H, W, fast_trig, speed_map, cell_bits=None):
                      + (-(-hw // 4) if speed_map else 0)
                      + (32 if cell_bits != 8 else 0))
     nbytes = 4 * (map_words + 19 + 2 * T * K + K * M)
-    per_step = ((OPS_STEP_FAST if fast_trig else OPS_STEP_EXACT)
+    per_step = ((OPS_STEP_FAST if fast_trig
+                 else OPS_STEP_BICYCLE if bicycle else OPS_STEP_EXACT)
                 + (OPS_SPEED_MAP if speed_map else 0)
                 - (OPS_DECODE if cell_bits in (2, 4) else 0))
     ops = K * M * (T * per_step + 6 + (2 if fast_trig else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def gather_bound_ms(touched, R, L, iters):
+    """Least time for one gather chain: the larger of its bytes over HBM
+    bandwidth and its integer operations over the non-tensor-core rate.
+    Bytes: each table entry the chain reads (``touched``, what this run's
+    data needs; at most the whole table) once, idx in and out once.
+    Returns (ms, bound_by)."""
+    nbytes = 4 * (touched + 2 * R * L)
+    ops = OPS_GATHER_STEP * R * L * iters
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
@@ -170,9 +207,12 @@ def main():
               file=sys.stderr)
         return 2
 
+    from mppi_numba_tpu_torch._card import card_line, time_cuda
+    from mppi_numba_tpu_torch.models import bicycle_step, make_bicycle_step
     from mppi_numba_tpu_torch.ops.kernels import (_build, rollout_binned,
                                                   rollout_byte)
     from mppi_numba_tpu_torch.ops import packing
+    from mppi_numba_tpu_torch.probes import gather_probe
     from mppi_numba_tpu_torch.ops.rollout import _clipped_controls_tk
     from mppi_numba_tpu_torch.ops.sampling import decode_bins
     from mppi_numba_tpu_torch.solver import get_terrain_solver
@@ -183,9 +223,20 @@ def main():
     plain = rollout_byte.terrain_rollout_costs_byte_plain
     bkernel = rollout_binned.terrain_rollout_costs_binned
     bplain = rollout_binned.terrain_rollout_costs_binned_plain
+    chains = gather_probe.CHAINS
+
+    def set_counts(value=0):
+        kernel.launches = bkernel.launches = value
+        for chain, _ in chains.values():
+            chain.launches = value
+
+    def read_counts():
+        return {"rollout_byte": kernel.launches,
+                "rollout_binned": bkernel.launches,
+                "gather_probe": sum(c.launches for c, _ in chains.values())}
 
     # -- phase 1: build -------------------------------------------------------
-    build_kernels(_build, ("rollout_byte", "rollout_binned"))
+    build_kernels(_build, ("rollout_byte", "rollout_binned", "gather_probe"))
     card = card_line()
     print(card)
     card_name, _, power_limit = card.rpartition(", ")
@@ -196,14 +247,14 @@ def main():
                               **extra, **tag)), flush=True)
 
     # -- phase 2: kernels vs plain versions -------------------------------------
-    def make_task(H, W, res):
+    def make_task(H, W, res, steer=3.14):
         f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
         return TerrainTask(
             x0=f([0.3 * W * res, 0.3 * H * res, 0.785]),
             xgoal=f([0.8 * W * res, 0.8 * H * res]),
             goal_tolerance=f(0.5), v_post_rollout=f(0.01),
             lambda_weight=f(1.0), u_std=f([2.0, 3.0]), vrange=f([0.0, 3.0]),
-            wrange=f([-3.14, 3.14]), dt=f(0.1), dist_weight=f(1.0),
+            wrange=f([-steer, steer]), dt=f(0.1), dist_weight=f(1.0),
             obs_penalty=f(1e5), unknown_penalty=f(1e2), alpha_dyn=f(1.0),
             res=f(res), xlim0=f(0.0), ylim0=f(0.0), lin_lb=f(0.0),
             lin_ratio=f(0.01), ang_lb=f(0.0), ang_ratio=f(0.01),
@@ -223,7 +274,8 @@ def main():
         risk = torch.randint(1, 101, (H, W), generator=g, device=dev, dtype=i8)
         return obs, unk, risk
 
-    def make_case(K, M, T, H, W, res, penalties, speed_map, seed):
+    def make_case(K, M, T, H, W, res, penalties, speed_map, seed,
+                  steer=3.14):
         g = torch.Generator(device=dev).manual_seed(seed)
         i8 = torch.int8
         lin = torch.randint(0, 101, (M, H, W), generator=g, device=dev, dtype=i8)
@@ -231,12 +283,12 @@ def main():
         obs, unk, risk = make_planes(g, H, W, penalties)
         words = packing.pack_map_words(lin, ang, obs, unk,
                                        risk if speed_map else None)
-        task = make_task(H, W, res)
+        task = make_task(H, W, res, steer)
         return (words, rollout_byte.build_task_vec(task),
                 *make_controls(g, task, K, T))
 
     def make_binned_case(K, M, T, H, W, res, cell_bits, bins, penalties,
-                         speed_map, seed, past_last):
+                         speed_map, seed, past_last, steer=3.14):
         """Binned inputs and the byte words of the same decoded grids:
         ``(binned args, byte args)``.  Bin draws reach one past the last
         bin when ``past_last`` (a column summing below 100)."""
@@ -248,7 +300,7 @@ def main():
         qbins = torch.sort(torch.randperm(101, generator=g, device=dev)
                            [:bins]).values.to(torch.int8)
         obs, unk, risk = make_planes(g, H, W, penalties)
-        task = make_task(H, W, res)
+        task = make_task(H, W, res, steer)
         v, w = make_controls(g, task, K, T)
         tv = rollout_byte.build_task_vec(task)
         lin_g, ang_g = decode_bins(qbins, lin_b), decode_bins(qbins, ang_b)
@@ -356,17 +408,49 @@ def main():
               "kernel's".format(cb, differ))
         del bargs, wargs, got, want
 
+    # The bicycle model on every layout, exact trig, at the forest's shape
+    # with its penalty cells: tdm and speed_map at the default wheelbase,
+    # and tdm at a car's.
+    layouts = ((None, 12), (2, 4), (4, 12), (8, 22))
+    car_step = make_bicycle_step(CAR_WHEELBASE)
+    bicycle_results = {"rollout_byte": [], "rollout_binned": []}
+    for seed, (cb, B, sm, step) in enumerate(
+            [(cb, B, sm, bicycle_step) for cb, B in layouts
+             for sm in (False, True)]
+            + [(cb, B, False, car_step) for cb, B in layouts], start=400):
+        K, M, T, H, W, res = 1024, 64, 100, 140, 84, 0.5
+        if cb is None:
+            args = make_case(K, M, T, H, W, res, True, sm, seed, steer=STEER)
+            kw = dict(H=H, W=W, T=T, speed_map=sm, step_fn=step)
+            got, want = kernel(*args, **kw), plain(*args, **kw)
+            name, which = "bicycle_byte", "rollout_byte"
+        else:
+            args, _ = make_binned_case(K, M, T, H, W, res, cb, B, True, sm,
+                                       seed, past_last=True, steer=STEER)
+            kw = dict(H=H, W=W, T=T, cell_bits=cb, step_fn=step)
+            got, want = bkernel(*args, **kw), bplain(*args, **kw)
+            name, which = "bicycle_{}bit".format(cb), "rollout_binned"
+        torch.cuda.synchronize()
+        wheelbase = step.kernel_model[1]
+        if wheelbase != WHEELBASE:
+            name += "_L{}".format(wheelbase)
+        bicycle_results[which].append(compare(
+            name + ("_speed_map" if sm else ""), got, want, False, True,
+            K=K, M=M, T=T, map="{}x{}".format(H, W), cell_bits=cb, bins=B,
+            speed_map=sm, model="bicycle", steer=STEER,
+            wheelbase=wheelbase))
+        del args, got, want
+
     small_solve_witness(torch, dev, plain)
 
     # -- phase 3: the main paths ------------------------------------------------
     planner_runs = {}
-    totals = {"rollout_byte": 0, "rollout_binned": 0}
+    totals = {"rollout_byte": 0, "rollout_binned": 0, "gather_probe": 0}
     for world, (_, want_backend) in WORLDS.items():
         torch.cuda.reset_peak_memory_stats()
-        kernel.launches = bkernel.launches = 0
+        set_counts(0)
         run = run_planner(world)
-        launches = {"rollout_byte": kernel.launches,
-                    "rollout_binned": bkernel.launches}
+        launches = read_counts()
         run["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         backend = get_terrain_solver(run["static"], dev).backend
         expect = (want_backend or
@@ -376,7 +460,7 @@ def main():
         used = "rollout_byte" if backend == "byte" else "rollout_binned"
         other = "rollout_binned" if used == "rollout_byte" else "rollout_byte"
         check(launches[used] == run["solves"] * run["num_opt"]
-              and launches[other] == 0,
+              and launches[other] == launches["gather_probe"] == 0,
               "{}: launches {} for {} solves on {}".format(
                   world, launches, run["solves"], backend))
         for k in totals:
@@ -393,22 +477,49 @@ def main():
         emit("planner_peak_device_memory", run["peak_mem_bytes"], "bytes",
              world=world)
         print(json.dumps(dict(world=world, goal_dist_start=run["dist0"],
-                              goal_dist_end=run["dist_end"])))
+                              goal_dist_end=run["dist_end"],
+                              model=run["static"].model,
+                              state_rollout_shape=run["vis_shape"])))
         if world not in TIMED_WORLDS:
             del run["planner"]
     a = planner_runs["flagship_11x11"]
     check(a["dist_end"] < a["dist0"], "flagship: goal distance did not shrink")
+
+    # The barebone planner: no kernel of its own (plain torch ops).
+    set_counts(0)
+    barebone = run_barebone()
+    launches = read_counts()
+    check(not any(launches.values()),
+          "barebone: launched {}".format(launches))
+    emit("barebone_solve_host_ms_median", barebone["solve_ms_median"], "ms",
+         first_solve_ms=barebone["solve_ms_first"], solves=barebone["solves"],
+         K=barebone["K"], T=barebone["T"], kernel_launches=launches,
+         goal_dist_start=barebone["dist0"], goal_dist_end=barebone["dist_end"],
+         state_rollout_shape=barebone["vis_shape"])
+    check(barebone["dist_end"] < barebone["dist0"],
+          "barebone: goal distance did not shrink")
+
+    # The gather probe's entry point: every (mode, S, R), each checked
+    # against the plain chain, bit for bit, and timed by the probe itself.
+    set_counts(0)
+    probe_runs = gather_probe.run(device=dev)
+    launches = read_counts()
+    check(launches["gather_probe"] > 0
+          and launches["rollout_byte"] == launches["rollout_binned"] == 0,
+          "gather probe: launches {}".format(launches))
+    check(all(r["correct"] for r in probe_runs),
+          "gather probe: a chain differs from its plain version: {}".format(
+              [r for r in probe_runs if not r["correct"]]))
+    totals["gather_probe"] += launches["gather_probe"]
 
     # -- phase 4: timing ------------------------------------------------------------
     args, kw, K, M, T, H, W = flagship_args
     kernel_ms, plain_ms = [], []
     for turn in ("kernel", "plain", "plain", "kernel"):
         if turn == "kernel":
-            kernel_ms.append(time_cuda(lambda: kernel(*args, **kw), 50, 5,
-                                       torch))
+            kernel_ms.append(time_cuda(lambda: kernel(*args, **kw), 50, 5))
         else:
-            plain_ms.append(time_cuda(lambda: plain(*args, **kw), 3, 1,
-                                      torch))
+            plain_ms.append(time_cuda(lambda: plain(*args, **kw), 3, 1))
     bound_ms, bound_by = rollout_bound_ms(K, M, T, H, W, True, False)
     emit("rollout_kernel_ms", min(kernel_ms), "ms", runs=kernel_ms,
          shape="K1024_M1024_T100_11x11_fast_trig", bound_ms=bound_ms,
@@ -435,12 +546,11 @@ def main():
         b_ms, w_ms = [], []
         for turn in ("binned", "byte", "byte", "binned"):
             if turn == "binned":
-                b_ms.append(time_cuda(lambda: bkernel(*bargs, **bkw), reps,
-                                      5, torch))
+                b_ms.append(time_cuda(lambda: bkernel(*bargs, **bkw),
+                                      reps, 5))
             else:
-                w_ms.append(time_cuda(lambda: kernel(*wargs, **wkw), reps, 5,
-                                      torch))
-        p_ms = [time_cuda(lambda: bplain(*bargs, **bkw), 3, 1, torch)
+                w_ms.append(time_cuda(lambda: kernel(*wargs, **wkw), reps, 5))
+        p_ms = [time_cuda(lambda: bplain(*bargs, **bkw), 3, 1)
                 for _ in range(2)]
         b_bound = rollout_bound_ms(K, M, T, H, W, True, sm, cb)
         w_bound = rollout_bound_ms(K, M, T, H, W, True, sm)
@@ -457,6 +567,84 @@ def main():
         binned_timed[name] = dict(ms=min(b_ms), plain_ms=min(p_ms),
                                   bound=b_bound)
         del bargs, wargs
+
+    # The bicycle against the unicycle, both exact trig (the bicycle has no
+    # fast-trig form), at the forest world's shape on its 4-bit cells and
+    # on byte words of the same grids, in turns.
+    K, M, T, H, W = 1024, 1024, 100, 140, 84
+    bargs, wargs = make_binned_case(K, M, T, H, W, FOREST_RES, 4, FOREST_BINS,
+                                    True, False, 500, past_last=False,
+                                    steer=STEER)
+    bicycle_timed = {}
+    for name, fn, args, kw, cb in (
+            ("rollout_binned", bkernel, bargs, dict(cell_bits=4), 4),
+            ("rollout_byte", kernel, wargs, {}, None)):
+        runs = {"bicycle": [], "unicycle": []}
+        for turn in ("bicycle", "unicycle", "unicycle", "bicycle"):
+            step = bicycle_step if turn == "bicycle" else None
+            runs[turn].append(time_cuda(
+                lambda: fn(*args, H=H, W=W, T=T, step_fn=step, **kw), 50, 5))
+        b_bound = rollout_bound_ms(K, M, T, H, W, False, False, cb,
+                                   bicycle=True)
+        u_bound = rollout_bound_ms(K, M, T, H, W, False, False, cb)
+        emit("rollout_bicycle_kernel_ms", min(runs["bicycle"]), "ms",
+             kernel=name, runs=runs["bicycle"],
+             unicycle_exact_ms=min(runs["unicycle"]),
+             unicycle_exact_runs=runs["unicycle"],
+             shape="K{}_M{}_T{}_{}x{}_exact_trig".format(K, M, T, H, W),
+             cell_bits=cb, bound_ms=b_bound[0], bound_by=b_bound[1],
+             unicycle_bound_ms=u_bound[0])
+        bicycle_timed[name] = dict(ms=min(runs["bicycle"]), bound=b_bound,
+                                   unicycle_ms=min(runs["unicycle"]))
+    del bargs, wargs
+
+    # The gather probe's ns per chain step (timed by its entry point in
+    # phase 3) beside each case's bound; the plain chain timed at the
+    # TPU probe's own case (column gather, its largest table, its tile).
+    probe_timed = {}
+    for r in probe_runs:
+        bound = gather_bound_ms(r["touched_entries"], r["R"], r["L"],
+                                r["iters"])
+        key = "{}_S{}_R{}".format(r["mode"], r["S"], r["R"])
+        probe_timed[key] = dict(r, bound=bound)
+        emit("gather_chain_ns_per_step", r["ns_per_step"], "ns",
+             mode=r["mode"], S=r["S"], R=r["R"], L=r["L"], iters=r["iters"],
+             ms=r["ms"], runs_ms=r["runs_ms"], table_bytes=r["table_bytes"],
+             touched_entries=r["touched_entries"], bound_ms=bound[0],
+             bound_by=bound[1], over_bound=r["ms"] / bound[0])
+    r = probe_timed[PROBE_TIMED_AT]
+    table, idx, mod = gather_probe.make_inputs(r["mode"], r["S"], r["R"], dev)
+    probe_plain_ms = [time_cuda(lambda: chains[r["mode"]][1](
+        table, idx, mod, r["iters"]), 3, 1) for _ in range(2)]
+    emit("gather_chain_plain_ms", min(probe_plain_ms), "ms",
+         runs=probe_plain_ms, at=PROBE_TIMED_AT)
+    del table, idx
+
+    # The planner's visualisation rollouts on the host clock, world (c).
+    forest_planner = planner_runs["forest_140x84"]["planner"]
+    vis_ms = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        forest_planner.get_state_rollout()
+        vis_ms.append((time.perf_counter() - t0) * 1e3)
+    emit("get_state_rollout_host_ms", float(np.median(vis_ms[1:])), "ms",
+         world="forest_140x84", runs=vis_ms,
+         V=forest_planner.num_vis_state_rollouts,
+         T=forest_planner.num_steps)
+
+    # The barebone solve: chained on the device clock, with the host's
+    # enqueue time beside it, in turns with planner solve() calls.
+    chain = _barebone_chain(barebone["planner"], torch)
+    chain(2)
+    chain_ms, enqueue_ms, solve_ms = [], [], []
+    for _ in range(3):
+        ms, enq = time_chain(chain, 20, torch)
+        chain_ms.append(ms)
+        enqueue_ms.append(enq)
+        solve_ms.append(time_planner_solves(barebone["planner"], 20))
+    emit("barebone_chained_solve_ms", float(np.median(chain_ms)), "ms",
+         solves=20, runs=chain_ms, host_enqueue_ms=enqueue_ms,
+         planner_solve_host_ms=solve_ms, K=barebone["K"], T=barebone["T"])
 
     # Solve times in one phase, in turns: chained solves on the device
     # clock (with the host's enqueue time of the same chain beside them)
@@ -505,6 +693,10 @@ def main():
         "max_rel_err": max(c["max_rel_err"] for c in case_results),
         "outliers": sum(c["outliers"] for c in case_results),
         "cases": len(case_results),
+        "bicycle_cases": len(bicycle_results["rollout_byte"]),
+        "bicycle_max_rel_err": max(
+            c["max_rel_err"] for c in bicycle_results["rollout_byte"]),
+        "bicycle_ms_forest": bicycle_timed["rollout_byte"]["ms"],
     }, {
         "name": "rollout_binned",
         "route": "cuda",
@@ -522,6 +714,27 @@ def main():
         "max_rel_err": max(c["max_rel_err"] for c in binned_results),
         "outliers": sum(c["outliers"] for c in binned_results),
         "cases": len(binned_results),
+        "bicycle_cases": len(bicycle_results["rollout_binned"]),
+        "bicycle_max_rel_err": max(
+            c["max_rel_err"] for c in bicycle_results["rollout_binned"]),
+        "bicycle_ms_forest": bicycle_timed["rollout_binned"]["ms"],
+        "bicycle_bound_ms_forest": bicycle_timed["rollout_binned"]["bound"][0],
+    }, {
+        "name": "gather_probe",
+        "route": "cuda",
+        "source": gather_probe.KERNEL_SOURCE,
+        "replaces": gather_probe.REPLACES,
+        "launches": totals["gather_probe"],
+        "max_abs_err": max(r["max_abs_err"] for r in probe_runs),
+        "ms": probe_timed[PROBE_TIMED_AT]["ms"],
+        "plain_ms": min(probe_plain_ms),
+        "bound_ms": probe_timed[PROBE_TIMED_AT]["bound"][0],
+        "bound_by": probe_timed[PROBE_TIMED_AT]["bound"][1],
+        "library_ms": None,
+        "timed_at": PROBE_TIMED_AT + ", 512 steps",
+        "ns_per_step_at": {k: v["ns_per_step"]
+                           for k, v in probe_timed.items()},
+        "cases": len(probe_runs),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -740,6 +953,7 @@ def setup_world(world):
     from mppi_numba_tpu_torch import Config, MPPIPlanner, TDM
 
     mode = WORLDS[world][0]
+    model = "bicycle" if world.endswith("_bicycle") else "unicycle"
     det_alpha = 0.2
     params = dict(dt=0.1, goal_tolerance=0.5, v_post_rollout=0.01,
                   cvar_alpha=0.2 if mode == "tdm" else 1.0,
@@ -747,12 +961,16 @@ def setup_world(world):
                   dist_weight=1.0, lambda_weight=1.0, num_opt=1,
                   u_std=np.array([2.0, 3.0]), vrange=np.array([0.0, 3.0]),
                   wrange=np.array([-3.14, 3.14]))
+    if model == "bicycle":
+        # (v, steering angle): a vehicle's steering range and spread.
+        params.update(u_std=np.array([2.0, 0.5]),
+                      wrange=np.array([-STEER, STEER]))
     flags = dict(use_tdm=mode == "tdm", use_det_dynamics=mode == "det_dyn",
                  use_nom_dynamics_with_speed_map=mode == "speed_map",
                  use_costmap=mode == "costmap")
     cfg = Config(T=10.0, dt=0.1, num_grid_samples=1024,
                  num_control_rollouts=1024, max_speed_padding=5.0,
-                 max_map_dim=(250, 250), seed=0, **flags)
+                 max_map_dim=(250, 250), seed=0, model=model, **flags)
     lin, ang = TDM(cfg, device="cuda"), TDM(cfg, device="cuda")
 
     def pmf_world(pmf, bin_values, res, obstacle=None, unknown=None):
@@ -841,8 +1059,9 @@ def run_planner(world):
     public entry points."""
     planner, truth, goal = setup_world(world)
     static = planner._static()
-    check(static.fast_trig, "{}: planner guard did not enable fast_trig"
-          .format(world))
+    bicycle = static.model == "bicycle"
+    check(static.fast_trig != bicycle, "{}: fast_trig {} for the {} model"
+          .format(world, static.fast_trig, static.model))
     x = np.asarray(planner.params["x0"], dtype=float).copy()
     dist0 = float(np.hypot(*(goal - x[:2])))
     dt = planner.dt
@@ -857,10 +1076,12 @@ def run_planner(world):
               "{}: u_prev does not alias the solved controls".format(world))
         lin_tr, ang_tr = truth(x[0], x[1])
         v, w = float(u[0, 0]), float(u[0, 1])
+        rate = v * np.tan(w) / WHEELBASE if bicycle else w
         x = x + dt * np.array([lin_tr * v * np.cos(x[2]),
-                               lin_tr * v * np.sin(x[2]), ang_tr * w])
+                               lin_tr * v * np.sin(x[2]), ang_tr * rate])
         planner.shift_and_update(x, u, num_shifts=1)
-    return dict(solves=SOLVES, num_opt=static.num_opt,
+    vis_shape = check_state_rollout(world, planner, x)
+    return dict(solves=SOLVES, num_opt=static.num_opt, vis_shape=vis_shape,
                 solve_ms_first=times[0],
                 solve_ms_median=float(np.median(times[1:])),
                 K=planner.num_control_rollouts, T=planner.num_steps,
@@ -870,19 +1091,57 @@ def run_planner(world):
                 planner=planner, static=static)
 
 
-def time_cuda(fn, reps, warmup, torch):
-    """Mean device time of ``fn`` in ms over ``reps`` calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+def check_state_rollout(world, planner, x):
+    """``get_state_rollout()`` after the last solve: ``(V, T+1, 3)``, finite,
+    every row 0 the current state ``x`` (float32).  Returns the shape."""
+    states = planner.get_state_rollout()
+    V, T = planner.num_vis_state_rollouts, planner.num_steps
+    check(isinstance(states, np.ndarray) and states.shape == (V, T + 1, 3)
+          and np.isfinite(states).all(), "{}: state rollout {}".format(
+              world, getattr(states, "shape", states)))
+    check(np.array_equal(states[:, 0], np.broadcast_to(
+        np.asarray(x, np.float32), (V, 3))),
+        "{}: state rollouts do not start at x0".format(world))
+    return list(states.shape)
+
+
+def run_barebone():
+    """``SOLVES`` closed-loop solves of ``examples/barebone_mppi.py``'s task
+    (K = 1024, T = 50, two circle obstacles) through ``BareboneMPPI``'s
+    public entry points, then ``get_state_rollout``."""
+    from mppi_numba_tpu_torch import BareboneConfig, BareboneMPPI
+
+    cfg = BareboneConfig(T=5.0, dt=0.1, num_control_rollouts=1024,
+                         num_vis_state_rollouts=20, seed=1)
+    x = np.array([0.0, 0.0, np.pi / 4])
+    goal = np.array([7.0, 5.0])
+    params = dict(dt=cfg.dt, x0=x, xgoal=goal, goal_tolerance=0.5,
+                  dist_weight=10, lambda_weight=1.0, num_opt=1,
+                  u_std=np.array([1.0, 1.0]), vrange=np.array([0.0, 2.0]),
+                  wrange=np.array([-np.pi, np.pi]),
+                  obstacle_positions=np.array([[5, 4.5], [2, 1]]),
+                  obstacle_radius=np.array([1.5, 1]), obs_penalty=1e6)
+    planner = BareboneMPPI(cfg, device="cuda")
+    planner.setup(params)
+    dist0 = float(np.hypot(*(goal - x[:2])))
+    times = []
+    for _ in range(SOLVES):
+        t0 = time.perf_counter()
+        u = planner.solve()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(u is not None and u.shape == (cfg.num_steps, 2)
+              and np.isfinite(u).all(), "barebone: bad controls")
+        check(planner.u_prev is planner.u_cur,
+              "barebone: u_prev does not alias the solved controls")
+        v, w = float(u[0, 0]), float(u[0, 1])
+        x = x + cfg.dt * np.array([v * np.cos(x[2]), v * np.sin(x[2]), w])
+        planner.shift_and_update(x, u, num_shifts=1)
+    return dict(solves=SOLVES, solve_ms_first=times[0],
+                solve_ms_median=float(np.median(times[1:])),
+                K=cfg.num_control_rollouts, T=cfg.num_steps, dist0=dist0,
+                dist_end=float(np.hypot(*(goal - x[:2]))),
+                vis_shape=check_state_rollout("barebone", planner, x),
+                planner=planner)
 
 
 def time_chain(chain, n, torch):
@@ -928,6 +1187,24 @@ def profile_solves(chain, torch, n=5, top=8):
     rows.sort(key=lambda r: -r[1])
     return dict(device_busy_us_per_solve=sum(us for _, us in rows) / n,
                 top_us_per_solve=[[k[:60], us / n] for k, us in rows[:top]])
+
+
+def _barebone_chain(planner, torch):
+    """``chain(k)``: k barebone solves on the device, each fed the last
+    one's controls, with no host sync inside."""
+    from mppi_numba_tpu_torch.solver import get_barebone_solver
+
+    solver = get_barebone_solver(planner._static(), planner.device)
+    task = planner._task_device
+    gen = torch.Generator(device=planner.device).manual_seed(1)
+
+    def chain(k):
+        u = torch.zeros((planner.num_steps, 2), device=planner.device)
+        for _ in range(k):
+            u, _ = solver(gen, task, u)
+        return u
+
+    return chain
 
 
 def _solve_chain(run, torch):

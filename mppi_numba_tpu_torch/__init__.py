@@ -7,14 +7,16 @@ reference.  This package imports neither JAX nor ``mppi_numba_tpu``.
 Public surface:
 
     from mppi_numba_tpu_torch import Config, MPPIPlanner, TDM, ...
+    from mppi_numba_tpu_torch import BareboneConfig, BareboneMPPI
 """
 
+from .barebone import BareboneConfig, BareboneMPPI
 from .config import Config, SolverStatic
 from .density import Density, GaussianMixture
 from .mppi import MPPIPlanner
 from .terrain import (TDM, Terrain, quantize_pmf_int8,
                       unknown_mask_from_confidence)
-from .types import MapInputs, SolveAux, TerrainTask
+from .types import BareboneTask, MapInputs, SolveAux, TerrainTask
 
 __version__ = "0.1.0"
 
@@ -22,6 +24,6 @@ __all__ = [
     "Config", "SolverStatic",
     "Density", "GaussianMixture",
     "TDM", "Terrain", "quantize_pmf_int8", "unknown_mask_from_confidence",
-    "MPPIPlanner",
-    "TerrainTask", "MapInputs", "SolveAux",
+    "MPPIPlanner", "BareboneConfig", "BareboneMPPI",
+    "TerrainTask", "MapInputs", "SolveAux", "BareboneTask",
 ]

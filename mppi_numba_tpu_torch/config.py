@@ -125,7 +125,7 @@ class Config:
 @dataclasses.dataclass(frozen=True)
 class SolverStatic:
     """The structural signature of one solve; one cached solver per value."""
-    mode: str                  # 'tdm' | 'det_dyn' | 'speed_map'
+    mode: str                  # 'tdm' | 'det_dyn' | 'speed_map' | 'barebone'
     num_steps: int             # T
     num_control_rollouts: int  # K
     num_grid_samples: int      # M

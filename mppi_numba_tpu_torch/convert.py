@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .types import MapInputs, TerrainTask
+from .types import BareboneTask, MapInputs, TerrainTask
 
 
 def _to_tensor(leaf, device):
@@ -39,6 +39,13 @@ def task_to_port(task, device):
     ``device``, bit for bit (a missing ``cvar_alpha`` stays None)."""
     return TerrainTask(**{f: _to_tensor(getattr(task, f, None), device)
                           for f in TerrainTask._fields})
+
+
+def barebone_task_to_port(task, device):
+    """A ``BareboneTask`` with numpy-convertible leaves -> the port's, on
+    ``device``, bit for bit."""
+    return BareboneTask(**{f: _to_tensor(getattr(task, f), device)
+                           for f in BareboneTask._fields})
 
 
 def to_port(maps, task, u_seq, device):

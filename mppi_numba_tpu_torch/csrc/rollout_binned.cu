@@ -32,8 +32,13 @@
 // bands, HBM streaming windows, m_tile, t_unroll, lane padding or (8, 128)
 // task tile exists here.  Ragged K is masked.
 //
+// Dynamics (MODEL): the unicycle or the kinematic bicycle, in the
+// operations and order of the byte kernel (csrc/rollout_byte.cu); fast
+// trig is the unicycle's only.
+//
 // What bounds it: float32 ALU work plus one sqrtf (and, in exact mode, one
-// sinf and one cosf) per lane-step, as in the byte kernel; the planes are
+// sinf and one cosf, and for the bicycle one tanf and a division) per
+// lane-step, as in the byte kernel; the planes are
 // 2-8x smaller than the byte layout's words, and the bytes are small
 // beside the operations.  A first version, right and simple; no tuning.
 //
@@ -48,11 +53,15 @@ namespace {
 constexpr int kBlockK = 128;
 constexpr int kLutBins = 16;   // LUT entries per row (ops: LUT_BINS)
 
+// Dynamics models (ops: models.KERNEL_MODELS).
+constexpr int kUnicycle = 0;
+constexpr int kBicycle = 1;
+
 constexpr float kInv6 = (float)(1.0 / 6.0);
 constexpr float kInv24 = (float)(1.0 / 24.0);
 constexpr float kInv120 = (float)(1.0 / 120.0);
 
-template <int CELL_BITS, bool FAST_TRIG, bool SPEED_MAP>
+template <int CELL_BITS, bool FAST_TRIG, bool SPEED_MAP, int MODEL>
 __global__ void __launch_bounds__(kBlockK)
 rollout_binned_kernel(const int32_t* __restrict__ cells,
                       const int32_t* __restrict__ mask,
@@ -62,7 +71,8 @@ rollout_binned_kernel(const int32_t* __restrict__ cells,
                       const float* __restrict__ v_all,
                       const float* __restrict__ w_all,
                       float* __restrict__ cost_out,
-                      int K, int M, int H, int W, int T, int n_words) {
+                      int K, int M, int H, int W, int T, int n_words,
+                      float wheelbase) {
   constexpr int kCellsPerWord = 32 / (2 * CELL_BITS);
   constexpr int kWordShift = CELL_BITS == 2 ? 3 : (CELL_BITS == 4 ? 2 : 1);
   constexpr int32_t kLow = (1 << CELL_BITS) - 1;
@@ -139,6 +149,12 @@ rollout_binned_kernel(const int32_t* __restrict__ cells,
       const float s_new = sth * cd + cth * sd;
       cth = c_new;
       sth = s_new;
+    } else if (MODEL == kBicycle) {
+      // dt * (lin_tr * v), not the unicycle's (dt * lin_tr) * v.
+      const float v_eff = lin_tr * v;
+      x_new = x + dt * v_eff * cosf(th);
+      y_new = y + dt * v_eff * sinf(th);
+      th = th + dt * ang_tr * v * tanf(w) / wheelbase;
     } else {
       x_new = x + dt * lin_tr * v * cosf(th);
       y_new = y + dt * lin_tr * v * sinf(th);
@@ -167,38 +183,49 @@ rollout_binned_kernel(const int32_t* __restrict__ cells,
       cost + (1.0f - reachedf) * sqrtf(dist2) / (v_post + 1e-6f);
 }
 
-template <int CELL_BITS, bool FAST_TRIG, bool SPEED_MAP>
-void launch(const int32_t* cells, const int32_t* mask, const float* lut,
-            const int32_t* risk, const float* task, const float* v,
-            const float* w, float* out, int K, int M, int H, int W, int T,
-            int n_words, cudaStream_t stream) {
-  const dim3 grid((K + kBlockK - 1) / kBlockK, M);
-  rollout_binned_kernel<CELL_BITS, FAST_TRIG, SPEED_MAP>
-      <<<grid, kBlockK, 0, stream>>>(cells, mask, lut, risk, task, v, w, out,
-                                     K, M, H, W, T, n_words);
+// The arguments every instantiation takes, bundled for the dispatch.
+struct Args {
+  const int32_t* cells;
+  const int32_t* mask;
+  const float* lut;
+  const int32_t* risk;
+  const float* task;
+  const float* v;
+  const float* w;
+  float* out;
+  int K, M, H, W, T, n_words;
+  float wheelbase;
+  cudaStream_t stream;
+};
+
+template <int CELL_BITS, bool FAST_TRIG, bool SPEED_MAP, int MODEL>
+void launch(const Args& a) {
+  const dim3 grid((a.K + kBlockK - 1) / kBlockK, a.M);
+  rollout_binned_kernel<CELL_BITS, FAST_TRIG, SPEED_MAP, MODEL>
+      <<<grid, kBlockK, 0, a.stream>>>(a.cells, a.mask, a.lut, a.risk, a.task,
+                                       a.v, a.w, a.out, a.K, a.M, a.H, a.W,
+                                       a.T, a.n_words, a.wheelbase);
+}
+
+// The (fast_trig, model) pairs that exist: fast trig is the unicycle's
+// only.  Returns false for any other pair.
+template <int CELL_BITS, bool SPEED_MAP>
+bool launch_model(const Args& a, int fast_trig, int model) {
+  if (fast_trig && model == kUnicycle)
+    launch<CELL_BITS, true, SPEED_MAP, kUnicycle>(a);
+  else if (!fast_trig && model == kUnicycle)
+    launch<CELL_BITS, false, SPEED_MAP, kUnicycle>(a);
+  else if (!fast_trig && model == kBicycle)
+    launch<CELL_BITS, false, SPEED_MAP, kBicycle>(a);
+  else
+    return false;
+  return true;
 }
 
 template <int CELL_BITS>
-void launch_bits(const int32_t* cells, const int32_t* mask, const float* lut,
-                 const int32_t* risk, const float* task, const float* v,
-                 const float* w, float* out, int K, int M, int H, int W,
-                 int T, int n_words, int speed_map, int fast_trig,
-                 cudaStream_t s) {
-  if (fast_trig) {
-    if (speed_map)
-      launch<CELL_BITS, true, true>(cells, mask, lut, risk, task, v, w, out,
-                                    K, M, H, W, T, n_words, s);
-    else
-      launch<CELL_BITS, true, false>(cells, mask, lut, risk, task, v, w, out,
-                                     K, M, H, W, T, n_words, s);
-  } else {
-    if (speed_map)
-      launch<CELL_BITS, false, true>(cells, mask, lut, risk, task, v, w, out,
-                                     K, M, H, W, T, n_words, s);
-    else
-      launch<CELL_BITS, false, false>(cells, mask, lut, risk, task, v, w,
-                                      out, K, M, H, W, T, n_words, s);
-  }
+bool launch_bits(const Args& a, int speed_map, int fast_trig, int model) {
+  return speed_map ? launch_model<CELL_BITS, true>(a, fast_trig, model)
+                   : launch_model<CELL_BITS, false>(a, fast_trig, model);
 }
 
 }  // namespace
@@ -207,40 +234,36 @@ void launch_bits(const int32_t* cells, const int32_t* mask, const float* lut,
 // cells int32 (M, n_words), mask int32 (ceil(H*W/16),), lut float32
 // (2, 16) (unused, may be null, for cell_bits 8), risk int32
 // (ceil(H*W/4),) (read only when speed_map), task float32 (>= 18),
-// v / w float32 (T, K), out float32 (K, M).  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() so the caller sees a refused
-// launch; an unknown cell_bits returns cudaErrorInvalidValue.
+// v / w float32 (T, K), out float32 (K, M).  model: 0 unicycle, 1 bicycle
+// (wheelbase read only then).  Launches on `stream`, does not synchronise,
+// and returns cudaGetLastError() so the caller sees a refused launch; an
+// unknown cell_bits or model, or fast trig with a model other than the
+// unicycle, returns cudaErrorInvalidValue.
 extern "C" int rollout_binned_launch(const void* cells, const void* mask,
                                      const void* lut, const void* risk,
                                      const void* task, const void* v,
                                      const void* w, void* out, int K, int M,
                                      int H, int W, int T, int n_words,
                                      int cell_bits, int speed_map,
-                                     int fast_trig, void* stream) {
-  const int32_t* c = static_cast<const int32_t*>(cells);
-  const int32_t* mk = static_cast<const int32_t*>(mask);
-  const float* lt = static_cast<const float*>(lut);
-  const int32_t* rk = static_cast<const int32_t*>(risk);
-  const float* tk = static_cast<const float*>(task);
-  const float* vv = static_cast<const float*>(v);
-  const float* ww = static_cast<const float*>(w);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                     int fast_trig, int model,
+                                     float wheelbase, void* stream) {
+  const Args a{static_cast<const int32_t*>(cells),
+               static_cast<const int32_t*>(mask),
+               static_cast<const float*>(lut),
+               static_cast<const int32_t*>(risk),
+               static_cast<const float*>(task),
+               static_cast<const float*>(v),
+               static_cast<const float*>(w),
+               static_cast<float*>(out),
+               K, M, H, W, T, n_words, wheelbase,
+               static_cast<cudaStream_t>(stream)};
+  bool ok;
   switch (cell_bits) {
-    case 2:
-      launch_bits<2>(c, mk, lt, rk, tk, vv, ww, o, K, M, H, W, T, n_words,
-                     speed_map, fast_trig, s);
-      break;
-    case 4:
-      launch_bits<4>(c, mk, lt, rk, tk, vv, ww, o, K, M, H, W, T, n_words,
-                     speed_map, fast_trig, s);
-      break;
-    case 8:
-      launch_bits<8>(c, mk, lt, rk, tk, vv, ww, o, K, M, H, W, T, n_words,
-                     speed_map, fast_trig, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 2: ok = launch_bits<2>(a, speed_map, fast_trig, model); break;
+    case 4: ok = launch_bits<4>(a, speed_map, fast_trig, model); break;
+    case 8: ok = launch_bits<8>(a, speed_map, fast_trig, model); break;
+    default: ok = false;
   }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,8 +15,15 @@
 // padding of K, chunk transpose, (8, 128) task tile, m_tile or t_unroll
 // exists here: the ragged edges of K are masked and M is the grid's y.
 //
+// Dynamics (MODEL): the unicycle, or the kinematic bicycle of
+// models/bicycle.py (w is the steering angle, the heading rate
+// v * tan(w) / wheelbase), each in the float32 operations and order of its
+// PyTorch step function.  Fast trig (a rotation polynomial) is the
+// unicycle's only; the bicycle runs exact sinf / cosf / tanf.
+//
 // What bounds it: float32 ALU work plus one sqrtf (and, in exact mode, one
-// sinf and one cosf) per lane-step.  The bytes are tiny (words, controls
+// sinf and one cosf, and for the bicycle one tanf and a division) per
+// lane-step.  The bytes are tiny (words, controls
 // and costs are ~5.5 MB at K = M = 1024, T = 100), so it is bound by
 // operations, not memory.  A first version, right and simple; no tuning.
 //
@@ -31,20 +38,24 @@ namespace {
 
 constexpr int kBlockK = 128;
 
+// Dynamics models (ops: models.KERNEL_MODELS).
+constexpr int kUnicycle = 0;
+constexpr int kBicycle = 1;
+
 // Maclaurin coefficients exactly as the TPU kernel has them: Python
 // doubles rounded once to float32.
 constexpr float kInv6 = (float)(1.0 / 6.0);
 constexpr float kInv24 = (float)(1.0 / 24.0);
 constexpr float kInv120 = (float)(1.0 / 120.0);
 
-template <bool FAST_TRIG, bool SPEED_MAP>
+template <bool FAST_TRIG, bool SPEED_MAP, int MODEL>
 __global__ void __launch_bounds__(kBlockK)
 rollout_byte_kernel(const int32_t* __restrict__ words,
                     const float* __restrict__ task,
                     const float* __restrict__ v_all,
                     const float* __restrict__ w_all,
                     float* __restrict__ cost_out,
-                    int K, int M, int H, int W, int T) {
+                    int K, int M, int H, int W, int T, float wheelbase) {
   const int k = blockIdx.x * kBlockK + threadIdx.x;
   const int m = blockIdx.y;
   if (k >= K) return;
@@ -104,6 +115,12 @@ rollout_byte_kernel(const int32_t* __restrict__ words,
       const float s_new = sth * cd + cth * sd;
       cth = c_new;
       sth = s_new;
+    } else if (MODEL == kBicycle) {
+      // dt * (lin_tr * v), not the unicycle's (dt * lin_tr) * v.
+      const float v_eff = lin_tr * v;
+      x_new = x + dt * v_eff * cosf(th);
+      y_new = y + dt * v_eff * sinf(th);
+      th = th + dt * ang_tr * v * tanf(w) / wheelbase;
     } else {
       x_new = x + dt * lin_tr * v * cosf(th);
       y_new = y + dt * lin_tr * v * sinf(th);
@@ -131,38 +148,61 @@ rollout_byte_kernel(const int32_t* __restrict__ words,
       cost + (1.0f - reachedf) * sqrtf(dist2) / (v_post + 1e-6f);
 }
 
-template <bool FAST_TRIG, bool SPEED_MAP>
+template <bool FAST_TRIG, bool SPEED_MAP, int MODEL>
 void launch(const int32_t* words, const float* task, const float* v,
             const float* w, float* out, int K, int M, int H, int W, int T,
-            cudaStream_t stream) {
+            float wheelbase, cudaStream_t stream) {
   const dim3 grid((K + kBlockK - 1) / kBlockK, M);
-  rollout_byte_kernel<FAST_TRIG, SPEED_MAP><<<grid, kBlockK, 0, stream>>>(
-      words, task, v, w, out, K, M, H, W, T);
+  rollout_byte_kernel<FAST_TRIG, SPEED_MAP, MODEL><<<grid, kBlockK, 0, stream>>>(
+      words, task, v, w, out, K, M, H, W, T, wheelbase);
+}
+
+// The (fast_trig, model) pairs that exist: fast trig is the unicycle's
+// only.  Returns false for any other pair.
+template <bool SPEED_MAP>
+bool launch_model(const int32_t* words, const float* task, const float* v,
+                  const float* w, float* out, int K, int M, int H, int W,
+                  int T, int fast_trig, int model, float wheelbase,
+                  cudaStream_t s) {
+  if (fast_trig && model == kUnicycle)
+    launch<true, SPEED_MAP, kUnicycle>(words, task, v, w, out, K, M, H, W, T,
+                                       wheelbase, s);
+  else if (!fast_trig && model == kUnicycle)
+    launch<false, SPEED_MAP, kUnicycle>(words, task, v, w, out, K, M, H, W,
+                                        T, wheelbase, s);
+  else if (!fast_trig && model == kBicycle)
+    launch<false, SPEED_MAP, kBicycle>(words, task, v, w, out, K, M, H, W, T,
+                                       wheelbase, s);
+  else
+    return false;
+  return true;
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  Pointers are device pointers:
 // words int32 (M, H, W), task float32 (>= 18), v / w float32 (T, K),
-// out float32 (K, M).  Launches on `stream`, does not synchronise, and
-// returns cudaGetLastError() so the caller sees a refused launch.
+// out float32 (K, M).  model: 0 unicycle, 1 bicycle (wheelbase read only
+// then).  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() so the caller sees a refused launch; fast trig with a
+// model other than the unicycle, or an unknown model, returns
+// cudaErrorInvalidValue.
 extern "C" int rollout_byte_launch(const void* words, const void* task,
                                    const void* v, const void* w, void* out,
                                    int K, int M, int H, int W, int T,
-                                   int speed_map, int fast_trig,
-                                   void* stream) {
+                                   int speed_map, int fast_trig, int model,
+                                   float wheelbase, void* stream) {
   const int32_t* wd = static_cast<const int32_t*>(words);
   const float* tk = static_cast<const float*>(task);
   const float* vv = static_cast<const float*>(v);
   const float* ww = static_cast<const float*>(w);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fast_trig) {
-    if (speed_map) launch<true, true>(wd, tk, vv, ww, o, K, M, H, W, T, s);
-    else launch<true, false>(wd, tk, vv, ww, o, K, M, H, W, T, s);
-  } else {
-    if (speed_map) launch<false, true>(wd, tk, vv, ww, o, K, M, H, W, T, s);
-    else launch<false, false>(wd, tk, vv, ww, o, K, M, H, W, T, s);
-  }
+  const bool ok =
+      speed_map ? launch_model<true>(wd, tk, vv, ww, o, K, M, H, W, T,
+                                     fast_trig, model, wheelbase, s)
+                : launch_model<false>(wd, tk, vv, ww, o, K, M, H, W, T,
+                                      fast_trig, model, wheelbase, s);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,6 +18,10 @@ def unicycle_step(x, y, th, v, w, lin_traction, ang_traction, dt):
     return x_new, y_new, th_new
 
 
+# The CUDA rollout kernels' form of this model (see models.kernel_model).
+unicycle_step.kernel_model = ("unicycle", 0.0)
+
+
 def clip_controls(u_nom, vrange, wrange):
     """Clamp nominal (v, w) controls ``(..., 2)`` to their actuation ranges."""
     v = torch.clamp(u_nom[..., 0], vrange[0], vrange[1])

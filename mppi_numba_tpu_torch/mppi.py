@@ -18,7 +18,7 @@ import torch
 from .config import Config, SolverStatic
 from .ops.costs import (DEFAULT_DIST_WEIGHT, DEFAULT_OBS_COST,
                         DEFAULT_UNKNOWN_COST)
-from .solver import DYNAMIC_CVAR, get_terrain_solver
+from .solver import DYNAMIC_CVAR, get_terrain_solver, get_terrain_vis
 from .terrain import resolve_device
 from .types import MapInputs, TerrainTask
 
@@ -318,9 +318,23 @@ class MPPIPlanner:
     # -- visualization ------------------------------------------------------------
 
     def get_state_rollout(self):
-        raise NotImplementedError(
-            "MPPIPlanner.get_state_rollout (visualisation rollouts) is a "
-            "later slice of the port")
+        """State sequences under the current optimal control.
+
+        tdm: the optimal sequence rolled across the first
+        ``num_vis_state_rollouts`` sampled map pairs.  Det modes: the
+        optimal sequence plus noise-perturbed previous sequences on map
+        sample 0.  Returns host float32 ``(num_vis, T+1, 3)``.
+        """
+        assert self.params_set, "MPPI parameters are not set"
+        assert self.tdm_set, "MPPI has not received TDMs"
+        if self._last_aux is None:
+            print("No solve has produced rollout data yet. Cannot visualize.")
+            return None
+        aux = self._last_aux
+        states = get_terrain_vis(self._last_static)(
+            self._map_inputs(), self._task_device, self.u_cur, self.u_prev,
+            aux.noise_vis, aux.lin_grids, aux.ang_grids)
+        return states.cpu().numpy()
 
 
 def _unpack_task(flat):

@@ -20,8 +20,8 @@ import ctypes
 
 import torch
 
-from ...models import unicycle_step
-from .rollout_byte import plain_rollout
+from ...models import kernel_model
+from .rollout_byte import check_fast_trig, plain_rollout
 
 KERNEL_SOURCE = "mppi_numba_tpu_torch/csrc/rollout_binned.cu"
 REPLACES = "mppi_numba_tpu/ops/pallas/rollout_kernel.py:387"
@@ -108,13 +108,13 @@ def terrain_rollout_costs_binned_plain(cells, mask, lut, task_vec, v_all,
 
 
 def _launch(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
-            cell_bits, fast_trig):
+            cell_bits, fast_trig, model, wheelbase):
     from ._build import load
 
     lib = load("rollout_binned")
     fn = lib.rollout_binned_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     M, n_words = cells.shape
     K = v_all.shape[1]
@@ -125,7 +125,8 @@ def _launch(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
              0 if risk is None else risk.data_ptr(),
              task_vec.data_ptr(), v_all.data_ptr(), w_all.data_ptr(),
              out.data_ptr(), K, M, H, W, T, n_words, cell_bits,
-             int(risk is not None), int(fast_trig), stream)
+             int(risk is not None), int(fast_trig), model, wheelbase,
+             stream)
     if err != 0:
         raise RuntimeError("rollout_binned kernel launch failed: CUDA error "
                            "{}".format(err))
@@ -174,9 +175,10 @@ def terrain_rollout_costs_binned(cells, mask, lut, task_vec, v_all, w_all,
                                  fast_trig=False, step_fn=None):
     """Rollout costs ``(K, M)`` over a binned cell plane.
 
-    On CUDA tensors this launches the hand-written kernel (unicycle only;
-    any other model raises ``NotImplementedError``) and adds one to
-    ``terrain_rollout_costs_binned.launches``.  On CPU tensors it runs
+    On CUDA tensors this launches the hand-written kernel and adds one to
+    ``terrain_rollout_costs_binned.launches``; the kernel runs the built-in
+    models (``models.kernel_model``), and a custom registered step function
+    raises ``NotImplementedError``.  On CPU tensors it runs
     ``terrain_rollout_costs_binned_plain``.  Arguments as for the plain
     version; speed-map mode is on when ``risk`` is given.
     """
@@ -184,14 +186,12 @@ def terrain_rollout_costs_binned(cells, mask, lut, task_vec, v_all, w_all,
         return terrain_rollout_costs_binned_plain(
             cells, mask, lut, task_vec, v_all, w_all, risk, H=H, W=W, T=T,
             cell_bits=cell_bits, fast_trig=fast_trig, step_fn=step_fn)
-    if step_fn is not None and step_fn is not unicycle_step:
-        raise NotImplementedError(
-            "the CUDA rollout kernels serve the unicycle model only; other "
-            "models in the kernels are a later slice of the port")
+    model, wheelbase = kernel_model(step_fn)
+    check_fast_trig(fast_trig, step_fn)
     _check_cuda_args(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
                      cell_bits)
     return _launch(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
-                   cell_bits, fast_trig)
+                   cell_bits, fast_trig, model, wheelbase)
 
 
 terrain_rollout_costs_binned.launches = 0

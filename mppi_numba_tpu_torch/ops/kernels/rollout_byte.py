@@ -5,8 +5,8 @@ its plain PyTorch version.
 tensors and runs ``terrain_rollout_costs_byte_plain`` for CPU tensors.  It
 replaces ``mppi_numba_tpu/ops/pallas/rollout_kernel.py::_rollout_kernel``
 (wrapper ``terrain_rollout_costs_pallas``).  The kernel is bound by float32
-operations (one sqrtf per lane-step, plus sinf/cosf in exact mode), not by
-bytes; see the source's header note.
+operations (one sqrtf per lane-step, plus sinf/cosf in exact mode and a
+tanf for the bicycle), not by bytes; see the source's header note.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from ...models import unicycle_step
+from ...models import kernel_model, unicycle_step
 
 KERNEL_SOURCE = "mppi_numba_tpu_torch/csrc/rollout_byte.cu"
 REPLACES = "mppi_numba_tpu/ops/pallas/rollout_kernel.py:99"
@@ -92,8 +92,7 @@ def plain_rollout(decode, task_vec, v_all, w_all, *, M, H, W, T,
     coupling.
     """
     step_fn = unicycle_step if step_fn is None else step_fn
-    assert not (fast_trig and step_fn is not unicycle_step), \
-        "fast_trig hard-codes the unicycle rotation update"
+    check_fast_trig(fast_trig, step_fn)
     f32 = torch.float32
     K = v_all.shape[1]
     dev = v_all.device
@@ -159,13 +158,21 @@ def plain_rollout(decode, task_vec, v_all, w_all, *, M, H, W, T,
     return cost + (1.0 - reachedf) * torch.sqrt(dist2) / (v_post + 1e-6)
 
 
-def _launch(words, task_vec, v_all, w_all, H, W, T, speed_map, fast_trig):
+def check_fast_trig(fast_trig, step_fn):
+    """Fast trig hard-codes the unicycle's rotation update."""
+    if fast_trig and step_fn not in (None, unicycle_step):
+        raise ValueError("fast_trig hard-codes the unicycle rotation "
+                         "update; other models take the exact path")
+
+
+def _launch(words, task_vec, v_all, w_all, H, W, T, speed_map, fast_trig,
+            model, wheelbase):
     from ._build import load
 
     lib = load("rollout_byte")
     fn = lib.rollout_byte_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     M = words.shape[0]
     K = v_all.shape[1]
@@ -173,7 +180,7 @@ def _launch(words, task_vec, v_all, w_all, H, W, T, speed_map, fast_trig):
     stream = torch.cuda.current_stream(words.device).cuda_stream
     err = fn(words.data_ptr(), task_vec.data_ptr(), v_all.data_ptr(),
              w_all.data_ptr(), out.data_ptr(), K, M, H, W, T,
-             int(speed_map), int(fast_trig), stream)
+             int(speed_map), int(fast_trig), model, wheelbase, stream)
     if err != 0:
         raise RuntimeError("rollout_byte kernel launch failed: CUDA error "
                            "{}".format(err))
@@ -208,9 +215,10 @@ def terrain_rollout_costs_byte(words, task_vec, v_all, w_all, *, H, W, T,
                                speed_map=False, fast_trig=False, step_fn=None):
     """Rollout costs ``(K, M)`` over byte-packed map words.
 
-    On CUDA tensors this launches the hand-written kernel (unicycle only;
-    any other model raises ``NotImplementedError``) and adds one to
-    ``terrain_rollout_costs_byte.launches``.  On CPU tensors it runs
+    On CUDA tensors this launches the hand-written kernel and adds one to
+    ``terrain_rollout_costs_byte.launches``; the kernel runs the built-in
+    models (``models.kernel_model``), and a custom registered step function
+    raises ``NotImplementedError``.  On CPU tensors it runs
     ``terrain_rollout_costs_byte_plain``.  Arguments as for the plain
     version.
     """
@@ -218,13 +226,11 @@ def terrain_rollout_costs_byte(words, task_vec, v_all, w_all, *, H, W, T,
         return terrain_rollout_costs_byte_plain(
             words, task_vec, v_all, w_all, H=H, W=W, T=T,
             speed_map=speed_map, fast_trig=fast_trig, step_fn=step_fn)
-    if step_fn is not None and step_fn is not unicycle_step:
-        raise NotImplementedError(
-            "the CUDA rollout kernel serves the unicycle model only; other "
-            "models in the kernel are a later slice of the port")
+    model, wheelbase = kernel_model(step_fn)
+    check_fast_trig(fast_trig, step_fn)
     _check_cuda_args(words, task_vec, v_all, w_all, H, W, T)
     return _launch(words, task_vec, v_all, w_all, H, W, T, speed_map,
-                   fast_trig)
+                   fast_trig, model, wheelbase)
 
 
 terrain_rollout_costs_byte.launches = 0

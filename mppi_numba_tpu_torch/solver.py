@@ -1,4 +1,5 @@
-"""Functional solver core: one terrain solve (tdm, det_dyn or speed_map).
+"""Functional solver core: one terrain solve (tdm, det_dyn or speed_map),
+the visualisation rollouts, and the barebone (terrain-free) solve.
 
 One solve runs, on the device that holds the inputs: sample the lin/ang
 PMF bins from one shared draw of uniforms, decode them, pack the backend's
@@ -9,8 +10,9 @@ speed_map modes (costmap shares speed_map) solve over M = 1 map with a
 collapsed PMF; speed_map adds the risk plane to the stage time cost.
 
 The draws come from a ``torch.Generator``; ``TerrainSolver.solve_from_draws``
-is the rest of the solve as a pure function of the draws, so tests can
-feed it the JAX package's own numbers.
+(and ``BareboneSolver.solve_from_draws``) is the rest of the solve as a
+pure function of the draws, so tests can feed it the JAX package's own
+numbers.
 """
 
 from __future__ import annotations
@@ -20,15 +22,16 @@ import functools
 import torch
 
 from .config import SolverStatic
-from .models import get_step_fn
+from .models import clip_controls, get_step_fn
 from .ops.cvar import cvar_from_costs, cvar_from_costs_dynamic
 from .ops.kernels.rollout_binned import (MAX_BINS, build_bin_luts,
                                          terrain_rollout_costs_binned)
 from .ops.kernels.rollout_byte import build_task_vec, terrain_rollout_costs_byte
 from .ops.packing import (pack_bin_crumbs, pack_bin_nibbles, pack_byte_pairs,
                           pack_map_words, pack_mask_nibbles, pack_risk_bytes)
-from .ops.rollout import (_clipped_controls_tk, control_coupling,
-                          terrain_rollout_costs)
+from .ops.rollout import (_clipped_controls_tk, barebone_rollout_costs,
+                          barebone_vis_states, control_coupling,
+                          terrain_rollout_costs, terrain_vis_states)
 from .ops.sampling import (decode_bins, draw_map_uniforms,
                            traction_bins_from_uniforms)
 from .ops.update import update_useq
@@ -220,11 +223,108 @@ def get_terrain_solver(static: SolverStatic, device="cuda"):
     return _cached_solver(static, torch.device(device))
 
 
-def get_terrain_vis(static: SolverStatic, device="cuda"):
-    raise NotImplementedError(
-        "visualisation rollouts are a later slice of the port")
+def _vis_controls(u_cur, u_prev, noise_vis, task):
+    """The det modes' vis controls: ``u_cur``, then V-1 copies of
+    ``u_prev`` plus the last iteration's noise rows 1.., clipped."""
+    noisy = torch.stack(clip_controls(u_prev[None] + noise_vis, task.vrange,
+                                      task.wrange), dim=-1)
+    return torch.cat([u_cur[None], noisy[1:]], dim=0)
+
+
+def get_terrain_vis(static: SolverStatic):
+    """The visualisation rollouts of the last solve.
+
+    Returned callable: ``(maps, task, u_cur, u_prev, noise_vis, lin_grids,
+    ang_grids) -> (V, T+1, 3)`` states.  tdm rolls ``u_cur`` across the
+    first V sampled maps; the det modes roll ``u_cur`` and V-1 noisy,
+    clipped copies of ``u_prev`` on map 0 (the planner aliases ``u_prev``
+    to the solved controls, as the reference does).  The JAX package's
+    ``roi_offset`` argument has no counterpart: the port has no crop.
+    """
+    if static.roi_shape:
+        raise NotImplementedError(
+            "the reachable-window (ROI) crop is a later slice of the port")
+    V = static.num_vis_state_rollouts
+    det = static.mode in ("det_dyn", "speed_map")
+    step_fn = get_step_fn(static.model)
+
+    def vis(maps, task, u_cur, u_prev, noise_vis, lin_grids, ang_grids):
+        if det:
+            shape = (V,) + tuple(lin_grids.shape[1:])
+            grids_l = lin_grids[0].expand(shape)
+            grids_a = ang_grids[0].expand(shape)
+            controls = _vis_controls(u_cur, u_prev, noise_vis, task)
+        else:
+            grids_l, grids_a = lin_grids[:V], ang_grids[:V]
+            controls = u_cur[None].expand((V,) + tuple(u_cur.shape))
+        packed = pack_map_words(grids_l, grids_a, maps.obstacle, maps.unknown)
+        return terrain_vis_states(packed, task, controls, step_fn=step_fn)
+
+    return vis
+
+
+class BareboneSolver:
+    """The barebone solve for one ``SolverStatic`` (mode 'barebone'):
+    terrain-free unicycle rollouts against circle obstacles, plain PyTorch
+    ops on the device."""
+
+    def __init__(self, static: SolverStatic, device):
+        if static.mode != "barebone":
+            raise ValueError("barebone solver mode {!r}; expected "
+                             "'barebone'".format(static.mode))
+        self.static = static
+        self.device = torch.device(device)
+
+    def __call__(self, generator, task, u0):
+        """Draw this solve's noise from ``generator`` and solve.  Returns
+        ``(u_new (T, 2), SolveAux)``."""
+        s = self.static
+        eps_list = [torch.randn((s.num_control_rollouts, s.num_steps, 2),
+                                generator=generator, device=self.device,
+                                dtype=torch.float32)
+                    for _ in range(s.num_opt)]
+        return self.solve_from_draws(eps_list, task, u0)
+
+    def solve_from_draws(self, eps_list, task, u0):
+        """The solve after the draws: ``num_opt`` float32 ``(K, T, 2)``
+        standard normal draws (scaled by ``task.u_std`` here), a
+        ``BareboneTask`` and the ``(T, 2)`` nominal controls ``u0``."""
+        u = u0
+        noise = costs = weights = None
+        for i in range(self.static.num_opt):
+            noise = eps_list[i] * task.u_std
+            costs = (barebone_rollout_costs(task, u, noise)
+                     + control_coupling(u, noise, task.u_std,
+                                        task.lambda_weight))
+            u, weights = update_useq(costs, noise, u, task.lambda_weight,
+                                     task.vrange, task.wrange)
+        aux = SolveAux(costs=costs, weights=weights,
+                       noise_vis=noise[:self.static.num_vis_state_rollouts],
+                       lin_grids=None, ang_grids=None)
+        return u, aux
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_barebone_solver(static: SolverStatic, device: torch.device):
+    return BareboneSolver(static, device)
 
 
 def get_barebone_solver(static: SolverStatic, device="cuda"):
-    raise NotImplementedError(
-        "the barebone (terrain-free) solver is a later slice of the port")
+    """The (cached) barebone solve for ``static`` on ``device``.
+
+    Returned callable: ``(generator, task, u0) -> (u_new, SolveAux)``, with
+    ``.solve_from_draws(eps_list, task, u0)``.
+    """
+    return _cached_barebone_solver(static, torch.device(device))
+
+
+def get_barebone_vis(static: SolverStatic):
+    """The barebone engine's visualisation rollouts: ``(task, u_cur, u_prev,
+    noise_vis) -> (V, T+1, 3)``, rolling ``u_cur`` and V-1 noisy, clipped
+    copies of ``u_prev``."""
+
+    def vis(task, u_cur, u_prev, noise_vis):
+        return barebone_vis_states(
+            task, _vis_controls(u_cur, u_prev, noise_vis, task))
+
+    return vis

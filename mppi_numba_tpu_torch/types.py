@@ -53,3 +53,20 @@ class SolveAux(NamedTuple):
     lin_grids: object     # (M, H, W) int8 sampled linear traction grids
     ang_grids: object     # (M, H, W) int8 sampled angular traction grids
     roi_offset: object = None  # (2,) int32; zeros (no crop in this port)
+
+
+class BareboneTask(NamedTuple):
+    """Task parameters of the terrain-free barebone engine (float32
+    tensors; scalars are 0-d)."""
+    x0: object
+    xgoal: object
+    goal_tolerance: object
+    lambda_weight: object
+    u_std: object
+    vrange: object
+    wrange: object
+    dt: object
+    dist_weight: object
+    obs_penalty: object
+    obs_pos: object       # (N, 2) circle obstacle centers
+    obs_r: object         # (N,) circle obstacle radii

@@ -37,6 +37,18 @@ _CPU_SOLVE = textwrap.dedent("""
                        wrange=np.array([-1.0, 1.0])), lin, ang)
     u = planner.solve()
     assert u.shape == (10, 2) and np.isfinite(u).all()
+    assert planner.get_state_rollout().shape == (4, 11, 3)
+    # The barebone planner and the gather probe's plain chain.
+    bb = port.BareboneMPPI(port.BareboneConfig(T=1.0, num_control_rollouts=100),
+                           device="cpu")
+    bb.setup(dict(dt=0.1, x0=np.zeros(3), xgoal=np.array([2.0, 1.0]),
+                  goal_tolerance=0.3, lambda_weight=1.0,
+                  u_std=np.array([1.0, 1.0]), vrange=np.array([0.0, 2.0]),
+                  wrange=np.array([-1.0, 1.0])))
+    assert bb.solve().shape == (10, 2)
+    from mppi_numba_tpu_torch.probes import gather_probe
+    t, x, mod = gather_probe.make_inputs("flat", 8, 4, "cpu")
+    assert gather_probe.flat_gather_chain(t, x, mod, 8).shape == (4, 128)
     # Every module of the port, and chip_smoke.py (its main() runs only
     # as a script).
     import importlib, pkgutil
@@ -45,12 +57,20 @@ _CPU_SOLVE = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     for name in ("mppi_numba_tpu_torch.density",
-                 "mppi_numba_tpu_torch.ops.kernels.rollout_binned"):
+                 "mppi_numba_tpu_torch.ops.kernels.rollout_binned",
+                 "mppi_numba_tpu_torch.barebone",
+                 "mppi_numba_tpu_torch.probes.gather_probe"):
         assert name in names, name
     import chip_smoke
+    # Nothing of JAX, of the JAX package, or of scripts/ (whose modules
+    # import as top-level names: gather_probe, _bench_common, ...).
+    import os
+    scripts = {f[:-3] for f in os.listdir("scripts") if f.endswith(".py")}
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
-                    or m == "mppi_numba_tpu" or m.startswith("mppi_numba_tpu."))
+                    or m == "mppi_numba_tpu" or m.startswith("mppi_numba_tpu.")
+                    or m == "scripts" or m.startswith("scripts.")
+                    or m.split(".")[0] in scripts)
     assert not loaded, loaded
     print("isolated ok")
 """)

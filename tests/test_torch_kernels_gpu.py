@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from mppi_numba_tpu_torch import Config, MPPIPlanner, TDM
-from mppi_numba_tpu_torch.models import bicycle_step
+from mppi_numba_tpu_torch.models import bicycle_step, make_bicycle_step
+from mppi_numba_tpu_torch.probes import gather_probe
 from mppi_numba_tpu_torch.ops import packing
 from mppi_numba_tpu_torch.ops.kernels import rollout_binned, rollout_byte
 from mppi_numba_tpu_torch.ops.packing import pack_map_words
@@ -32,18 +33,18 @@ def _cuda_or_skip():
     return torch.device("cuda")
 
 
-def _task(device):
+def _task(device, steer=2.5):
     f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
     return TerrainTask(
         x0=f([1.7, 1.3, 0.4]), xgoal=f([5.9, 4.6]), goal_tolerance=f(0.3),
         v_post_rollout=f(0.5), lambda_weight=f(1.2), u_std=f([0.7, 1.1]),
-        vrange=f([0.0, 2.0]), wrange=f([-2.5, 2.5]), dt=f(0.1),
+        vrange=f([0.0, 2.0]), wrange=f([-steer, steer]), dt=f(0.1),
         dist_weight=f(1.7), obs_penalty=f(1e4), unknown_penalty=f(1e2),
         alpha_dyn=f(1.0), res=f(0.5), xlim0=f(0.0), ylim0=f(0.0),
         lin_lb=f(0.0), lin_ratio=f(0.01), ang_lb=f(0.0), ang_ratio=f(0.01))
 
 
-def _inputs(device, K, M, T, H, W, penalties, speed_map, seed=0):
+def _inputs(device, K, M, T, H, W, penalties, speed_map, seed=0, steer=2.5):
     rng = np.random.RandomState(seed)
     t = lambda a: torch.tensor(a, device=device)  # noqa: E731
     lin = t(rng.randint(0, 101, (M, H, W)).astype(np.int8))
@@ -53,7 +54,7 @@ def _inputs(device, K, M, T, H, W, penalties, speed_map, seed=0):
     unk = t((rng.rand(H, W) < p).astype(np.int8))
     risk = t(rng.randint(1, 101, (H, W)).astype(np.int8))
     words = pack_map_words(lin, ang, obs, unk, risk if speed_map else None)
-    task = _task(device)
+    task = _task(device, steer)
     u = t(rng.uniform(-0.5, 1.5, (T, 2)).astype(np.float32))
     noise = t(rng.randn(K, T, 2).astype(np.float32)) * task.u_std
     v, w = _clipped_controls_tk(u, noise, task.vrange, task.wrange)
@@ -80,14 +81,53 @@ def test_cuda_kernel_matches_plain_on_card(fast_trig, speed_map):
                                rtol=rtol, atol=1e-4)
 
 
-def test_cuda_kernel_rejects_other_models():
+def _custom_step(x, y, th, v, w, lin_traction, ang_traction, dt):
+    """A custom registered model: a Python step function with no kernel
+    form."""
+    return x + dt * v * torch.cos(th), y + dt * v * torch.sin(th), th + w
+
+
+# The default wheelbase, 0.5 m, and a car's, 2.7 m, whose float32
+# reciprocal is inexact: a kernel that ignored its wheelbase argument
+# would still match at 0.5 alone.
+_STEPS = {"bicycle": bicycle_step, "bicycle_2.7": make_bicycle_step(2.7),
+          "custom": _custom_step}
+
+
+@pytest.mark.parametrize("model", list(_STEPS))
+@pytest.mark.parametrize("layout", ["byte", 2, 4, 8])
+def test_cuda_kernel_rejects_other_models(layout, model):
+    """The bicycle runs inside each kernel, within 1e-4 of the plain
+    version (steering within +-0.5 rad, away from tan's pole), at either
+    wheelbase; a custom registered model raises, and nothing is
+    launched."""
     dev = _cuda_or_skip()
-    words = torch.zeros((2, 3, 3), dtype=torch.int32, device=dev)
-    vw = torch.zeros((4, 128), device=dev)
-    with pytest.raises(NotImplementedError):
-        rollout_byte.terrain_rollout_costs_byte(
-            words, torch.zeros(19, device=dev), vw, vw, H=3, W=3, T=4,
-            step_fn=bicycle_step)
+    K, M, T, H, W = 200, 7, 30, 21, 30
+    step_fn = _STEPS[model]
+    if layout == "byte":
+        args = _inputs(dev, K, M, T, H, W, penalties=True, speed_map=True,
+                       steer=0.5)
+        kw = dict(H=H, W=W, T=T, speed_map=True, step_fn=step_fn)
+        kernel = rollout_byte.terrain_rollout_costs_byte
+        plain = rollout_byte.terrain_rollout_costs_byte_plain
+    else:
+        args, _ = _binned_inputs(dev, layout, K, M, T, H, W, True,
+                                 past_last=True, steer=0.5)
+        kw = dict(H=H, W=W, T=T, cell_bits=layout, step_fn=step_fn)
+        kernel = rollout_binned.terrain_rollout_costs_binned
+        plain = rollout_binned.terrain_rollout_costs_binned_plain
+    before = kernel.launches
+    if model == "custom":
+        with pytest.raises(NotImplementedError, match="eager"):
+            kernel(*args, **kw)
+        assert kernel.launches == before
+        return
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(*args, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_cuda_kernel_rejects_bad_inputs():
@@ -133,7 +173,7 @@ def test_planner_closed_loop_on_card():
 
 
 def _binned_inputs(device, cell_bits, K, M, T, H, W, speed_map, past_last,
-                   seed=0):
+                   seed=0, steer=2.5):
     """Binned wrapper arguments and the byte words of the same grids."""
     rng = np.random.RandomState(seed)
     t = lambda a: torch.tensor(a, device=device)  # noqa: E731
@@ -145,7 +185,7 @@ def _binned_inputs(device, cell_bits, K, M, T, H, W, speed_map, past_last,
     obs = t((rng.rand(H, W) < 0.1).astype(np.int8))
     unk = t((rng.rand(H, W) < 0.1).astype(np.int8))
     risk = t(rng.randint(1, 101, (H, W)).astype(np.int8))
-    task = _task(device)
+    task = _task(device, steer)
     u = t(rng.uniform(-0.5, 1.5, (T, 2)).astype(np.float32))
     noise = t(rng.randn(K, T, 2).astype(np.float32)) * task.u_std
     v, w = _clipped_controls_tk(u, noise, task.vrange, task.wrange)
@@ -210,7 +250,10 @@ def test_binned_kernel_rejects_other_models_and_bad_inputs():
     kw = dict(H=3, W=5, T=4, cell_bits=4)
     with pytest.raises(NotImplementedError):
         rollout_binned.terrain_rollout_costs_binned(*args, **kw,
-                                                    step_fn=bicycle_step)
+                                                    step_fn=_custom_step)
+    with pytest.raises(ValueError, match="fast_trig"):
+        rollout_binned.terrain_rollout_costs_binned(
+            *args, **kw, fast_trig=True, step_fn=bicycle_step)
     with pytest.raises(ValueError):
         rollout_binned.terrain_rollout_costs_binned(
             args[0].long(), *args[1:], **kw)
@@ -248,3 +291,21 @@ def test_planner_speed_map_on_card_runs_the_binned_kernel():
     assert planner._static().num_pmf_bins == 2
     assert rollout_binned.terrain_rollout_costs_binned.launches == before + 3
     assert rollout_byte.terrain_rollout_costs_byte.launches == byte_before
+
+
+@pytest.mark.parametrize("mode", ["column", "flat"])
+def test_gather_probe_kernel_matches_plain_on_card(mode):
+    """The dependent gather chain equals its plain version bit for bit, in
+    an L1-sized and an L2-sized table; negative inputs are refused."""
+    dev = _cuda_or_skip()
+    chain, plain = gather_probe.CHAINS[mode]
+    for S, R in ((64, 32), (65536, 1056)):
+        table, idx, mod = gather_probe.make_inputs(mode, S, R, dev, seed=S)
+        before = chain.launches
+        got = chain(table, idx, mod, 64)
+        torch.cuda.synchronize()
+        assert chain.launches == before + 1
+        assert torch.equal(got, plain(table, idx, mod, 64))
+    table[0, 0] = -1
+    with pytest.raises(ValueError, match="nonnegative"):
+        chain(table, idx, mod, 4)

@@ -127,9 +127,13 @@ def test_closed_loop_on_cpu():
 def test_planner_later_slices_raise():
     tp = _make(tpkg, False, device="cpu")
     tp.solve()
-    # Visualisation rollouts are still a later slice.
-    with pytest.raises(NotImplementedError):
-        tp.get_state_rollout()
+    # Visualisation rollouts are ported: the optimal sequence across the
+    # first V sampled maps, from the task's x0.
+    states = tp.get_state_rollout()
+    assert states.shape == (tp.num_vis_state_rollouts, tp.num_steps + 1, 3)
+    np.testing.assert_array_equal(
+        states[:, 0], np.broadcast_to(tp.params["x0"].astype(np.float32),
+                                      (tp.num_vis_state_rollouts, 3)))
     # The det_dyn TDM is ported: a one-hot per cell.
     cfg = tpkg.Config(T=2.0, dt=0.1, use_det_dynamics=True)
     det = tpkg.TDM(cfg, device="cpu")
