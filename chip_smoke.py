@@ -7,7 +7,8 @@ version, drive the planner's main paths, and time them.
 
 Phases (any failure exits non-zero; no error is swallowed):
 
-1. Build ``csrc/rollout_byte.cu``, ``csrc/rollout_binned.cu`` and
+1. Build ``csrc/rollout_byte.cu``, ``csrc/rollout_binned.cu``,
+   ``csrc/map_sample.cu``, ``csrc/roi_window.cu`` and
    ``csrc/gather_probe.cu`` with nvcc for sm_90a, all at once, and print
    the build time, each ptxas report (registers, spills), each rollout
    kernel's SASS instructions per lane-step by class (``sass_counts``,
@@ -24,8 +25,17 @@ Phases (any failure exits non-zero; no error is swallowed):
    maps whose columns sum to 100; edge cases (T across the loop's
    remainders, ragged M and K, det_dyn's M = 1 launch at T = 33, a NaN
    cell coordinate landing in cell 0, risk bytes of all 256 values).
-   Then one small whole solve, the kernel path against its plain version
-   on the card and against the CPU (``small_solve_witness``).
+   The map-sampling kernel against its plain version, bins and grids bit
+   for bit: the main paths' shapes, interior and corner-clamped windows,
+   a slice of the M axis, 1-22 bins, alpha 1 and 0.2, columns summing
+   below 100, M = 1, and known answers of ``jax.random.uniform``
+   (``KNOWN_UNIFORMS``).  The crop kernel against its plain version,
+   every plane, the offset and the limits bit for bit, for robots at
+   every cell edge of a row, an ulp either side and off the map, at the
+   big-map world's shape (padded origin 0 and -res) and a ragged one.
+   Then one small whole solve, the kernel path
+   against its plain version on the card and against the CPU
+   (``small_solve_witness``).
 3. The main paths, each with every kernel's launch count set to 0 just
    before it and read just after: ``MPPIPlanner`` on ``device="cuda"``
    through ``setup``, ``solve``, ``shift_and_update`` and, after the last
@@ -34,9 +44,20 @@ Phases (any failure exits non-zero; no error is swallowed):
    (8-bit cells), a forest-size 140x84 learned-model PMF under tdm (4-bit
    cells), det_dyn and speed_map (2- or 4-bit cells, M = 1), the forest
    under tdm with the bicycle model (4-bit cells, exact trig), a 140x84
-   costmap (2-bit cells), and the reference benchmark's 9x9 semantic world
-   under all three methods (byte kernel); ``BareboneMPPI`` on
-   ``examples/barebone_mppi.py``'s task (no kernel: plain torch ops), 20
+   costmap (2-bit cells), the reference benchmark's 9x9 semantic world
+   under all three methods (byte kernel), and the reference's big-map
+   regime, 250x250 at 0.5 m cropped to its 85x85 reachable window (4-bit
+   cells), closed loop through ``sim.trial`` on a ground truth drawn from
+   its PMF; every solve samples its maps through the map-sampling kernel
+   once, every cropped solve crops through the crop kernel once, and the
+   big-map world's ``TDM.sample_grids`` draws once more, bit for bit with
+   the plain draw.  Then that big-map world cropped against uncropped,
+   the same seed: the same controls bit for bit, the cropped grids the
+   window of the uncropped ones, over 20 solves of a moving window; and
+   again with the padded origin at -res (a TDM's limits from 0): grids and
+   offsets exact, controls within rtol 2e-4 / atol 2e-5;
+   ``BareboneMPPI`` on ``examples/barebone_mppi.py``'s task (no kernel:
+   plain torch ops), 20
    closed-loop solves; and the gather probe's entry point
    (``probes.gather_probe.run``), every (mode, table size, rows), each
    case's 512-step chain held bit for bit against the plain chain.
@@ -46,13 +67,16 @@ Phases (any failure exits non-zero; no error is swallowed):
    inputs at the forest, 250x250 and speed-map worlds' shapes, the bicycle
    against the unicycle (both exact trig) at the forest's shape on every
    layout; the
-   probe's ns per chain step at every (mode, S, R) beside its bound; then
+   probe's ns per chain step at every (mode, S, R) beside its bound; the
+   map-sampling kernel at world (b)'s shape and the crop kernel at the
+   big-map world's, each against its bound and its plain version; then
    per timed world, in turns, chained solves on the device clock beside
    the host's time to enqueue them and planner ``solve()`` times on the
    host clock, and the device's busy time per solve by kernel; the host
    time of ``get_state_rollout`` in the forest world; the barebone chained
-   solve.  Each figure is printed as a JSON line with the card's name and
-   power limit.
+   solve; the big-map world's chained solves and planner ``solve()``
+   calls cropped against uncropped, in turns.  Each figure is printed as a JSON line with the card's name
+   and power limit.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -90,6 +114,18 @@ OPS_STEP_TABLE = 4 * 256
 # non-tensor-core rate the data sheet gives: a faster rate than the
 # integer units', so the bound stays a lower bound.
 OPS_GATHER_STEP = 3
+# The map draw's integer work, what the function needs (not what
+# csrc/map_sample.cu spends): per element threefry2x32's 20 rounds x (add,
+# rotate, xor) + 5 key injections x 2 adds + the counter's multiply-add 2
+# + the uniform's xor, shift and or 3 = 75, and per bin and plane the
+# rank's compare and add, 2 (the decode is a load from a LUT with one
+# more entry); per cell and bin the cumulative's add, once.  Its float
+# work, 4 an element (the multiply, subtraction, ceil and conversion), is
+# counted at the float32 rate.
+OPS_MAP_SAMPLE, OPS_MAP_SAMPLE_PER_BIN, FLOPS_MAP_SAMPLE = 75, 2, 4
+# INT32 rate: 132 SMs x 64 INT32 lanes (Hopper white paper) at the H100
+# SXM's 1,980 MHz boost clock (NVIDIA data sheet).
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 CELLS_PER_WORD = {2: 8, 4: 4, 8: 2}
 SOLVES = 20
 # World -> (planning mode, the layout 'auto' must route it to); None: 2-
@@ -105,9 +141,33 @@ WORLDS = {
     "benchmark_9x9_tdm": ("tdm", "byte"),
     "benchmark_9x9_det_dyn": ("det_dyn", "byte"),
     "benchmark_9x9_speed_map": ("speed_map", "byte"),
+    "bigmap_250x250_roi": ("tdm", "binned"),
 }
 TIMED_WORLDS = ("flagship_11x11", "external_250x250", "forest_140x84",
-                "forest_140x84_speed_map")
+                "forest_140x84_speed_map", "bigmap_250x250_roi")
+# The reference's big-map regime (scripts/bigmap_bench.py:34-79): a random
+# 12-bin PMF on a 250x250 padded map at 0.5 m, vmax 2 m/s, T = 100 steps
+# of 0.1 s: an 85x85 reachable window.
+BIGMAP = "bigmap_250x250_roi"
+BIGMAP_BINS, BIGMAP_RES, BIGMAP_VMAX, BIGMAP_ROI = 12, 0.5, 2.0, (85, 85)
+# Closed-loop solves of the cropped-against-uncropped check: the big-map
+# trial's, over which the window moves.
+CROP_CHECK_SOLVES = SOLVES
+# jax.random.uniform(jax.random.PRNGKey(s) or a split key, (3, 25 * 40))
+# at (m, y, x) of the (3, 25, 40) draw, computed with JAX 0.9.0 on the
+# CPU: (key words, [((m, y, x), the float32's bits, ceil(100 u) - 1)]).
+KNOWN_UNIFORMS_SHAPE = (3, 25, 40)
+_KNOWN_AT = ((0, 0, 0), (1, 24, 39), (2, 0, 0), (2, 19, 17))
+KNOWN_UNIFORMS = [
+    (words, list(zip(_KNOWN_AT, bits, ranks)))
+    for words, bits, ranks in (
+        ((0, 0), (1064475214, 1051566116, 1065034092, 1049801792),
+         (94, 33, 98, 28)),
+        ((0, 42), (1056585764, 1050110876, 1062315750, 1053003512),
+         (48, 29, 81, 38)),
+        ((2877103387, 1697627890),
+         (1064228840, 1063075418, 1058989292, 1041854504),
+         (93, 86, 62, 14)))]
 # The gather probe's case in the kernels line: the TPU probe's own (column
 # gather, its largest table, its 32-row tile).
 PROBE_TIMED_AT = "column_S6568_R32"
@@ -170,6 +230,31 @@ def gather_bound_ms(touched, R, L, iters):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def map_sample_bound_ms(M, rH, rW, B_lin, B_ang):
+    """Least time for one map-sampling call: the larger of its bytes over
+    HBM bandwidth and its operations, integer over the INT32 rate and
+    float over the float32 rate (the larger of the two, as the units run
+    side by side).  Bytes: the two int8 PMF windows and LUTs and the key
+    in, the int32 bins and int8 grids of both planes out (10 bytes an
+    element).  Returns (ms, bound_by)."""
+    n, cells, bins = M * rH * rW, rH * rW, B_lin + B_ang
+    nbytes = bins * (cells + 1) + 16 + 10 * n
+    int_ops = n * (OPS_MAP_SAMPLE + OPS_MAP_SAMPLE_PER_BIN * bins) + cells * bins
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(int_ops / INT32_OPS_PER_S,
+                n * FLOPS_MAP_SAMPLE / FP32_OPS_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def roi_window_bound_ms(rH, rW, B_lin, B_ang):
+    """Least time for one crop: its bytes over HBM bandwidth (its dozen
+    scalar operations are nothing beside them).  Bytes: the window of
+    every int8 plane read and written once, x0 and three scalars in, the
+    offset and the two limits out.  Returns (ms, bound_by)."""
+    nbytes = 2 * (B_lin + B_ang + 3) * rH * rW + 4 * 6 + 4 * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def build_kernels(_build, names):
@@ -323,7 +408,9 @@ def main():
     from mppi_numba_tpu_torch._card import (card_line, time_cuda,
                                             time_cuda_graph)
     from mppi_numba_tpu_torch.models import bicycle_step, make_bicycle_step
-    from mppi_numba_tpu_torch.ops.kernels import (_build, rollout_binned,
+    from mppi_numba_tpu_torch.ops.kernels import (_build, map_sample,
+                                                  roi_window,
+                                                  rollout_binned,
                                                   rollout_byte)
     from mppi_numba_tpu_torch.ops import packing
     from mppi_numba_tpu_torch.probes import gather_probe
@@ -337,20 +424,28 @@ def main():
     plain = rollout_byte.terrain_rollout_costs_byte_plain
     bkernel = rollout_binned.terrain_rollout_costs_binned
     bplain = rollout_binned.terrain_rollout_costs_binned_plain
+    sampler = map_sample.sample_traction_window
+    splain = map_sample.sample_traction_window_plain
+    cropper = roi_window.crop_window
+    cplain = roi_window.crop_window_plain
     chains = gather_probe.CHAINS
 
     def set_counts(value=0):
-        kernel.launches = bkernel.launches = value
+        kernel.launches = bkernel.launches = sampler.launches = value
+        cropper.launches = value
         for chain, _ in chains.values():
             chain.launches = value
 
     def read_counts():
         return {"rollout_byte": kernel.launches,
                 "rollout_binned": bkernel.launches,
+                "map_sample": sampler.launches,
+                "roi_window": cropper.launches,
                 "gather_probe": sum(c.launches for c, _ in chains.values())}
 
     # -- phase 1: build -------------------------------------------------------
-    build_kernels(_build, ("rollout_byte", "rollout_binned", "gather_probe"))
+    build_kernels(_build, ("rollout_byte", "rollout_binned", "map_sample",
+                           "roi_window", "gather_probe"))
     print_sass_counts([_build.library_path(name)
                        for name in ("rollout_byte", "rollout_binned")])
     card = card_line()
@@ -665,11 +760,98 @@ def main():
     edge_results = [edge_case(name, *rest, seed, **opt) for seed, (
         name, *rest, opt) in enumerate(edges, start=600)]
 
+    # The map-sampling kernel against its plain version: bins and grids,
+    # bit for bit.  The first rows are the main paths' shapes (world (b)'s
+    # whole 250x250 map, world (c)'s 140x84 map, the big-map world's 85x85
+    # window of 250x250, a det mode's M = 1).
+    sample_cases = [
+        # name, M, (H, W), (oy, ox, rH, rW), B_lin, B_ang, alpha_dyn,
+        # unnormalized, m_offset
+        ("main_path_250x250_22bins", 1024, (250, 250), (0, 0, 250, 250),
+         22, 22, 1.0, False, 0),
+        ("main_path_140x84_12bins", 1024, (140, 84), (0, 0, 140, 84), 12, 12,
+         1.0, False, 0),
+        ("main_path_85x85_of_250x250", 1024, (250, 250), (70, 101, 85, 85),
+         12, 12, 1.0, False, 0),
+        ("det_140x84_M1", 1, (140, 84), (0, 0, 140, 84), 9, 9, 1.0, False,
+         0),
+        ("window_interior_alpha0.2", 256, (140, 84), (31, 17, 85, 50), 12,
+         12, 0.2, False, 0),
+        ("window_corner", 256, (140, 84), (55, 0, 85, 84), 22, 22, 1.0,
+         False, 0),
+        ("window_far_corner", 64, (250, 250), (165, 165, 85, 85), 4, 4, 0.2,
+         False, 0),
+        ("m_offset_384", 128, (140, 84), (20, 10, 85, 60), 12, 12, 1.0, False,
+         384),
+        ("bins_1_and_2", 128, (60, 70), (0, 0, 60, 70), 1, 2, 1.0, False, 0),
+        ("bins_4_and_22_alpha0.2", 128, (60, 70), (5, 6, 33, 41), 4, 22, 0.2,
+         False, 0),
+        ("unnormalized_12bins", 256, (60, 70), (0, 0, 60, 70), 12, 12, 1.0,
+         True, 0),
+        ("unnormalized_2bins_alpha0.2", 64, (60, 70), (9, 13, 40, 40), 2, 2,
+         0.2, True, 0),
+        ("M1_window", 1, (250, 250), (100, 90, 85, 85), 12, 22, 1.0, False,
+         0),
+    ]
+    sample_results = []
+    sample_timed_args = None
+    for seed, (name, M, hw, win, bl, ba, alpha, unnorm, m_off) in enumerate(
+            sample_cases, start=700):
+        args, kw = make_sample_case(torch, dev, M, hw, win, bl, ba, alpha,
+                                    unnorm, m_off, seed)
+        got = sampler(*args, **kw)
+        want = splain(*args, **kw)
+        torch.cuda.synchronize()
+        differ = [int((g != w).sum()) for g, w in zip(got, want)]
+        res = dict(case=name, M=M, map="{}x{}".format(*hw),
+                   window=list(win), bins=[bl, ba], alpha_dyn=alpha,
+                   unnormalized=unnorm, m_offset=m_off,
+                   entries_differing=differ,
+                   max_abs_err=max(float((g.to(torch.int64)
+                                          - w.to(torch.int64)).abs().max())
+                                   for g, w in zip(got, want)),
+                   fill_decodes=int((got[2] == -128).sum()
+                                    + (got[3] == -128).sum()))
+        print(json.dumps(res), flush=True)
+        check(all(g.dtype == w.dtype and g.shape == w.shape
+                  for g, w in zip(got, want)) and not any(differ),
+              "map_sample {}: {} entries differ from the plain version"
+              .format(name, differ))
+        check(not unnorm or alpha != 1.0 or res["fill_decodes"] > 0,
+              "map_sample {}: no draw past the last bin".format(name))
+        sample_results.append(res)
+        if name == "main_path_250x250_22bins":
+            sample_timed_args = (args, kw, M, win[2], win[3], bl, ba)
+        del args, got, want
+    check_known_uniforms(torch, dev, sampler)
+
+    # The crop kernel against its plain version: every plane, the offset
+    # and the shifted limits bit for bit, at the big-map world's shape
+    # (its padded origin at 0, and at -res where a TDM's limits start at
+    # 0) and at a small ragged one, for robots at every cell edge of a
+    # row, a float32 ulp either side of it, and off the map.
+    crop_results = []
+    crop_timed_args = None
+    for seed, (name, H, W, rH, rW, bl, ba, res, lim0) in enumerate([
+            ("main_path_85x85_of_250x250", 250, 250, 85, 85, 12, 12,
+             BIGMAP_RES, 0.0),
+            ("origin_minus_res_85x85", 250, 250, 85, 85, 12, 12, BIGMAP_RES,
+             -BIGMAP_RES),
+            ("ragged_13x11_of_64x48", 64, 48, 13, 11, 6, 22, 0.3, -1.3)],
+            start=750):
+        res_crop = check_crop_kernel(torch, dev, cropper, cplain, name, H, W,
+                                     rH, rW, bl, ba, res, lim0, seed)
+        crop_results.append(res_crop)
+        if name == "main_path_85x85_of_250x250":
+            crop_timed_args = res_crop.pop("timed_args")
+        res_crop.pop("timed_args", None)
+
     small_solve_witness(torch, dev, plain)
 
     # -- phase 3: the main paths ------------------------------------------------
     planner_runs = {}
-    totals = {"rollout_byte": 0, "rollout_binned": 0, "gather_probe": 0}
+    totals = {"rollout_byte": 0, "rollout_binned": 0, "map_sample": 0,
+              "roi_window": 0, "gather_probe": 0}
     for world, (_, want_backend) in WORLDS.items():
         torch.cuda.reset_peak_memory_stats()
         set_counts(0)
@@ -683,7 +865,11 @@ def main():
             world, backend, expect))
         used = "rollout_byte" if backend == "byte" else "rollout_binned"
         other = "rollout_binned" if used == "rollout_byte" else "rollout_byte"
+        crops = run["solves"] if run["static"].roi_shape else 0
         check(launches[used] == run["solves"] * run["num_opt"]
+              and launches["map_sample"]
+              == run["solves"] + run["sample_grids_calls"]
+              and launches["roi_window"] == crops
               and launches[other] == launches["gather_probe"] == 0,
               "{}: launches {} for {} solves on {}".format(
                   world, launches, run["solves"], backend))
@@ -703,11 +889,44 @@ def main():
         print(json.dumps(dict(world=world, goal_dist_start=run["dist0"],
                               goal_dist_end=run["dist_end"],
                               model=run["static"].model,
-                              state_rollout_shape=run["vis_shape"])))
+                              roi_shape=run["static"].roi_shape,
+                              state_rollout_shape=run["vis_shape"],
+                              **run.get("trial", {}))))
         if world not in TIMED_WORLDS:
             del run["planner"]
     a = planner_runs["flagship_11x11"]
     check(a["dist_end"] < a["dist0"], "flagship: goal distance did not shrink")
+
+    # The big-map world cropped against uncropped, the same seed, its padded
+    # origin at 0: the same controls bit for bit, the cropped grids the
+    # window of the uncropped.
+    set_counts(0)
+    roi_check = bigmap_crop_equals_full(torch, CROP_CHECK_SOLVES)
+    launches = read_counts()
+    check(launches["map_sample"] == launches["rollout_binned"]
+          == 2 * CROP_CHECK_SOLVES
+          and launches["roi_window"] == CROP_CHECK_SOLVES
+          and launches["rollout_byte"] == launches["gather_probe"] == 0,
+          "big map cropped vs uncropped: launches {}".format(launches))
+    for k in totals:
+        totals[k] += launches[k]
+    print(json.dumps(dict(roi_check, kernel_launches=launches)), flush=True)
+
+    # The same at the padded origin -res, the layout of a TDM whose limits
+    # start at 0: the grids and the offsets exact, the controls within the
+    # whole-solve tolerance (a rollout on a cell edge in one frame may not
+    # be on it in the other).
+    set_counts(0)
+    roi_check = bigmap_crop_at_default_origin(torch, CROP_CHECK_SOLVES)
+    launches = read_counts()
+    check(launches["map_sample"] == launches["rollout_binned"]
+          == 2 * CROP_CHECK_SOLVES
+          and launches["roi_window"] == CROP_CHECK_SOLVES
+          and launches["rollout_byte"] == launches["gather_probe"] == 0,
+          "big map at origin -res: launches {}".format(launches))
+    for k in totals:
+        totals[k] += launches[k]
+    print(json.dumps(dict(roi_check, kernel_launches=launches)), flush=True)
 
     # The barebone planner: no kernel of its own (plain torch ops).
     set_counts(0)
@@ -729,7 +948,8 @@ def main():
     probe_runs = gather_probe.run(device=dev)
     launches = read_counts()
     check(launches["gather_probe"] > 0
-          and launches["rollout_byte"] == launches["rollout_binned"] == 0,
+          and launches["rollout_byte"] == launches["rollout_binned"]
+          == launches["map_sample"] == launches["roi_window"] == 0,
           "gather probe: launches {}".format(launches))
     check(all(r["correct"] for r in probe_runs),
           "gather probe: a chain differs from its plain version: {}".format(
@@ -852,6 +1072,43 @@ def main():
          runs=probe_plain_ms, at=PROBE_TIMED_AT)
     del table, idx
 
+    # The map-sampling kernel at world (b)'s shape (M = 1024, the whole
+    # 250x250 map, 22 bins a plane), against its bound and its plain
+    # version.
+    args, kw, M, rH, rW, bl, ba = sample_timed_args
+    sample_runs = time_kernels({"map_sample": lambda: sampler(*args, **kw)},
+                               20)["map_sample"]
+    sample_plain_ms = [time_cuda(lambda: splain(*args, **kw), 2, 1)
+                       for _ in range(2)]
+    sample_bound = map_sample_bound_ms(M, rH, rW, bl, ba)
+    sample_shape = "M{}_{}x{}_bins{}+{}".format(M, rH, rW, bl, ba)
+    emit("map_sample_kernel_ms", min(sample_runs["graph"]), "ms",
+         runs=sample_runs["graph"], eager_runs=sample_runs["eager"],
+         shape=sample_shape, bound_ms=sample_bound[0],
+         bound_by=sample_bound[1])
+    emit("map_sample_plain_ms", min(sample_plain_ms), "ms",
+         runs=sample_plain_ms, shape=sample_shape)
+    del args
+
+    # The crop kernel at the big-map world's shape (an 85x85 window of
+    # 250x250, 12 bins a plane), against its bound and its plain version.
+    maps, task, map_shape, roi_shape = crop_timed_args
+    crop_runs = time_kernels({"roi_window": lambda: cropper(
+        maps, task, map_shape, roi_shape)}, 50)["roi_window"]
+    crop_plain_ms = [time_cuda(lambda: cplain(maps, task, map_shape,
+                                              roi_shape), 20, 3)
+                     for _ in range(2)]
+    crop_bound = roi_window_bound_ms(*roi_shape, maps.lin_pmf.shape[0],
+                                     maps.ang_pmf.shape[0])
+    crop_shape = "{}x{}_of_{}x{}_bins{}+{}".format(
+        *roi_shape, *map_shape, maps.lin_pmf.shape[0], maps.ang_pmf.shape[0])
+    emit("roi_window_kernel_ms", min(crop_runs["graph"]), "ms",
+         runs=crop_runs["graph"], eager_runs=crop_runs["eager"],
+         shape=crop_shape, bound_ms=crop_bound[0], bound_by=crop_bound[1])
+    emit("roi_window_plain_ms", min(crop_plain_ms), "ms", runs=crop_plain_ms,
+         shape=crop_shape)
+    del maps, task
+
     # The planner's visualisation rollouts on the host clock, world (c).
     forest_planner = planner_runs["forest_140x84"]["planner"]
     vis_ms = []
@@ -907,6 +1164,38 @@ def main():
              world=world, solves=n, runs=solve_ms)
         emit("solve_device_time_by_kernel", prof, "us", world=world)
 
+    # The big-map world cropped against uncropped, in turns (cropped,
+    # uncropped, uncropped, cropped): chained solves and device busy time.
+    # The planner's solve() on the host clock, the same turns, from a
+    # cropped planner and an uncropped one of the same world.
+    run = planner_runs[BIGMAP]
+    bigmap_chains = {
+        "cropped": _solve_chain(run, torch),
+        "uncropped": _solve_chain(dict(run, static=dataclasses.replace(
+            run["static"], roi_shape=None)), torch)}
+    bigmap_planners = {"cropped": run["planner"],
+                       "uncropped": setup_world(BIGMAP, crop=False)[0]}
+    bigmap_ms = {name: [] for name in bigmap_chains}
+    bigmap_enqueue = {name: [] for name in bigmap_chains}
+    bigmap_solve_ms = {name: [] for name in bigmap_chains}
+    for name in ["cropped", "uncropped", "uncropped", "cropped"] * 2:
+        bigmap_chains[name](2)
+        ms, enq = time_chain(bigmap_chains[name], 20, torch)
+        bigmap_ms[name].append(ms)
+        bigmap_enqueue[name].append(enq)
+        bigmap_solve_ms[name].append(
+            time_planner_solves(bigmap_planners[name], 20))
+    for name, chain in bigmap_chains.items():
+        prof = profile_solves(chain, torch)
+        emit("bigmap_chained_solve_ms", float(np.median(bigmap_ms[name])),
+             "ms", world=BIGMAP, crop=name, runs=bigmap_ms[name], solves=20,
+             host_enqueue_ms=bigmap_enqueue[name],
+             device_busy_ms=prof["device_busy_us_per_solve"] / 1e3,
+             top_us_per_solve=prof["top_us_per_solve"])
+        emit("bigmap_planner_solve_host_ms", float(np.median(
+            bigmap_solve_ms[name])), "ms", world=BIGMAP, crop=name,
+            runs=bigmap_solve_ms[name], solves=20)
+
     flag = case_results[0]
     forest = binned_timed["forest_140x84"]
     nib = binned_results[0]
@@ -953,6 +1242,34 @@ def main():
         "bicycle_ms_forest": bicycle_timed["rollout_binned"]["ms"],
         "bicycle_bound_ms_forest": bicycle_timed["rollout_binned"]["bound"][0],
     }, {
+        "name": "map_sample",
+        "route": "cuda",
+        "source": map_sample.KERNEL_SOURCE,
+        "replaces": map_sample.REPLACES,
+        "launches": totals["map_sample"],
+        "max_abs_err": max(r["max_abs_err"] for r in sample_results),
+        "ms": min(sample_runs["graph"]),
+        "plain_ms": min(sample_plain_ms),
+        "bound_ms": sample_bound[0],
+        "bound_by": sample_bound[1],
+        "library_ms": None,
+        "timed_at": "external_250x250: " + sample_shape,
+        "cases": len(sample_results),
+    }, {
+        "name": "roi_window",
+        "route": "cuda",
+        "source": roi_window.KERNEL_SOURCE,
+        "replaces": roi_window.REPLACES,
+        "launches": totals["roi_window"],
+        "max_abs_err": max(r["max_abs_err"] for r in crop_results),
+        "ms": min(crop_runs["graph"]),
+        "plain_ms": min(crop_plain_ms),
+        "bound_ms": crop_bound[0],
+        "bound_by": crop_bound[1],
+        "library_ms": None,
+        "timed_at": BIGMAP + ": " + crop_shape,
+        "cases": sum(r["positions"] for r in crop_results),
+    }, {
         "name": "gather_probe",
         "route": "cuda",
         "source": gather_probe.KERNEL_SOURCE,
@@ -973,6 +1290,112 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def make_sample_case(torch, dev, M, hw, window, B_lin, B_ang, alpha_dyn,
+                     unnormalized, m_offset, seed):
+    """Arguments of one map-sampling call: the (B, rH, rW) windows at
+    ``window = (oy, ox, rH, rW)`` of random PMFs on an ``hw`` map, with
+    columns summing below 100 inside the window where ``unnormalized``;
+    rows ``[m_offset, m_offset + M)`` of the draw.  ``(args, kw)``."""
+    rng = np.random.RandomState(seed)
+    oy, ox, rH, rW = window
+    t = lambda a: torch.tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
+
+    def pmf(B):
+        raw = rng.randint(0, 100, size=(B, *hw)).astype(float)
+        raw[0] += 1.0
+        p = (raw / raw.sum(0) * 100).astype(np.int8)
+        p[-1] = 100 - p[:-1].sum(0)
+        p = p[:, oy:oy + rH, ox:ox + rW]
+        if unnormalized:
+            p[:, :3, :7] = 0
+            p[0, :3, :7] = rng.randint(0, 100, (3, 7))
+        return t(p)
+
+    def qbins(B):
+        return t(np.sort(rng.choice(101, B, replace=False)).astype(np.int8))
+
+    key = t(rng.randint(0, 2 ** 32, size=2, dtype=np.uint64).astype(np.int64))
+    args = (key, pmf(B_lin), pmf(B_ang), qbins(B_lin), qbins(B_ang),
+            torch.tensor(alpha_dyn, dtype=torch.float32, device=dev), M)
+    kw = dict(window=(hw, torch.tensor(oy, dtype=torch.int32, device=dev),
+                      torch.tensor(ox, dtype=torch.int32, device=dev)),
+              m_offset=m_offset,
+              full_num_samples=M + m_offset if m_offset else None)
+    return args, kw
+
+
+def check_known_uniforms(torch, dev, sampler):
+    """``KNOWN_UNIFORMS`` on the card: the plain draw's bits, and the
+    kernel's rank over 100 bins of 1% each, ``ceil(100 u) - 1``."""
+    from mppi_numba_tpu_torch.ops.sampling import uniform_window
+
+    M, H, W = KNOWN_UNIFORMS_SHAPE
+    pmf = torch.ones((100, H, W), dtype=torch.int8, device=dev)
+    q = torch.arange(100, dtype=torch.int8, device=dev)
+    checked = 0
+    for words, points in KNOWN_UNIFORMS:
+        key = torch.tensor(words, dtype=torch.int64, device=dev)
+        u = uniform_window(key, M, (H, W), 0, 0, (H, W)).reshape(M, H, W)
+        bins = sampler(key, pmf, pmf, q, q,
+                       torch.tensor(1.0, device=dev), M)[0]
+        for (m, y, x), bits, rank in points:
+            got = (int(u[m, y, x].view(torch.int32)), int(bins[m, y, x]))
+            check(got == (bits, rank), "known answer at key {} {}: got "
+                  "{}, expected {}".format(words, (m, y, x), got,
+                                           (bits, rank)))
+            checked += 1
+    print(json.dumps(dict(check="map_sample_known_answers",
+                          values=checked)), flush=True)
+
+
+def check_crop_kernel(torch, dev, cropper, cplain, name, H, W, rH, rW,
+                      B_lin, B_ang, res, lim0, seed):
+    """The crop kernel against its plain version on random int8 planes of
+    an (H, W) map whose padded origin is ``lim0`` on both axes, the robot
+    at every cell edge of a row, a float32 ulp either side of each, and off
+    the map on every side.  Returns the case's record, with
+    the first position's arguments under ``timed_args``."""
+    from mppi_numba_tpu_torch.types import MapInputs, TerrainTask
+
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    plane = lambda *shape: t(rng.randint(-128, 128, shape)  # noqa: E731
+                             .astype(np.int8))
+    maps = MapInputs(plane(B_lin, H, W), plane(B_ang, H, W), plane(B_lin),
+                     plane(B_ang), plane(H, W), plane(H, W), plane(H, W))
+    f32 = np.float32
+    task = TerrainTask(*[t(f32(0.0))] * 20)._replace(
+        res=t(f32(res)), xlim0=t(f32(lim0)), ylim0=t(f32(lim0)))
+    edges = (lim0 + res * np.arange(-2, W + 2)).astype(f32)
+    xs = np.concatenate([edges, np.nextafter(edges, f32(-np.inf)),
+                         np.nextafter(edges, f32(np.inf)),
+                         f32([-1e4, 1e4])])
+    differ, err, offsets, timed = 0, 0.0, set(), None
+    for x in xs:
+        pos = task._replace(x0=t(np.array([x, rng.choice(xs), 0.0], f32)))
+        got = cropper(maps, pos, (H, W), (rH, rW))
+        want = cplain(maps, pos, (H, W), (rH, rW))
+        pairs = ([(getattr(got[0], f), getattr(want[0], f))
+                  for f in maps._fields]
+                 + [(got[1].xlim0, want[1].xlim0),
+                    (got[1].ylim0, want[1].ylim0), (got[2], want[2])])
+        differ += sum(int((g.reshape(-1) != w.reshape(-1)).sum())
+                      for g, w in pairs)
+        err = max([err] + [float((g.double() - w.double()).abs().max())
+                           for g, w in pairs])
+        offsets.add(tuple(want[2].tolist()))
+        timed = timed or (maps, pos, (H, W), (rH, rW))
+    res_crop = dict(case="roi_window_" + name, map="{}x{}".format(H, W),
+                    window=[rH, rW], bins=[B_lin, B_ang], res=res,
+                    padded_origin=lim0, positions=len(xs),
+                    distinct_offsets=len(offsets), entries_differing=differ,
+                    max_abs_err=err)
+    print(json.dumps(res_crop), flush=True)
+    check(differ == 0, "roi_window {}: {} entries differ from the plain "
+          "version".format(name, differ))
+    return dict(res_crop, timed_args=timed)
 
 
 def small_solve_witness(torch, dev, plain):
@@ -1179,11 +1602,15 @@ def semantic_grid(grid_shape, mud_margin, grass_density, rng):
     return sg
 
 
-def setup_world(world):
+def setup_world(world, crop=True, padded_origin=0.0):
     """A planner set up on ``world`` through the public entry points, and
     the ground truth its closed loop runs on: ``(planner, truth, goal)``
-    where ``truth(x, y) -> (lin, ang)`` tractions."""
+    where ``truth(x, y) -> (lin, ang)`` tractions (for the big-map world a
+    ``TractionGrid``, whose ``get`` is that).  ``crop=False`` turns the
+    reachable-window crop off, as ``tests/test_roi.py`` does;
+    ``padded_origin`` places the big map's padded lower limits."""
     from mppi_numba_tpu_torch import Config, MPPIPlanner, TDM
+    from mppi_numba_tpu_torch.terrain import sample_realization_from_pmf_grid
 
     mode = WORLDS[world][0]
     model = "bicycle" if world.endswith("_bicycle") else "unicycle"
@@ -1234,6 +1661,34 @@ def setup_world(world):
             external_pmf(B, rows, rows), np.linspace(0.0, 1.0, B), 0.25,
             obstacle, unknown)
         x0, goal = np.array([5.0, 5.0, 0.785]), np.array([50.0, 50.0])
+    elif world == BIGMAP:
+        rows = 248                               # padded to 250 x 250
+        pmf = random_pmf(np.random.RandomState(0), BIGMAP_BINS, rows, rows)
+        bin_values = np.linspace(0.0, 1.0, BIGMAP_BINS)
+        res = BIGMAP_RES
+        # The padded map's origin at 0 by default, as
+        # scripts/bigmap_bench.py's task has it: a rollout's x - xlim0 is
+        # then exact in the full map's frame and in the window's (a
+        # multiple of res less), so the two solves see the same cells and
+        # the crop is exact.  At -res (limits from 0) it need not be.
+        lim = (padded_origin + res, padded_origin + res + rows * res)
+        lin.set_TDM_from_PMF_grid(pmf, dict(
+            res=res, xlimits=lim, ylimits=lim, bin_values=bin_values,
+            bin_values_bounds=np.array([0.0, 1.0]),
+            det_dynamics_cvar_alpha=1.0))
+        ang.set_TDM_from_PMF_grid(pmf, dict(
+            res=res, xlimits=lim, ylimits=lim, bin_values=bin_values,
+            bin_values_bounds=np.array([0.0, 1.0]),
+            det_dynamics_cvar_alpha=1.0))
+        params["vrange"] = np.array([0.0, BIGMAP_VMAX])
+        mid = (lim[0] + lim[1]) / 2
+        # The map's centre, 5 cm short of a cell edge on each axis, so that
+        # the window moves within the first solves.
+        x0 = np.array([mid + 0.45, mid + 0.45, 0.785])
+        goal = np.array([lim[1] - 2.0, lim[1] - 2.0])
+        truth = sample_realization_from_pmf_grid(
+            pmf, pmf, bin_values, np.random.RandomState(1), res=res,
+            xlimits=lim, ylimits=lim)
     elif world.startswith("forest"):
         pmf, obstacle, unknown = forest_maps()
         mean_lin, mean_ang, res = pmf_world(
@@ -1276,7 +1731,11 @@ def setup_world(world):
 
     params.update(x0=x0, xgoal=goal)
     planner = MPPIPlanner(cfg, device="cuda")
+    if not crop:
+        planner._roi_shape = lambda hw: None
     planner.setup(params, lin, ang)
+    if world == BIGMAP:
+        return planner, truth, goal
     rows, cols = mean_lin.shape
 
     def truth(x, y):
@@ -1289,7 +1748,7 @@ def setup_world(world):
 
 def run_planner(world):
     """``SOLVES`` closed-loop solves of ``world`` through the planner's
-    public entry points."""
+    public entry points (the big-map world's through ``sim.trial``)."""
     planner, truth, goal = setup_world(world)
     static = planner._static()
     bicycle = static.model == "bicycle"
@@ -1299,7 +1758,13 @@ def run_planner(world):
     dist0 = float(np.hypot(*(goal - x[:2])))
     dt = planner.dt
     times = []
-    for _ in range(SOLVES):
+    trial_info = {}
+    sample_grids_calls = 0
+    if world == BIGMAP:
+        x, trial_info = run_bigmap_trial(planner, truth, times)
+        check_sample_grids(planner.lin_tdm)
+        sample_grids_calls = 1
+    for _ in range(SOLVES if world != BIGMAP else 0):
         t0 = time.perf_counter()
         u = planner.solve()
         times.append((time.perf_counter() - t0) * 1e3)
@@ -1321,7 +1786,190 @@ def run_planner(world):
                 map="{}x{}".format(*static.map_shape),
                 fast_trig=static.fast_trig, dist0=dist0,
                 dist_end=float(np.hypot(*(goal - x[:2]))),
-                planner=planner, static=static)
+                planner=planner, static=static, trial=trial_info,
+                sample_grids_calls=sample_grids_calls)
+
+
+def check_sample_grids(tdm):
+    """``TDM.sample_grids`` on the card: one map draw through the sampling
+    kernel under the key the TDM's own generator gives, equal bit for bit
+    to the plain version under the same key."""
+    import torch
+    from mppi_numba_tpu_torch.ops.kernels.map_sample import (
+        sample_traction_window_plain)
+    from mppi_numba_tpu_torch.ops.sampling import draw_map_key
+
+    g = torch.Generator(device=tdm.device)
+    g.set_state(tdm._generator.get_state())
+    grids = tdm.sample_grids(alpha_dyn=0.5)
+    want = sample_traction_window_plain(
+        draw_map_key(g, tdm.device), tdm.pmf_grid_device, None,
+        tdm.qbin_values, None, torch.tensor(0.5, device=tdm.device),
+        tdm.batch_size)[2]
+    check(grids.shape == want.shape and torch.equal(grids, want),
+          "TDM.sample_grids differs from the plain draw")
+    print(json.dumps(dict(check="tdm_sample_grids", shape=list(grids.shape),
+                          bitwise=True)), flush=True)
+
+
+class _TimedPlanner:
+    """A planner seen by ``sim.trial``: each ``solve()`` timed on the host
+    clock and its window's offset kept."""
+
+    def __init__(self, planner, times):
+        self.planner, self.times, self.offsets = planner, times, []
+
+    def solve(self):
+        t0 = time.perf_counter()
+        u = self.planner.solve()
+        self.times.append((time.perf_counter() - t0) * 1e3)
+        self.offsets.append(tuple(self.planner._last_aux.roi_offset.tolist()))
+        return u
+
+    def shift_and_update(self, new_x0, u_cur, num_shifts=1):
+        self.planner.shift_and_update(new_x0, u_cur, num_shifts=num_shifts)
+
+
+def run_bigmap_trial(planner, grid, times):
+    """The big-map world's ``SOLVES`` closed-loop solves through
+    ``sim.trial`` on its ``TractionGrid``.  Checks the window: (85, 85),
+    its offset at each solve the robot's cell (float32, as the solver
+    computes it) less half the window, clamped in the map, and moving.
+    Returns the last state and the trial's figures."""
+    from mppi_numba_tpu_torch import sim
+
+    static = planner._static()
+    check(static.roi_shape == BIGMAP_ROI, "big map: window {}, expected {}"
+          .format(static.roi_shape, BIGMAP_ROI))
+    timed = _TimedPlanner(planner, times)
+    out = sim.trial(timed, grid, planner.dt, SOLVES, planner.params,
+                    return_history=True)
+    xhist = out["xhist"]
+    check(len(times) == SOLVES and xhist.shape == (SOLVES + 1, 3)
+          and np.isfinite(xhist).all() and np.isfinite(out["cum_obj"]),
+          "big map: trial ran {} solves, states finite {}".format(
+              len(times), bool(np.isfinite(xhist).all())))
+    for t, off in enumerate(timed.offsets):
+        want = robot_window(planner, static, xhist[t])
+        check(off == want, "big map: solve {} window at {}, robot's "
+              "window {}".format(t, off, want))
+    check(len(set(timed.offsets)) > 1,
+          "big map: the window did not move: {}".format(timed.offsets[0]))
+    return xhist[-1], dict(
+        trial_success=bool(out["success"]),
+        trial_cum_obj=float(out["cum_obj"]),
+        roi_offset_first=list(timed.offsets[0]),
+        roi_offset_last=list(timed.offsets[-1]),
+        roi_offsets_distinct=len(set(timed.offsets)))
+
+
+def robot_window(planner, static, x):
+    """The window's start for a robot at ``x``, recomputed on the host in
+    float32 as the solver computes it: the robot's cell less half the
+    window, clamped in the map."""
+    f32 = np.float32
+    H, W = static.map_shape
+    rH, rW = static.roi_shape
+    lim = (f32(planner.lin_tdm.padded_xlimits[0]),
+           f32(planner.lin_tdm.padded_ylimits[0]))
+    cx, cy = (int(np.floor((f32(x[i]) - lim[i]) / f32(planner.lin_tdm.res)))
+              for i in (0, 1))
+    return (int(np.clip(np.clip(cy, 0, H - 1) - rH // 2, 0, H - rH)),
+            int(np.clip(np.clip(cx, 0, W - 1) - rW // 2, 0, W - rW)))
+
+
+def bigmap_crop_at_default_origin(torch, n):
+    """The big-map world with its padded origin at -res, cropped and
+    uncropped, the same seed, ``n`` closed-loop solves, both planners fed
+    the same state and the same nominal controls before each solve: the
+    cropped grids the window of the uncropped ones and the window at the
+    robot's, exactly; the controls within the whole-solve tolerance (rtol
+    2e-4, atol 2e-5).  Reports how many final costs and controls differ."""
+    from mppi_numba_tpu_torch.sim import simulate_step
+
+    origin = -BIGMAP_RES
+    p_roi, grid, _ = setup_world(BIGMAP, padded_origin=origin)
+    p_full, _, _ = setup_world(BIGMAP, crop=False, padded_origin=origin)
+    s_roi = p_roi._static()
+    check(s_roi.roi_shape == BIGMAP_ROI and p_full._static().roi_shape is None
+          and p_roi.lin_tdm.padded_xlimits[0] == origin,
+          "big map at origin {}: window {}, limits {}".format(
+              origin, s_roi.roi_shape, p_roi.lin_tdm.padded_xlimits))
+    rH, rW = s_roi.roi_shape
+    x = np.asarray(p_roi.params["x0"], dtype=float).copy()
+    offsets, du, costs_differing, u_differing = [], 0.0, 0, 0
+    for _ in range(n):
+        u_roi, u_full = p_roi.solve(), p_full.solve()
+        oy, ox = p_roi._last_aux.roi_offset.tolist()
+        check((oy, ox) == robot_window(p_roi, s_roi, x),
+              "big map at origin {}: window at {}, robot's {}".format(
+                  origin, (oy, ox), robot_window(p_roi, s_roi, x)))
+        offsets.append([oy, ox])
+        for name in ("lin_grids", "ang_grids"):
+            check(torch.equal(getattr(p_roi._last_aux, name),
+                              getattr(p_full._last_aux, name)[
+                                  :, oy:oy + rH, ox:ox + rW]),
+                  "big map at origin {}: cropped {} differ from the window "
+                  "of the uncropped".format(origin, name))
+        du = max(du, float(np.abs(u_roi - u_full).max()))
+        u_differing += int((u_roi != u_full).sum())
+        costs_differing += int((p_roi._last_aux.costs
+                                != p_full._last_aux.costs).sum())
+        check(np.allclose(u_roi, u_full, rtol=2e-4, atol=2e-5),
+              "big map at origin {}: cropped controls differ from uncropped "
+              "by {}".format(origin, du))
+        x = simulate_step(x, u_roi[0], *grid.get(x[0], x[1]), p_roi.dt)
+        p_roi.shift_and_update(x, u_roi)
+        p_full.shift_and_update(x, u_roi)
+    check(len({tuple(o) for o in offsets}) > 1,
+          "big map at origin {}: the window did not move".format(origin))
+    return dict(check="bigmap_crop_at_origin_minus_res", solves=n,
+                padded_origin=origin, roi_shape=[rH, rW], offsets=offsets,
+                grids_bitwise=True, offsets_exact=True, u_max_abs_diff=du,
+                u_entries_differing=u_differing,
+                final_costs_differing=costs_differing)
+
+
+def bigmap_crop_equals_full(torch, n):
+    """The big-map world cropped and uncropped, the same seed, ``n``
+    closed-loop solves over which the window moves: the same controls bit
+    for bit, and the cropped lin and ang grids the window of the
+    uncropped ones."""
+    from mppi_numba_tpu_torch.sim import simulate_step
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+
+    p_roi, grid, _ = setup_world(BIGMAP)
+    p_full, _, _ = setup_world(BIGMAP, crop=False)
+    s_roi, s_full = p_roi._static(), p_full._static()
+    check(s_roi.roi_shape == BIGMAP_ROI and s_full.roi_shape is None,
+          "big map: windows {} / {}".format(s_roi.roi_shape,
+                                            s_full.roi_shape))
+    rH, rW = s_roi.roi_shape
+    x = np.asarray(p_roi.params["x0"], dtype=float).copy()
+    offsets = []
+    for _ in range(n):
+        u_roi, u_full = p_roi.solve(), p_full.solve()
+        check(np.array_equal(u_roi, u_full), "big map: cropped controls "
+              "differ from uncropped by {}".format(
+                  float(np.abs(u_roi - u_full).max())))
+        oy, ox = p_roi._last_aux.roi_offset.tolist()
+        offsets.append([oy, ox])
+        for name in ("lin_grids", "ang_grids"):
+            check(torch.equal(getattr(p_roi._last_aux, name),
+                              getattr(p_full._last_aux, name)[
+                                  :, oy:oy + rH, ox:ox + rW]),
+                  "big map: cropped {} differ from the window of the "
+                  "uncropped".format(name))
+        x = simulate_step(x, u_roi[0], *grid.get(x[0], x[1]), p_roi.dt)
+        p_roi.shift_and_update(x, u_roi)
+        p_full.shift_and_update(x, u_full)
+    check(len({tuple(o) for o in offsets}) > 1,
+          "big map: the window did not move in the crop check")
+    return dict(check="bigmap_crop_equals_full", solves=n,
+                roi_shape=list(s_roi.roi_shape), offsets=offsets,
+                backend_cropped=get_terrain_solver(s_roi, "cuda").backend,
+                backend_uncropped=get_terrain_solver(s_full, "cuda").backend,
+                controls_bitwise=True, grids_bitwise=True)
 
 
 def check_state_rollout(world, planner, x):

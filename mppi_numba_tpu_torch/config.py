@@ -145,8 +145,13 @@ class SolverStatic:
     # the planner enables it when dt * max|wrange| * max_ang_traction <= 0.6.
     fast_trig: bool = False
     model: str = "unicycle"
-    # Reachable-window crop; always None in this port (the crop is a pure
-    # optimisation of the JAX package that changes no result).
+    # Reachable-window crop: the (rH, rW) window around x0 that the solve
+    # samples, packs and rolls out on (MPPIPlanner._roi_shape); None: the
+    # whole map.  The maps are drawn at global cell counters, so the
+    # window's grids are those of the whole map's; the solve equals the
+    # uncropped one where every rollout's x - xlim0 rounds to the same
+    # cell in both frames (always with the padded origin at 0; elsewhere a
+    # rollout on a cell edge may differ, and u with it by ~1e-6).
     roi_shape: Tuple[int, int] | None = None
     # Number of PMF bins of the TDMs this solver serves (support-compacted).
     num_pmf_bins: int = 0

@@ -1,10 +1,11 @@
 """Stateful MPPI planner over the functional core, on one device.
 
 Same lifecycle as ``mppi_numba_tpu.mppi.MPPIPlanner``: ``reset /
-setup(params, lin_tdm, ang_tdm) / solve / shift_and_update``, the same
-params-dict keys and the same solve-condition guards.  Randomness comes
-from a ``torch.Generator`` on the planner's device, seeded from
-``cfg.seed``.
+setup(params, lin_tdm, ang_tdm) / solve / get_state_rollout /
+shift_and_update``, the same params-dict keys, the same solve-condition
+guards and the same reachable-window crop.  Randomness comes from a
+``torch.Generator`` on the planner's device, seeded from ``cfg.seed``:
+each solve draws its map key and its noise from it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from .config import Config, SolverStatic
+from .models import has_displacement_bound
 from .ops.costs import (DEFAULT_DIST_WEIGHT, DEFAULT_OBS_COST,
                         DEFAULT_UNKNOWN_COST)
 from .solver import DYNAMIC_CVAR, get_terrain_solver, get_terrain_vis
@@ -179,9 +181,34 @@ class MPPIPlanner:
         )
 
     def _roi_shape(self, padded_hw):
-        """No reachable-window crop in this slice of the port: the crop is
-        a pure optimisation of the JAX package that changes no result."""
-        return None
+        """The reachable window's static size, or None when cropping buys
+        nothing.
+
+        A rollout moves at most ``max|vrange| * traction_ub * num_steps *
+        dt`` metres from x0 (a step's displacement is ``dt * lin_traction *
+        v``), so a window of that radius plus a margin, re-centred on x0
+        every solve, holds every cell a rollout can reach: sampling, packing
+        and the rollout's reads shrink from the padded map to it.  Cropped
+        when the window is under 3/4 of the map, as in the JAX package.  A
+        model without that displacement bound is never cropped.  The cropped
+        solve draws the same maps as the uncropped one; its costs are the
+        same where every rollout's ``x - xlim0`` rounds to the same cell in
+        the map's frame and the window's, which holds with the padded
+        origin at 0 and may fail for a rollout on a cell edge elsewhere.
+        """
+        if not has_displacement_bound(getattr(self.cfg, "model", "unicycle")):
+            return None
+        H, W = padded_hw
+        p = self.params
+        vmax = float(np.max(np.abs(p["vrange"])))
+        tr_ub = max(1.0, float(self.lin_tdm.bin_values_bounds[1]))
+        reach_m = vmax * tr_ub * self.num_steps * float(p["dt"])
+        cells = int(math.ceil(reach_m / float(self.lin_tdm.res))) + 2
+        r = 2 * cells + 1
+        rH, rW = min(H, r), min(W, r)
+        if rH * rW * 4 >= H * W * 3:
+            return None
+        return (rH, rW)
 
     def _compact_planes(self):
         """PMF bin planes with globally-zero-mass rows dropped, memoized.
@@ -315,6 +342,14 @@ class MPPIPlanner:
                                   num_shifts)
         self._last_useq_np = None
 
+    def shift_optimal_control_sequence(self, u_cur, num_shifts=1):
+        """Set the nominal controls to the host array ``u_cur`` shifted by
+        ``num_shifts`` steps (its last entries kept), uploaded."""
+        u_cur_shifted = np.asarray(u_cur).copy()
+        u_cur_shifted[:-num_shifts] = u_cur_shifted[num_shifts:]
+        self.u_cur = torch.tensor(u_cur_shifted.astype(np.float32),
+                                  device=self.device)
+
     # -- visualization ------------------------------------------------------------
 
     def get_state_rollout(self):
@@ -333,7 +368,7 @@ class MPPIPlanner:
         aux = self._last_aux
         states = get_terrain_vis(self._last_static)(
             self._map_inputs(), self._task_device, self.u_cur, self.u_prev,
-            aux.noise_vis, aux.lin_grids, aux.ang_grids)
+            aux.noise_vis, aux.lin_grids, aux.ang_grids, aux.roi_offset)
         return states.cpu().numpy()
 
 

@@ -1,18 +1,21 @@
 """Functional solver core: one terrain solve (tdm, det_dyn or speed_map),
 the visualisation rollouts, and the barebone (terrain-free) solve.
 
-One solve runs, on the device that holds the inputs: sample the lin/ang
-PMF bins from one shared draw of uniforms, decode them, pack the backend's
-map payload, then per optimisation iteration draw the noise, roll out
-(K, M) costs (a CUDA kernel on the card), take the CVaR over M, add the
+One solve runs, on the device that holds the inputs: crop the maps to the
+reachable window around x0 when ``SolverStatic.roi_shape`` is set, sample
+the lin/ang PMF bins and their decoded values from one counter-addressed
+draw of uniforms (a CUDA kernel on the card), pack the backend's map
+payload, then per optimisation iteration draw the noise, roll out (K, M)
+costs (a CUDA kernel on the card), take the CVaR over M, add the
 control-coupling term and apply the softmax update.  The det_dyn and
 speed_map modes (costmap shares speed_map) solve over M = 1 map with a
 collapsed PMF; speed_map adds the risk plane to the stage time cost.
 
-The draws come from a ``torch.Generator``; ``TerrainSolver.solve_from_draws``
-(and ``BareboneSolver.solve_from_draws``) is the rest of the solve as a
-pure function of the draws, so tests can feed it the JAX package's own
-numbers.
+The draws come from a ``torch.Generator``: the map key and the noise.
+``TerrainSolver.solve_from_key`` is the rest of the solve as a pure function
+of the draws, and ``solve_from_draws`` the same after the map's uniforms
+(as does ``BareboneSolver.solve_from_draws``), so tests can feed either the
+JAX package's own numbers.
 """
 
 from __future__ import annotations
@@ -24,15 +27,18 @@ import torch
 from .config import SolverStatic
 from .models import clip_controls, get_step_fn
 from .ops.cvar import cvar_from_costs, cvar_from_costs_dynamic
+from .ops.kernels.map_sample import sample_traction_window
+from .ops.kernels.roi_window import crop_window
 from .ops.kernels.rollout_binned import (MAX_BINS, build_bin_luts,
                                          terrain_rollout_costs_binned)
 from .ops.kernels.rollout_byte import build_task_vec, terrain_rollout_costs_byte
 from .ops.packing import (pack_bin_crumbs, pack_bin_nibbles, pack_byte_pairs,
                           pack_map_words, pack_mask_nibbles, pack_risk_bytes)
+from .ops.roi import crop_maps, shift_task_limits
 from .ops.rollout import (_clipped_controls_tk, barebone_rollout_costs,
                           barebone_vis_states, control_coupling,
                           terrain_rollout_costs, terrain_vis_states)
-from .ops.sampling import (decode_bins, draw_map_uniforms,
+from .ops.sampling import (decode_bins, draw_map_key,
                            traction_bins_from_uniforms)
 from .ops.update import update_useq
 from .types import SolveAux
@@ -47,12 +53,18 @@ CELL_BITS = {"binned2": 2, "binned": 4, "binned8": 8}
 BACKENDS = ("auto", "eager", "byte", *CELL_BITS, "cuda")
 
 
+def solver_map_shape(static: SolverStatic):
+    """The (H, W) the rollout sees: the reachable window when cropping."""
+    return static.roi_shape if static.roi_shape else static.map_shape
+
+
 def resolve_backend(static: SolverStatic, device) -> str:
     """The rollout layout for a static signature on ``device``.
 
     'auto' is 'eager' on the CPU (exact trig, the JAX package's off-TPU
     semantics).  On a CUDA device it follows the JAX package's layout
-    order without its VMEM tests: H*W <= 512 -> 'byte'; else <= 4 bins ->
+    order without its VMEM tests, on the solver's map shape (the window
+    when cropping): H*W <= 512 -> 'byte'; else <= 4 bins ->
     'binned2'; <= 16 bins -> 'binned'; H*W <= 2048 -> 'byte'; else
     'binned8'.  ``static.num_pmf_bins`` is the support-compacted count.
     A kernel backend on CPU tensors runs the wrapper's plain version.
@@ -66,7 +78,7 @@ def resolve_backend(static: SolverStatic, device) -> str:
         return static.backend
     if torch.device(device).type != "cuda":
         return "eager"
-    H, W = static.map_shape
+    H, W = solver_map_shape(static)
     if H * W <= 512:
         return "byte"
     if static.num_pmf_bins <= 4:
@@ -88,7 +100,7 @@ def make_rollout_backend(static: SolverStatic, device):
     * ``rollout(payload, task, u, noise) -> (K, M)`` costs.
     """
     backend = resolve_backend(static, device)
-    H, W = static.map_shape
+    H, W = solver_map_shape(static)
     T = static.num_steps
     speed_map = static.mode == "speed_map"
     step_fn = get_step_fn(static.model)
@@ -141,51 +153,81 @@ class TerrainSolver:
         if static.mode not in ("tdm", "det_dyn", "speed_map"):
             raise ValueError("terrain solver mode {!r}; expected 'tdm', "
                              "'det_dyn' or 'speed_map'".format(static.mode))
-        if static.roi_shape:
-            raise NotImplementedError(
-                "the reachable-window (ROI) crop is a later slice of the port")
         self.static = static
         self.device = torch.device(device)
         self.backend, self._pack, self._rollout = make_rollout_backend(
             static, self.device)
 
     def __call__(self, generator, maps, task, u0):
-        """Draw this solve's random numbers from ``generator`` and solve.
+        """Draw this solve's map key and noise from ``generator`` and solve.
 
         Returns ``(u_new (T, 2), SolveAux)``.
         """
         s = self.static
-        H, W = s.map_shape
-        uniforms = draw_map_uniforms(generator, s.num_grid_samples, H * W,
-                                     self.device)
+        map_key = draw_map_key(generator, self.device)
         eps_list = [torch.randn((s.num_control_rollouts, s.num_steps, 2),
                                 generator=generator, device=self.device,
                                 dtype=torch.float32)
                     for _ in range(s.num_opt)]
-        return self.solve_from_draws(uniforms, eps_list, maps, task, u0)
+        return self.solve_from_key(map_key, eps_list, maps, task, u0)
 
-    def solve_from_draws(self, uniforms, eps_list, maps, task, u0):
-        """The solve after the draws.
+    def _window(self, maps, task):
+        """Crop the maps and shift the task to the reachable window, when
+        cropping (one kernel launch on the card): ``(maps, task, offset)``,
+        ``offset`` the window's int32 ``(oy, ox)``, or None uncropped."""
+        s = self.static
+        if not s.roi_shape:
+            return maps, task, None
+        return crop_window(maps, task, s.map_shape, s.roi_shape)
+
+    def solve_from_key(self, map_key, eps_list, maps, task, u0):
+        """The solve after the draws of the map key and the noise.
 
         Args:
-          uniforms: float32 ``(M, H*W)`` per-cell map uniforms in [0, 1).
+          map_key: int64 ``(2,)`` tensor of the map draw's uint32 key words
+            (JAX's ``jax.random.key_data`` of its map key).
           eps_list: ``num_opt`` float32 ``(K, T, 2)`` standard normal draws
             (scaled by ``task.u_std`` here).
-          maps / task: ``MapInputs`` / ``TerrainTask`` on the device.
+          maps / task: ``MapInputs`` / ``TerrainTask`` on the device, of the
+            full padded map.
           u0: float32 ``(T, 2)`` nominal control sequence.
         """
         s = self.static
-        V = s.num_vis_state_rollouts
+        maps, task, offset = self._window(maps, task)
+        window = (None if offset is None
+                  else (s.map_shape, offset[0], offset[1]))
+        sampled = sample_traction_window(
+            map_key, maps.lin_pmf, maps.ang_pmf, maps.lin_qbins,
+            maps.ang_qbins, task.alpha_dyn, s.num_grid_samples,
+            window=window)
+        return self._solve_sampled(sampled, eps_list, maps, task, u0, offset)
+
+    def solve_from_draws(self, uniforms, eps_list, maps, task, u0):
+        """The solve after the draws of the map's uniforms and the noise.
+
+        ``uniforms``: float32 ``(M, h*w)`` per-cell map uniforms in [0, 1)
+        at the solver's map shape (the reachable window when cropping).
+        The other arguments as for ``solve_from_key``.
+        """
+        maps, task, offset = self._window(maps, task)
         # The lin and ang bins come from the SAME uniforms: the reference
         # seeds both TDM streams identically, so their draws are comonotone.
         lin_bins = traction_bins_from_uniforms(uniforms, maps.lin_pmf,
                                                task.alpha_dyn)
         ang_bins = traction_bins_from_uniforms(uniforms, maps.ang_pmf,
                                                task.alpha_dyn)
+        sampled = (lin_bins, ang_bins, decode_bins(maps.lin_qbins, lin_bins),
+                   decode_bins(maps.ang_qbins, ang_bins))
+        return self._solve_sampled(sampled, eps_list, maps, task, u0, offset)
+
+    def _solve_sampled(self, sampled, eps_list, maps, task, u0, offset):
+        """The solve after the sampled bins and their decoded grids, on the
+        (cropped) maps and task."""
+        s = self.static
+        V = s.num_vis_state_rollouts
+        lin_bins, ang_bins, lin_grids, ang_grids = sampled
         # The decoded grids feed SolveAux (and TDM.sample_grid_batch) on
         # every backend, and the byte / byte-pair payloads.
-        lin_grids = decode_bins(maps.lin_qbins, lin_bins)
-        ang_grids = decode_bins(maps.ang_qbins, ang_bins)
         payload = self._pack(lin_bins, ang_bins, lin_grids, ang_grids, maps,
                              task)
 
@@ -202,10 +244,11 @@ class TerrainSolver:
                                             task.lambda_weight)
             u, weights = update_useq(costs, noise, u, task.lambda_weight,
                                      task.vrange, task.wrange)
+        roi_offset = (torch.zeros(2, dtype=torch.int32, device=self.device)
+                      if offset is None else offset)
         aux = SolveAux(costs=costs, weights=weights, noise_vis=noise[:V],
                        lin_grids=lin_grids, ang_grids=ang_grids,
-                       roi_offset=torch.zeros(2, dtype=torch.int32,
-                                              device=self.device))
+                       roi_offset=roi_offset)
         return u, aux
 
 
@@ -218,7 +261,8 @@ def get_terrain_solver(static: SolverStatic, device="cuda"):
     """The (cached) terrain solve for ``static`` on ``device``.
 
     Returned callable: ``(generator, maps, task, u0) -> (u_new, SolveAux)``,
-    with ``.solve_from_draws(uniforms, eps_list, maps, task, u0)``.
+    with ``.solve_from_key(map_key, eps_list, maps, task, u0)`` and
+    ``.solve_from_draws(uniforms, eps_list, maps, task, u0)``.
     """
     return _cached_solver(static, torch.device(device))
 
@@ -235,20 +279,24 @@ def get_terrain_vis(static: SolverStatic):
     """The visualisation rollouts of the last solve.
 
     Returned callable: ``(maps, task, u_cur, u_prev, noise_vis, lin_grids,
-    ang_grids) -> (V, T+1, 3)`` states.  tdm rolls ``u_cur`` across the
-    first V sampled maps; the det modes roll ``u_cur`` and V-1 noisy,
-    clipped copies of ``u_prev`` on map 0 (the planner aliases ``u_prev``
-    to the solved controls, as the reference does).  The JAX package's
-    ``roi_offset`` argument has no counterpart: the port has no crop.
+    ang_grids, roi_offset=None) -> (V, T+1, 3)`` states.  tdm rolls
+    ``u_cur`` across the first V sampled maps; the det modes roll ``u_cur``
+    and V-1 noisy, clipped copies of ``u_prev`` on map 0 (the planner
+    aliases ``u_prev`` to the solved controls, as the reference does).
+    When the solve cropped, the grids are the window's and ``roi_offset``
+    (the solve's ``SolveAux.roi_offset``) places it: the masks are cropped
+    and the limits shifted to the same window.
     """
-    if static.roi_shape:
-        raise NotImplementedError(
-            "the reachable-window (ROI) crop is a later slice of the port")
     V = static.num_vis_state_rollouts
     det = static.mode in ("det_dyn", "speed_map")
     step_fn = get_step_fn(static.model)
 
-    def vis(maps, task, u_cur, u_prev, noise_vis, lin_grids, ang_grids):
+    def vis(maps, task, u_cur, u_prev, noise_vis, lin_grids, ang_grids,
+            roi_offset=None):
+        if static.roi_shape:
+            oy, ox = roi_offset[0], roi_offset[1]
+            maps = crop_maps(maps, oy, ox, *static.roi_shape)
+            task = shift_task_limits(task, oy, ox)
         if det:
             shape = (V,) + tuple(lin_grids.shape[1:])
             grids_l = lin_grids[0].expand(shape)

@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.sampling import quantize_bin_values
+from .ops.kernels.map_sample import sample_traction_window
+from .ops.sampling import draw_map_key, quantize_bin_values
 
 
 def resolve_device(device):
@@ -218,6 +219,13 @@ class TDM:
         self.use_nom_dynamics_with_speed_map = cfg.use_nom_dynamics_with_speed_map
         self.use_costmap = cfg.use_costmap
         self.det_dyn = cfg.det_dyn
+        self.seed = cfg.seed
+        self.num_grid_samples = cfg.num_grid_samples
+        # Sampled realizations per batch: the det modes collapse to one map.
+        self.batch_size = 1 if self.det_dyn else self.num_grid_samples
+        # sample_grids' map keys (the planner's solves draw their own).
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(self.seed)
         # Monotone content token, bumped whenever the staged planes change;
         # MPPIPlanner._compact_planes keys its memo on it.
         self._content_version = 0
@@ -576,6 +584,76 @@ class TDM:
         print("Padded grid has not been initialized yet.")
         return None
 
+    def int8_grid_to_float32(self, int8grid):
+        """Decode 0..100 int8 map values to traction floats (host numpy)."""
+        ratio = np.asarray(int8grid).astype(np.float32) / 100.0
+        return ratio * (self.bin_values_bounds[1] - self.bin_values_bounds[0]) \
+            + self.bin_values_bounds[0]
+
+    # -- sampling -----------------------------------------------------------
+
+    def sample_grids(self, alpha_dyn=1.0):
+        """Sample a batch of traction-map realizations from the PMF: int8
+        ``(batch_size, H, W)`` on the device, the solve's map draw (the
+        ``map_sample`` kernel on a card) under a key drawn from the TDM's
+        own generator.  The planner's solves sample their own batch; this
+        is for inspection."""
+        assert self.pmf_grid_initialized
+        key = draw_map_key(self._generator, self.device)
+        pmf, q = self.pmf_grid_device, self.qbin_values
+        alpha = torch.tensor(alpha_dyn, dtype=torch.float32,
+                             device=self.device)
+        self.sample_grid_batch = sample_traction_window(
+            key, pmf, None, q, None, alpha, self.batch_size)[2]
+        return self.sample_grid_batch
+
+    def sample_grids_true_dist(self, rng=None):
+        """Draw ONE ground-truth realization from the underlying terrain
+        densities (not the PMF) for closed-loop simulation: a
+        ``TractionGrid`` with the TDM's geometry.  The densities draw from
+        their own random states; ``rng`` is accepted and unused, as in the
+        JAX package."""
+        assert self.semantic_grid_initialized
+        lins = np.zeros_like(self.semantic_grid, dtype=float)
+        angs = np.zeros_like(self.semantic_grid, dtype=float)
+        for sid in np.unique(self.semantic_grid):
+            mask = self.semantic_grid == sid
+            n = int(mask.sum())
+            lin_s, ang_s = self.id2terrain_fn(sid).sample_traction(n)
+            lins[mask] = lin_s
+            angs[mask] = ang_s
+        return TractionGrid(lins, angs, res=self.res,
+                            xlimits=self.xlimits, ylimits=self.ylimits)
+
+
+class TractionGrid:
+    """A deterministic traction grid: the closed-loop simulator's ground
+    truth (host numpy)."""
+
+    def __init__(self, lin_traction, ang_traction, res=1.0, use_int8=False,
+                 xlimits=None, ylimits=None):
+        if use_int8:
+            self.lin_traction = (100 * lin_traction).astype(np.int8)
+            self.ang_traction = (100 * ang_traction).astype(np.int8)
+        else:
+            self.lin_traction = lin_traction
+            self.ang_traction = ang_traction
+        self.res = res
+        self.height, self.width = self.lin_traction.shape
+        self.xlimits = (0, self.res * self.width) if xlimits is None else xlimits
+        self.ylimits = (0, self.res * self.height) if ylimits is None else ylimits
+
+    def get(self, x, y):
+        """Traction at (x, y); zero outside the grid."""
+        xi = int((x - self.xlimits[0]) // self.res)
+        yi = int((y - self.ylimits[0]) // self.res)
+        if xi < 0 or xi >= self.width or yi < 0 or yi >= self.height:
+            return 0, 0
+        return self.lin_traction[yi, xi], self.ang_traction[yi, xi]
+
+    def get_grids(self):
+        return self.lin_traction, self.ang_traction
+
 
 def unknown_mask_from_confidence(normalized_confidence, conf_thres,
                                  unknown_colors_mask=None):
@@ -594,3 +672,35 @@ def unknown_mask_from_confidence(normalized_confidence, conf_thres,
     if unknown_colors_mask is not None:
         mask = mask | (np.asarray(unknown_colors_mask) != 0)
     return mask.astype(np.int8)
+
+
+def sample_realization_from_pmf_grid(lin_pmf_grid, ang_pmf_grid, bin_values,
+                                     rng, res=1.0, xlimits=None,
+                                     ylimits=None):
+    """Draw ONE ground-truth traction realization from int8 PMF grids: the
+    external-PMF path's counterpart of ``TDM.sample_grids_true_dist``.
+
+    Per cell a bin is drawn with probability ``pmf[bin] / 100`` from the
+    numpy ``RandomState`` ``rng`` (``randint(1, 101)`` per cell, the first
+    bin whose cumulative mass covers it), and the traction is
+    ``bin_values[bin]``.  Raises for a cell whose PMF does not sum to 100.
+    Returns a ``TractionGrid``.
+    """
+    bin_values = np.asarray(bin_values, dtype=np.float64)
+
+    def draw(pmf_grid):
+        pmf = np.asarray(pmf_grid, dtype=np.int64)
+        B, H, W = pmf.shape
+        cum = np.cumsum(pmf.reshape(B, -1), axis=0)        # (B, H*W)
+        bad = np.flatnonzero(cum[-1] != 100)
+        if bad.size:
+            raise ValueError(
+                "sample_realization_from_pmf_grid: {} cells have PMF sums != "
+                "100 (first offender: flat cell {} sums to {})".format(
+                    bad.size, int(bad[0]), int(cum[-1, bad[0]])))
+        u = rng.randint(1, 101, size=cum.shape[1])          # U{1..100}
+        idx = np.argmax(u[None, :] <= cum, axis=0)          # first bin covering u
+        return bin_values[idx].reshape(H, W)
+
+    return TractionGrid(draw(lin_pmf_grid), draw(ang_pmf_grid), res=res,
+                        xlimits=xlimits, ylimits=ylimits)

@@ -52,7 +52,7 @@ class SolveAux(NamedTuple):
     noise_vis: object     # (V, T, 2) first V noise rows of the last iteration
     lin_grids: object     # (M, H, W) int8 sampled linear traction grids
     ang_grids: object     # (M, H, W) int8 sampled angular traction grids
-    roi_offset: object = None  # (2,) int32; zeros (no crop in this port)
+    roi_offset: object = None  # (2,) int32 window start (oy, ox); zeros uncropped
 
 
 class BareboneTask(NamedTuple):

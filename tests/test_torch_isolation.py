@@ -46,6 +46,12 @@ _CPU_SOLVE = textwrap.dedent("""
                   u_std=np.array([1.0, 1.0]), vrange=np.array([0.0, 2.0]),
                   wrange=np.array([-1.0, 1.0])))
     assert bb.solve().shape == (10, 2)
+    # The closed loop on a PMF realization, and the TDM's own map draw.
+    from mppi_numba_tpu_torch import sim, terrain
+    truth = terrain.sample_realization_from_pmf_grid(
+        pmf, pmf, [0.0, 0.5, 1.0], np.random.RandomState(0))
+    assert sim.trial(planner, truth, 0.1, 2, planner.params)["cum_obj"] > 0
+    assert lin.sample_grids().shape == (4, 8, 8)
     from mppi_numba_tpu_torch.probes import gather_probe
     t, x, mod = gather_probe.make_inputs("flat", 8, 4, "cpu")
     assert gather_probe.flat_gather_chain(t, x, mod, 8).shape == (4, 128)
@@ -58,6 +64,10 @@ _CPU_SOLVE = textwrap.dedent("""
         importlib.import_module(name)
     for name in ("mppi_numba_tpu_torch.density",
                  "mppi_numba_tpu_torch.ops.kernels.rollout_binned",
+                 "mppi_numba_tpu_torch.ops.kernels.map_sample",
+                 "mppi_numba_tpu_torch.ops.kernels.roi_window",
+                 "mppi_numba_tpu_torch.ops.roi",
+                 "mppi_numba_tpu_torch.sim",
                  "mppi_numba_tpu_torch.barebone",
                  "mppi_numba_tpu_torch.probes.gather_probe"):
         assert name in names, name

@@ -18,7 +18,8 @@ from mppi_numba_tpu_torch import Config, MPPIPlanner, TDM
 from mppi_numba_tpu_torch.models import bicycle_step, make_bicycle_step
 from mppi_numba_tpu_torch.probes import gather_probe
 from mppi_numba_tpu_torch.ops import packing
-from mppi_numba_tpu_torch.ops.kernels import rollout_binned, rollout_byte
+from mppi_numba_tpu_torch.ops.kernels import (map_sample, roi_window,
+                                              rollout_binned, rollout_byte)
 from mppi_numba_tpu_torch.ops.packing import pack_map_words
 from mppi_numba_tpu_torch.ops.sampling import decode_bins
 from mppi_numba_tpu_torch.ops.rollout import _clipped_controls_tk
@@ -260,32 +261,36 @@ def test_binned_kernel_rejects_other_models_and_bad_inputs():
 
 
 def test_planner_speed_map_on_card_runs_the_binned_kernel():
+    """A 60 x 60 speed map (62 x 62 padded), cropped to its 29 x 29
+    reachable window: over 512 cells, so 'auto' routes the window's 2
+    support-compacted bins to 2-bit cells."""
     dev = _cuda_or_skip()
     cfg = Config(T=2.0, dt=0.1, num_control_rollouts=256,
-                 max_map_dim=(40, 40), seed=0,
+                 max_map_dim=(80, 80), seed=0,
                  use_nom_dynamics_with_speed_map=True)
-    pmf = np.zeros((4, 30, 30), np.int8)
+    pmf = np.zeros((4, 60, 60), np.int8)
     pmf[2], pmf[3] = 30, 70
-    tdm_dict = dict(res=0.5, xlimits=(0.0, 15.0), ylimits=(0.0, 15.0),
+    tdm_dict = dict(res=0.5, xlimits=(0.0, 30.0), ylimits=(0.0, 30.0),
                     bin_values=[0.0, 0.3, 0.7, 1.0],
                     bin_values_bounds=(0.0, 1.0), det_dynamics_cvar_alpha=0.3)
     lin, ang = TDM(cfg), TDM(cfg)
     lin.set_TDM_from_PMF_grid(pmf, tdm_dict)
     ang.set_TDM_from_PMF_grid(pmf, tdm_dict)
     planner = MPPIPlanner(cfg)
-    planner.setup(dict(dt=0.1, x0=np.array([1.0, 1.0, 0.5]),
-                       xgoal=np.array([12.0, 12.0]), goal_tolerance=0.3,
+    planner.setup(dict(dt=0.1, x0=np.array([10.0, 10.0, 0.5]),
+                       xgoal=np.array([25.0, 25.0]), goal_tolerance=0.3,
                        v_post_rollout=0.01, cvar_alpha=1.0,
                        lambda_weight=1.0, u_std=np.array([1.0, 1.0]),
-                       vrange=np.array([0.0, 2.0]),
+                       vrange=np.array([0.0, 3.0]),
                        wrange=np.array([-1.5, 1.5])), lin, ang)
     byte_before = rollout_byte.terrain_rollout_costs_byte.launches
     before = rollout_binned.terrain_rollout_costs_binned.launches
     for _ in range(3):
         u = planner.solve()
         assert u.shape == (20, 2) and np.isfinite(u).all()
-        planner.shift_and_update(np.array([1.0, 1.0, 0.5]), u)
+        planner.shift_and_update(np.array([10.0, 10.0, 0.5]), u)
     assert planner._static().num_pmf_bins == 2
+    assert planner._static().roi_shape == (29, 29)
     assert rollout_binned.terrain_rollout_costs_binned.launches == before + 3
     assert rollout_byte.terrain_rollout_costs_byte.launches == byte_before
 
@@ -435,3 +440,282 @@ def test_no_instantiation_needs_a_shared_memory_opt_in():
         assert t["static_shared_bytes"] <= 48 * 1024, t
         assert t["local_bytes"] <= 32, t
         assert t["samples_per_thread"] in (1, 2) and t["block"] == 128, t
+
+
+# -- map sampling (csrc/map_sample.cu) -------------------------------------------
+
+
+def _map_sample_args(dev, M, H, W, window, B_lin, B_ang, alpha_dyn,
+                     unnormalized=False, seed=0, m_offset=0, full_m=None):
+    """Arguments of one ``sample_traction_window`` launch: PMF windows of a
+    random (H, W) map at ``window = (oy, ox, rH, rW)``."""
+    rng = np.random.RandomState(seed)
+    oy, ox, rH, rW = window
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+
+    def pmf(B):
+        raw = rng.randint(0, 100, size=(B, rH, rW)).astype(float)
+        raw[0] += 1.0
+        p = (raw / raw.sum(0) * 100).astype(np.int8)
+        p[-1] = 100 - p[:-1].sum(0)
+        if unnormalized:
+            p[:, 0, :3] = 0
+            p[0, 0, :3] = (10, 40, 90)
+        return t(p)
+
+    def qbins(B):
+        return t(np.sort(rng.choice(101, B, replace=False)).astype(np.int8))
+
+    key = t(rng.randint(0, 2 ** 32, size=2, dtype=np.uint64).astype(np.int64))
+    args = (key, pmf(B_lin), pmf(B_ang), qbins(B_lin), qbins(B_ang),
+            torch.tensor(alpha_dyn, dtype=torch.float32, device=dev), M)
+    kw = dict(window=((H, W), torch.tensor(oy, dtype=torch.int32, device=dev),
+                      torch.tensor(ox, dtype=torch.int32, device=dev)),
+              m_offset=m_offset, full_num_samples=full_m)
+    return args, kw
+
+
+@pytest.mark.parametrize("case", [
+    # M, H, W, (oy, ox, rH, rW), B_lin, B_ang, alpha, unnormalized, m_offset
+    (16, 31, 37, (0, 0, 31, 37), 22, 22, 1.0, False, 0),
+    (16, 31, 37, (5, 9, 13, 11), 12, 12, 0.2, False, 0),
+    (16, 31, 37, (18, 26, 13, 11), 4, 2, 1.0, True, 0),
+    (8, 31, 37, (5, 9, 13, 11), 1, 22, 0.2, True, 5),
+    (1, 250, 250, (80, 120, 85, 85), 12, 12, 0.2, False, 0),
+])
+def test_map_sample_kernel_matches_plain_on_card(case):
+    """Bins and grids equal the plain version's bit for bit: the whole map,
+    interior and corner windows, a slice of the M axis, 1-22 bins, alpha
+    0.2 and 1, columns summing below 100 (decoded to -128)."""
+    dev = _cuda_or_skip()
+    M, H, W, window, bl, ba, alpha, unnorm, m_off = case
+    args, kw = _map_sample_args(dev, M, H, W, window, bl, ba, alpha, unnorm,
+                                m_offset=m_off,
+                                full_m=M + m_off if m_off else None)
+    before = map_sample.sample_traction_window.launches
+    got = map_sample.sample_traction_window(*args, **kw)
+    torch.cuda.synchronize()
+    assert map_sample.sample_traction_window.launches == before + 1
+    want = map_sample.sample_traction_window_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if unnorm and alpha == 1.0:
+        assert (got[2] == -128).any()
+
+
+def test_map_sample_known_answers_on_card():
+    """``jax.random.uniform`` values (``chip_smoke.KNOWN_UNIFORMS``): the
+    plain draw on the card equals them bit for bit, and the kernel's rank
+    over 100 bins of 1% each is ``ceil(100 u) - 1`` at each."""
+    from chip_smoke import KNOWN_UNIFORMS, KNOWN_UNIFORMS_SHAPE
+    from mppi_numba_tpu_torch.ops.sampling import uniform_window
+
+    dev = _cuda_or_skip()
+    M, H, W = KNOWN_UNIFORMS_SHAPE
+    pmf = torch.ones((100, H, W), dtype=torch.int8, device=dev)
+    q = torch.arange(100, dtype=torch.int8, device=dev)
+    for words, points in KNOWN_UNIFORMS:
+        key = torch.tensor(words, dtype=torch.int64, device=dev)
+        u = uniform_window(key, M, (H, W), 0, 0, (H, W)).reshape(M, H, W)
+        bins = map_sample.sample_traction_window(
+            key, pmf, pmf, q, q, torch.tensor(1.0, device=dev), M)[0]
+        for (m, y, x), bits, rank in points:
+            assert int(u[m, y, x].view(torch.int32)) == bits
+            assert int(bins[m, y, x]) == rank
+
+
+def test_map_sample_rejects_bad_inputs():
+    dev = _cuda_or_skip()
+    args, kw = _map_sample_args(dev, 4, 20, 20, (2, 3, 9, 8), 5, 5, 1.0)
+    before = map_sample.sample_traction_window.launches
+    with pytest.raises(ValueError, match="key"):
+        map_sample.sample_traction_window(args[0].to(torch.int32), *args[1:],
+                                          **kw)
+    with pytest.raises(ValueError, match="qbins"):
+        map_sample.sample_traction_window(*args[:3], args[3][:-1], *args[4:],
+                                          **kw)
+    with pytest.raises(ValueError, match="rows"):
+        map_sample.sample_traction_window(*args, window=kw["window"],
+                                          m_offset=1)
+    with pytest.raises(ValueError, match="scalar"):
+        map_sample.sample_traction_window(*args[:5], 1.0, args[6], **kw)
+    with pytest.raises(ValueError, match="scalar"):
+        map_sample.sample_traction_window(
+            *args, window=((20, 20), 2, kw["window"][2]))
+    with pytest.raises(NotImplementedError):
+        map_sample.sample_traction_window(
+            *args, window=((65536, 65536),) + kw["window"][1:])
+    assert map_sample.sample_traction_window.launches == before
+
+
+def test_map_sample_lin_only_on_card():
+    """With no ang plane the kernel writes the lin plane alone, equal to the
+    two-plane launch's and to the plain version's."""
+    dev = _cuda_or_skip()
+    args, kw = _map_sample_args(dev, 16, 31, 37, (5, 9, 13, 11), 12, 12, 0.2,
+                                True)
+    key, lin, _, lq, _, alpha, M = args
+    before = map_sample.sample_traction_window.launches
+    got = map_sample.sample_traction_window(key, lin, None, lq, None, alpha,
+                                            M, **kw)
+    both = map_sample.sample_traction_window(*args, **kw)
+    torch.cuda.synchronize()
+    assert map_sample.sample_traction_window.launches == before + 2
+    assert got[1] is None and got[3] is None
+    want = map_sample.sample_traction_window_plain(key, lin, None, lq, None,
+                                                   alpha, M, **kw)
+    for i in (0, 2):
+        assert torch.equal(got[i], want[i]) and torch.equal(got[i], both[i])
+
+
+def test_tdm_sample_grids_on_card():
+    """``TDM.sample_grids`` on the card: one map_sample launch, equal to the
+    plain version under the key the TDM's generator gives."""
+    from mppi_numba_tpu_torch.ops.sampling import draw_map_key
+
+    dev = _cuda_or_skip()
+    cfg = Config(T=1.0, dt=0.1, num_grid_samples=32, max_map_dim=(64, 64),
+                 seed=4, use_tdm=True)
+    rng = np.random.RandomState(2)
+    raw = rng.randint(1, 50, size=(6, 30, 40))
+    pmf = np.floor(100 * raw / raw.sum(0)).astype(np.int8)
+    tdm = TDM(cfg, device=dev)
+    tdm.set_TDM_from_PMF_grid(pmf, dict(
+        res=0.5, xlimits=(0.0, 20.0), ylimits=(0.0, 15.0),
+        bin_values=np.linspace(0.0, 1.0, 6), bin_values_bounds=(0.0, 1.0),
+        det_dynamics_cvar_alpha=1.0))
+    g = torch.Generator(device=dev)
+    g.set_state(tdm._generator.get_state())
+    before = map_sample.sample_traction_window.launches
+    grids = tdm.sample_grids(alpha_dyn=1.0)
+    torch.cuda.synchronize()
+    assert map_sample.sample_traction_window.launches == before + 1
+    assert grids.shape == (32,) + tuple(tdm.pmf_grid_device.shape[1:])
+    want = map_sample.sample_traction_window_plain(
+        draw_map_key(g, dev), tdm.pmf_grid_device, None, tdm.qbin_values,
+        None, torch.tensor(1.0, device=dev), 32)[2]
+    assert torch.equal(grids, want)
+    assert (grids == -128).any()            # columns summing below 100
+
+
+# -- the reachable-window crop (csrc/roi_window.cu) ------------------------------
+
+
+def _crop_inputs(dev, H, W, B_lin, B_ang, res, lim0, seed=0):
+    from mppi_numba_tpu_torch.types import MapInputs
+
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    plane = lambda *shape: t(rng.randint(-128, 128, shape).astype(np.int8))  # noqa: E731
+    maps = MapInputs(plane(B_lin, H, W), plane(B_ang, H, W),
+                     plane(B_lin), plane(B_ang), plane(H, W), plane(H, W),
+                     plane(H, W))
+    task = _task(dev)._replace(res=t(np.float32(res)),
+                               xlim0=t(np.float32(lim0)),
+                               ylim0=t(np.float32(lim0 - 0.3)))
+    return maps, task
+
+
+@pytest.mark.parametrize("case", [
+    # H, W, rH, rW, B_lin, B_ang, res, lim0
+    (250, 250, 85, 85, 12, 12, 0.5, -0.5),
+    (64, 48, 13, 11, 6, 22, 0.3, -1.3),
+    (40, 40, 40, 17, 1, 2, 0.25, 0.0),
+])
+def test_roi_window_kernel_matches_plain_on_card(case):
+    """The crop kernel against its plain version on the card: every plane,
+    the offset and the shifted limits bit for bit, at cell edges, a float32
+    ulp either side of them, and off the map on every side."""
+    dev = _cuda_or_skip()
+    H, W, rH, rW, bl, ba, res, lim0 = case
+    maps, task = _crop_inputs(dev, H, W, bl, ba, res, lim0)
+    f32 = np.float32
+    edges = (lim0 + res * np.arange(-2, W + 2)).astype(f32)
+    xs = np.concatenate([edges, np.nextafter(edges, f32(-np.inf)),
+                         np.nextafter(edges, f32(np.inf)),
+                         f32([-50.0, 1e4])])
+    rng = np.random.RandomState(1)
+    before = roi_window.crop_window.launches
+    for x in xs:
+        x0 = torch.tensor([x, f32(rng.choice(xs)), 0.3], device=dev)
+        t = task._replace(x0=x0)
+        got = roi_window.crop_window(maps, t, (H, W), (rH, rW))
+        want = roi_window.crop_window_plain(maps, t, (H, W), (rH, rW))
+        assert torch.equal(got[2], want[2]), (x, x0)
+        for name in maps._fields:
+            assert torch.equal(getattr(got[0], name), getattr(want[0], name))
+        for name in ("xlim0", "ylim0"):
+            assert torch.equal(getattr(got[1], name).reshape(()),
+                               getattr(want[1], name).reshape(())), (x, name)
+    torch.cuda.synchronize()
+    assert roi_window.crop_window.launches == before + len(xs)
+
+
+def test_roi_window_rejects_bad_inputs():
+    dev = _cuda_or_skip()
+    maps, task = _crop_inputs(dev, 20, 20, 3, 3, 0.5, 0.0)
+    before = roi_window.crop_window.launches
+    with pytest.raises(ValueError, match="planes"):
+        roi_window.crop_window(maps._replace(obstacle=maps.obstacle.float()),
+                               task, (20, 20), (5, 5))
+    with pytest.raises(ValueError, match="x0"):
+        roi_window.crop_window(maps, task._replace(res=task.res.double()),
+                               (20, 20), (5, 5))
+    with pytest.raises(ValueError, match="window"):
+        roi_window.crop_window(maps, task, (20, 20), (21, 5))
+    assert roi_window.crop_window.launches == before
+
+
+def _roi_planner(dev, roi):
+    cfg = Config(T=2.0, dt=0.1, num_grid_samples=16,
+                 num_control_rollouts=256, max_speed_padding=1.0,
+                 max_map_dim=(64, 64), seed=3, use_tdm=True)
+    rng = np.random.RandomState(0)
+    raw = rng.randint(1, 50, size=(6, 48, 48))
+    pmf = np.floor(100 * raw / raw.sum(0)).astype(np.int8)
+    pmf[-1] += 100 - pmf.sum(0).astype(np.int8)
+    tdm_dict = dict(res=0.5, xlimits=(0.0, 24.0), ylimits=(0.0, 24.0),
+                    bin_values=np.linspace(0.0, 1.0, 6),
+                    bin_values_bounds=(0.0, 1.0), det_dynamics_cvar_alpha=1.0)
+    lin, ang = TDM(cfg, device=dev), TDM(cfg, device=dev)
+    lin.set_TDM_from_PMF_grid(pmf, tdm_dict)
+    ang.set_TDM_from_PMF_grid(pmf, tdm_dict)
+    planner = MPPIPlanner(cfg, device=dev)
+    if not roi:
+        planner._roi_shape = lambda hw: None
+    planner.setup(dict(dt=0.1, x0=np.array([6.25, 7.25, 0.3]),
+                       xgoal=np.array([18.0, 17.0]), goal_tolerance=0.5,
+                       v_post_rollout=0.5, cvar_alpha=0.5, lambda_weight=1.0,
+                       u_std=np.array([1.0, 1.5]), vrange=np.array([0.0, 1.0]),
+                       wrange=np.array([-np.pi, np.pi])), lin, ang)
+    return planner
+
+
+def test_planner_roi_crop_equals_full_on_card():
+    """A cropped planner and an uncropped one with the same seed give the
+    same controls bit for bit on the card, the cropped grids being the
+    window of the uncropped ones; every solve samples through the
+    map_sample kernel once, and every cropped solve crops through the
+    roi_window kernel once."""
+    dev = _cuda_or_skip()
+    p_roi, p_full = _roi_planner(dev, True), _roi_planner(dev, False)
+    rH, rW = p_roi._static().roi_shape
+    assert (rH, rW) == (13, 13) and p_full._static().roi_shape is None
+    before = map_sample.sample_traction_window.launches
+    crops = roi_window.crop_window.launches
+    x = np.array([6.25, 7.25, 0.3])
+    for _ in range(3):
+        u_roi, u_full = p_roi.solve(), p_full.solve()
+        assert np.array_equal(u_roi, u_full)
+        oy, ox = p_roi._last_aux.roi_offset.tolist()
+        assert torch.equal(p_roi._last_aux.lin_grids,
+                           p_full._last_aux.lin_grids[:, oy:oy + rH,
+                                                      ox:ox + rW])
+        x = x + 0.1 * np.array([u_roi[0, 0] * np.cos(x[2]),
+                                u_roi[0, 0] * np.sin(x[2]), u_roi[0, 1]])
+        p_roi.shift_and_update(x, u_roi)
+        p_full.shift_and_update(x, u_full)
+    assert map_sample.sample_traction_window.launches == before + 6
+    assert roi_window.crop_window.launches == crops + 3
+    np.testing.assert_array_equal(p_roi.get_state_rollout(),
+                                  p_full.get_state_rollout())

@@ -80,13 +80,13 @@ def test_planner_staging_bitwise(unnormalized):
         assert got.dtype == want.dtype, name
         np.testing.assert_array_equal(got, want, err_msg=name)
 
-    skip = {"roi_shape", "backend"}
     js = dataclasses.asdict(jp._static())
     ts = dataclasses.asdict(tp._static())
     assert set(js) == set(ts)
-    for name in set(js) - skip:
+    for name in set(js) - {"backend"}:
         assert ts[name] == js[name], name
-    assert tp._static().roi_shape is None
+    # The reachable window of this world: 29x29 cells of the 32x42 map.
+    assert tp._static().roi_shape == (29, 29)
 
 
 @pytest.mark.parametrize("matches_last_solve", [False, True])
@@ -121,7 +121,8 @@ def test_closed_loop_on_cpu():
         v, w = u[0]
         x = x + 0.1 * np.array([v * np.cos(x[2]), v * np.sin(x[2]), w])
         tp.shift_and_update(x, u, num_shifts=1)
-    assert tp.lin_tdm.sample_grid_batch.shape == (16, 32, 42)
+    # The TDMs expose the batch the solve used: the reachable window's.
+    assert tp.lin_tdm.sample_grid_batch.shape == (16, 29, 29)
 
 
 def test_planner_later_slices_raise():

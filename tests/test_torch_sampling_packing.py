@@ -102,13 +102,57 @@ def test_sample_noise_scaling():
 
 
 def test_map_draw_from_generator():
+    """A solve's map draw: a key of two uint32 words from the generator,
+    then the counter-addressed uniforms of that key."""
     rng = np.random.RandomState(14)
     pmf = torch.tensor(_pmf_grid(rng))
     B, H, W = pmf.shape
-    u = tsampling.draw_map_uniforms(torch.Generator().manual_seed(3), 4,
-                                    H * W, torch.device("cpu"))
-    want = torch.rand((4, H * W), generator=torch.Generator().manual_seed(3))
+    key = tsampling.draw_map_key(torch.Generator().manual_seed(3),
+                                 torch.device("cpu"))
+    want = torch.randint(0, 2 ** 32, (2,),
+                         generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int64)
+    assert key.dtype == torch.int64 and key.shape == (2,)
+    np.testing.assert_array_equal(key.numpy(), want.numpy())
+    assert ((key >= 0) & (key < 2 ** 32)).all()
+    u = tsampling.uniform_window(key, 4, (H, W), 0, 0, (H, W))
     assert u.shape == (4, H * W) and u.dtype == torch.float32
-    np.testing.assert_array_equal(u.numpy(), want.numpy())
+    assert ((u >= 0) & (u < 1)).all()
+    np.testing.assert_array_equal(
+        u.numpy(), np.asarray(jax.random.uniform(
+            jnp.asarray(key.numpy().astype(np.uint32)), (4, H * W))))
     bins = tsampling.traction_bins_from_uniforms(u, pmf, torch.tensor(1.0))
     assert bins.shape == (4, H, W) and int(bins.max()) < B
+
+
+def _per_bin_loop(u, pmf_grid, alpha_dyn):
+    """The rank as one compare, cast and add per bin: the oracle of the
+    one-pass ``traction_bins_from_uniforms``."""
+    B, H, W = pmf_grid.shape
+    cum = torch.cumsum(pmf_grid.reshape(B, H * W).to(torch.int32), dim=0)
+    sampled = torch.ceil(u * (100.0 * alpha_dyn)).to(torch.int32)
+    bin_idx = torch.zeros_like(sampled)
+    for b in range(B):
+        bin_idx += (cum[b] < sampled).to(torch.int32)
+    return bin_idx.reshape(u.shape[0], H, W)
+
+
+@pytest.mark.parametrize("alpha_dyn", [0.2, 1.0])
+@pytest.mark.parametrize("B", [1, 2, 4, 12, 22])
+def test_traction_bins_one_pass_equals_per_bin_loop(B, alpha_dyn):
+    """The one-pass rank equals the per-bin loop bit for bit, columns that
+    sum below 100 included (their draws past the last bin give index B)."""
+    rng = np.random.RandomState(B)
+    H, W, M = 9, 14, 33
+    pmf = _pmf_grid(rng, B=B, H=H, W=W)
+    pmf[:, 0, :5] = 0                       # columns summing to 0..40
+    pmf[0, 0, :5] = np.arange(0, 50, 10)
+    pmf[-1, 1, :3] = 0                      # the last bin's mass dropped
+    u = torch.rand((M, H * W), generator=torch.Generator().manual_seed(B))
+    u[0, :4] = torch.tensor([0.0, 0.5, 0.999999, 0.2])
+    alpha = torch.tensor(alpha_dyn, dtype=torch.float32)
+    want = _per_bin_loop(u, torch.tensor(pmf), alpha)
+    got = tsampling.traction_bins_from_uniforms(u, torch.tensor(pmf), alpha)
+    assert got.dtype == torch.int32 and got.shape == (M, H, W)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (want == B).any()                # past the last bin

@@ -122,6 +122,11 @@ def test_backend_routing_and_later_slices():
         static = dataclasses.replace(auto, **change)
         solver = get_terrain_solver(static, "cpu")
         assert solver.static == static and solver.backend == "eager"
-    # The reachable-window crop is still a later slice.
-    with pytest.raises(NotImplementedError):
-        get_terrain_solver(dataclasses.replace(auto, roi_shape=(5, 5)), "cpu")
+    # The reachable-window crop is ported: the solver routes and sizes on
+    # the window (a 5x5 window is a byte map on a card, whatever the map).
+    roi = dataclasses.replace(auto, roi_shape=(5, 5))
+    assert get_terrain_solver(roi, "cpu").backend == "eager"
+    big = dataclasses.replace(auto, map_shape=(250, 250), num_pmf_bins=22)
+    assert resolve_backend(big, "cuda") == "binned8"
+    assert resolve_backend(dataclasses.replace(big, roi_shape=(5, 5)),
+                           "cuda") == "byte"

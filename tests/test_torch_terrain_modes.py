@@ -262,7 +262,7 @@ def test_planner_staging_modes_bitwise(mode):
                                       _as_np(getattr(jt, name)), err_msg=name)
     js = dataclasses.asdict(jp._static())
     ts = dataclasses.asdict(tp._static())
-    for name in set(js) - {"roi_shape", "backend"}:
+    for name in set(js) - {"backend"}:
         assert ts[name] == js[name], name
     if mode != "tdm":
         assert ts["num_grid_samples"] == 1 and ts["cvar_numel"] == 1
