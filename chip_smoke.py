@@ -25,11 +25,17 @@ Phases (any failure exits non-zero; no error is swallowed):
    maps whose columns sum to 100; edge cases (T across the loop's
    remainders, ragged M and K, det_dyn's M = 1 launch at T = 33, a NaN
    cell coordinate landing in cell 0, risk bytes of all 256 values).
-   The map-sampling kernel against its plain version, bins and grids bit
-   for bit: the main paths' shapes, interior and corner-clamped windows,
-   a slice of the M axis, 1-22 bins, alpha 1 and 0.2, columns summing
-   below 100, M = 1, and known answers of ``jax.random.uniform``
-   (``KNOWN_UNIFORMS``).  The crop kernel against its plain version,
+   The map-sampling kernel against its plain version, bit for bit, in its
+   'bins' mode (bins and grids) and fused with the pack in every payload
+   layout (byte words, 2-, 4- and 8-bit cells with the shared mask and
+   risk words, with and without the risk and the ang plane): each timed
+   world's shape, interior and corner-clamped windows, a slice of the M
+   axis, 1-22 and 255 bins, alpha 1 and 0.2 (and 1.5 and -0.7, outside
+   the tables' range), columns summing below 100 and of random int8 of
+   any sign, M = 1, 3 and 4 (blocks of a few map samples),
+   PARITY.md's ragged 13x15 maps, and known answers of
+   ``jax.random.uniform`` (``KNOWN_UNIFORMS``).  The crop kernel against
+   its plain version,
    every plane, the offset and the limits bit for bit, for robots at
    every cell edge of a row, an ulp either side and off the map, at the
    big-map world's shape (padded origin 0 and -res) and a ragged one.
@@ -48,10 +54,12 @@ Phases (any failure exits non-zero; no error is swallowed):
    under all three methods (byte kernel), and the reference's big-map
    regime, 250x250 at 0.5 m cropped to its 85x85 reachable window (4-bit
    cells), closed loop through ``sim.trial`` on a ground truth drawn from
-   its PMF; every solve samples its maps through the map-sampling kernel
-   once, every cropped solve crops through the crop kernel once, and the
-   big-map world's ``TDM.sample_grids`` draws once more, bit for bit with
-   the plain draw.  Then that big-map world cropped against uncropped,
+   its PMF; every solve samples and packs its maps through the
+   map-sampling kernel once (``sample_and_pack_window``, no torch
+   packer), every cropped solve crops through the crop kernel once, and
+   the big-map world's ``TDM.sample_grids`` draws once more in the
+   kernel's bins mode, bit for bit with the plain draw.  Then that big-map
+   world cropped against uncropped,
    the same seed: the same controls bit for bit, the cropped grids the
    window of the uncropped ones, over 20 solves of a moving window; and
    again with the padded origin at -res (a TDM's limits from 0): grids and
@@ -68,11 +76,14 @@ Phases (any failure exits non-zero; no error is swallowed):
    against the unicycle (both exact trig) at the forest's shape on every
    layout; the
    probe's ns per chain step at every (mode, S, R) beside its bound; the
-   map-sampling kernel at world (b)'s shape and the crop kernel at the
-   big-map world's, each against its bound and its plain version; then
+   map-sampling kernel at world (b)'s shape, fused in (b)'s layout and in
+   its bins mode (and the bins mode followed by the torch packers), and
+   fused at (a)'s, (c)'s and (k)'s, and the crop kernel at the big-map
+   world's, each against its bound and its plain version; then
    per timed world, in turns, chained solves on the device clock beside
    the host's time to enqueue them and planner ``solve()`` times on the
-   host clock, and the device's busy time per solve by kernel; the host
+   host clock, and the device's busy time and kernel launches per solve
+   by kernel; the host
    time of ``get_state_rollout`` in the forest world; the barebone chained
    solve; the big-map world's chained solves and planner ``solve()``
    calls cropped against uncropped, in turns.  Each figure is printed as a JSON line with the card's name
@@ -114,18 +125,31 @@ OPS_STEP_TABLE = 4 * 256
 # non-tensor-core rate the data sheet gives: a faster rate than the
 # integer units', so the bound stays a lower bound.
 OPS_GATHER_STEP = 3
-# The map draw's integer work, what the function needs (not what
-# csrc/map_sample.cu spends): per element threefry2x32's 20 rounds x (add,
-# rotate, xor) + 5 key injections x 2 adds + the counter's multiply-add 2
-# + the uniform's xor, shift and or 3 = 75, and per bin and plane the
-# rank's compare and add, 2 (the decode is a load from a LUT with one
-# more entry); per cell and bin the cumulative's add, once.  Its float
-# work, 4 an element (the multiply, subtraction, ceil and conversion), is
-# counted at the float32 rate.
-OPS_MAP_SAMPLE, OPS_MAP_SAMPLE_PER_BIN, FLOPS_MAP_SAMPLE = 75, 2, 4
-# INT32 rate: 132 SMs x 64 INT32 lanes (Hopper white paper) at the H100
-# SXM's 1,980 MHz boost clock (NVIDIA data sheet).
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# The map draw's work, what the function needs (not what
+# csrc/map_sample.cu spends), counted per pipe.  Per element threefry2x32
+# takes 20 rounds x (add, rotate, xor) + 5 key injections x 2 adds + the
+# counter's multiply-add 2, the uniform's xor, shift and or 3 (75), and in
+# a payload layout the pack's shift and OR 2.  Of these only the rotates
+# (funnel shifts), the xors, the uniform's 3 and the pack's 2 must run on
+# the ALU pipe (45 with the pack); the adds may issue on the FMA pipe too.
+# The float work, 4 an element (multiply, subtraction, ceil, conversion),
+# and every integer operation share the schedulers' issue slots.  The rank
+# and the decode are shared-memory loads (another pipe) and are not
+# counted.  Per cell and plane, once: the cumulative's add and the table's
+# count per bin, and the table's prefix over sampled = 0..100.
+OPS_MAP_HASH, OPS_MAP_PACK, FLOPS_MAP_SAMPLE = 75, 2, 4
+ALU_OPS_MAP_HASH = 20 + 20 + 3
+OPS_TABLE_PER_BIN, TABLE_LEVELS = 2, 101
+# Bytes an element that the map draw writes beside its two int8 grids:
+# int32 bins of both planes, or the payload of a layout.
+MAP_OUT_BYTES = {"bins": 8, "byte": 4, "binned8": 2, "binned": 1,
+                 "binned2": 0.5}
+# Integer rates at the H100 SXM's 1,980 MHz boost clock (NVIDIA data
+# sheet), 132 SMs (Hopper white paper): the ALU pipe's 64 INT32 lanes an
+# SM a clock (16 a sub-partition), and the 4 schedulers' issue of one warp
+# instruction each a clock, 128 lanes an SM, across all pipes.
+ALU_OPS_PER_S = 132 * 64 * 1.98e9
+ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
 CELLS_PER_WORD = {2: 8, 4: 4, 8: 2}
 SOLVES = 20
 # World -> (planning mode, the layout 'auto' must route it to); None: 2-
@@ -232,19 +256,29 @@ def gather_bound_ms(touched, R, L, iters):
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
-def map_sample_bound_ms(M, rH, rW, B_lin, B_ang):
-    """Least time for one map-sampling call: the larger of its bytes over
-    HBM bandwidth and its operations, integer over the INT32 rate and
-    float over the float32 rate (the larger of the two, as the units run
-    side by side).  Bytes: the two int8 PMF windows and LUTs and the key
-    in, the int32 bins and int8 grids of both planes out (10 bytes an
-    element).  Returns (ms, bound_by)."""
+def map_sample_bound_ms(M, rH, rW, B_lin, B_ang, layout="bins",
+                        risk=False):
+    """Least time for one map-sampling call in ``layout``: the larger of
+    its bytes over HBM bandwidth and its operations, which is the larger
+    of its ALU-only integer operations over the ALU pipe's rate and all of
+    its operations (integer and float) over the issue rate.  Bytes: the
+    two int8 PMF windows and LUTs and the key in, and in a payload layout
+    the obstacle, unknown (and with ``risk`` the risk) windows; out the
+    int8 grids of both planes and the bins or payload (``MAP_OUT_BYTES``),
+    and in a binned layout the shared mask (16 cells a word) and risk (4
+    cells a word) words.  Returns (ms, bound_by)."""
     n, cells, bins = M * rH * rW, rH * rW, B_lin + B_ang
-    nbytes = bins * (cells + 1) + 16 + 10 * n
-    int_ops = n * (OPS_MAP_SAMPLE + OPS_MAP_SAMPLE_PER_BIN * bins) + cells * bins
+    payload = layout != "bins"
+    shared = (-(-cells // 16) + (-(-cells // 4) if risk else 0)) * 4
+    nbytes = (bins * (cells + 1) + 16 + (2 + MAP_OUT_BYTES[layout]) * n
+              + ((2 + risk) * cells if payload else 0)
+              + (shared if layout.startswith("binned") else 0))
+    pack = OPS_MAP_PACK if payload else 0
+    alu_ops = n * (ALU_OPS_MAP_HASH + pack)
+    all_ops = (n * (OPS_MAP_HASH + pack + FLOPS_MAP_SAMPLE)
+               + cells * (OPS_TABLE_PER_BIN * bins + 2 * TABLE_LEVELS))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(int_ops / INT32_OPS_PER_S,
-                n * FLOPS_MAP_SAMPLE / FP32_OPS_PER_S) * 1e3
+    t_ops = max(alu_ops / ALU_OPS_PER_S, all_ops / ISSUE_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -426,20 +460,24 @@ def main():
     bplain = rollout_binned.terrain_rollout_costs_binned_plain
     sampler = map_sample.sample_traction_window
     splain = map_sample.sample_traction_window_plain
+    fused = map_sample.sample_and_pack_window
+    fplain = map_sample.sample_and_pack_window_plain
     cropper = roi_window.crop_window
     cplain = roi_window.crop_window_plain
     chains = gather_probe.CHAINS
 
     def set_counts(value=0):
         kernel.launches = bkernel.launches = sampler.launches = value
-        cropper.launches = value
+        fused.launches = cropper.launches = value
         for chain, _ in chains.values():
             chain.launches = value
 
     def read_counts():
         return {"rollout_byte": kernel.launches,
                 "rollout_binned": bkernel.launches,
-                "map_sample": sampler.launches,
+                "map_sample": sampler.launches + fused.launches,
+                "map_sample_pack": fused.launches,
+                "map_sample_bins": sampler.launches,
                 "roi_window": cropper.launches,
                 "gather_probe": sum(c.launches for c, _ in chains.values())}
 
@@ -792,9 +830,49 @@ def main():
          0.2, True, 0),
         ("M1_window", 1, (250, 250), (100, 90, 85, 85), 12, 22, 1.0, False,
          0),
+        ("main_path_11x11_22bins", 1024, (11, 11), (0, 0, 11, 11), 22, 22,
+         1.0, False, 0),
+        # PARITY.md's small cases: 13x15 maps, ragged in every layout.
+        ("ragged_13x15_4bins", 64, (13, 15), (0, 0, 13, 15), 4, 4, 1.0,
+         True, 0),
+        ("ragged_13x15_12bins", 64, (13, 15), (0, 0, 13, 15), 12, 12, 1.0,
+         True, 0),
+        ("ragged_13x15_22bins", 64, (13, 15), (0, 0, 13, 15), 22, 22, 0.2,
+         False, 0),
+        ("ragged_13x15_M1", 1, (13, 15), (0, 0, 13, 15), 12, 12, 1.0, True,
+         0),
+        # Columns of random int8 of any sign (and bin values of any sign),
+        # 255 bins a plane (the tables' and LUTs' limit), alpha_dyn outside
+        # (0, 1] (`sampled` outside 0..100: the kernel's loop rank beside
+        # its tables), and blocks of a few map samples (M = 1, 3, 4).
+        ("signed_22bins", 128, (60, 70), (9, 13, 40, 40), 22, 22, 1.0,
+         "signed", 0),
+        ("cold_alpha1.5_signed", 64, (60, 70), (5, 6, 33, 41), 12, 22, 1.5,
+         "signed", 0),
+        ("cold_alpha-0.7_signed", 64, (60, 70), (0, 0, 60, 70), 22, 4, -0.7,
+         "signed", 0),
+        ("bins_255_signed", 32, (40, 50), (3, 4, 30, 40), 255, 255, 1.0,
+         "signed", 0),
+        ("bins_255_and_3_alpha1.5", 40, (40, 50), (0, 0, 40, 50), 255, 3,
+         1.5, "signed", 0),
+        ("bins_255_normalized", 64, (40, 50), (0, 0, 40, 50), 255, 255, 1.0,
+         False, 0),
+        ("M1_signed_alpha1.5", 1, (60, 70), (5, 6, 33, 41), 22, 12, 1.5,
+         "signed", 0),
+        ("M3_bins_255_signed", 3, (40, 50), (3, 4, 30, 40), 255, 255, 1.0,
+         "signed", 0),
+        ("M4_signed_alpha-0.7", 4, (60, 70), (0, 0, 60, 70), 12, 12, -0.7,
+         "signed", 0),
     ]
+    # The shapes each timed world's solve gives the fused kernel, and its
+    # layout there (det_140x84_M1: world (d)'s M = 1).
+    fused_timed_at = {"main_path_250x250_22bins": "binned8",
+                      "main_path_140x84_12bins": "binned",
+                      "main_path_85x85_of_250x250": "binned",
+                      "main_path_11x11_22bins": "byte",
+                      "det_140x84_M1": "binned"}
+    fused_results, fused_timed_args = [], {}
     sample_results = []
-    sample_timed_args = None
     for seed, (name, M, hw, win, bl, ba, alpha, unnorm, m_off) in enumerate(
             sample_cases, start=700):
         args, kw = make_sample_case(torch, dev, M, hw, win, bl, ba, alpha,
@@ -817,12 +895,17 @@ def main():
                   for g, w in zip(got, want)) and not any(differ),
               "map_sample {}: {} entries differ from the plain version"
               .format(name, differ))
-        check(not unnorm or alpha != 1.0 or res["fill_decodes"] > 0,
+        check(unnorm is not True or alpha != 1.0 or res["fill_decodes"] > 0,
               "map_sample {}: no draw past the last bin".format(name))
         sample_results.append(res)
-        if name == "main_path_250x250_22bins":
-            sample_timed_args = (args, kw, M, win[2], win[3], bl, ba)
-        del args, got, want
+        del got, want
+        maps = fused_case_maps(torch, args, seed)
+        fused_results.append(check_fused_case(torch, fused, fplain, name,
+                                              args, kw, maps))
+        if name in fused_timed_at:
+            fused_timed_args[name] = (args, kw, maps, fused_timed_at[name],
+                                      M, win[2], win[3], bl, ba)
+        del args, maps
     check_known_uniforms(torch, dev, sampler)
 
     # The crop kernel against its plain version: every plane, the offset
@@ -850,8 +933,8 @@ def main():
 
     # -- phase 3: the main paths ------------------------------------------------
     planner_runs = {}
-    totals = {"rollout_byte": 0, "rollout_binned": 0, "map_sample": 0,
-              "roi_window": 0, "gather_probe": 0}
+    set_counts(0)
+    totals = dict.fromkeys(read_counts(), 0)
     for world, (_, want_backend) in WORLDS.items():
         torch.cuda.reset_peak_memory_stats()
         set_counts(0)
@@ -867,8 +950,8 @@ def main():
         other = "rollout_binned" if used == "rollout_byte" else "rollout_byte"
         crops = run["solves"] if run["static"].roi_shape else 0
         check(launches[used] == run["solves"] * run["num_opt"]
-              and launches["map_sample"]
-              == run["solves"] + run["sample_grids_calls"]
+              and launches["map_sample_pack"] == run["solves"]
+              and launches["map_sample_bins"] == run["sample_grids_calls"]
               and launches["roi_window"] == crops
               and launches[other] == launches["gather_probe"] == 0,
               "{}: launches {} for {} solves on {}".format(
@@ -903,8 +986,8 @@ def main():
     set_counts(0)
     roi_check = bigmap_crop_equals_full(torch, CROP_CHECK_SOLVES)
     launches = read_counts()
-    check(launches["map_sample"] == launches["rollout_binned"]
-          == 2 * CROP_CHECK_SOLVES
+    check(launches["map_sample_pack"] == launches["rollout_binned"]
+          == 2 * CROP_CHECK_SOLVES and launches["map_sample_bins"] == 0
           and launches["roi_window"] == CROP_CHECK_SOLVES
           and launches["rollout_byte"] == launches["gather_probe"] == 0,
           "big map cropped vs uncropped: launches {}".format(launches))
@@ -919,8 +1002,8 @@ def main():
     set_counts(0)
     roi_check = bigmap_crop_at_default_origin(torch, CROP_CHECK_SOLVES)
     launches = read_counts()
-    check(launches["map_sample"] == launches["rollout_binned"]
-          == 2 * CROP_CHECK_SOLVES
+    check(launches["map_sample_pack"] == launches["rollout_binned"]
+          == 2 * CROP_CHECK_SOLVES and launches["map_sample_bins"] == 0
           and launches["roi_window"] == CROP_CHECK_SOLVES
           and launches["rollout_byte"] == launches["gather_probe"] == 0,
           "big map at origin -res: launches {}".format(launches))
@@ -1073,22 +1156,45 @@ def main():
     del table, idx
 
     # The map-sampling kernel at world (b)'s shape (M = 1024, the whole
-    # 250x250 map, 22 bins a plane), against its bound and its plain
-    # version.
-    args, kw, M, rH, rW, bl, ba = sample_timed_args
-    sample_runs = time_kernels({"map_sample": lambda: sampler(*args, **kw)},
-                               20)["map_sample"]
+    # 250x250 map, 22 bins a plane): its fused launch in (b)'s layout
+    # (8-bit cells) in turns with its 'bins' mode, against their bounds and
+    # the plain versions; then the fused launch at the other timed worlds'
+    # shapes and layouts.
+    args, kw, maps, layout, M, rH, rW, bl, ba = fused_timed_args[
+        "main_path_250x250_22bins"]
+    sample_runs = time_kernels({
+        "pack": lambda: fused(args[0], maps, args[5], M, layout, **kw),
+        "bins": lambda: sampler(*args, **kw)}, 20)
+    fused_plain_ms = [time_cuda(lambda: fplain(args[0], maps, args[5], M,
+                                               layout, **kw), 2, 1)
+                      for _ in range(2)]
     sample_plain_ms = [time_cuda(lambda: splain(*args, **kw), 2, 1)
                        for _ in range(2)]
-    sample_bound = map_sample_bound_ms(M, rH, rW, bl, ba)
+    sample_bound = map_sample_bound_ms(M, rH, rW, bl, ba, layout)
+    bins_bound = map_sample_bound_ms(M, rH, rW, bl, ba)
     sample_shape = "M{}_{}x{}_bins{}+{}".format(M, rH, rW, bl, ba)
-    emit("map_sample_kernel_ms", min(sample_runs["graph"]), "ms",
-         runs=sample_runs["graph"], eager_runs=sample_runs["eager"],
-         shape=sample_shape, bound_ms=sample_bound[0],
-         bound_by=sample_bound[1])
-    emit("map_sample_plain_ms", min(sample_plain_ms), "ms",
-         runs=sample_plain_ms, shape=sample_shape)
-    del args
+    emit("map_sample_kernel_ms", min(sample_runs["pack"]["graph"]), "ms",
+         runs=sample_runs["pack"]["graph"],
+         eager_runs=sample_runs["pack"]["eager"], shape=sample_shape,
+         layout=layout, bound_ms=sample_bound[0], bound_by=sample_bound[1])
+    emit("map_sample_bins_kernel_ms", min(sample_runs["bins"]["graph"]), "ms",
+         runs=sample_runs["bins"]["graph"],
+         eager_runs=sample_runs["bins"]["eager"], shape=sample_shape,
+         bound_ms=bins_bound[0], bound_by=bins_bound[1])
+    emit("map_sample_plain_ms", min(fused_plain_ms), "ms",
+         runs=fused_plain_ms, shape=sample_shape, layout=layout,
+         bins_plain_runs=sample_plain_ms)
+    fused_ms_at = {}
+    for name, (fargs, fkw, fmaps, flayout, fM, frH, frW, fbl,
+               fba) in fused_timed_args.items():
+        runs = time_kernels({name: lambda: fused(
+            fargs[0], fmaps, fargs[5], fM, flayout, **fkw)}, 20)[name]
+        bound = map_sample_bound_ms(fM, frH, frW, fbl, fba, flayout)
+        fused_ms_at[name] = min(runs["graph"])
+        emit("map_sample_kernel_ms_at", min(runs["graph"]), "ms", at=name,
+             layout=flayout, runs=runs["graph"], eager_runs=runs["eager"],
+             bound_ms=bound[0], bound_by=bound[1])
+    del args, maps, fused_timed_args
 
     # The crop kernel at the big-map world's shape (an 85x85 window of
     # 250x250, 12 bins a plane), against its bound and its plain version.
@@ -1158,7 +1264,8 @@ def main():
              host_enqueue_ms=enqueue_ms,
              device_busy_ms=prof["device_busy_us_per_solve"] / 1e3,
              device_busy_share=prof["device_busy_us_per_solve"] / 1e3
-             / chain_med, K=run["K"], M=run["static"].num_grid_samples,
+             / chain_med, kernels_per_solve=prof["kernels_per_solve"],
+             K=run["K"], M=run["static"].num_grid_samples,
              T=run["T"], map=run["map"])
         emit("planner_solve_host_ms_turns", float(np.median(solve_ms)), "ms",
              world=world, solves=n, runs=solve_ms)
@@ -1191,6 +1298,7 @@ def main():
              "ms", world=BIGMAP, crop=name, runs=bigmap_ms[name], solves=20,
              host_enqueue_ms=bigmap_enqueue[name],
              device_busy_ms=prof["device_busy_us_per_solve"] / 1e3,
+             kernels_per_solve=prof["kernels_per_solve"],
              top_us_per_solve=prof["top_us_per_solve"])
         emit("bigmap_planner_solve_host_ms", float(np.median(
             bigmap_solve_ms[name])), "ms", world=BIGMAP, crop=name,
@@ -1247,14 +1355,22 @@ def main():
         "source": map_sample.KERNEL_SOURCE,
         "replaces": map_sample.REPLACES,
         "launches": totals["map_sample"],
-        "max_abs_err": max(r["max_abs_err"] for r in sample_results),
-        "ms": min(sample_runs["graph"]),
-        "plain_ms": min(sample_plain_ms),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in sample_results + fused_results),
+        "ms": min(sample_runs["pack"]["graph"]),
+        "plain_ms": min(fused_plain_ms),
         "bound_ms": sample_bound[0],
         "bound_by": sample_bound[1],
         "library_ms": None,
-        "timed_at": "external_250x250: " + sample_shape,
+        "timed_at": "external_250x250: {}, {} payload".format(sample_shape,
+                                                             layout),
+        "launches_sample_and_pack": totals["map_sample_pack"],
+        "launches_bins": totals["map_sample_bins"],
+        "bins_mode_ms": min(sample_runs["bins"]["graph"]),
+        "bins_mode_bound_ms": bins_bound[0],
+        "ms_at": fused_ms_at,
         "cases": len(sample_results),
+        "fused_combinations": sum(r["combinations"] for r in fused_results),
     }, {
         "name": "roi_window",
         "route": "cuda",
@@ -1296,13 +1412,18 @@ def make_sample_case(torch, dev, M, hw, window, B_lin, B_ang, alpha_dyn,
                      unnormalized, m_offset, seed):
     """Arguments of one map-sampling call: the (B, rH, rW) windows at
     ``window = (oy, ox, rH, rW)`` of random PMFs on an ``hw`` map, with
-    columns summing below 100 inside the window where ``unnormalized``;
-    rows ``[m_offset, m_offset + M)`` of the draw.  ``(args, kw)``."""
+    columns summing below 100 inside the window where ``unnormalized`` is
+    True, and of random int8 entries of any sign where it is "signed";
+    bin values of any sign where "signed" or B > 101; rows
+    ``[m_offset, m_offset + M)`` of the draw.  ``(args, kw)``."""
     rng = np.random.RandomState(seed)
     oy, ox, rH, rW = window
     t = lambda a: torch.tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
 
     def pmf(B):
+        if unnormalized == "signed":
+            return t(rng.randint(-128, 128, size=(B, *hw)).astype(np.int8)[
+                :, oy:oy + rH, ox:ox + rW])
         raw = rng.randint(0, 100, size=(B, *hw)).astype(float)
         raw[0] += 1.0
         p = (raw / raw.sum(0) * 100).astype(np.int8)
@@ -1314,6 +1435,8 @@ def make_sample_case(torch, dev, M, hw, window, B_lin, B_ang, alpha_dyn,
         return t(p)
 
     def qbins(B):
+        if unnormalized == "signed" or B > 101:
+            return t(rng.randint(-128, 128, size=B).astype(np.int8))
         return t(np.sort(rng.choice(101, B, replace=False)).astype(np.int8))
 
     key = t(rng.randint(0, 2 ** 32, size=2, dtype=np.uint64).astype(np.int64))
@@ -1324,6 +1447,72 @@ def make_sample_case(torch, dev, M, hw, window, B_lin, B_ang, alpha_dyn,
               m_offset=m_offset,
               full_num_samples=M + m_offset if m_offset else None)
     return args, kw
+
+
+def fused_case_maps(torch, args, seed):
+    """``MapInputs`` of a fused map-sampling call: a sample case's PMF
+    windows and bin values, and obstacle, unknown and risk windows of
+    random int8 values of any sign (every bit of the shared words and of
+    the byte words' high fields is exercised)."""
+    from mppi_numba_tpu_torch.types import MapInputs
+
+    key, lin, ang, lq, aq = args[:5]
+    g = torch.Generator(device=lin.device).manual_seed(seed)
+    planes = [torch.randint(-128, 128, tuple(lin.shape[1:]), generator=g,
+                            device=lin.device, dtype=torch.int8)
+              for _ in range(3)]
+    return MapInputs(lin, ang, lq, aq, *planes)
+
+
+FUSED_LAYOUTS = ("byte", "binned2", "binned", "binned8")
+
+
+def check_fused_case(torch, fused, fplain, name, args, kw, maps):
+    """``sample_and_pack_window`` against its plain version (the draw, then
+    ``packing.pack_payload``: the parent's solve path), bit for bit, in
+    every layout, with and without the risk plane and the ang plane.
+    Prints the entries differing per output, and returns the record."""
+    key, alpha, M = args[0], args[5], args[6]
+    differing, err = {}, 0
+    for layout in FUSED_LAYOUTS:
+        for ang in (True, False):
+            m = maps if ang else maps._replace(ang_pmf=None, ang_qbins=None)
+            for risk in (False, True):
+                got = fused(key, m, alpha, M, layout, risk=risk, **kw)
+                want = fplain(key, m, alpha, M, layout, risk=risk, **kw)
+                torch.cuda.synchronize()
+                names = (["words"] if layout == "byte"
+                         else ["cells", "mask", "risk_words"])
+                outs = {}
+                for out, g, w in zip(
+                        names + ["lin_grids", "ang_grids"],
+                        (list(got[0]) if layout != "byte" else [got[0]])
+                        + [got[1], got[2]],
+                        (list(want[0]) if layout != "byte" else [want[0]])
+                        + [want[1], want[2]]):
+                    if g is None or w is None:
+                        check(g is None and w is None, "map_sample {} {}: "
+                              "{} given by one version only".format(
+                                  name, layout, out))
+                        continue
+                    check(g.dtype == w.dtype and g.shape == w.shape,
+                          "map_sample {} {}: {} {} {} against {} {}".format(
+                              name, layout, out, g.dtype, tuple(g.shape),
+                              w.dtype, tuple(w.shape)))
+                    outs[out] = int((g != w).sum())
+                    err = max(err, float((g.to(torch.int64)
+                                          - w.to(torch.int64)).abs().max()))
+                differing["{}_ang{}_risk{}".format(layout, int(ang),
+                                                   int(risk))] = outs
+                del got, want
+    res = dict(case="map_sample_pack_" + name, M=M,
+               window=list(maps.obstacle.shape), combinations=len(differing),
+               entries_differing=differing, max_abs_err=err)
+    print(json.dumps(res), flush=True)
+    bad = {k: v for k, v in differing.items() if any(v.values())}
+    check(not bad, "map_sample {}: the fused kernel differs from its plain "
+          "version: {}".format(name, bad))
+    return res
 
 
 def check_known_uniforms(torch, dev, sampler):
@@ -2052,7 +2241,8 @@ def time_planner_solves(planner, n):
 
 def profile_solves(chain, torch, n=5, top=8):
     """Device time by kernel over ``n`` chained solves (torch.profiler):
-    the kernels' summed time per solve and the ``top`` kernels, in us."""
+    the kernels' summed time per solve, the kernels launched per solve,
+    and the ``top`` kernels (name, us and launches per solve)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2062,12 +2252,15 @@ def profile_solves(chain, torch, n=5, top=8):
         chain(n)
         torch.cuda.synchronize()
     # Kernel entries only: an operator's entry repeats its kernels' time.
-    rows = [(e.key, float(e.device_time_total)) for e in prof.key_averages()
+    rows = [(e.key, float(e.device_time_total), e.count)
+            for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     check(rows, "torch.profiler recorded no kernel time")
     rows.sort(key=lambda r: -r[1])
-    return dict(device_busy_us_per_solve=sum(us for _, us in rows) / n,
-                top_us_per_solve=[[k[:60], us / n] for k, us in rows[:top]])
+    return dict(device_busy_us_per_solve=sum(r[1] for r in rows) / n,
+                kernels_per_solve=sum(r[2] for r in rows) / n,
+                top_us_per_solve=[[k[:60], us / n, c / n]
+                                  for k, us, c in rows[:top]])
 
 
 def _barebone_chain(planner, torch):

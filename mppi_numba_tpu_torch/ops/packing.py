@@ -17,6 +17,8 @@ per-cell planes, several cells per int32 word:
     pack_mask_nibbles obstacle | unknown << 1, 16 cells/word (shared)
     pack_risk_bytes   risk byte, 4 cells/word (shared, speed-map mode)
 
+``pack_payload`` builds the solver's payload of a layout from these.
+
 A ragged last word is zero-padded.  Inputs are widened to int32 before the
 shifts and the OR, as in the JAX package, so bit patterns carry over as
 they stand there: a -128 value byte sign-extends over every bit above its
@@ -136,3 +138,40 @@ def pack_risk_bytes(risk_map):
       int32 ``(ceil(H*W/4),)``.
     """
     return _or_fields(risk_map.to(torch.int32).reshape(-1), 4, 8)
+
+
+def pack_payload(layout, lin_bins, ang_bins, lin_grids, ang_grids, maps,
+                 risk=False):
+    """The rollout's map payload in ``layout``, as the solve packs it.
+
+    Args:
+      layout: 'byte' (``pack_map_words``), 'binned2' (``pack_bin_crumbs``),
+        'binned' (``pack_bin_nibbles``) or 'binned8' (``pack_byte_pairs``).
+      lin_bins / ang_bins: int32 ``(M, H, W)`` bin indices.
+      lin_grids / ang_grids: int8 ``(M, H, W)`` decoded values.  With
+        ``ang_bins`` and ``ang_grids`` None the ang fields are 0.
+      maps: ``MapInputs`` whose obstacle, unknown and risk planes are
+        packed.
+      risk: pack the risk plane (speed-map mode).
+
+    Returns:
+      int32 ``(M, H, W)`` words for 'byte'; ``(cells, mask, risk_words or
+      None)`` for the binned layouts.
+    """
+    if ang_grids is None:
+        ang_bins = torch.zeros_like(lin_bins)
+        ang_grids = torch.zeros_like(lin_grids)
+    risk_map = maps.risk if risk else None
+    if layout == "byte":
+        return pack_map_words(lin_grids, ang_grids, maps.obstacle,
+                              maps.unknown, risk_map)
+    if layout == "binned8":
+        cells = pack_byte_pairs(lin_grids, ang_grids)
+    elif layout == "binned":
+        cells = pack_bin_nibbles(lin_bins, ang_bins)
+    elif layout == "binned2":
+        cells = pack_bin_crumbs(lin_bins, ang_bins)
+    else:
+        raise ValueError("unknown payload layout {!r}".format(layout))
+    return (cells, pack_mask_nibbles(maps.obstacle, maps.unknown),
+            None if risk_map is None else pack_risk_bytes(risk_map))

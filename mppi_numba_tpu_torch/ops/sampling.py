@@ -135,15 +135,16 @@ def traction_bins_from_uniforms(u, pmf_grid, alpha_dyn):
     column whose mass sums below 100 can give index ``B`` (one past the
     last bin); ``decode_bins`` maps that index as the JAX package does.
 
-    One pass: the cumulative of a PMF of nonnegative masses is
-    nondecreasing, so the count of ``cum_b < sampled`` is the left
-    insertion point of ``sampled`` in the cell's cumulative, index ``B``
-    included.
+    One pass: the count of ``cum_b < sampled`` is the left insertion point
+    of ``sampled`` in the cell's cumulative sorted ascending (the sort
+    changes nothing where the masses are nonnegative, and keeps the count
+    exact for any int8 column), index ``B`` included.
     """
     B, H, W = pmf_grid.shape
     cum = torch.cumsum(pmf_grid.reshape(B, H * W).to(torch.int32), dim=0)
+    cum = torch.sort(cum.t(), dim=1).values.contiguous()             # (HW, B)
     sampled = torch.ceil(u * (100.0 * alpha_dyn)).to(torch.int32)   # (M, HW)
-    bin_idx = torch.searchsorted(cum.t().contiguous(), sampled.t().contiguous(),
+    bin_idx = torch.searchsorted(cum, sampled.t().contiguous(),
                                  side="left", out_int32=True)        # (HW, M)
     return bin_idx.t().contiguous().reshape(u.shape[0], H, W)
 

@@ -3,9 +3,9 @@ the visualisation rollouts, and the barebone (terrain-free) solve.
 
 One solve runs, on the device that holds the inputs: crop the maps to the
 reachable window around x0 when ``SolverStatic.roi_shape`` is set, sample
-the lin/ang PMF bins and their decoded values from one counter-addressed
-draw of uniforms (a CUDA kernel on the card), pack the backend's map
-payload, then per optimisation iteration draw the noise, roll out (K, M)
+the lin/ang PMF bins from one counter-addressed draw of uniforms, decode
+them and pack the backend's map payload (one CUDA kernel on the card),
+then per optimisation iteration draw the noise, roll out (K, M)
 costs (a CUDA kernel on the card), take the CVaR over M, add the
 control-coupling term and apply the softmax update.  The det_dyn and
 speed_map modes (costmap shares speed_map) solve over M = 1 map with a
@@ -27,13 +27,12 @@ import torch
 from .config import SolverStatic
 from .models import clip_controls, get_step_fn
 from .ops.cvar import cvar_from_costs, cvar_from_costs_dynamic
-from .ops.kernels.map_sample import sample_traction_window
+from .ops.kernels.map_sample import sample_and_pack_window
 from .ops.kernels.roi_window import crop_window
 from .ops.kernels.rollout_binned import (MAX_BINS, build_bin_luts,
                                          terrain_rollout_costs_binned)
 from .ops.kernels.rollout_byte import build_task_vec, terrain_rollout_costs_byte
-from .ops.packing import (pack_bin_crumbs, pack_bin_nibbles, pack_byte_pairs,
-                          pack_map_words, pack_mask_nibbles, pack_risk_bytes)
+from .ops.packing import pack_map_words, pack_payload
 from .ops.roi import crop_maps, shift_task_limits
 from .ops.rollout import (_clipped_controls_tk, barebone_rollout_costs,
                           barebone_vis_states, control_coupling,
@@ -91,12 +90,17 @@ def resolve_backend(static: SolverStatic, device) -> str:
 
 
 def make_rollout_backend(static: SolverStatic, device):
-    """The backend's (pack, rollout) pair: ``(backend_name, pack, rollout)``.
+    """The backend's payload layout and rollout:
+    ``(backend_name, layout, finish, rollout)``.
 
-    * ``pack(lin_bins, ang_bins, lin_grids, ang_grids, maps, task)`` builds
-      the rollout payload: int32 (M, H, W) words for 'eager' and 'byte';
-      ``(cells, mask, lut, risk)`` planes for the binned layouts, whose
-      2- and 4-bit cells take bin indices and 8-bit cells decoded values;
+    * ``layout``: the layout ``packing.pack_payload`` and the map-sampling
+      kernel write for this backend: 'byte' for 'eager' and 'byte', else
+      the backend's own;
+    * ``finish(packed, maps, task)`` the rollout payload from the packed
+      planes: the int32 (M, H, W) words as they are; for the binned
+      layouts ``(cells, mask, lut, risk)``, the (2, 16) LUT built here for
+      2- and 4-bit cells (whose cells hold bin indices; 8-bit cells hold
+      decoded values);
     * ``rollout(payload, task, u, noise) -> (K, M)`` costs.
     """
     backend = resolve_backend(static, device)
@@ -108,24 +112,15 @@ def make_rollout_backend(static: SolverStatic, device):
     # rotation polynomial; the eager path is always exact trig.
     fast_trig = static.fast_trig and static.model == "unicycle"
     cell_bits = CELL_BITS.get(backend)
+    layout = "byte" if cell_bits is None else backend
 
-    def pack(lin_bins, ang_bins, lin_grids, ang_grids, maps, task):
-        risk = maps.risk if speed_map else None
+    def finish(packed, maps, task):
         if cell_bits is None:
-            return pack_map_words(lin_grids, ang_grids, maps.obstacle,
-                                  maps.unknown, risk)
-        mask = pack_mask_nibbles(maps.obstacle, maps.unknown)
-        riskw = None if risk is None else pack_risk_bytes(risk)
+            return packed
+        cells, mask, riskw = packed
         if cell_bits == 8:
-            return pack_byte_pairs(lin_grids, ang_grids), mask, None, riskw
-        bins = max(maps.lin_pmf.shape[0], maps.ang_pmf.shape[0])
-        if bins > MAX_BINS[cell_bits]:
-            raise ValueError(
-                "backend {!r} holds at most {} PMF bins; the maps have {} "
-                "(set SolverStatic.num_pmf_bins for 'auto' routing)".format(
-                    backend, MAX_BINS[cell_bits], bins))
-        pack_cells = pack_bin_crumbs if cell_bits == 2 else pack_bin_nibbles
-        return (pack_cells(lin_bins, ang_bins), mask,
+            return cells, mask, None, riskw
+        return (cells, mask,
                 build_bin_luts(task, maps.lin_qbins, maps.ang_qbins), riskw)
 
     def rollout(payload, task, u, noise):
@@ -143,7 +138,7 @@ def make_rollout_backend(static: SolverStatic, device):
         return terrain_rollout_costs_binned(cells, mask, lut, *args, riskw,
                                             cell_bits=cell_bits, **kw)
 
-    return backend, pack, rollout
+    return backend, layout, finish, rollout
 
 
 class TerrainSolver:
@@ -155,8 +150,8 @@ class TerrainSolver:
                              "'det_dyn' or 'speed_map'".format(static.mode))
         self.static = static
         self.device = torch.device(device)
-        self.backend, self._pack, self._rollout = make_rollout_backend(
-            static, self.device)
+        self.backend, self._layout, self._finish, self._rollout = (
+            make_rollout_backend(static, self.device))
 
     def __call__(self, generator, maps, task, u0):
         """Draw this solve's map key and noise from ``generator`` and solve.
@@ -180,6 +175,16 @@ class TerrainSolver:
             return maps, task, None
         return crop_window(maps, task, s.map_shape, s.roi_shape)
 
+    def _check_bins(self, maps):
+        """A 2- or 4-bit cell holds at most 4 or 16 bins a plane."""
+        cell_bits = CELL_BITS.get(self.backend)
+        bins = max(maps.lin_pmf.shape[0], maps.ang_pmf.shape[0])
+        if cell_bits in (2, 4) and bins > MAX_BINS[cell_bits]:
+            raise ValueError(
+                "backend {!r} holds at most {} PMF bins; the maps have {} "
+                "(set SolverStatic.num_pmf_bins for 'auto' routing)".format(
+                    self.backend, MAX_BINS[cell_bits], bins))
+
     def solve_from_key(self, map_key, eps_list, maps, task, u0):
         """The solve after the draws of the map key and the noise.
 
@@ -191,16 +196,20 @@ class TerrainSolver:
           maps / task: ``MapInputs`` / ``TerrainTask`` on the device, of the
             full padded map.
           u0: float32 ``(T, 2)`` nominal control sequence.
+
+        The maps are sampled, decoded and packed in the backend's layout by
+        one ``sample_and_pack_window`` (one kernel launch on the card).
         """
         s = self.static
+        self._check_bins(maps)
         maps, task, offset = self._window(maps, task)
         window = (None if offset is None
                   else (s.map_shape, offset[0], offset[1]))
-        sampled = sample_traction_window(
-            map_key, maps.lin_pmf, maps.ang_pmf, maps.lin_qbins,
-            maps.ang_qbins, task.alpha_dyn, s.num_grid_samples,
-            window=window)
-        return self._solve_sampled(sampled, eps_list, maps, task, u0, offset)
+        packed, lin_grids, ang_grids = sample_and_pack_window(
+            map_key, maps, task.alpha_dyn, s.num_grid_samples, self._layout,
+            window=window, risk=s.mode == "speed_map")
+        return self._solve_packed(packed, lin_grids, ang_grids, eps_list,
+                                  maps, task, u0, offset)
 
     def solve_from_draws(self, uniforms, eps_list, maps, task, u0):
         """The solve after the draws of the map's uniforms and the noise.
@@ -209,6 +218,7 @@ class TerrainSolver:
         at the solver's map shape (the reachable window when cropping).
         The other arguments as for ``solve_from_key``.
         """
+        self._check_bins(maps)
         maps, task, offset = self._window(maps, task)
         # The lin and ang bins come from the SAME uniforms: the reference
         # seeds both TDM streams identically, so their draws are comonotone.
@@ -216,20 +226,22 @@ class TerrainSolver:
                                                task.alpha_dyn)
         ang_bins = traction_bins_from_uniforms(uniforms, maps.ang_pmf,
                                                task.alpha_dyn)
-        sampled = (lin_bins, ang_bins, decode_bins(maps.lin_qbins, lin_bins),
-                   decode_bins(maps.ang_qbins, ang_bins))
-        return self._solve_sampled(sampled, eps_list, maps, task, u0, offset)
+        lin_grids = decode_bins(maps.lin_qbins, lin_bins)
+        ang_grids = decode_bins(maps.ang_qbins, ang_bins)
+        packed = pack_payload(self._layout, lin_bins, ang_bins, lin_grids,
+                              ang_grids, maps,
+                              risk=self.static.mode == "speed_map")
+        return self._solve_packed(packed, lin_grids, ang_grids, eps_list,
+                                  maps, task, u0, offset)
 
-    def _solve_sampled(self, sampled, eps_list, maps, task, u0, offset):
-        """The solve after the sampled bins and their decoded grids, on the
-        (cropped) maps and task."""
+    def _solve_packed(self, packed, lin_grids, ang_grids, eps_list, maps,
+                      task, u0, offset):
+        """The solve after the packed map planes and the decoded grids, on
+        the (cropped) maps and task.  The grids feed SolveAux (and
+        TDM.sample_grid_batch) on every backend."""
         s = self.static
         V = s.num_vis_state_rollouts
-        lin_bins, ang_bins, lin_grids, ang_grids = sampled
-        # The decoded grids feed SolveAux (and TDM.sample_grid_batch) on
-        # every backend, and the byte / byte-pair payloads.
-        payload = self._pack(lin_bins, ang_bins, lin_grids, ang_grids, maps,
-                             task)
+        payload = self._finish(packed, maps, task)
 
         u = u0
         noise = costs = weights = None

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from mppi_numba_tpu.config import SolverStatic as JStatic
+from mppi_numba_tpu import models as jmodels
 from mppi_numba_tpu.models import bicycle_step as j_bicycle_step
 from mppi_numba_tpu.ops import packing as jpacking
 from mppi_numba_tpu.ops.pallas.rollout_kernel import (
@@ -49,6 +50,11 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-4
 SOLVE_RTOL, SOLVE_ATOL = 2e-4, 2e-5
 STEER = 0.5
 BINS = {2: 4, 4: 16, 8: 22}
+# A car's wheelbase (m): its float32 reciprocal is inexact, so a rollout
+# that divided otherwise than the step function shows there.  Held to the
+# exact-trig parity tolerance, 1e-4 relative on costs.
+CAR_WHEELBASE = 2.7
+CAR_RTOL = 1e-4
 
 
 def _task(**over):
@@ -94,8 +100,7 @@ def _grids(p):
             decode_bins(q, torch.tensor(p["ang_bins"])).numpy())
 
 
-@pytest.mark.parametrize("speed_map", [False, True])
-def test_plain_byte_bicycle_matches_jax_pallas_interpret(speed_map):
+def _check_plain_byte_bicycle(speed_map, j_step, t_step, rtol, atol):
     p = _kernel_problem(8, seed=31 + speed_map)
     H, W, T = p["H"], p["W"], p["T"]
     lin, ang = _grids(p)
@@ -108,7 +113,7 @@ def test_plain_byte_bicycle_matches_jax_pallas_interpret(speed_map):
                      jt.vrange, jt.wrange)
     want = np.asarray(terrain_rollout_costs_pallas(
         j_words, j_build_task_vec(jt), v, w, H=H, W=W, T=T,
-        speed_map=speed_map, interpret=True, step_fn=j_bicycle_step))
+        speed_map=speed_map, interpret=True, step_fn=j_step))
 
     pt = task_to_port(_task(), "cpu")
     words = tpacking.pack_map_words(
@@ -121,22 +126,32 @@ def test_plain_byte_bicycle_matches_jax_pallas_interpret(speed_map):
     got = rollout_byte.terrain_rollout_costs_byte(
         words, rollout_byte.build_task_vec(pt), tv.contiguous(),
         tw.contiguous(), H=H, W=W, T=T, speed_map=speed_map,
-        step_fn=models.bicycle_step)
-    np.testing.assert_allclose(got.numpy(), want, rtol=KERNEL_RTOL,
-                               atol=KERNEL_ATOL)
+        step_fn=t_step)
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)
     # The plain version is the eager rollout's bicycle, step for step.
     eager = terrain_rollout_costs(words, pt, torch.tensor(p["u"]),
                                   torch.tensor(p["noise"]) * pt.u_std,
                                   speed_map=speed_map,
-                                  step_fn=models.bicycle_step)
-    np.testing.assert_allclose(got.numpy(), eager.numpy(), rtol=KERNEL_RTOL,
-                               atol=KERNEL_ATOL)
+                                  step_fn=t_step)
+    np.testing.assert_allclose(got.numpy(), eager.numpy(), rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.parametrize("speed_map", [False, True])
-@pytest.mark.parametrize("cell_bits", [2, 4, 8])
-def test_plain_binned_bicycle_matches_jax_pallas_interpret(cell_bits,
-                                                           speed_map):
+def test_plain_byte_bicycle_matches_jax_pallas_interpret(speed_map):
+    _check_plain_byte_bicycle(speed_map, j_bicycle_step, models.bicycle_step,
+                              KERNEL_RTOL, KERNEL_ATOL)
+
+
+@pytest.mark.parametrize("speed_map", [False, True])
+def test_plain_byte_bicycle_car_wheelbase_matches_jax(speed_map):
+    _check_plain_byte_bicycle(
+        speed_map, jmodels.make_bicycle_step(CAR_WHEELBASE),
+        models.make_bicycle_step(CAR_WHEELBASE), CAR_RTOL, 0.0)
+
+
+def _check_plain_binned_bicycle(cell_bits, speed_map, j_step, t_step, rtol,
+                                atol):
     p = _kernel_problem(cell_bits, seed=40 + cell_bits + 10 * speed_map)
     H, W, T = p["H"], p["W"], p["T"]
     jt = _jax_task(_task())
@@ -160,7 +175,7 @@ def test_plain_binned_bicycle_matches_jax_pallas_interpret(cell_bits,
         jpacking.pack_risk_bytes(jnp.asarray(p["risk"])) if speed_map
         else None,
         H=H, W=W, T=T, interpret=True, cell_bits=cell_bits,
-        step_fn=j_bicycle_step))
+        step_fn=j_step))
 
     tv, tw = _clipped_controls_tk(torch.tensor(p["u"]),
                                   torch.tensor(p["noise"]) * pt.u_std,
@@ -174,10 +189,24 @@ def test_plain_binned_bicycle_matches_jax_pallas_interpret(cell_bits,
         rollout_byte.build_task_vec(pt), tv.contiguous(), tw.contiguous(),
         tpacking.pack_risk_bytes(torch.tensor(p["risk"])) if speed_map
         else None,
-        H=H, W=W, T=T, cell_bits=cell_bits, step_fn=models.bicycle_step)
+        H=H, W=W, T=T, cell_bits=cell_bits, step_fn=t_step)
     assert got.shape == want.shape and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=KERNEL_RTOL,
-                               atol=KERNEL_ATOL)
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("speed_map", [False, True])
+@pytest.mark.parametrize("cell_bits", [2, 4, 8])
+def test_plain_binned_bicycle_matches_jax_pallas_interpret(cell_bits,
+                                                           speed_map):
+    _check_plain_binned_bicycle(cell_bits, speed_map, j_bicycle_step,
+                                models.bicycle_step, KERNEL_RTOL, KERNEL_ATOL)
+
+
+@pytest.mark.parametrize("cell_bits", [2, 4, 8])
+def test_plain_binned_bicycle_car_wheelbase_matches_jax(cell_bits):
+    _check_plain_binned_bicycle(
+        cell_bits, cell_bits == 4, jmodels.make_bicycle_step(CAR_WHEELBASE),
+        models.make_bicycle_step(CAR_WHEELBASE), CAR_RTOL, 0.0)
 
 
 # Port backend -> (JAX backend, PMF bins it serves).
@@ -212,16 +241,14 @@ def _world(B):
     return maps, task
 
 
-@pytest.mark.parametrize("num_opt", [1, 2])
-@pytest.mark.parametrize("backend", sorted(LAYOUTS))
-def test_bicycle_solve_matches_jax(backend, num_opt):
+def _check_bicycle_solve(backend, num_opt, model="bicycle"):
     j_backend, B = LAYOUTS[backend]
     maps, task = _world(B)
     j_static = JStatic(mode="tdm", num_steps=T, num_control_rollouts=K,
                        num_grid_samples=M, map_shape=(H, W), num_obstacles=0,
                        cvar_numel=3, num_opt=num_opt,
                        num_vis_state_rollouts=2, num_pmf_bins=B,
-                       backend=j_backend, model="bicycle")
+                       backend=j_backend, model=model)
     key = jax.random.PRNGKey(70 + num_opt)
     j_u, j_aux = j_get_solver(j_static)(
         key, JMaps(*(jnp.asarray(x) for x in maps)), _jax_task(task),
@@ -248,6 +275,29 @@ def test_bicycle_solve_matches_jax(backend, num_opt):
                        ("weights", aux.weights, j_aux.weights)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=SOLVE_RTOL,
                                    atol=SOLVE_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("num_opt", [1, 2])
+@pytest.mark.parametrize("backend", sorted(LAYOUTS))
+def test_bicycle_solve_matches_jax(backend, num_opt):
+    _check_bicycle_solve(backend, num_opt)
+
+
+@pytest.mark.parametrize("backend", ["byte", "binned"])
+def test_bicycle_car_wheelbase_solve_matches_jax(backend):
+    """A whole solve of a car-sized bicycle (2.7 m wheelbase), registered
+    under one name in both packages, against JAX's interpret-mode solve."""
+    name = "bicycle_car_test"
+    jmodels.register_model(name, jmodels.make_bicycle_step(CAR_WHEELBASE),
+                           displacement_bounded=True)
+    models.register_model(name, models.make_bicycle_step(CAR_WHEELBASE),
+                          displacement_bounded=True)
+    try:
+        _check_bicycle_solve(backend, 2, model=name)
+    finally:
+        for registry in (jmodels, models):
+            registry._REGISTRY.pop(name)
+            registry._UNICYCLE_DISPLACEMENT_BOUNDED.discard(name)
 
 
 def test_kernel_model_tags():

@@ -448,12 +448,16 @@ def test_no_instantiation_needs_a_shared_memory_opt_in():
 def _map_sample_args(dev, M, H, W, window, B_lin, B_ang, alpha_dyn,
                      unnormalized=False, seed=0, m_offset=0, full_m=None):
     """Arguments of one ``sample_traction_window`` launch: PMF windows of a
-    random (H, W) map at ``window = (oy, ox, rH, rW)``."""
+    random (H, W) map at ``window = (oy, ox, rH, rW)``; with
+    ``unnormalized="signed"`` columns and bin values of random int8 of any
+    sign (bin values so too where B > 101)."""
     rng = np.random.RandomState(seed)
     oy, ox, rH, rW = window
     t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
 
     def pmf(B):
+        if unnormalized == "signed":
+            return t(rng.randint(-128, 128, size=(B, rH, rW)).astype(np.int8))
         raw = rng.randint(0, 100, size=(B, rH, rW)).astype(float)
         raw[0] += 1.0
         p = (raw / raw.sum(0) * 100).astype(np.int8)
@@ -464,6 +468,8 @@ def _map_sample_args(dev, M, H, W, window, B_lin, B_ang, alpha_dyn,
         return t(p)
 
     def qbins(B):
+        if unnormalized == "signed" or B > 101:
+            return t(rng.randint(-128, 128, size=B).astype(np.int8))
         return t(np.sort(rng.choice(101, B, replace=False)).astype(np.int8))
 
     key = t(rng.randint(0, 2 ** 32, size=2, dtype=np.uint64).astype(np.int64))
@@ -482,11 +488,21 @@ def _map_sample_args(dev, M, H, W, window, B_lin, B_ang, alpha_dyn,
     (16, 31, 37, (18, 26, 13, 11), 4, 2, 1.0, True, 0),
     (8, 31, 37, (5, 9, 13, 11), 1, 22, 0.2, True, 5),
     (1, 250, 250, (80, 120, 85, 85), 12, 12, 0.2, False, 0),
+    (16, 31, 37, (0, 0, 31, 37), 22, 22, 1.0, "signed", 0),
+    (16, 31, 37, (0, 0, 31, 37), 22, 12, 1.5, "signed", 0),
+    (16, 31, 37, (5, 9, 13, 11), 12, 4, -0.7, "signed", 0),
+    (8, 31, 37, (0, 0, 31, 37), 255, 255, 1.0, "signed", 0),
+    (16, 31, 37, (0, 0, 31, 37), 255, 255, 1.0, False, 0),
+    (1, 31, 37, (0, 0, 31, 37), 255, 22, 1.5, "signed", 0),
+    (3, 31, 37, (5, 9, 13, 11), 12, 12, 1.0, "signed", 0),
+    (4, 31, 37, (5, 9, 13, 11), 12, 12, -0.7, "signed", 0),
 ])
 def test_map_sample_kernel_matches_plain_on_card(case):
     """Bins and grids equal the plain version's bit for bit: the whole map,
-    interior and corner windows, a slice of the M axis, 1-22 bins, alpha
-    0.2 and 1, columns summing below 100 (decoded to -128)."""
+    interior and corner windows, a slice of the M axis, 1-22 and 255 bins,
+    alpha 0.2 and 1, and 1.5 and -0.7 (outside the tables' 0..100: the
+    loop rank), columns summing below 100 (decoded to -128) and of random
+    int8 of any sign, M = 1, 3 and 4."""
     dev = _cuda_or_skip()
     M, H, W, window, bl, ba, alpha, unnorm, m_off = case
     args, kw = _map_sample_args(dev, M, H, W, window, bl, ba, alpha, unnorm,
@@ -499,8 +515,95 @@ def test_map_sample_kernel_matches_plain_on_card(case):
     want = map_sample.sample_traction_window_plain(*args, **kw)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
-    if unnorm and alpha == 1.0:
+    if unnorm is True and alpha == 1.0:
         assert (got[2] == -128).any()
+
+
+def _fused_maps(args, risk_seed):
+    """``MapInputs`` of a fused launch: ``_map_sample_args``' PMFs and bin
+    values, and random obstacle, unknown and risk windows (int8 of any
+    value, so every bit of the shared words is exercised)."""
+    from mppi_numba_tpu_torch.types import MapInputs
+
+    key, lin, ang, lq, aq = args[:5]
+    rng = np.random.RandomState(risk_seed)
+    plane = lambda: torch.tensor(rng.randint(  # noqa: E731
+        -128, 128, tuple(lin.shape[1:])).astype(np.int8), device=lin.device)
+    return MapInputs(lin, ang, lq, aq, plane(), plane(), plane())
+
+
+def _flat_outputs(out):
+    """``sample_and_pack_window``'s result as a flat list of tensors (and
+    Nones)."""
+    payload, lin, ang = out
+    return [*(payload if isinstance(payload, tuple) else (payload,)), lin,
+            ang]
+
+
+@pytest.mark.parametrize("layout", ["byte", "binned2", "binned", "binned8"])
+@pytest.mark.parametrize("case", [
+    # M, H, W, (oy, ox, rH, rW), B_lin, B_ang, alpha, unnormalized, m_offset
+    (16, 13, 15, (0, 0, 13, 15), 4, 4, 1.0, True, 0),
+    (16, 31, 37, (5, 9, 13, 11), 12, 12, 0.2, False, 0),
+    (19, 31, 37, (18, 26, 13, 11), 16, 2, 1.0, True, 0),
+    (8, 31, 37, (5, 9, 13, 11), 1, 22, 0.2, True, 5),
+    (33, 250, 250, (80, 120, 85, 85), 12, 12, 1.0, False, 0),
+    (16, 31, 37, (0, 0, 31, 37), 22, 12, 1.5, "signed", 0),
+    (16, 31, 37, (5, 9, 13, 11), 4, 16, -0.7, "signed", 0),
+    (8, 31, 37, (0, 0, 31, 37), 255, 255, 1.0, "signed", 0),
+    (1, 31, 37, (5, 9, 13, 11), 255, 12, 1.5, "signed", 0),
+    (3, 13, 15, (0, 0, 13, 15), 16, 4, 1.0, "signed", 0),
+])
+def test_map_sample_fused_matches_plain_on_card(case, layout):
+    """``sample_and_pack_window`` on the card equals its plain version (the
+    draw, then ``packing.pack_payload``) bit for bit: payload, shared mask
+    and risk words, and both grids, with and without the risk plane and
+    the ang plane; ragged rows (13x15, 85x85), columns and bin values of
+    any sign, 255 bins, alpha_dyn outside (0, 1], M = 1 and 3, and
+    one launch a call."""
+    dev = _cuda_or_skip()
+    M, H, W, window, bl, ba, alpha, unnorm, m_off = case
+    args, kw = _map_sample_args(dev, M, H, W, window, bl, ba, alpha, unnorm,
+                                m_offset=m_off,
+                                full_m=M + m_off if m_off else None)
+    maps = _fused_maps(args, M + bl)
+    for ang in (True, False):
+        m = maps if ang else maps._replace(ang_pmf=None, ang_qbins=None)
+        for risk in (False, True):
+            before = map_sample.sample_and_pack_window.launches
+            got = map_sample.sample_and_pack_window(
+                args[0], m, args[5], M, layout, risk=risk, **kw)
+            torch.cuda.synchronize()
+            assert map_sample.sample_and_pack_window.launches == before + 1
+            want = map_sample.sample_and_pack_window_plain(
+                args[0], m, args[5], M, layout, risk=risk, **kw)
+            for g, w in zip(_flat_outputs(got), _flat_outputs(want)):
+                assert (g is None) == (w is None), (ang, risk)
+                if g is not None:
+                    assert g.dtype == w.dtype and torch.equal(g, w), (
+                        ang, risk, int((g != w).sum()))
+
+
+def test_map_sample_fused_rejects_bad_inputs():
+    dev = _cuda_or_skip()
+    args, kw = _map_sample_args(dev, 4, 20, 20, (2, 3, 9, 8), 5, 5, 1.0)
+    maps = _fused_maps(args, 0)
+    before = map_sample.sample_and_pack_window.launches
+    with pytest.raises(ValueError, match="layout"):
+        map_sample.sample_and_pack_window(args[0], maps, args[5], 4, "bins",
+                                          **kw)
+    with pytest.raises(ValueError, match="obstacle"):
+        map_sample.sample_and_pack_window(
+            args[0], maps._replace(obstacle=maps.obstacle.t()), args[5], 4,
+            "byte", **kw)
+    with pytest.raises(ValueError, match="B <= 255"):
+        big = torch.zeros((256, 9, 8), dtype=torch.int8, device=dev)
+        map_sample.sample_and_pack_window(
+            args[0], maps._replace(
+                lin_pmf=big, lin_qbins=torch.zeros(256, dtype=torch.int8,
+                                                   device=dev)),
+            args[5], 4, "binned8", **kw)
+    assert map_sample.sample_and_pack_window.launches == before
 
 
 def test_map_sample_known_answers_on_card():
@@ -694,14 +797,15 @@ def _roi_planner(dev, roi):
 def test_planner_roi_crop_equals_full_on_card():
     """A cropped planner and an uncropped one with the same seed give the
     same controls bit for bit on the card, the cropped grids being the
-    window of the uncropped ones; every solve samples through the
-    map_sample kernel once, and every cropped solve crops through the
-    roi_window kernel once."""
+    window of the uncropped ones; every solve samples and packs its maps
+    through the map_sample kernel once (``sample_and_pack_window``), and
+    every cropped solve crops through the roi_window kernel once."""
     dev = _cuda_or_skip()
     p_roi, p_full = _roi_planner(dev, True), _roi_planner(dev, False)
     rH, rW = p_roi._static().roi_shape
     assert (rH, rW) == (13, 13) and p_full._static().roi_shape is None
-    before = map_sample.sample_traction_window.launches
+    before = map_sample.sample_and_pack_window.launches
+    bins_before = map_sample.sample_traction_window.launches
     crops = roi_window.crop_window.launches
     x = np.array([6.25, 7.25, 0.3])
     for _ in range(3):
@@ -715,7 +819,8 @@ def test_planner_roi_crop_equals_full_on_card():
                                 u_roi[0, 0] * np.sin(x[2]), u_roi[0, 1]])
         p_roi.shift_and_update(x, u_roi)
         p_full.shift_and_update(x, u_full)
-    assert map_sample.sample_traction_window.launches == before + 6
+    assert map_sample.sample_and_pack_window.launches == before + 6
+    assert map_sample.sample_traction_window.launches == bins_before
     assert roi_window.crop_window.launches == crops + 3
     np.testing.assert_array_equal(p_roi.get_state_rollout(),
                                   p_full.get_state_rollout())
