@@ -8,8 +8,8 @@ version, drive the planner's main paths, and time them.
 Phases (any failure exits non-zero; no error is swallowed):
 
 1. Build ``csrc/rollout_byte.cu``, ``csrc/rollout_binned.cu``,
-   ``csrc/map_sample.cu``, ``csrc/roi_window.cu`` and
-   ``csrc/gather_probe.cu`` with nvcc for sm_90a, all at once, and print
+   ``csrc/map_sample.cu`` and ``csrc/gather_probe.cu`` with nvcc for
+   sm_90a, all at once, and print
    the build time, each ptxas report (registers, spills), each rollout
    kernel's SASS instructions per lane-step by class (``sass_counts``,
    where the toolkit has ``cuobjdump``) and the card's name and power
@@ -34,18 +34,26 @@ Phases (any failure exits non-zero; no error is swallowed):
    the tables' range), columns summing below 100 and of random int8 of
    any sign, M = 1, 3 and 4 (blocks of a few map samples),
    PARITY.md's ragged 13x15 maps, and known answers of
-   ``jax.random.uniform`` (``KNOWN_UNIFORMS``).  The crop kernel against
-   its plain version,
-   every plane, the offset and the limits bit for bit, for robots at
-   every cell edge of a row, an ulp either side and off the map, at the
-   big-map world's shape (padded origin 0 and -res) and a ragged one.
+   ``jax.random.uniform`` (``KNOWN_UNIFORMS``).  The kernel's crop mode
+   (``sample_and_pack_crop``: the window worked out from the task and
+   read from the map in the same launch) against its plain version
+   (``crop_window_plain`` then ``sample_and_pack_window_plain``): payload,
+   grids, offset and limits bit for bit in every layout, with and
+   without the risk plane, for robots near each edge of the map, at its
+   centre, at every cell edge of a row, an ulp either side and off the
+   map, at the big-map world's shape (padded origin 0 and -res) and a
+   ragged one.
    Then one small whole solve, the kernel path
    against its plain version on the card and against the CPU
    (``small_solve_witness``).
 3. The main paths, each with every kernel's launch count set to 0 just
    before it and read just after: ``MPPIPlanner`` on ``device="cuda"``
    through ``setup``, ``solve``, ``shift_and_update`` and, after the last
-   solve, ``get_state_rollout``, 20 closed-loop solves in each world of
+   solve, ``get_state_rollout``, 20 closed-loop solves, replayed from the
+   planner's CUDA graphs, each held bit for bit (controls, every
+   ``SolveAux`` field, the last vis) against an eager solve of the same
+   solver from a generator of the same seed (``EagerMirror``; its
+   launches are not counted), in each world of
    ``WORLDS`` -- the flagship 11x11 (byte kernel), a 250x250 external PMF
    (8-bit cells), a forest-size 140x84 learned-model PMF under tdm (4-bit
    cells), det_dyn and speed_map (2- or 4-bit cells, M = 1), the forest
@@ -55,18 +63,20 @@ Phases (any failure exits non-zero; no error is swallowed):
    regime, 250x250 at 0.5 m cropped to its 85x85 reachable window (4-bit
    cells), closed loop through ``sim.trial`` on a ground truth drawn from
    its PMF; every solve samples and packs its maps through the
-   map-sampling kernel once (``sample_and_pack_window``, no torch
-   packer), every cropped solve crops through the crop kernel once, and
-   the big-map world's ``TDM.sample_grids`` draws once more in the
-   kernel's bins mode, bit for bit with the plain draw.  Then that big-map
-   world cropped against uncropped,
+   map-sampling kernel once (``sample_and_pack_window``, or
+   ``sample_and_pack_crop`` when cropped: no torch packer, no launch of
+   its own for the crop), and the big-map world's ``TDM.sample_grids``
+   draws once more in the kernel's bins mode, bit for bit with the plain
+   draw.  Then that big-map world cropped against uncropped,
    the same seed: the same controls bit for bit, the cropped grids the
    window of the uncropped ones, over 20 solves of a moving window; and
    again with the padded origin at -res (a TDM's limits from 0): grids and
    offsets exact, controls within rtol 2e-4 / atol 2e-5;
    ``BareboneMPPI`` on ``examples/barebone_mppi.py``'s task (no kernel:
    plain torch ops), 20
-   closed-loop solves; and the gather probe's entry point
+   closed-loop solves; one episode of the big-map world through
+   ``device_sim.make_device_trial`` (one CUDA graph a step, ``reached``
+   read once a chunk); and the gather probe's entry point
    (``probes.gather_probe.run``), every (mode, table size, rows), each
    case's 512-step chain held bit for bit against the plain chain.
 4. Timing with CUDA events: each rollout kernel over launches captured in
@@ -78,15 +88,18 @@ Phases (any failure exits non-zero; no error is swallowed):
    probe's ns per chain step at every (mode, S, R) beside its bound; the
    map-sampling kernel at world (b)'s shape, fused in (b)'s layout and in
    its bins mode (and the bins mode followed by the torch packers), and
-   fused at (a)'s, (c)'s and (k)'s, and the crop kernel at the big-map
+   fused at (a)'s, (c)'s and (k)'s, and the crop mode at the big-map
    world's, each against its bound and its plain version; then
-   per timed world, in turns, chained solves on the device clock beside
-   the host's time to enqueue them and planner ``solve()`` times on the
-   host clock, and the device's busy time and kernel launches per solve
-   by kernel; the host
-   time of ``get_state_rollout`` in the forest world; the barebone chained
-   solve; the big-map world's chained solves and planner ``solve()``
-   calls cropped against uncropped, in turns.  Each figure is printed as a JSON line with the card's name
+   per timed world, in turns, chained solves replayed from a CUDA graph
+   and eager (``profiling.chained_solve_time``) on the device clock
+   beside the host's time to enqueue them, and planner ``solve()`` times
+   on the host clock, and the device's busy time and kernel launches per
+   solve by kernel; the host time of ``get_state_rollout`` (graph) and
+   of the eager vis in the forest world; the barebone chained solve; the
+   big-map world's chained solves (graph and eager) and planner
+   ``solve()`` calls cropped against uncropped, in turns; one device
+   trial of the big-map world against ``sim.trial``'s host loop, steps
+   per second.  Each figure is printed as a JSON line with the card's name
    and power limit.
 
 The line before the last is the ``kernels`` JSON object; the last line is
@@ -95,6 +108,7 @@ The line before the last is the ``kernels`` JSON object; the last line is
 
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import math
 import sys
@@ -177,6 +191,8 @@ BIGMAP_BINS, BIGMAP_RES, BIGMAP_VMAX, BIGMAP_ROI = 12, 0.5, 2.0, (85, 85)
 # Closed-loop solves of the cropped-against-uncropped check: the big-map
 # trial's, over which the window moves.
 CROP_CHECK_SOLVES = SOLVES
+# The big-map world's device trial: its steps (its goal lies beyond them).
+DEVICE_TRIAL_STEPS = 100
 # jax.random.uniform(jax.random.PRNGKey(s) or a split key, (3, 25 * 40))
 # at (m, y, x) of the (3, 25, 40) draw, computed with JAX 0.9.0 on the
 # CPU: (key words, [((m, y, x), the float32's bits, ceil(100 u) - 1)]).
@@ -280,15 +296,6 @@ def map_sample_bound_ms(M, rH, rW, B_lin, B_ang, layout="bins",
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(alu_ops / ALU_OPS_PER_S, all_ops / ISSUE_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
-
-
-def roi_window_bound_ms(rH, rW, B_lin, B_ang):
-    """Least time for one crop: its bytes over HBM bandwidth (its dozen
-    scalar operations are nothing beside them).  Bytes: the window of
-    every int8 plane read and written once, x0 and three scalars in, the
-    offset and the two limits out.  Returns (ms, bound_by)."""
-    nbytes = 2 * (B_lin + B_ang + 3) * rH * rW + 4 * 6 + 4 * 4
-    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def build_kernels(_build, names):
@@ -443,14 +450,17 @@ def main():
                                             time_cuda_graph)
     from mppi_numba_tpu_torch.models import bicycle_step, make_bicycle_step
     from mppi_numba_tpu_torch.ops.kernels import (_build, map_sample,
-                                                  roi_window,
                                                   rollout_binned,
                                                   rollout_byte)
     from mppi_numba_tpu_torch.ops import packing
     from mppi_numba_tpu_torch.probes import gather_probe
+    from mppi_numba_tpu_torch import device_sim, sim
     from mppi_numba_tpu_torch.ops.rollout import _clipped_controls_tk
     from mppi_numba_tpu_torch.ops.sampling import decode_bins
-    from mppi_numba_tpu_torch.solver import get_terrain_solver
+    from mppi_numba_tpu_torch.profiling import chained_solve_time
+    from mppi_numba_tpu_torch.solver import (get_barebone_solver,
+                                             get_terrain_solver,
+                                             get_terrain_vis)
     from mppi_numba_tpu_torch.types import TerrainTask
 
     dev = torch.device("cuda")
@@ -462,28 +472,29 @@ def main():
     splain = map_sample.sample_traction_window_plain
     fused = map_sample.sample_and_pack_window
     fplain = map_sample.sample_and_pack_window_plain
-    cropper = roi_window.crop_window
-    cplain = roi_window.crop_window_plain
+    cropper = map_sample.sample_and_pack_crop
+    cplain = map_sample.sample_and_pack_crop_plain
     chains = gather_probe.CHAINS
+    counted = (kernel, bkernel, sampler, fused, cropper,
+               *(chain for chain, _ in chains.values()))
 
     def set_counts(value=0):
-        kernel.launches = bkernel.launches = sampler.launches = value
-        fused.launches = cropper.launches = value
-        for chain, _ in chains.values():
-            chain.launches = value
+        for wrapper in counted:
+            wrapper.launches = value
 
     def read_counts():
         return {"rollout_byte": kernel.launches,
                 "rollout_binned": bkernel.launches,
-                "map_sample": sampler.launches + fused.launches,
+                "map_sample": (sampler.launches + fused.launches
+                               + cropper.launches),
                 "map_sample_pack": fused.launches,
+                "map_sample_crop": cropper.launches,
                 "map_sample_bins": sampler.launches,
-                "roi_window": cropper.launches,
                 "gather_probe": sum(c.launches for c, _ in chains.values())}
 
     # -- phase 1: build -------------------------------------------------------
     build_kernels(_build, ("rollout_byte", "rollout_binned", "map_sample",
-                           "roi_window", "gather_probe"))
+                           "gather_probe"))
     print_sass_counts([_build.library_path(name)
                        for name in ("rollout_byte", "rollout_binned")])
     card = card_line()
@@ -908,26 +919,30 @@ def main():
         del args, maps
     check_known_uniforms(torch, dev, sampler)
 
-    # The crop kernel against its plain version: every plane, the offset
-    # and the shifted limits bit for bit, at the big-map world's shape
-    # (its padded origin at 0, and at -res where a TDM's limits start at
-    # 0) and at a small ragged one, for robots at every cell edge of a
-    # row, a float32 ulp either side of it, and off the map.
+    # The crop mode against its plain version (crop_window_plain, then
+    # sample_and_pack_window_plain at the window): payload, grids, offset
+    # and shifted limits bit for bit, in every layout, with and without the
+    # risk plane, at the big-map world's shape (M = 1024 in its layout,
+    # 4-bit cells; fewer map samples in the others) with its padded origin
+    # at 0 and at -res, the robot near each edge of the map, at its centre,
+    # on a cell edge, an ulp either side and off the map; and at a ragged
+    # shape with the robot at every cell edge of a row, an ulp either side
+    # and off the map.
     crop_results = []
     crop_timed_args = None
-    for seed, (name, H, W, rH, rW, bl, ba, res, lim0) in enumerate([
-            ("main_path_85x85_of_250x250", 250, 250, 85, 85, 12, 12,
-             BIGMAP_RES, 0.0),
-            ("origin_minus_res_85x85", 250, 250, 85, 85, 12, 12, BIGMAP_RES,
-             -BIGMAP_RES),
-            ("ragged_13x11_of_64x48", 64, 48, 13, 11, 6, 22, 0.3, -1.3)],
-            start=750):
-        res_crop = check_crop_kernel(torch, dev, cropper, cplain, name, H, W,
-                                     rH, rW, bl, ba, res, lim0, seed)
+    for seed, (name, H, W, rH, rW, bl, ba, res, lim0, Ms, scan) in enumerate([
+            ("main_path_85x85_of_250x250", 250, 250, 85, 85, BIGMAP_BINS,
+             BIGMAP_BINS, BIGMAP_RES, 0.0, {"binned": 1024}, False),
+            ("origin_minus_res_85x85", 250, 250, 85, 85, BIGMAP_BINS,
+             BIGMAP_BINS, BIGMAP_RES, -BIGMAP_RES, {"binned": 1024}, False),
+            ("ragged_13x11_of_64x48", 64, 48, 13, 11, 6, 22, 0.3, -1.3, {},
+             True)], start=750):
+        res_crop = check_crop_mode(torch, dev, cropper, cplain, name, H, W,
+                                   rH, rW, bl, ba, res, lim0, Ms, scan, seed)
         crop_results.append(res_crop)
+        timed = res_crop.pop("timed_args")
         if name == "main_path_85x85_of_250x250":
-            crop_timed_args = res_crop.pop("timed_args")
-        res_crop.pop("timed_args", None)
+            crop_timed_args = timed
 
     small_solve_witness(torch, dev, plain)
 
@@ -950,9 +965,9 @@ def main():
         other = "rollout_binned" if used == "rollout_byte" else "rollout_byte"
         crops = run["solves"] if run["static"].roi_shape else 0
         check(launches[used] == run["solves"] * run["num_opt"]
-              and launches["map_sample_pack"] == run["solves"]
+              and launches["map_sample_pack"] == run["solves"] - crops
+              and launches["map_sample_crop"] == crops
               and launches["map_sample_bins"] == run["sample_grids_calls"]
-              and launches["roi_window"] == crops
               and launches[other] == launches["gather_probe"] == 0,
               "{}: launches {} for {} solves on {}".format(
                   world, launches, run["solves"], backend))
@@ -986,9 +1001,9 @@ def main():
     set_counts(0)
     roi_check = bigmap_crop_equals_full(torch, CROP_CHECK_SOLVES)
     launches = read_counts()
-    check(launches["map_sample_pack"] == launches["rollout_binned"]
-          == 2 * CROP_CHECK_SOLVES and launches["map_sample_bins"] == 0
-          and launches["roi_window"] == CROP_CHECK_SOLVES
+    check(launches["rollout_binned"] == 2 * CROP_CHECK_SOLVES
+          and launches["map_sample_pack"] == launches["map_sample_crop"]
+          == CROP_CHECK_SOLVES and launches["map_sample_bins"] == 0
           and launches["rollout_byte"] == launches["gather_probe"] == 0,
           "big map cropped vs uncropped: launches {}".format(launches))
     for k in totals:
@@ -1002,9 +1017,9 @@ def main():
     set_counts(0)
     roi_check = bigmap_crop_at_default_origin(torch, CROP_CHECK_SOLVES)
     launches = read_counts()
-    check(launches["map_sample_pack"] == launches["rollout_binned"]
-          == 2 * CROP_CHECK_SOLVES and launches["map_sample_bins"] == 0
-          and launches["roi_window"] == CROP_CHECK_SOLVES
+    check(launches["rollout_binned"] == 2 * CROP_CHECK_SOLVES
+          and launches["map_sample_pack"] == launches["map_sample_crop"]
+          == CROP_CHECK_SOLVES and launches["map_sample_bins"] == 0
           and launches["rollout_byte"] == launches["gather_probe"] == 0,
           "big map at origin -res: launches {}".format(launches))
     for k in totals:
@@ -1025,6 +1040,26 @@ def main():
     check(barebone["dist_end"] < barebone["dist0"],
           "barebone: goal distance did not shrink")
 
+    # One episode of the big-map world through the device simulator: one
+    # CUDA graph a step (solve, simulation, shift), no host read inside a
+    # chunk of steps; held bit for bit against its eager loop.
+    set_counts(0)
+    device_trial = run_device_trial(torch, DEVICE_TRIAL_STEPS)
+    launches = read_counts()
+    replays = launches["map_sample_crop"]
+    check(launches["rollout_binned"] == replays * device_trial["num_opt"]
+          and device_trial["steps"] <= replays
+          < device_trial["steps"] + device_trial["chunk_steps"]
+          and launches["map_sample_pack"] == launches["map_sample_bins"]
+          == launches["rollout_byte"] == launches["gather_probe"] == 0,
+          "device trial: launches {} for {} steps".format(
+              launches, device_trial["steps"]))
+    for k in totals:
+        totals[k] += launches[k]
+    print(json.dumps(dict({k: v for k, v in device_trial.items()
+                           if k != "timed_args"}, kernel_launches=launches)),
+          flush=True)
+
     # The gather probe's entry point: every (mode, S, R), each checked
     # against the plain chain, bit for bit, and timed by the probe itself.
     set_counts(0)
@@ -1032,7 +1067,7 @@ def main():
     launches = read_counts()
     check(launches["gather_probe"] > 0
           and launches["rollout_byte"] == launches["rollout_binned"]
-          == launches["map_sample"] == launches["roi_window"] == 0,
+          == launches["map_sample"] == 0,
           "gather probe: launches {}".format(launches))
     check(all(r["correct"] for r in probe_runs),
           "gather probe: a chain differs from its plain version: {}".format(
@@ -1196,113 +1231,179 @@ def main():
              bound_ms=bound[0], bound_by=bound[1])
     del args, maps, fused_timed_args
 
-    # The crop kernel at the big-map world's shape (an 85x85 window of
-    # 250x250, 12 bins a plane), against its bound and its plain version.
-    maps, task, map_shape, roi_shape = crop_timed_args
-    crop_runs = time_kernels({"roi_window": lambda: cropper(
-        maps, task, map_shape, roi_shape)}, 50)["roi_window"]
-    crop_plain_ms = [time_cuda(lambda: cplain(maps, task, map_shape,
-                                              roi_shape), 20, 3)
+    # The crop mode at the big-map world's shape (an 85x85 window of
+    # 250x250, 12 bins a plane, M = 1024, 4-bit cells): the launch that
+    # crops, samples and packs, against its bound (the window mode's at
+    # that shape: the crop adds a few scalar operations and 16 bytes out)
+    # and its plain version (the crop in torch ops, then the window's plain
+    # draw and pack).
+    key, cmaps, ctask, cM, clayout, croi = crop_timed_args
+    crop_runs = time_kernels({"crop": lambda: cropper(
+        key, cmaps, ctask, cM, clayout, croi)}, 20)["crop"]
+    crop_plain_ms = [time_cuda(lambda: cplain(key, cmaps, ctask, cM, clayout,
+                                              croi), 2, 1)
                      for _ in range(2)]
-    crop_bound = roi_window_bound_ms(*roi_shape, maps.lin_pmf.shape[0],
-                                     maps.ang_pmf.shape[0])
-    crop_shape = "{}x{}_of_{}x{}_bins{}+{}".format(
-        *roi_shape, *map_shape, maps.lin_pmf.shape[0], maps.ang_pmf.shape[0])
-    emit("roi_window_kernel_ms", min(crop_runs["graph"]), "ms",
+    crop_bound = map_sample_bound_ms(cM, *croi, cmaps.lin_pmf.shape[0],
+                                     cmaps.ang_pmf.shape[0], clayout)
+    crop_shape = "M{}_{}x{}_of_{}x{}_bins{}+{}".format(
+        cM, *croi, *cmaps.obstacle.shape, cmaps.lin_pmf.shape[0],
+        cmaps.ang_pmf.shape[0])
+    emit("map_sample_crop_kernel_ms", min(crop_runs["graph"]), "ms",
          runs=crop_runs["graph"], eager_runs=crop_runs["eager"],
-         shape=crop_shape, bound_ms=crop_bound[0], bound_by=crop_bound[1])
-    emit("roi_window_plain_ms", min(crop_plain_ms), "ms", runs=crop_plain_ms,
-         shape=crop_shape)
-    del maps, task
+         shape=crop_shape, layout=clayout, bound_ms=crop_bound[0],
+         bound_by=crop_bound[1],
+         window_mode_ms=fused_ms_at["main_path_85x85_of_250x250"])
+    emit("map_sample_crop_plain_ms", min(crop_plain_ms), "ms",
+         runs=crop_plain_ms, shape=crop_shape)
+    del key, cmaps, ctask, crop_timed_args
 
-    # The planner's visualisation rollouts on the host clock, world (c).
+    # The planner's visualisation rollouts on the host clock, world (c):
+    # get_state_rollout() (replayed from its graph) in turns with the same
+    # rollouts made eagerly.
     forest_planner = planner_runs["forest_140x84"]["planner"]
-    vis_ms = []
+    aux = forest_planner._last_aux
+    eager_vis = functools.partial(
+        get_terrain_vis(forest_planner._last_static),
+        forest_planner._map_inputs(), forest_planner._task_device,
+        forest_planner.u_cur, forest_planner.u_prev, aux.noise_vis,
+        aux.lin_grids, aux.ang_grids, aux.roi_offset)
+    vis_ms, vis_eager_ms = [], []
     for _ in range(6):
         t0 = time.perf_counter()
         forest_planner.get_state_rollout()
         vis_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        eager_vis().cpu()
+        vis_eager_ms.append((time.perf_counter() - t0) * 1e3)
     emit("get_state_rollout_host_ms", float(np.median(vis_ms[1:])), "ms",
          world="forest_140x84", runs=vis_ms,
-         V=forest_planner.num_vis_state_rollouts,
+         eager_vis_host_ms=float(np.median(vis_eager_ms[1:])),
+         eager_runs=vis_eager_ms, V=forest_planner.num_vis_state_rollouts,
          T=forest_planner.num_steps)
+    del aux, eager_vis
 
     # The barebone solve: chained on the device clock, with the host's
     # enqueue time beside it, in turns with planner solve() calls.
-    chain = _barebone_chain(barebone["planner"], torch)
-    chain(2)
+    bb = barebone["planner"]
+    bsolver = get_barebone_solver(bb._static(), dev)
+    bgen = torch.Generator(device=dev).manual_seed(1)
     chain_ms, enqueue_ms, solve_ms = [], [], []
     for _ in range(3):
-        ms, enq = time_chain(chain, 20, torch)
-        chain_ms.append(ms)
-        enqueue_ms.append(enq)
-        solve_ms.append(time_planner_solves(barebone["planner"], 20))
+        per, enq = chained_solve_time(
+            lambda g, _maps, task, u: bsolver(g, task, u), None,
+            bb._task_device, torch.zeros((barebone["T"], 2), device=dev),
+            num_iters=20, generator=bgen, with_enqueue=True)
+        chain_ms.append(per * 1e3)
+        enqueue_ms.append(enq * 1e3)
+        solve_ms.append(time_planner_solves(bb, 20))
     emit("barebone_chained_solve_ms", float(np.median(chain_ms)), "ms",
          solves=20, runs=chain_ms, host_enqueue_ms=enqueue_ms,
          planner_solve_host_ms=solve_ms, K=barebone["K"], T=barebone["T"])
 
-    # Solve times in one phase, in turns: chained solves on the device
-    # clock (with the host's enqueue time of the same chain beside them)
-    # and planner solve() calls on the host clock; then the device's busy
-    # time per solve, from kernel times under torch.profiler, over the
+    # Solve times in one phase, in turns: chained solves replayed from a
+    # CUDA graph and eager, on the device clock (with the host's enqueue
+    # time of the same chain beside them), and planner solve() calls on the
+    # host clock; then the device's busy time per solve, from kernel times
+    # under torch.profiler over eager chained solves (and over graph
+    # replays, where the profiler sees their kernels), over each
     # unprofiled chained time.
     for world in TIMED_WORLDS:
         run = planner_runs[world]
-        n, reps = (10, 3) if world == "external_250x250" else (50, 5)
-        chain = _solve_chain(run, torch)
-        chain(2)
-        chain_ms, enqueue_ms, solve_ms = [], [], []
-        for _ in range(reps):
-            ms, enq = time_chain(chain, n, torch)
-            chain_ms.append(ms)
-            enqueue_ms.append(enq)
-            solve_ms.append(time_planner_solves(run["planner"], n))
-        prof = profile_solves(chain, torch)
-        chain_med = float(np.median(chain_ms))
+        n, reps = (10, 4) if world == "external_250x250" else (50, 6)
+        res = time_solve_chains(run, torch, n, reps)
+        prof = res["profile"]
+        busy_ms = prof["eager"]["device_busy_us_per_solve"] / 1e3
+        chain_med = float(np.median(res["ms"]["eager"]))
+        graph_med = float(np.median(res["ms"]["graph"]))
         emit("chained_solve_ms", chain_med, "ms", world=world, solves=n,
-             backend=run["backend"], runs=chain_ms,
-             host_enqueue_ms=enqueue_ms,
-             device_busy_ms=prof["device_busy_us_per_solve"] / 1e3,
-             device_busy_share=prof["device_busy_us_per_solve"] / 1e3
-             / chain_med, kernels_per_solve=prof["kernels_per_solve"],
+             backend=run["backend"], runs=res["ms"]["eager"],
+             host_enqueue_ms=res["enqueue_ms"]["eager"],
+             device_busy_ms=busy_ms, device_busy_share=busy_ms / chain_med,
+             kernels_per_solve=prof["eager"]["kernels_per_solve"],
              K=run["K"], M=run["static"].num_grid_samples,
              T=run["T"], map=run["map"])
-        emit("planner_solve_host_ms_turns", float(np.median(solve_ms)), "ms",
-             world=world, solves=n, runs=solve_ms)
-        emit("solve_device_time_by_kernel", prof, "us", world=world)
+        emit("graph_chained_solve_ms", graph_med, "ms", world=world,
+             solves=n, backend=run["backend"], runs=res["ms"]["graph"],
+             host_enqueue_ms=res["enqueue_ms"]["graph"],
+             device_busy_ms=busy_ms, device_busy_share=busy_ms / graph_med,
+             graph_profile=prof["graph"],
+             launches_per_replay=res["launches_per_replay"])
+        emit("planner_solve_host_ms_turns", float(np.median(res["solve_ms"])),
+             "ms", world=world, solves=n, runs=res["solve_ms"])
+        emit("solve_device_time_by_kernel", prof["eager"], "us", world=world)
 
     # The big-map world cropped against uncropped, in turns (cropped,
-    # uncropped, uncropped, cropped): chained solves and device busy time.
-    # The planner's solve() on the host clock, the same turns, from a
-    # cropped planner and an uncropped one of the same world.
+    # uncropped, uncropped, cropped): chained solves (graph and eager) and
+    # device busy time.  The planner's solve() on the host clock, the same
+    # turns, from a cropped planner and an uncropped one of the same world.
     run = planner_runs[BIGMAP]
-    bigmap_chains = {
-        "cropped": _solve_chain(run, torch),
-        "uncropped": _solve_chain(dict(run, static=dataclasses.replace(
-            run["static"], roi_shape=None)), torch)}
-    bigmap_planners = {"cropped": run["planner"],
-                       "uncropped": setup_world(BIGMAP, crop=False)[0]}
-    bigmap_ms = {name: [] for name in bigmap_chains}
-    bigmap_enqueue = {name: [] for name in bigmap_chains}
-    bigmap_solve_ms = {name: [] for name in bigmap_chains}
-    for name in ["cropped", "uncropped", "uncropped", "cropped"] * 2:
-        bigmap_chains[name](2)
-        ms, enq = time_chain(bigmap_chains[name], 20, torch)
-        bigmap_ms[name].append(ms)
-        bigmap_enqueue[name].append(enq)
-        bigmap_solve_ms[name].append(
-            time_planner_solves(bigmap_planners[name], 20))
-    for name, chain in bigmap_chains.items():
-        prof = profile_solves(chain, torch)
-        emit("bigmap_chained_solve_ms", float(np.median(bigmap_ms[name])),
-             "ms", world=BIGMAP, crop=name, runs=bigmap_ms[name], solves=20,
-             host_enqueue_ms=bigmap_enqueue[name],
-             device_busy_ms=prof["device_busy_us_per_solve"] / 1e3,
-             kernels_per_solve=prof["kernels_per_solve"],
-             top_us_per_solve=prof["top_us_per_solve"])
+    bigmap_runs = {
+        "cropped": run,
+        "uncropped": dict(run, static=dataclasses.replace(
+            run["static"], roi_shape=None),
+            planner=setup_world(BIGMAP, crop=False)[0])}
+    bigmap_res = {name: [] for name in bigmap_runs}
+    for name in ["cropped", "uncropped", "uncropped", "cropped"]:
+        bigmap_res[name].append(time_solve_chains(bigmap_runs[name], torch,
+                                                  20, 2))
+    for name, results in bigmap_res.items():
+        def pooled(*keys):
+            return [v for r in results for v in r[keys[0]][keys[1]]]
+
+        prof = results[-1]["profile"]
+        emit("bigmap_chained_solve_ms", float(np.median(
+            pooled("ms", "eager"))), "ms", world=BIGMAP, crop=name,
+            runs=pooled("ms", "eager"), solves=20,
+            host_enqueue_ms=pooled("enqueue_ms", "eager"),
+            graph_chained_ms=float(np.median(pooled("ms", "graph"))),
+            graph_runs=pooled("ms", "graph"),
+            graph_host_enqueue_ms=pooled("enqueue_ms", "graph"),
+            device_busy_ms=prof["eager"]["device_busy_us_per_solve"] / 1e3,
+            kernels_per_solve=prof["eager"]["kernels_per_solve"],
+            top_us_per_solve=prof["eager"]["top_us_per_solve"],
+            graph_profile=prof["graph"],
+            launches_per_replay=results[-1]["launches_per_replay"])
         emit("bigmap_planner_solve_host_ms", float(np.median(
-            bigmap_solve_ms[name])), "ms", world=BIGMAP, crop=name,
-            runs=bigmap_solve_ms[name], solves=20)
+            [v for r in results for v in r["solve_ms"]])), "ms", world=BIGMAP,
+            crop=name, runs=[v for r in results for v in r["solve_ms"]],
+            solves=20)
+
+    # One device trial of the big-map world (one CUDA graph a step, its
+    # capture included; a one-step episode times the capture) in turns
+    # with sim.trial's host loop on a planner of the same world (its
+    # graphs captured by a first, untimed call): steps per second.
+    trial_ms, one_step_ms, trial_steps, host_ms, host_steps = [], [], [], [], []
+    trial, tmaps, ttask, gt, meta = device_trial["timed_args"]
+    one_step = device_sim.make_episode_fn(run["static"], 1)
+    host_planner, truth, _ = setup_world(BIGMAP)
+    params0 = dict(host_planner.params)
+    sim.trial(host_planner, truth, host_planner.dt, 2, params0)
+    for turn in range(2):
+        gen = torch.Generator(device=dev).manual_seed(20 + turn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trial(gen, tmaps, ttask, *gt, meta)
+        trial_steps.append(int(out.steps))
+        trial_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        one_step(gen, tmaps, ttask, *gt, meta).steps.item()
+        one_step_ms.append((time.perf_counter() - t0) * 1e3)
+        host_planner.set_params(params0)
+        t0 = time.perf_counter()
+        out = sim.trial(host_planner, truth, host_planner.dt,
+                        DEVICE_TRIAL_STEPS, params0, return_history=True)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        host_steps.append(len(out["uhist"]))
+    emit("device_trial_steps_per_s", float(np.median(
+        [s / ms * 1e3 for s, ms in zip(trial_steps, trial_ms)])), "steps/s",
+        world=BIGMAP, steps=trial_steps, ms=trial_ms,
+        one_step_episode_ms=one_step_ms,
+        replay_steps_per_s=[(s - 1) / (ms - o) * 1e3 for s, ms, o in zip(
+            trial_steps, trial_ms, one_step_ms)],
+        host_loop_steps_per_s=float(np.median(
+            [s / ms * 1e3 for s, ms in zip(host_steps, host_ms)])),
+        host_loop_steps=host_steps, host_loop_ms=host_ms)
+    del trial, tmaps, ttask, gt, meta, host_planner
 
     flag = case_results[0]
     forest = binned_timed["forest_140x84"]
@@ -1365,6 +1466,7 @@ def main():
         "timed_at": "external_250x250: {}, {} payload".format(sample_shape,
                                                              layout),
         "launches_sample_and_pack": totals["map_sample_pack"],
+        "launches_crop": totals["map_sample_crop"],
         "launches_bins": totals["map_sample_bins"],
         "bins_mode_ms": min(sample_runs["bins"]["graph"]),
         "bins_mode_bound_ms": bins_bound[0],
@@ -1373,18 +1475,21 @@ def main():
         "fused_combinations": sum(r["combinations"] for r in fused_results),
     }, {
         "name": "roi_window",
+        "kernel": "map_sample, crop mode (sample_and_pack_crop): the crop "
+                  "is folded into the map draw; no launch of its own",
         "route": "cuda",
-        "source": roi_window.KERNEL_SOURCE,
-        "replaces": roi_window.REPLACES,
-        "launches": totals["roi_window"],
+        "source": map_sample.KERNEL_SOURCE,
+        "replaces": map_sample.CROP_REPLACES,
+        "launches": totals["map_sample_crop"],
         "max_abs_err": max(r["max_abs_err"] for r in crop_results),
         "ms": min(crop_runs["graph"]),
         "plain_ms": min(crop_plain_ms),
         "bound_ms": crop_bound[0],
         "bound_by": crop_bound[1],
         "library_ms": None,
-        "timed_at": BIGMAP + ": " + crop_shape,
-        "cases": sum(r["positions"] for r in crop_results),
+        "timed_at": BIGMAP + ": " + crop_shape + ", " + clayout + " payload",
+        "window_mode_ms": fused_ms_at["main_path_85x85_of_250x250"],
+        "cases": sum(r["combinations"] for r in crop_results),
     }, {
         "name": "gather_probe",
         "route": "cuda",
@@ -1539,52 +1644,113 @@ def check_known_uniforms(torch, dev, sampler):
                           values=checked)), flush=True)
 
 
-def check_crop_kernel(torch, dev, cropper, cplain, name, H, W, rH, rW,
-                      B_lin, B_ang, res, lim0, seed):
-    """The crop kernel against its plain version on random int8 planes of
-    an (H, W) map whose padded origin is ``lim0`` on both axes, the robot
-    at every cell edge of a row, a float32 ulp either side of each, and off
-    the map on every side.  Returns the case's record, with
-    the first position's arguments under ``timed_args``."""
+def crop_case_inputs(torch, dev, H, W, B_lin, B_ang, res, lim0, seed):
+    """A crop-mode case's map and task: PMF columns summing to 100 (one
+    summing below), bin values of any sign, obstacle, unknown and risk
+    planes of random int8 of any sign, the padded origin at ``lim0``."""
     from mppi_numba_tpu_torch.types import MapInputs, TerrainTask
 
     rng = np.random.RandomState(seed)
     t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
-    plane = lambda *shape: t(rng.randint(-128, 128, shape)  # noqa: E731
-                             .astype(np.int8))
-    maps = MapInputs(plane(B_lin, H, W), plane(B_ang, H, W), plane(B_lin),
-                     plane(B_ang), plane(H, W), plane(H, W), plane(H, W))
+
+    def pmf(B):
+        p = random_pmf(rng, B, H, W)
+        p[:, 1, 2] = 0
+        return t(p)
+
+    plane = lambda: t(rng.randint(-128, 128, (H, W)).astype(np.int8))  # noqa: E731
+    maps = MapInputs(pmf(B_lin), pmf(B_ang),
+                     t(rng.randint(-128, 128, B_lin).astype(np.int8)),
+                     t(rng.randint(-128, 128, B_ang).astype(np.int8)),
+                     plane(), plane(), plane())
     f32 = np.float32
     task = TerrainTask(*[t(f32(0.0))] * 20)._replace(
-        res=t(f32(res)), xlim0=t(f32(lim0)), ylim0=t(f32(lim0)))
-    edges = (lim0 + res * np.arange(-2, W + 2)).astype(f32)
-    xs = np.concatenate([edges, np.nextafter(edges, f32(-np.inf)),
-                         np.nextafter(edges, f32(np.inf)),
-                         f32([-1e4, 1e4])])
-    differ, err, offsets, timed = 0, 0.0, set(), None
-    for x in xs:
-        pos = task._replace(x0=t(np.array([x, rng.choice(xs), 0.0], f32)))
-        got = cropper(maps, pos, (H, W), (rH, rW))
-        want = cplain(maps, pos, (H, W), (rH, rW))
-        pairs = ([(getattr(got[0], f), getattr(want[0], f))
-                  for f in maps._fields]
-                 + [(got[1].xlim0, want[1].xlim0),
-                    (got[1].ylim0, want[1].ylim0), (got[2], want[2])])
-        differ += sum(int((g.reshape(-1) != w.reshape(-1)).sum())
-                      for g, w in pairs)
-        err = max([err] + [float((g.double() - w.double()).abs().max())
-                           for g, w in pairs])
-        offsets.add(tuple(want[2].tolist()))
-        timed = timed or (maps, pos, (H, W), (rH, rW))
-    res_crop = dict(case="roi_window_" + name, map="{}x{}".format(H, W),
+        res=t(f32(res)), xlim0=t(f32(lim0)), ylim0=t(f32(lim0)),
+        alpha_dyn=t(f32(1.0)))
+    key = t(rng.randint(0, 2 ** 32, size=2, dtype=np.uint64).astype(np.int64))
+    return key, maps, task
+
+
+def crop_positions(H, W, res, lim0, scan):
+    """Robot positions (x, y) for the crop mode: with ``scan``, x at every
+    cell edge of a row, a float32 ulp either side, and off the map (y
+    along a row's edges too); else near each edge of the map, at its
+    centre, on a cell edge by it, an ulp either side, and off the map."""
+    f32 = np.float32
+    if scan:
+        edges = (lim0 + res * np.arange(-2, W + 2)).astype(f32)
+        xs = np.concatenate([edges, np.nextafter(edges, f32(-np.inf)),
+                             np.nextafter(edges, f32(np.inf)),
+                             f32([-1e4, 1e4])])
+        ys = np.roll(xs, 7)
+        return list(zip(xs, ys))
+    cx, cy = lim0 + res * W / 2, lim0 + res * H / 2
+    edge = f32(lim0 + res * (W // 2 + 3))
+    return [(f32(lim0 + 0.3 * res), f32(cy)),
+            (f32(lim0 + (W - 0.3) * res), f32(cy)),
+            (f32(cx), f32(lim0 + 0.3 * res)),
+            (f32(cx), f32(lim0 + (H - 0.3) * res)),
+            (f32(cx + 0.1 * res), f32(cy - 0.2 * res)),
+            (edge, edge), (np.nextafter(edge, f32(-np.inf)), edge),
+            (np.nextafter(edge, f32(np.inf)), edge),
+            (f32(-1e4), f32(1e4))]
+
+
+def check_crop_mode(torch, dev, cropper, cplain, name, H, W, rH, rW, B_lin,
+                    B_ang, res, lim0, Ms, scan, seed):
+    """The map-sampling kernel's crop mode against its plain version on an
+    (H, W) map whose padded origin is ``lim0`` on both axes: payload,
+    grids, offset and shifted limits bit for bit, in every payload layout
+    (``Ms[layout]`` map samples, else 4), with and without the risk plane,
+    at each of ``crop_positions``.  Returns the case's record, with the
+    main path layout's arguments at the first position under
+    ``timed_args``."""
+    key, maps, task = crop_case_inputs(torch, dev, H, W, B_lin, B_ang, res,
+                                       lim0, seed)
+    differ, err, combos, offsets, timed = 0, 0.0, 0, set(), None
+    positions = crop_positions(H, W, res, lim0, scan)
+    for x, y in positions:
+        pos = task._replace(x0=torch.tensor([x, y, 0.0], device=dev))
+        for layout in FUSED_LAYOUTS:
+            M = Ms.get(layout, 4)
+            for risk in (False, True):
+                got = cropper(key, maps, pos, M, layout, (rH, rW), risk=risk)
+                want = cplain(key, maps, pos, M, layout, (rH, rW), risk=risk)
+                pairs = [(g, w) for g, w in zip(
+                    flat_payload(got), flat_payload(want))
+                    if g is not None or w is not None]
+                check(all(g is not None and w is not None
+                          for g, w in pairs),
+                      "crop mode {}: an output is missing".format(name))
+                pairs += [(got[3].xlim0, want[3].xlim0),
+                          (got[3].ylim0, want[3].ylim0), (got[4], want[4])]
+                differ += sum(int((g.reshape(-1) != w.reshape(-1)).sum())
+                              for g, w in pairs)
+                err = max([err] + [float((g.double() - w.double()).abs()
+                                         .max()) for g, w in pairs])
+                combos += 1
+                offsets.add(tuple(want[4].tolist()))
+                if timed is None and layout in Ms:
+                    timed = (key, maps, pos, M, layout, (rH, rW))
+    res_crop = dict(case="map_sample_crop_" + name, map="{}x{}".format(H, W),
                     window=[rH, rW], bins=[B_lin, B_ang], res=res,
-                    padded_origin=lim0, positions=len(xs),
-                    distinct_offsets=len(offsets), entries_differing=differ,
-                    max_abs_err=err)
+                    padded_origin=lim0, positions=len(positions),
+                    combinations=combos, distinct_offsets=len(offsets),
+                    entries_differing=differ, max_abs_err=err)
     print(json.dumps(res_crop), flush=True)
-    check(differ == 0, "roi_window {}: {} entries differ from the plain "
+    check(differ == 0, "crop mode {}: {} entries differ from the plain "
           "version".format(name, differ))
+    check(len(offsets) > 2, "crop mode {}: the window did not move: {}"
+          .format(name, offsets))
     return dict(res_crop, timed_args=timed)
+
+
+def flat_payload(out):
+    """A fused call's ``(payload, lin_grids, ang_grids, ...)`` as a flat
+    list of its payload tensors and grids (Nones kept)."""
+    payload, lin, ang = out[:3]
+    return [*(payload if isinstance(payload, tuple) else (payload,)), lin,
+            ang]
 
 
 def small_solve_witness(torch, dev, plain):
@@ -1949,14 +2115,17 @@ def run_planner(world):
     times = []
     trial_info = {}
     sample_grids_calls = 0
+    mirror = EagerMirror(planner)
     if world == BIGMAP:
-        x, trial_info = run_bigmap_trial(planner, truth, times)
+        x, trial_info = run_bigmap_trial(planner, truth, times, mirror)
         check_sample_grids(planner.lin_tdm)
         sample_grids_calls = 1
     for _ in range(SOLVES if world != BIGMAP else 0):
+        mirror.before_solve()
         t0 = time.perf_counter()
         u = planner.solve()
         times.append((time.perf_counter() - t0) * 1e3)
+        mirror.after_solve(u, world)
         check(u is not None and u.shape == (planner.num_steps, 2)
               and np.isfinite(u).all(), "{}: bad controls".format(world))
         check(not planner.det_dyn or planner.u_prev is planner.u_cur,
@@ -1967,7 +2136,9 @@ def run_planner(world):
         x = x + dt * np.array([lin_tr * v * np.cos(x[2]),
                                lin_tr * v * np.sin(x[2]), ang_tr * rate])
         planner.shift_and_update(x, u, num_shifts=1)
-    vis_shape = check_state_rollout(world, planner, x)
+    vis_shape = check_state_rollout(world, planner, x, mirror)
+    check(mirror.solves == SOLVES, "{}: {} solves held against eager ones"
+          .format(world, mirror.solves))
     return dict(solves=SOLVES, num_opt=static.num_opt, vis_shape=vis_shape,
                 solve_ms_first=times[0],
                 solve_ms_median=float(np.median(times[1:])),
@@ -2001,17 +2172,94 @@ def check_sample_grids(tdm):
                           bitwise=True)), flush=True)
 
 
+class EagerMirror:
+    """Eager solves beside a planner's solves (replayed from its CUDA
+    graphs on a card): the same solver, from a generator of the planner's
+    seed, on copies of the planner's inputs taken before each solve, its
+    controls shifted as the planner's device shift does.  Each solve's
+    controls and every ``SolveAux`` field, and the vis rollouts, are held
+    bit for bit.  Its own launches are comparisons and are not counted
+    (the kernel wrappers' counts are put back after each)."""
+
+    def __init__(self, planner):
+        import torch
+
+        self.torch, self.planner = torch, planner
+        dev = planner.device
+        self.gen = torch.Generator(device=dev).manual_seed(planner.seed)
+        self.u = torch.zeros((planner.num_steps, 2), device=dev)
+        self.u_prev = torch.zeros_like(self.u)
+        self.solves = 0
+
+    def _inputs(self):
+        p = self.planner
+
+        def clone(tup):
+            return type(tup)(*(None if t is None else t.clone()
+                               for t in tup))
+
+        return clone(p._map_inputs()), clone(p._task_device)
+
+    def before_solve(self):
+        self.static = self.planner._static()
+        self.maps, self.task = self._inputs()
+
+    def _uncounted(self, fn):
+        from mppi_numba_tpu_torch.graphs import counted_wrappers
+
+        counts = [(w, w.launches) for w in counted_wrappers()]
+        try:
+            return fn()
+        finally:
+            for w, n in counts:
+                w.launches = n
+
+    def after_solve(self, u, world):
+        from mppi_numba_tpu_torch.solver import get_terrain_solver
+
+        torch, p = self.torch, self.planner
+        solver = get_terrain_solver(self.static, p.device)
+        want_u, self.aux = self._uncounted(lambda: solver(
+            self.gen, self.maps, self.task, self.u))
+        got = p._last_aux
+        differ = [f for f in self.aux._fields
+                  if not torch.equal(getattr(got, f), getattr(self.aux, f))]
+        check(np.array_equal(u, want_u.cpu().numpy()) and not differ,
+              "{}: solve {} replayed from its graph differs from the eager "
+              "solve (u max diff {}, aux fields {})".format(
+                  world, self.solves,
+                  float(np.abs(u - want_u.cpu().numpy()).max()), differ))
+        if p.det_dyn:
+            self.u_prev = want_u
+        self.u = torch.cat([want_u[1:], want_u[-1:]])
+        self.solves += 1
+
+    def vis(self):
+        """The eager vis rollouts on the planner's present inputs."""
+        from mppi_numba_tpu_torch.solver import get_terrain_vis
+
+        maps, task = self._inputs()
+        a = self.aux
+        return self._uncounted(lambda: get_terrain_vis(self.static)(
+            maps, task, self.u, self.u_prev, a.noise_vis, a.lin_grids,
+            a.ang_grids, a.roi_offset)).cpu().numpy()
+
+
 class _TimedPlanner:
     """A planner seen by ``sim.trial``: each ``solve()`` timed on the host
-    clock and its window's offset kept."""
+    clock, held against an ``EagerMirror``, and its window's offset
+    kept."""
 
-    def __init__(self, planner, times):
+    def __init__(self, planner, times, mirror):
         self.planner, self.times, self.offsets = planner, times, []
+        self.mirror = mirror
 
     def solve(self):
+        self.mirror.before_solve()
         t0 = time.perf_counter()
         u = self.planner.solve()
         self.times.append((time.perf_counter() - t0) * 1e3)
+        self.mirror.after_solve(u, BIGMAP)
         self.offsets.append(tuple(self.planner._last_aux.roi_offset.tolist()))
         return u
 
@@ -2019,7 +2267,7 @@ class _TimedPlanner:
         self.planner.shift_and_update(new_x0, u_cur, num_shifts=num_shifts)
 
 
-def run_bigmap_trial(planner, grid, times):
+def run_bigmap_trial(planner, grid, times, mirror):
     """The big-map world's ``SOLVES`` closed-loop solves through
     ``sim.trial`` on its ``TractionGrid``.  Checks the window: (85, 85),
     its offset at each solve the robot's cell (float32, as the solver
@@ -2030,7 +2278,7 @@ def run_bigmap_trial(planner, grid, times):
     static = planner._static()
     check(static.roi_shape == BIGMAP_ROI, "big map: window {}, expected {}"
           .format(static.roi_shape, BIGMAP_ROI))
-    timed = _TimedPlanner(planner, times)
+    timed = _TimedPlanner(planner, times, mirror)
     out = sim.trial(timed, grid, planner.dt, SOLVES, planner.params,
                     return_history=True)
     xhist = out["xhist"]
@@ -2161,10 +2409,16 @@ def bigmap_crop_equals_full(torch, n):
                 controls_bitwise=True, grids_bitwise=True)
 
 
-def check_state_rollout(world, planner, x):
+def check_state_rollout(world, planner, x, mirror=None):
     """``get_state_rollout()`` after the last solve: ``(V, T+1, 3)``, finite,
-    every row 0 the current state ``x`` (float32).  Returns the shape."""
+    every row 0 the current state ``x`` (float32), and with an
+    ``EagerMirror`` bit for bit its eager vis.  Returns the shape."""
     states = planner.get_state_rollout()
+    if mirror is not None:
+        want = mirror.vis()
+        check(np.array_equal(states, want), "{}: the vis replayed from its "
+              "graph differs from the eager vis by {}".format(
+                  world, float(np.abs(states - want).max())))
     V, T = planner.num_vis_state_rollouts, planner.num_steps
     check(isinstance(states, np.ndarray) and states.shape == (V, T + 1, 3)
           and np.isfinite(states).all(), "{}: state rollout {}".format(
@@ -2173,6 +2427,54 @@ def check_state_rollout(world, planner, x):
         np.asarray(x, np.float32), (V, 3))),
         "{}: state rollouts do not start at x0".format(world))
     return list(states.shape)
+
+
+def run_device_trial(torch, max_steps):
+    """One episode of the big-map world through
+    ``device_sim.make_device_trial`` on the card (a generator: one CUDA
+    graph a step, ``reached`` read once a chunk), against the same episode
+    through its eager loop (a callable making the same draws from a
+    generator of the same seed; its launches not counted): every field bit
+    for bit.  Returns the record, with the episode's arguments under
+    ``timed_args``."""
+    from mppi_numba_tpu_torch import device_sim
+    from mppi_numba_tpu_torch.graphs import counted_wrappers
+    from mppi_numba_tpu_torch.ops.sampling import draw_map_key
+
+    planner, truth, _ = setup_world(BIGMAP)
+    static, dev = planner._static(), planner.device
+    maps, task = planner._map_inputs(), planner._task_device
+    f32 = torch.float32
+    gt = [torch.tensor(g, dtype=f32, device=dev) for g in truth.get_grids()]
+    meta = torch.tensor([truth.xlimits[0], truth.ylimits[0], 1.0 / truth.res],
+                        dtype=f32, device=dev)
+    trial = device_sim.make_device_trial(static, max_steps)
+    got = trial(torch.Generator(device=dev).manual_seed(7), maps, task, *gt,
+                meta)
+    torch.cuda.synchronize()
+    g2 = torch.Generator(device=dev).manual_seed(7)
+
+    def draws(t):
+        return draw_map_key(g2, dev), [
+            torch.randn((static.num_control_rollouts, static.num_steps, 2),
+                        generator=g2, device=dev)
+            for _ in range(static.num_opt)]
+
+    counts = [(w, w.launches) for w in counted_wrappers()]
+    want = trial(draws, maps, task, *gt, meta)
+    for w, n in counts:
+        w.launches = n
+    differ = [f for f, a, b in zip(got._fields, got, want)
+              if not torch.equal(a, b)]
+    check(not differ, "device trial: the graph episode differs from the "
+          "eager loop in {}: {} / {}".format(differ, got, want))
+    res = {f: (v.item()) for f, v in got._asdict().items()}
+    check(res["steps"] > 0 and np.isfinite(res["cum_obj"]),
+          "device trial: {}".format(res))
+    return dict(check="device_trial", world=BIGMAP, max_steps=max_steps,
+                chunk_steps=device_sim.CHUNK_STEPS, num_opt=static.num_opt,
+                graph_equals_eager=True, **res,
+                timed_args=(trial, maps, task, gt, meta))
 
 
 def run_barebone():
@@ -2214,21 +2516,6 @@ def run_barebone():
                 planner=planner)
 
 
-def time_chain(chain, n, torch):
-    """One chain of ``n`` solves: (device ms per solve, CUDA events; host
-    ms per solve spent enqueuing it)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    t0 = time.perf_counter()
-    chain(n)
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n, enqueue_ms / n
-
-
 def time_planner_solves(planner, n):
     """Median host ms of ``n`` planner ``solve()`` calls in a row."""
     times = []
@@ -2239,10 +2526,12 @@ def time_planner_solves(planner, n):
     return float(np.median(times))
 
 
-def profile_solves(chain, torch, n=5, top=8):
+def profile_solves(chain, torch, n=5, top=8, require=True):
     """Device time by kernel over ``n`` chained solves (torch.profiler):
     the kernels' summed time per solve, the kernels launched per solve,
-    and the ``top`` kernels (name, us and launches per solve)."""
+    and the ``top`` kernels (name, us and launches per solve).  None where
+    the profiler saw no kernel and ``require`` is False (graph replays,
+    whose kernels it may not see)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2255,7 +2544,9 @@ def profile_solves(chain, torch, n=5, top=8):
     rows = [(e.key, float(e.device_time_total), e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-    check(rows, "torch.profiler recorded no kernel time")
+    check(rows or not require, "torch.profiler recorded no kernel time")
+    if not rows:
+        return None
     rows.sort(key=lambda r: -r[1])
     return dict(device_busy_us_per_solve=sum(r[1] for r in rows) / n,
                 kernels_per_solve=sum(r[2] for r in rows) / n,
@@ -2263,41 +2554,59 @@ def profile_solves(chain, torch, n=5, top=8):
                                   for k, us, c in rows[:top]])
 
 
-def _barebone_chain(planner, torch):
-    """``chain(k)``: k barebone solves on the device, each fed the last
-    one's controls, with no host sync inside."""
-    from mppi_numba_tpu_torch.solver import get_barebone_solver
-
-    solver = get_barebone_solver(planner._static(), planner.device)
-    task = planner._task_device
-    gen = torch.Generator(device=planner.device).manual_seed(1)
+def solve_chain(fn, gen, maps, task, u0):
+    """``chain(k)``: k solves of ``fn`` (a solver or a ``SolveGraph``) on
+    the device, each fed the last one's controls, no host sync inside."""
 
     def chain(k):
-        u = torch.zeros((planner.num_steps, 2), device=planner.device)
+        u = u0
         for _ in range(k):
-            u, _ = solver(gen, task, u)
+            u, _ = fn(gen, maps, task, u)
         return u
 
     return chain
 
 
-def _solve_chain(run, torch):
-    """``chain(k)``: k solves on the device, each fed the last one's
-    controls, with no host sync inside."""
+def time_solve_chains(run, torch, n, reps):
+    """A world's chained solves, ``n`` a chain, replayed from a CUDA graph
+    (a ``SolveGraph`` captured on the planner's maps and task and a
+    controls buffer of its own) and eager, in turns (graph, eager, eager,
+    graph, ...) through ``profiling.chained_solve_time`` (device ms per
+    solve and the host's enqueue ms), ``reps`` of each, with the planner's
+    ``solve()`` timed between; then each profiled over 5 chained solves.
+    Returns ``{"ms": {...}, "enqueue_ms": {...}, "solve_ms": [...],
+    "profile": {"eager": ..., "graph": ... or None},
+    "launches_per_replay": {...}}``."""
+    from mppi_numba_tpu_torch.profiling import chained_solve_time
     from mppi_numba_tpu_torch.solver import get_terrain_solver
 
     planner, static = run["planner"], run["static"]
-    solver = get_terrain_solver(static, planner.device)
+    dev = planner.device
+    solver = get_terrain_solver(static, dev)
     maps, task = planner._map_inputs(), planner._task_device
-    gen = torch.Generator(device=planner.device).manual_seed(1)
-
-    def chain(k):
-        u = torch.zeros((static.num_steps, 2), device=planner.device)
-        for _ in range(k):
-            u, _ = solver(gen, maps, task, u)
-        return u
-
-    return chain
+    u0 = torch.zeros((static.num_steps, 2), device=dev)
+    gens = {name: torch.Generator(device=dev).manual_seed(1)
+            for name in ("graph", "eager")}
+    fns = {"eager": solver,
+           "graph": solver.capture(gens["graph"], maps, task,
+                                   torch.zeros_like(u0))}
+    out = dict(ms={"graph": [], "eager": []},
+               enqueue_ms={"graph": [], "eager": []}, solve_ms=[])
+    for r in range(reps):
+        for name in (("graph", "eager") if r % 2 == 0
+                     else ("eager", "graph")):
+            per, enq = chained_solve_time(fns[name], maps, task, u0,
+                                          num_iters=n, generator=gens[name],
+                                          with_enqueue=True)
+            out["ms"][name].append(per * 1e3)
+            out["enqueue_ms"][name].append(enq * 1e3)
+        out["solve_ms"].append(time_planner_solves(planner, n))
+    out["profile"] = {
+        name: profile_solves(solve_chain(fn, gens[name], maps, task, u0),
+                             torch, require=name == "eager")
+        for name, fn in fns.items()}
+    out["launches_per_replay"] = fns["graph"].captured_launches
+    return out
 
 
 if __name__ == "__main__":

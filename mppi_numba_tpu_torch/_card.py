@@ -42,13 +42,11 @@ def time_cuda_graph(fn, reps, warmup):
     CUDA graph and replayed (CUDA events around the replay), after
     ``warmup`` eager calls: the launches' own time, without the host's
     time to make each launch, which exceeds a short kernel's."""
+    from .graphs import Captured
+
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+    graph = Captured(lambda: [fn() for _ in range(reps)])
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)

@@ -16,6 +16,26 @@
 //   rank     = sum_b (cum[b, cell] < sampled)     cum: the PMF's int32 cumsum
 //   grid     = rank < B ? qbins[rank] : -128
 //
+// In crop mode (x0 given) the planes are the whole (H, W) map's and the
+// window is the reachable window around the robot, its start worked out
+// here from the task's device scalars (ops/roi.py::roi_start, bit for bit:
+// a true float32 division, floor, two clamps; IEEE intrinsics, no fast
+// math):
+//
+//   cx, cy   = floor((x0 - lim0) / res)
+//   oy       = clamp(clamp(cy, 0, H - 1) - rH / 2, 0, H - rH)    (ox alike)
+//
+// Every block computes (oy, ox) itself (blocks run in no order; an M = 1
+// launch has few of them) and reads each plane at the window's cells in
+// the map; block (0, 0)'s thread 0 also writes the int32 offset (oy, ox)
+// and the shifted limits (xlim0 + ox * res, ylim0 + oy * res).  That is
+// the JAX package's XLA-fused _roi_start + _crop_maps + _shift_task_limits
+// (mppi_numba_tpu/solver.py:127,144,158) folded into the draw: no copy of
+// the window is written, and the solve makes no launch for the crop.  The
+// crop mode is a template parameter: the window mode's instantiations are
+// compiled as if it did not exist (the crop's branches and addressing
+// would otherwise cost them registers, and so blocks per SM).
+//
 // lin and ang take their ranks from the same uniform (the reference seeds
 // both TDM streams alike, so their draws are comonotone).  The outputs are
 // the int8 grids of both planes, (M, rH, rW), and one of (LAYOUT):
@@ -106,6 +126,15 @@ struct Params {
   const int64_t* key;           // (2,) uint32 words
   const int32_t* oy;            // window start, or null for 0
   const int32_t* ox;
+  // Crop mode: x0 (3,) and the xlim0 / ylim0 / res scalars, null
+  // otherwise; then the planes are the (H, W) map's, and offset_out (2,)
+  // and lims_out (2,) receive the window's start and shifted limits.
+  const float* x0;
+  const float* xlim0;
+  const float* ylim0;
+  const float* res;
+  int32_t* offset_out;
+  float* lims_out;
   const float* alpha_dyn;
   const int8_t* pmf[2];         // (B, rH, rW) lin, ang (ang null: lin only)
   const int8_t* qbins[2];       // (B,)
@@ -118,9 +147,44 @@ struct Params {
   int32_t* mask_words;          // the cell layouts: (ceil(n/16),)
   int32_t* risk_words;          // the cell layouts with a risk plane
   int B[2];
-  int M, n_cells, rW, W, words_per_row, samples_per_block;
+  int M, n_cells, rH, rW, H, W, words_per_row, samples_per_block;
   uint32_t HW, m_offset;
+  size_t plane_stride;          // a PMF bin's stride: n_cells, or HW cropping
 };
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// The window's start: the reachable window around x0 in crop mode
+// (ops/roi.py::roi_start, every float operation round-to-nearest), else
+// the given offsets or 0.
+template <bool CROP>
+__device__ __forceinline__ void window_start(const Params& p, int& oy,
+                                             int& ox) {
+  if (!CROP) {
+    oy = p.oy ? *p.oy : 0;
+    ox = p.ox ? *p.ox : 0;
+    return;
+  }
+  const float r = *p.res;
+  const int cx =
+      static_cast<int>(floorf(__fdiv_rn(__fsub_rn(p.x0[0], *p.xlim0), r)));
+  const int cy =
+      static_cast<int>(floorf(__fdiv_rn(__fsub_rn(p.x0[1], *p.ylim0), r)));
+  oy = clampi(clampi(cy, 0, p.H - 1) - p.rH / 2, 0, p.H - p.rH);
+  ox = clampi(clampi(cx, 0, p.W - 1) - p.rW / 2, 0, p.W - p.rW);
+}
+
+// Where a window cell's planes lie: the cell itself when the planes are
+// the window's, its cell in the map when cropping.
+template <bool CROP>
+__device__ __forceinline__ int source_cell(const Params& p, int cell, int oy,
+                                           int ox) {
+  if (!CROP) return cell;
+  const int dy = cell / p.rW;
+  return (oy + dy) * p.W + ox + (cell - dy * p.rW);
+}
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
@@ -156,10 +220,10 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
 // The rank by the loop over the bins: the cold path for `sampled` outside
 // the table's 0..100.
 __device__ __noinline__ int rank_loop(const int8_t* __restrict__ pmf, int B,
-                                      int stride, int sampled) {
+                                      size_t stride, int sampled) {
   int cum = 0, r = 0;
   for (int b = 0; b < B; ++b) {
-    cum += pmf[static_cast<size_t>(b) * stride];
+    cum += pmf[b * stride];
     r += cum < sampled;
   }
   return r;
@@ -206,8 +270,13 @@ __device__ __forceinline__ void store_bytes(int8_t* dst, const int* v,
   }
 }
 
-template <int LAYOUT>
-__global__ void __launch_bounds__(kBlock) map_sample_kernel(const Params p) {
+// At most 64 registers a thread (4 blocks an SM; 2-bit cells, whose 8
+// cells a thread need more, 2 blocks): left to itself ptxas gave the crop
+// instantiations and the bins mode 79-128, and with fewer blocks an SM
+// they ran slower on the H100 (PERF.md section 6).
+template <int LAYOUT, bool CROP>
+__global__ void __launch_bounds__(kBlock, LAYOUT == kCells2 ? 2 : 4)
+    map_sample_kernel(const Params p) {
   constexpr int P = LAYOUT == kCells2 ? 8 : 4;     // cells a thread
   constexpr int R = kTile / P;                     // threads an m row
   constexpr int RB = kBlock / R;                   // m rows a block
@@ -218,6 +287,15 @@ __global__ void __launch_bounds__(kBlock) map_sample_kernel(const Params p) {
   const int tid = threadIdx.x;
   const int tile0 = blockIdx.x * kTile;
   const bool has_ang = p.pmf[1] != nullptr;
+  int oy, ox;
+  window_start<CROP>(p, oy, ox);
+  if (CROP && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) {
+    const float r = *p.res;
+    p.offset_out[0] = oy;
+    p.offset_out[1] = ox;
+    p.lims_out[0] = __fadd_rn(*p.xlim0, __fmul_rn(static_cast<float>(ox), r));
+    p.lims_out[1] = __fadd_rn(*p.ylim0, __fmul_rn(static_cast<float>(oy), r));
+  }
 
   // -- the inverse-CDF tables of this tile, and the decode LUTs ------------
   {
@@ -232,11 +310,11 @@ __global__ void __launch_bounds__(kBlock) map_sample_kernel(const Params p) {
     const int pl = tid / kTile, c = tid % kTile;
     const int cell = tile0 + c;
     if (cell < p.n_cells && (pl == 0 || has_ang)) {
-      const int8_t* col = p.pmf[pl] + cell;
+      const int8_t* col = p.pmf[pl] + source_cell<CROP>(p, cell, oy, ox);
       int cum = 0;
 #pragma unroll 4
       for (int b = 0; b < p.B[pl]; ++b) {
-        cum += col[static_cast<size_t>(b) * p.n_cells];
+        cum += col[b * p.plane_stride];
         // cum_b < s  <=>  s >= cum_b + 1: counted from level cum_b + 1 on.
         const int v = cum + 1 > 0 ? cum + 1 : 0;
         if (v < kLevels) table[pl][v][c] += 1;
@@ -259,21 +337,23 @@ __global__ void __launch_bounds__(kBlock) map_sample_kernel(const Params p) {
 
   const uint32_t k0 = static_cast<uint32_t>(p.key[0]);
   const uint32_t k1 = static_cast<uint32_t>(p.key[1]);
-  const uint32_t oy = p.oy ? static_cast<uint32_t>(*p.oy) : 0u;
-  const uint32_t ox = p.ox ? static_cast<uint32_t>(*p.ox) : 0u;
   const float s = 100.0f * *p.alpha_dyn;
 
+  // base: the cell's index in the map, the counter's and, cropping, where
+  // its planes lie (else at the cell itself: see src below).
   uint32_t base[P], fixed[P];
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     const int cell = cell0 + (j < valid ? j : 0);
     const int dy = cell / p.rW;
     const int dx = cell - dy * p.rW;
-    base[j] = (oy + dy) * static_cast<uint32_t>(p.W) + (ox + dx);
+    base[j] = static_cast<uint32_t>(oy + dy) * static_cast<uint32_t>(p.W) +
+              static_cast<uint32_t>(ox + dx);
     fixed[j] = 0u;
     if (LAYOUT == kByte) {
-      fixed[j] = widen(p.obstacle[cell]) << 16 | widen(p.unknown[cell]) << 17;
-      if (p.risk) fixed[j] |= widen(p.risk[cell]) << 18;
+      const int src = CROP ? static_cast<int>(base[j]) : cell;
+      fixed[j] = widen(p.obstacle[src]) << 16 | widen(p.unknown[src]) << 17;
+      if (p.risk) fixed[j] |= widen(p.risk[src]) << 18;
     }
   }
 
@@ -282,9 +362,10 @@ __global__ void __launch_bounds__(kBlock) map_sample_kernel(const Params p) {
   if (kCells && blockIdx.y == 0 && row == 0) {
     if (cell0 % 16 == 0) {
       uint32_t w = 0u;
-      for (int q = 0; q < 16 && cell0 + q < p.n_cells; ++q)
-        w |= (widen(p.obstacle[cell0 + q]) | widen(p.unknown[cell0 + q]) << 1)
-             << (2 * q);
+      for (int q = 0; q < 16 && cell0 + q < p.n_cells; ++q) {
+        const int c = source_cell<CROP>(p, cell0 + q, oy, ox);
+        w |= (widen(p.obstacle[c]) | widen(p.unknown[c]) << 1) << (2 * q);
+      }
       p.mask_words[cell0 / 16] = static_cast<int32_t>(w);
     }
     if (p.risk) {
@@ -293,7 +374,8 @@ __global__ void __launch_bounds__(kBlock) map_sample_kernel(const Params p) {
         if (cell0 + i >= p.n_cells) break;
         uint32_t w = 0u;
         for (int q = 0; q < 4 && cell0 + i + q < p.n_cells; ++q)
-          w |= widen(p.risk[cell0 + i + q]) << (8 * q);
+          w |= widen(p.risk[source_cell<CROP>(p, cell0 + i + q, oy, ox)])
+               << (8 * q);
         p.risk_words[(cell0 + i) / 4] = static_cast<int32_t>(w);
       }
     }
@@ -328,10 +410,11 @@ __global__ void __launch_bounds__(kBlock) map_sample_kernel(const Params p) {
             rl[j] = table[0][sampled][c0 + j];
             if (has_ang) ra[j] = table[1][sampled][c0 + j];
           } else {
-            rl[j] = rank_loop(p.pmf[0] + cell0 + j, p.B[0], p.n_cells,
+            const int src = CROP ? static_cast<int>(base[j]) : cell0 + j;
+            rl[j] = rank_loop(p.pmf[0] + src, p.B[0], p.plane_stride,
                               sampled);
             if (has_ang)
-              ra[j] = rank_loop(p.pmf[1] + cell0 + j, p.B[1], p.n_cells,
+              ra[j] = rank_loop(p.pmf[1] + src, p.B[1], p.plane_stride,
                                 sampled);
           }
         }
@@ -384,6 +467,32 @@ __global__ void __launch_bounds__(kBlock) map_sample_kernel(const Params p) {
   }
 }
 
+// One launch of the instantiation for `layout`; the crop mode has no bins
+// layout.
+template <bool CROP>
+int launch(int layout, dim3 grid, cudaStream_t st, const Params& p) {
+  switch (layout) {
+    case kBins:
+      if (CROP) return static_cast<int>(cudaErrorInvalidValue);
+      map_sample_kernel<kBins, false><<<grid, kBlock, 0, st>>>(p);
+      break;
+    case kByte:
+      map_sample_kernel<kByte, CROP><<<grid, kBlock, 0, st>>>(p);
+      break;
+    case kCells2:
+      map_sample_kernel<kCells2, CROP><<<grid, kBlock, 0, st>>>(p);
+      break;
+    case kCells4:
+      map_sample_kernel<kCells4, CROP><<<grid, kBlock, 0, st>>>(p);
+      break;
+    case kCells8:
+      map_sample_kernel<kCells8, CROP><<<grid, kBlock, 0, st>>>(p);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  Pointers are device pointers:
@@ -393,25 +502,36 @@ __global__ void __launch_bounds__(kBlock) map_sample_kernel(const Params p) {
 // (rH, rW) windows (risk may be null; all three unused by layout 0);
 // lin_bins / ang_bins int32 (M, rH, rW), layout 0 only; lin_grid /
 // ang_grid int8 (M, rH, rW); payload, mask_words and risk_words int32 as
-// the layout gives them (see the top of this file).  With no ang plane
+// the layout gives them (see the top of this file).  Crop mode: x0
+// float32 (3,), xlim0 / ylim0 / res float32 scalars, offset_out int32 (2,)
+// and lims_out float32 (2,), all non-null (else all null); the planes are
+// then the (H, W) map's, (B, H, W) and (H, W), oy / ox are null and the
+// outputs are the (rH, rW) window's.  With no ang plane
 // (ang_pmf, ang_q and the ang outputs null, B_ang 0) only the lin plane is
 // ranked and the ang fields of the payload are 0.  H * W is the full map's
 // cell count and W its width (the counter's strides).  Launches on
 // `stream`, does not synchronise, and returns cudaGetLastError() so the
 // caller sees a refused launch (cudaErrorInvalidValue for an unknown
-// layout).
+// layout, or layout 0 in crop mode).
 extern "C" int map_sample_launch(
     int layout, const void* key, const void* oy, const void* ox,
     const void* alpha_dyn, const void* lin_pmf, const void* ang_pmf,
     const void* lin_q, const void* ang_q, const void* obstacle,
     const void* unknown, const void* risk, void* lin_bins, void* ang_bins,
     void* lin_grid, void* ang_grid, void* payload, void* mask_words,
-    void* risk_words, int M, int rH, int rW, int B_lin, int B_ang, int H,
-    int W, int m_offset, void* stream) {
+    void* risk_words, const void* x0, const void* xlim0, const void* ylim0,
+    const void* res, void* offset_out, void* lims_out, int M, int rH, int rW,
+    int B_lin, int B_ang, int H, int W, int m_offset, void* stream) {
   Params p;
   p.key = static_cast<const int64_t*>(key);
   p.oy = static_cast<const int32_t*>(oy);
   p.ox = static_cast<const int32_t*>(ox);
+  p.x0 = static_cast<const float*>(x0);
+  p.xlim0 = static_cast<const float*>(xlim0);
+  p.ylim0 = static_cast<const float*>(ylim0);
+  p.res = static_cast<const float*>(res);
+  p.offset_out = static_cast<int32_t*>(offset_out);
+  p.lims_out = static_cast<float*>(lims_out);
   p.alpha_dyn = static_cast<const float*>(alpha_dyn);
   p.pmf[0] = static_cast<const int8_t*>(lin_pmf);
   p.pmf[1] = static_cast<const int8_t*>(ang_pmf);
@@ -431,8 +551,12 @@ extern "C" int map_sample_launch(
   p.B[1] = B_ang;
   p.M = M;
   p.n_cells = rH * rW;
+  p.rH = rH;
   p.rW = rW;
+  p.H = H;
   p.W = W;
+  p.plane_stride = x0 != nullptr ? static_cast<size_t>(H) * W
+                                 : static_cast<size_t>(p.n_cells);
   const int per_word = layout == kCells2 ? 8 : layout == kCells4 ? 4 : 2;
   p.words_per_row = (p.n_cells + per_word - 1) / per_word;
   p.HW = static_cast<uint32_t>(H) * static_cast<uint32_t>(W);
@@ -448,19 +572,6 @@ extern "C" int map_sample_launch(
   gy = (M + p.samples_per_block - 1) / p.samples_per_block;
   const dim3 grid(gx, gy);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (layout) {
-    case kBins: map_sample_kernel<kBins><<<grid, kBlock, 0, st>>>(p); break;
-    case kByte: map_sample_kernel<kByte><<<grid, kBlock, 0, st>>>(p); break;
-    case kCells2:
-      map_sample_kernel<kCells2><<<grid, kBlock, 0, st>>>(p);
-      break;
-    case kCells4:
-      map_sample_kernel<kCells4><<<grid, kBlock, 0, st>>>(p);
-      break;
-    case kCells8:
-      map_sample_kernel<kCells8><<<grid, kBlock, 0, st>>>(p);
-      break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return x0 != nullptr ? launch<true>(layout, grid, st, p)
+                       : launch<false>(layout, grid, st, p);
 }

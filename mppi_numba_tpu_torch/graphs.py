@@ -1,0 +1,128 @@
+"""CUDA graphs: a call's launches captured once and replayed from the host
+with one launch.
+
+PyTorch launches a kernel for every op, and in most of the port's solves
+the host takes longer to make those launches than the device takes to run
+them (``PERF.md`` section 5).  The JAX package runs one XLA program per
+solve; here ``Captured`` records the launches of one call in a CUDA graph
+and ``replay()`` reruns them.  The solve (``solver.SolveGraph``), the
+planner's visualisation rollouts and the device simulator's step are
+captured this way on a card.
+
+A graph reruns its launches on the addresses it captured: its inputs are
+tensors that outlive it, updated in place between replays (``copy_``),
+never rebound, and its outputs live in the graph's memory pool, where the
+next replay overwrites them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def counted_wrappers():
+    """The kernel wrappers that count their launches in ``.launches``."""
+    from .ops.kernels import map_sample, rollout_binned, rollout_byte
+    from .probes import gather_probe
+
+    return (map_sample.sample_traction_window,
+            map_sample.sample_and_pack_window,
+            map_sample.sample_and_pack_crop,
+            rollout_byte.terrain_rollout_costs_byte,
+            rollout_binned.terrain_rollout_costs_binned,
+            *(chain for chain, _ in gather_probe.CHAINS.values()))
+
+
+class Captured:
+    """``fn()`` captured in one CUDA graph.
+
+    Args:
+      fn: a function of no arguments: the launches to capture.  It reads
+        and writes tensors that outlive it; what it returns (tensors, or a
+        structure of them) is ``outputs``.
+      generator: the ``torch.Generator`` that ``fn`` draws from, or None.
+        It is registered with the graph
+        (``torch.cuda.CUDAGraph.register_generator_state``), so each replay
+        draws the numbers an eager call would draw from the generator's
+        state at that point, and advances it as that call would.  A
+        PyTorch without that API raises: replays would repeat the first
+        draws.
+      keep: tensors that ``fn`` updates in place; the warm-up call's writes
+        to them are undone.
+      device: the CUDA device ``fn`` runs on (default: the current one);
+        the capture and each replay run on its current stream.
+
+    Before the capture, one eager call on a side stream builds and loads
+    the kernels' libraries and entry points; the generator's state and
+    ``keep`` are then put back, so the first replay does what an eager call
+    made instead of the capture would.  Launch counts (the wrappers of
+    ``counted_wrappers``): the warm-up call and the capture are set-up and
+    leave them as they were; each replay adds the launches it captured.
+    A capture that fails raises; nothing falls back to eager calls.
+    """
+
+    def __init__(self, fn, generator=None, keep=(), device=None):
+        dev = torch.device("cuda" if device is None else device)
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        with torch.cuda.device(dev):
+            self._capture(fn, generator, keep)
+
+    def _capture(self, fn, generator, keep):
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None and not hasattr(graph,
+                                                 "register_generator_state"):
+            raise RuntimeError(
+                "torch {} cannot register a generator with a CUDA graph "
+                "(CUDAGraph.register_generator_state): every replay would "
+                "repeat the captured draws".format(torch.__version__))
+        wrappers = counted_wrappers()
+        counts = [w.launches for w in wrappers]
+        state = None if generator is None else generator.get_state()
+        kept = [t.clone() for t in keep]
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        if generator is not None:
+            generator.set_state(state)
+        for t, k in zip(keep, kept):
+            t.copy_(k)
+
+        warmed = [w.launches for w in wrappers]
+        if generator is not None:
+            graph.register_generator_state(generator)
+        with torch.cuda.graph(graph):
+            self.outputs = fn()
+        self._captured = [(w, w.launches - n)
+                          for w, n in zip(wrappers, warmed)
+                          if w.launches != n]
+        for w, n in zip(wrappers, counts):
+            w.launches = n
+        self._graph = graph
+
+    @property
+    def captured_launches(self):
+        """``{wrapper name: launches}`` of one replay."""
+        return {w.__name__: n for w, n in self._captured}
+
+    def replay(self):
+        """Rerun the captured launches on the current stream; returns
+        ``outputs``, which this replay has overwritten."""
+        with torch.cuda.device(self.device):
+            self._graph.replay()
+        for w, n in self._captured:
+            w.launches += n
+        return self.outputs
+
+
+def same_tensors(a, b):
+    """Whether two tensors, or two tuples of tensors (``MapInputs``,
+    ``TerrainTask``), are the same objects field by field."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return a is b
+    return (a is b or (a is not None and b is not None and len(a) == len(b)
+                       and all(x is y for x, y in zip(a, b))))

@@ -6,6 +6,16 @@ shift_and_update``, the same params-dict keys, the same solve-condition
 guards and the same reachable-window crop.  Randomness comes from a
 ``torch.Generator`` on the planner's device, seeded from ``cfg.seed``:
 each solve draws its map key and its noise from it.
+
+The planner keeps its solve's inputs in buffers that it updates in place:
+the map planes (copied in when the TDMs hand over new ones), the task
+(``set_params`` and ``shift_and_update`` write into it) and the shifted
+nominal controls (``shift_and_update`` writes them there).  On a card
+``solve()`` replays the solve from a CUDA graph captured on those buffers
+(one per ``SolverStatic``, after one eager warm-up call), and
+``get_state_rollout()`` replays the visualisation rollouts from another;
+on the CPU both run eagerly.  A replayed solve equals the eager one bit for
+bit.
 """
 
 from __future__ import annotations
@@ -17,6 +27,7 @@ import numpy as np
 import torch
 
 from .config import Config, SolverStatic
+from .graphs import Captured, same_tensors
 from .models import has_displacement_bound
 from .ops.costs import (DEFAULT_DIST_WEIGHT, DEFAULT_OBS_COST,
                         DEFAULT_UNKNOWN_COST)
@@ -64,15 +75,26 @@ class MPPIPlanner:
         self.ang_tdm = None
         self.tdm_set = False
 
-        self.u_cur = torch.tensor(self.u_seq0, device=self.device)
-        self.u_prev = self.u_cur
+        # u_cur is the last solve's output, or the buffer that
+        # shift_and_update writes the shifted sequence into (the captured
+        # solve's input).  The "previous" controls start as zeros of their
+        # own: the buffer changes in place.
+        self._u_in = torch.tensor(self.u_seq0, device=self.device)
+        self.u_cur = self._u_in
+        self.u_prev = torch.zeros_like(self._u_in)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.seed)
         self._last_aux = None
+        self._task_flat = None
         self._task_device = None
+        self._maps_buf = None
+        self._maps_src = None
         self._last_useq_np = None
         self._compacted_planes = None
         self._compacted_token = None
+        # On a card: SolverStatic -> SolveGraph, and -> _VisGraph.
+        self._solve_graphs = {}
+        self._vis_graphs = {}
 
     # -- setup ---------------------------------------------------------------
 
@@ -92,9 +114,15 @@ class MPPIPlanner:
             assert False
         self.params = copy.deepcopy(params)
         self.params_set = True
-        # Stage the task once per params change; per-replan updates touch
-        # only the x0 leaf (see shift_and_update).
-        self._task_device = self._build_task()
+        # Stage the task once per params change, into the planner's task
+        # buffer; per-replan updates touch only its x0 (see
+        # shift_and_update).
+        flat = self._build_task_flat()
+        if self._task_flat is None:
+            self._task_flat = flat
+            self._task_device = _unpack_task(flat)
+        else:
+            self._task_flat.copy_(flat)
 
     def set_tdm(self, lin_tdm, ang_tdm):
         self.lin_tdm = lin_tdm
@@ -255,9 +283,13 @@ class MPPIPlanner:
         return self._compacted_planes
 
     def _map_inputs(self):
+        """The solve's map planes, in the planner's buffers: the TDMs'
+        (support-compacted) planes, copied in whenever the TDMs hand over
+        new tensors (a new shape allocates new buffers, and drops the
+        graphs captured on the old ones)."""
         lin = self.lin_tdm
         lin_pmf, lin_q, ang_pmf, ang_q, _ = self._compact_planes()
-        return MapInputs(
+        src = MapInputs(
             lin_pmf=lin_pmf,
             ang_pmf=ang_pmf,
             lin_qbins=lin_q,
@@ -266,9 +298,26 @@ class MPPIPlanner:
             unknown=lin.unknown_map_device,
             risk=lin.risk_traction_map_device,
         )
+        if same_tensors(src, self._maps_src):
+            return self._maps_buf
+        buf = self._maps_buf
+        if buf is None or any(a.shape != b.shape or a.dtype != b.dtype
+                              for a, b in zip(src, buf)):
+            self._maps_buf = MapInputs(*(t.clone() for t in src))
+            self._solve_graphs.clear()
+            self._vis_graphs.clear()
+        else:
+            for dst, t in zip(buf, src):
+                dst.copy_(t)
+        self._maps_src = src
+        return self._maps_buf
 
     def _build_task(self):
-        """Assemble the TerrainTask: one float32 upload, sliced into views."""
+        """The TerrainTask: views of one float32 upload."""
+        return _unpack_task(self._build_task_flat())
+
+    def _build_task_flat(self):
+        """The task's fields packed in one float32 tensor on the device."""
         p = self.params
         lin, ang = self.lin_tdm, self.ang_tdm
         f32 = np.float32
@@ -297,19 +346,32 @@ class MPPIPlanner:
                 p.get("cvar_alpha", 1.0),
             ], dtype=f32),                                           # 11:27
         ])
-        return _unpack_task(torch.tensor(flat, device=self.device))
+        return torch.tensor(flat, device=self.device)
 
     def solve(self):
         """Optimize and return the control sequence ``(num_steps, 2)`` as
-        host float32."""
+        host float32.
+
+        On a card the solve is replayed from a CUDA graph (captured at the
+        first solve of each ``SolverStatic``).  Its ``SolveAux``, and the
+        TDMs' ``sample_grid_batch``, then live in the graph's memory: the
+        next solve overwrites them (``get_state_rollout()`` reads them
+        before it)."""
         if not self.check_solve_conditions():
             print("MPPI solve condition not met. Cannot solve. Return")
             return
 
         static = self._static()
+        maps, task = self._map_inputs(), self._task_device
         solver = get_terrain_solver(static, self.device)
-        u_new, aux = solver(self._generator, self._map_inputs(),
-                            self._task_device, self.u_cur)
+        if self.device.type == "cuda":
+            graph = self._solve_graphs.get(static)
+            if graph is None:
+                graph = solver.capture(self._generator, maps, task,
+                                       self._u_in)
+                self._solve_graphs[static] = graph
+            solver = graph
+        u_new, aux = solver(self._generator, maps, task, self.u_cur)
         self.u_cur = u_new
         self._last_aux = aux
         self._last_static = static
@@ -335,11 +397,12 @@ class MPPIPlanner:
         last solve returned, else the shifted host array is uploaded."""
         new_x0 = np.asarray(new_x0).copy()
         self.params["x0"] = new_x0
-        self._task_device = self._task_device._replace(
-            x0=torch.tensor(new_x0.astype(np.float32), device=self.device))
+        self._task_device.x0.copy_(torch.from_numpy(
+            new_x0.astype(np.float32)))
         u_np = np.asarray(u_cur, dtype=np.float32)
-        self.u_cur = shifted_useq(self.u_cur, self._last_useq_np, u_np,
-                                  num_shifts)
+        self._u_in.copy_(shifted_useq(self.u_cur, self._last_useq_np, u_np,
+                                      num_shifts))
+        self.u_cur = self._u_in
         self._last_useq_np = None
 
     def shift_optimal_control_sequence(self, u_cur, num_shifts=1):
@@ -347,8 +410,8 @@ class MPPIPlanner:
         ``num_shifts`` steps (its last entries kept), uploaded."""
         u_cur_shifted = np.asarray(u_cur).copy()
         u_cur_shifted[:-num_shifts] = u_cur_shifted[num_shifts:]
-        self.u_cur = torch.tensor(u_cur_shifted.astype(np.float32),
-                                  device=self.device)
+        self._u_in.copy_(torch.from_numpy(u_cur_shifted.astype(np.float32)))
+        self.u_cur = self._u_in
 
     # -- visualization ------------------------------------------------------------
 
@@ -359,6 +422,10 @@ class MPPIPlanner:
         ``num_vis_state_rollouts`` sampled map pairs.  Det modes: the
         optimal sequence plus noise-perturbed previous sequences on map
         sample 0.  Returns host float32 ``(num_vis, T+1, 3)``.
+
+        On a card the rollouts are replayed from a CUDA graph captured on
+        the planner's buffers and the last solve's outputs (one for each
+        ``SolverStatic``).
         """
         assert self.params_set, "MPPI parameters are not set"
         assert self.tdm_set, "MPPI has not received TDMs"
@@ -366,10 +433,42 @@ class MPPIPlanner:
             print("No solve has produced rollout data yet. Cannot visualize.")
             return None
         aux = self._last_aux
-        states = get_terrain_vis(self._last_static)(
-            self._map_inputs(), self._task_device, self.u_cur, self.u_prev,
-            aux.noise_vis, aux.lin_grids, aux.ang_grids, aux.roi_offset)
-        return states.cpu().numpy()
+        static = self._last_static
+        inputs = (self._map_inputs(), self._task_device, aux.noise_vis,
+                  aux.lin_grids, aux.ang_grids, aux.roi_offset)
+        if self.device.type != "cuda":
+            states = get_terrain_vis(static)(*inputs[:2], self.u_cur,
+                                             self.u_prev, *inputs[2:])
+            return states.cpu().numpy()
+        graph = self._vis_graphs.get(static)
+        if graph is None or not graph.reads(inputs):
+            graph = self._vis_graphs[static] = _VisGraph(static, inputs,
+                                                         self.u_cur)
+        return graph(self.u_cur, self.u_prev).cpu().numpy()
+
+
+class _VisGraph:
+    """A planner's visualisation rollouts captured in a CUDA graph, on its
+    map and task buffers and one solve graph's outputs (``inputs``: maps,
+    task, noise_vis, lin_grids, ang_grids, roi_offset), with the two
+    control sequences copied into its own buffers at each call."""
+
+    def __init__(self, static, inputs, u_like):
+        self.inputs = inputs
+        self._u = (torch.empty_like(u_like), torch.empty_like(u_like))
+        vis = get_terrain_vis(static)
+        maps, task, *rest = inputs
+        self._call = Captured(lambda: vis(maps, task, *self._u, *rest),
+                              device=u_like.device)
+
+    def reads(self, inputs):
+        return all(same_tensors(a, b) for a, b in zip(inputs, self.inputs))
+
+    def __call__(self, u_cur, u_prev):
+        """The (V, T+1, 3) states, in the graph's memory."""
+        self._u[0].copy_(u_cur)
+        self._u[1].copy_(u_prev)
+        return self._call.replay()
 
 
 def _unpack_task(flat):

@@ -1,17 +1,23 @@
 """Traction-map sampling and the rollout's map payload: the hand-written
 CUDA kernel, its wrappers and their plain PyTorch versions.
 
-``sample_and_pack_window`` (the solve's entry) and
-``sample_traction_window`` (bins and grids; ``TDM.sample_grids``) launch
-``csrc/map_sample.cu`` for CUDA tensors and run their plain versions for
-CPU tensors.  The kernel replaces the JAX package's XLA-fused map draw,
+``sample_and_pack_window`` (the solve's entry), ``sample_and_pack_crop``
+(the same on the reachable window around the robot: the cropped solve's
+entry) and ``sample_traction_window`` (bins and grids; ``TDM.sample_grids``)
+launch ``csrc/map_sample.cu`` for CUDA tensors and run their plain versions
+for CPU tensors.  The kernel replaces the JAX package's XLA-fused map draw,
 ``uniform_window`` + ``sample_traction_bins`` + ``decode_bins``
 (``mppi_numba_tpu/ops/sampling.py:156,219,246``), and the pack that follows
 it in the jitted solve (``mppi_numba_tpu/solver.py:200-215``), none of
 which has a Pallas kernel: in plain torch ops the threefry hash is some
 150 elementwise passes over the (M, H*W) draw and the pack some 10-45
 more, so on the card the draw, the ranks, the decode and the pack are one
-pass.  The kernel is bound by integer operations (see the source).
+pass.  In crop mode the same launch also does the JAX package's XLA-fused
+crop, ``_roi_start`` + ``_crop_maps`` + ``_shift_task_limits``
+(``mppi_numba_tpu/solver.py:127,144,158``): it reads the map's planes at
+the window it works out from the task, so the cropped solve makes no
+launch of its own for the crop.  The kernel is bound by integer operations
+(see the source).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import functools
 import torch
 
 from ..packing import pack_payload
+from ..roi import crop_window_plain
 from ..sampling import decode_bins, traction_bins_from_uniforms, uniform_window
 
 KERNEL_SOURCE = "mppi_numba_tpu_torch/csrc/map_sample.cu"
@@ -29,6 +36,10 @@ REPLACES = ("mppi_numba_tpu/ops/sampling.py:156,219,246 (uniform_window + "
             "sample_traction_bins + decode_bins) and "
             "mppi_numba_tpu/solver.py:200-215 (the pack), XLA-fused; no "
             "Pallas kernel")
+# What the crop mode adds to the launch.
+CROP_REPLACES = ("mppi_numba_tpu/solver.py:127,144,158 (_roi_start + "
+                 "_crop_maps + _shift_task_limits, XLA-fused; no Pallas "
+                 "kernel)")
 # The kernel's output layouts: 'bins' is sample_traction_window's; the
 # others are the solver's payload layouts (packing.pack_payload).
 LAYOUTS = {"bins": 0, "byte": 1, "binned2": 2, "binned": 3, "binned8": 4}
@@ -71,6 +82,20 @@ def sample_and_pack_window_plain(key, maps, alpha_dyn, num_samples, layout,
     return payload, lin_grids, ang_grids
 
 
+def sample_and_pack_crop_plain(key, maps, task, num_samples, layout,
+                               roi_shape, risk=False):
+    """Plain PyTorch version of the kernel's crop mode:
+    ``roi.crop_window_plain``, then ``sample_and_pack_window_plain`` at
+    the window.  Arguments and result as for ``sample_and_pack_crop``."""
+    map_shape = tuple(maps.obstacle.shape)
+    cmaps, ctask, offset = crop_window_plain(maps, task, map_shape,
+                                             roi_shape)
+    payload, lin_grids, ang_grids = sample_and_pack_window_plain(
+        key, cmaps, task.alpha_dyn, num_samples, layout,
+        window=(map_shape, offset[0], offset[1]), risk=risk)
+    return payload, lin_grids, ang_grids, ctask, offset
+
+
 @functools.lru_cache(maxsize=None)
 def _entry_point():
     """The library's launch entry point, built and loaded on first use, its
@@ -78,7 +103,7 @@ def _entry_point():
     from ._build import load
 
     fn = load("map_sample").map_sample_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 24
                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -95,11 +120,13 @@ def _check_scalar(value, dtype, device):
 
 
 def _check_cuda_args(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, M, H, W,
-                     grids=()):
-    """The kernel's inputs: the key, the PMF windows, their bin values and
-    any (rH, rW) int8 ``grids`` (the masks and risk plane)."""
+                     grids=(), window_hw=None):
+    """The kernel's inputs: the key, the PMF planes, their bin values and
+    any int8 ``grids`` (the masks and risk plane) of the planes' (pH, pW);
+    the window is the planes' unless ``window_hw`` (crop mode) gives it."""
     dev = lin_pmf.device
     rH, rW = lin_pmf.shape[1:] if lin_pmf.dim() == 3 else (-1, -1)
+    wH, wW = (rH, rW) if window_hw is None else window_hw
     if (ang_pmf is None) != (ang_qbins is None):
         raise ValueError("map_sample: ang_pmf and ang_qbins must both be "
                          "given or both be None")
@@ -112,8 +139,8 @@ def _check_cuda_args(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, M, H, W,
              and tuple(p.shape[1:]) == (rH, rW) and p.is_contiguous()
              and p.shape[0] <= MAX_PLANE_BINS
              for p in (lin_pmf, ang_pmf)),
-         "lin_pmf / ang_pmf must be contiguous int8 (B, rH, rW) of one "
-         "window, B <= {}".format(MAX_PLANE_BINS)),
+         "lin_pmf / ang_pmf must be contiguous int8 (B, pH, pW) planes of "
+         "one shape, B <= {}".format(MAX_PLANE_BINS)),
         (all(q.dtype == torch.int8 and tuple(q.shape) == (p.shape[0],)
              and q.is_contiguous()
              for q, p in ((lin_qbins, lin_pmf), (ang_qbins, ang_pmf))),
@@ -121,12 +148,12 @@ def _check_cuda_args(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, M, H, W,
          "bins"),
         (all(g.dtype == torch.int8 and tuple(g.shape) == (rH, rW)
              and g.is_contiguous() for g in grids),
-         "obstacle / unknown / risk must be contiguous int8 (rH, rW) "
-         "windows"),
+         "obstacle / unknown / risk must be contiguous int8 (pH, pW) "
+         "planes of the PMFs' shape"),
         (all(a.device == dev
              for a in (key, ang_pmf, lin_qbins, ang_qbins, *grids)),
          "all inputs must be on one device"),
-        (M >= 1 and 1 <= rH <= H and 1 <= rW <= W,
+        (M >= 1 and 1 <= wH <= H and 1 <= wW <= W,
          "need M >= 1 and a non-empty window inside the map"),
     ]
     for ok, msg in checks:
@@ -135,19 +162,28 @@ def _check_cuda_args(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, M, H, W,
 
 
 def _launch(layout, key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, alpha_dyn,
-            M, window, m_offset, full_num_samples, masks=None, risk_map=None):
+            M, window, m_offset, full_num_samples, masks=None, risk_map=None,
+            crop=None):
     """Check the inputs, allocate the outputs of ``layout`` and launch the
-    kernel once.  ``masks``: the (obstacle, unknown) windows of a payload
-    layout.  Returns ``{name: tensor or None}``: lin_grid, ang_grid and,
-    by layout, lin_bins / ang_bins, payload, mask_words, risk_words."""
+    kernel once.  ``masks``: the (obstacle, unknown) planes of a payload
+    layout.  ``crop``: ``(task, roi_shape)`` for the crop mode, the planes
+    the map's.  Returns ``{name: tensor or None}``: lin_grid, ang_grid
+    and, by layout, lin_bins / ang_bins, payload, mask_words, risk_words;
+    cropping, offset and lims."""
     dev = lin_pmf.device
     rH, rW = lin_pmf.shape[1:] if lin_pmf.dim() == 3 else (-1, -1)
-    full_hw, oy, ox = window if window is not None else ((rH, rW), None, None)
+    if crop is not None:
+        task, (rH, rW) = crop
+        full_hw, oy, ox = (tuple(lin_pmf.shape[1:]), None, None)
+    else:
+        task = None
+        full_hw, oy, ox = (window if window is not None
+                           else ((rH, rW), None, None))
     H, W = full_hw
     full_m = M if full_num_samples is None else full_num_samples
     grids = [g for g in (*(masks or ()), risk_map) if g is not None]
     _check_cuda_args(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, M, H, W,
-                     grids)
+                     grids, window_hw=(rH, rW))
     if not 0 <= m_offset <= full_m - M:
         raise ValueError("map_sample: rows [{}, {}) outside the {}-row "
                          "draw".format(m_offset, m_offset + M, full_m))
@@ -158,6 +194,14 @@ def _launch(layout, key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, alpha_dyn,
     offsets = [None if o is None else _check_scalar(o, torch.int32, dev)
                for o in (oy, ox)]
     alpha = _check_scalar(alpha_dyn, torch.float32, dev)
+    crop_in = [None] * 4
+    if task is not None:
+        if not (task.x0.dtype == torch.float32 and task.x0.numel() == 3
+                and task.x0.is_contiguous() and task.x0.device == dev):
+            raise ValueError("map_sample: x0 must be a contiguous float32 "
+                             "(3,) tensor on {}".format(dev))
+        crop_in = [task.x0] + [_check_scalar(v, torch.float32, dev)
+                               for v in (task.xlim0, task.ylim0, task.res)]
     has_ang = ang_pmf is not None
     n = rH * rW
 
@@ -167,6 +211,8 @@ def _launch(layout, key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, alpha_dyn,
     i32, i8 = torch.int32, torch.int8
     out = dict(lin_bins=None, ang_bins=None, payload=None, mask_words=None,
                risk_words=None,
+               offset=empty((2,), torch.int32, task is not None),
+               lims=empty((2,), torch.float32, task is not None),
                lin_grid=empty((M, rH, rW), i8),
                ang_grid=empty((M, rH, rW), i8, has_ang))
     if layout == "bins":
@@ -193,6 +239,7 @@ def _launch(layout, key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, alpha_dyn,
         *(ptr(out[k]) for k in ("lin_bins", "ang_bins", "lin_grid",
                                 "ang_grid", "payload", "mask_words",
                                 "risk_words")),
+        *(ptr(t) for t in crop_in), ptr(out["offset"]), ptr(out["lims"]),
         M, rH, rW, lin_pmf.shape[0], ang_pmf.shape[0] if has_ang else 0, H,
         W, m_offset, stream)
     if err != 0:
@@ -292,3 +339,48 @@ def sample_and_pack_window(key, maps, alpha_dyn, num_samples, layout,
 
 
 sample_and_pack_window.launches = 0
+
+
+def sample_and_pack_crop(key, maps, task, num_samples, layout, roi_shape,
+                         risk=False):
+    """``sample_and_pack_window`` on the reachable window around the robot,
+    the crop done in the same launch.
+
+    Args:
+      key, num_samples, layout, risk: as for ``sample_and_pack_window``.
+      maps: ``MapInputs`` of the whole (H, W) map.
+      task: ``TerrainTask`` on the maps' device: its x0, xlim0, ylim0 and
+        res place the window (``roi.roi_start``), alpha_dyn the draw.
+      roi_shape: the window's ``(rH, rW)``.
+
+    Returns:
+      ``(payload, lin_grids, ang_grids, task, offset)``: the window's
+      payload and grids as ``sample_and_pack_window`` gives them, the task
+      with ``xlim0`` / ``ylim0`` moved to the window's corner and the
+      window's start ``(oy, ox)`` as an int32 ``(2,)`` tensor.  Nothing is
+      read on the host.
+
+    On CUDA tensors this launches the kernel once, in its crop mode, and
+    adds one to ``sample_and_pack_crop.launches``; on CPU tensors it runs
+    ``sample_and_pack_crop_plain``.
+    """
+    if layout not in CELLS_PER_WORD and layout != "byte":
+        raise ValueError("map_sample: unknown payload layout {!r}".format(
+            layout))
+    if not maps.lin_pmf.is_cuda:
+        return sample_and_pack_crop_plain(key, maps, task, num_samples,
+                                          layout, roi_shape, risk=risk)
+    out = _launch(layout, key, maps.lin_pmf, maps.ang_pmf, maps.lin_qbins,
+                  maps.ang_qbins, task.alpha_dyn, num_samples, None, 0, None,
+                  masks=(maps.obstacle, maps.unknown),
+                  risk_map=maps.risk if risk else None,
+                  crop=(task, tuple(roi_shape)))
+    sample_and_pack_crop.launches += 1
+    payload = (out["payload"] if layout == "byte" else
+               (out["payload"], out["mask_words"], out["risk_words"]))
+    lims = out["lims"]
+    return (payload, out["lin_grid"], out["ang_grid"],
+            task._replace(xlim0=lims[0], ylim0=lims[1]), out["offset"])
+
+
+sample_and_pack_crop.launches = 0

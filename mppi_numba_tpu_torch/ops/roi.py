@@ -3,7 +3,10 @@ around the robot, the map planes' window and the task's shifted limits
 (``mppi_numba_tpu/solver.py::_roi_start, _crop_maps, _shift_task_limits``).
 
 Offsets stay 0-d int32 tensors on the device: nothing reads them on the
-host.  ``ops/kernels/roi_window.py`` does the three in one CUDA launch.
+host.  ``crop_window_plain`` is the three together: on the card the
+map-sampling kernel's crop mode does them in its own launch
+(``ops/kernels/map_sample.py::sample_and_pack_crop``), and this is its
+plain version's first half.
 """
 
 from __future__ import annotations
@@ -47,3 +50,21 @@ def shift_task_limits(task, oy, ox):
     f32 = torch.float32
     return task._replace(xlim0=task.xlim0 + ox.to(f32) * task.res,
                          ylim0=task.ylim0 + oy.to(f32) * task.res)
+
+
+def crop_window_plain(maps, task, map_shape, roi_shape):
+    """The reachable window of the maps and the task, around the robot.
+
+    Args:
+      maps: ``MapInputs`` of the full ``map_shape`` map.
+      task: ``TerrainTask`` on the same device (x0, xlim0, ylim0, res read).
+      map_shape / roi_shape: ``(H, W)`` and the window's ``(rH, rW)``.
+
+    Returns:
+      ``(maps, task, offset)``: every plane cropped to the window, the task
+      with ``xlim0`` / ``ylim0`` moved to the window's corner, and the
+      window's start ``(oy, ox)`` as an int32 ``(2,)`` tensor.
+    """
+    oy, ox = roi_start(task, map_shape, roi_shape)
+    return (crop_maps(maps, oy, ox, *roi_shape),
+            shift_task_limits(task, oy, ox), torch.stack([oy, ox]))

@@ -1,15 +1,19 @@
 """Functional solver core: one terrain solve (tdm, det_dyn or speed_map),
 the visualisation rollouts, and the barebone (terrain-free) solve.
 
-One solve runs, on the device that holds the inputs: crop the maps to the
-reachable window around x0 when ``SolverStatic.roi_shape`` is set, sample
-the lin/ang PMF bins from one counter-addressed draw of uniforms, decode
-them and pack the backend's map payload (one CUDA kernel on the card),
-then per optimisation iteration draw the noise, roll out (K, M)
+One solve runs, on the device that holds the inputs: sample the lin/ang
+PMF bins from one counter-addressed draw of uniforms, decode them and pack
+the backend's map payload, on the reachable window around x0 when
+``SolverStatic.roi_shape`` is set (one CUDA kernel on the card, the crop
+included), then per optimisation iteration draw the noise, roll out (K, M)
 costs (a CUDA kernel on the card), take the CVaR over M, add the
 control-coupling term and apply the softmax update.  The det_dyn and
 speed_map modes (costmap shares speed_map) solve over M = 1 map with a
 collapsed PMF; speed_map adds the risk plane to the stage time cost.
+
+On a card the planner replays the solve from a CUDA graph
+(``TerrainSolver.capture``, ``SolveGraph``): one launch from the host a
+solve.
 
 The draws come from a ``torch.Generator``: the map key and the noise.
 ``TerrainSolver.solve_from_key`` is the rest of the solve as a pure function
@@ -25,15 +29,16 @@ import functools
 import torch
 
 from .config import SolverStatic
+from .graphs import Captured, same_tensors
 from .models import clip_controls, get_step_fn
 from .ops.cvar import cvar_from_costs, cvar_from_costs_dynamic
-from .ops.kernels.map_sample import sample_and_pack_window
-from .ops.kernels.roi_window import crop_window
+from .ops.kernels.map_sample import (sample_and_pack_crop,
+                                     sample_and_pack_window)
 from .ops.kernels.rollout_binned import (MAX_BINS, build_bin_luts,
                                          terrain_rollout_costs_binned)
 from .ops.kernels.rollout_byte import build_task_vec, terrain_rollout_costs_byte
 from .ops.packing import pack_map_words, pack_payload
-from .ops.roi import crop_maps, shift_task_limits
+from .ops.roi import crop_maps, crop_window_plain, shift_task_limits
 from .ops.rollout import (_clipped_controls_tk, barebone_rollout_costs,
                           barebone_vis_states, control_coupling,
                           terrain_rollout_costs, terrain_vis_states)
@@ -166,14 +171,11 @@ class TerrainSolver:
                     for _ in range(s.num_opt)]
         return self.solve_from_key(map_key, eps_list, maps, task, u0)
 
-    def _window(self, maps, task):
-        """Crop the maps and shift the task to the reachable window, when
-        cropping (one kernel launch on the card): ``(maps, task, offset)``,
-        ``offset`` the window's int32 ``(oy, ox)``, or None uncropped."""
-        s = self.static
-        if not s.roi_shape:
-            return maps, task, None
-        return crop_window(maps, task, s.map_shape, s.roi_shape)
+    def capture(self, generator, maps, task, u0):
+        """This solve captured in a CUDA graph on these tensors: a
+        ``SolveGraph``, called as the solver is."""
+        return SolveGraph(self, generator, maps, task, u0)
+
 
     def _check_bins(self, maps):
         """A 2- or 4-bit cell holds at most 4 or 16 bins a plane."""
@@ -198,16 +200,24 @@ class TerrainSolver:
           u0: float32 ``(T, 2)`` nominal control sequence.
 
         The maps are sampled, decoded and packed in the backend's layout by
-        one ``sample_and_pack_window`` (one kernel launch on the card).
+        one ``sample_and_pack_window``, or when cropping one
+        ``sample_and_pack_crop``, which also works out the window and the
+        shifted task (one kernel launch on the card either way).
         """
         s = self.static
         self._check_bins(maps)
-        maps, task, offset = self._window(maps, task)
-        window = (None if offset is None
-                  else (s.map_shape, offset[0], offset[1]))
-        packed, lin_grids, ang_grids = sample_and_pack_window(
-            map_key, maps, task.alpha_dyn, s.num_grid_samples, self._layout,
-            window=window, risk=s.mode == "speed_map")
+        risk = s.mode == "speed_map"
+        if s.roi_shape:
+            packed, lin_grids, ang_grids, task, offset = sample_and_pack_crop(
+                map_key, maps, task, s.num_grid_samples, self._layout,
+                s.roi_shape, risk=risk)
+        else:
+            packed, lin_grids, ang_grids = sample_and_pack_window(
+                map_key, maps, task.alpha_dyn, s.num_grid_samples,
+                self._layout, risk=risk)
+            offset = None
+        # The packed payload holds the window's planes; the rest of the
+        # solve reads only the maps' bin values (not spatial).
         return self._solve_packed(packed, lin_grids, ang_grids, eps_list,
                                   maps, task, u0, offset)
 
@@ -218,8 +228,12 @@ class TerrainSolver:
         at the solver's map shape (the reachable window when cropping).
         The other arguments as for ``solve_from_key``.
         """
+        s = self.static
         self._check_bins(maps)
-        maps, task, offset = self._window(maps, task)
+        offset = None
+        if s.roi_shape:
+            maps, task, offset = crop_window_plain(maps, task, s.map_shape,
+                                                   s.roi_shape)
         # The lin and ang bins come from the SAME uniforms: the reference
         # seeds both TDM streams identically, so their draws are comonotone.
         lin_bins = traction_bins_from_uniforms(uniforms, maps.lin_pmf,
@@ -229,8 +243,7 @@ class TerrainSolver:
         lin_grids = decode_bins(maps.lin_qbins, lin_bins)
         ang_grids = decode_bins(maps.ang_qbins, ang_bins)
         packed = pack_payload(self._layout, lin_bins, ang_bins, lin_grids,
-                              ang_grids, maps,
-                              risk=self.static.mode == "speed_map")
+                              ang_grids, maps, risk=s.mode == "speed_map")
         return self._solve_packed(packed, lin_grids, ang_grids, eps_list,
                                   maps, task, u0, offset)
 
@@ -262,6 +275,55 @@ class TerrainSolver:
                        lin_grids=lin_grids, ang_grids=ang_grids,
                        roi_offset=roi_offset)
         return u, aux
+
+
+class SolveGraph:
+    """A terrain solve captured in a CUDA graph: ``u0 <- solve(u0)``.
+
+    Made by ``TerrainSolver.capture(generator, maps, task, u0)`` after one
+    eager warm-up call (``graphs.Captured``).  ``graph(generator, maps,
+    task, u0)`` replays it and returns ``(u_new, SolveAux)`` as the solver
+    does, bit for bit with an eager call from the generator's state:
+
+    * the graph reads the maps, the task and its ``u0`` where they lay at
+      capture: pass the same objects, and change them in place (``copy_``)
+      between calls, never rebind them; other maps or a task raise;
+    * ``u0`` may be another tensor: it is copied into the graph's first
+      (no copy when it is that tensor, or the last call's ``u_new``, which
+      the graph has already written back there);
+    * each replay draws the map key and the noise from the generator
+      registered at capture, and advances it as an eager call would;
+    * ``u_new`` and the ``SolveAux`` live in the graph's memory pool and
+      the next call overwrites them: copy out what must outlive it.
+    """
+
+    def __init__(self, solver, generator, maps, task, u0):
+        self.generator, self.maps, self.task, self.u0 = (generator, maps,
+                                                         task, u0)
+
+        def run():
+            u, aux = solver(generator, maps, task, u0)
+            u0.copy_(u)
+            return u, aux
+
+        self._call = Captured(run, generator, keep=(u0,),
+                              device=solver.device)
+
+    @property
+    def captured_launches(self):
+        """``{kernel wrapper: launches}`` of one call."""
+        return self._call.captured_launches
+
+    def __call__(self, generator, maps, task, u0):
+        if not (generator is self.generator
+                and same_tensors(maps, self.maps)
+                and same_tensors(task, self.task)):
+            raise ValueError(
+                "a captured solve replays on the generator, maps and task "
+                "it was captured on: update those tensors in place")
+        if u0 is not self.u0 and u0 is not self._call.outputs[0]:
+            self.u0.copy_(u0)
+        return self._call.replay()
 
 
 @functools.lru_cache(maxsize=None)

@@ -52,6 +52,20 @@ _CPU_SOLVE = textwrap.dedent("""
         pmf, pmf, [0.0, 0.5, 1.0], np.random.RandomState(0))
     assert sim.trial(planner, truth, 0.1, 2, planner.params)["cum_obj"] > 0
     assert lin.sample_grids().shape == (4, 8, 8)
+    # The device simulator and the profiling helpers.
+    import torch
+    from mppi_numba_tpu_torch import device_sim, profiling
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+    static = planner._static()
+    maps, task = planner._map_inputs(), planner._task_device
+    gt = torch.full((6, 6), 0.8)
+    meta = torch.tensor([0.0, 0.0, 1.0])
+    res = device_sim.make_device_trial(static, 2)(
+        torch.Generator().manual_seed(0), maps, task, gt, gt, meta)
+    assert int(res.steps) == 2 and np.isfinite(float(res.cum_obj))
+    assert profiling.chained_solve_time(
+        get_terrain_solver(static, "cpu"), maps, task,
+        torch.zeros((10, 2)), num_iters=2) > 0
     from mppi_numba_tpu_torch.probes import gather_probe
     t, x, mod = gather_probe.make_inputs("flat", 8, 4, "cpu")
     assert gather_probe.flat_gather_chain(t, x, mod, 8).shape == (4, 128)
@@ -65,9 +79,11 @@ _CPU_SOLVE = textwrap.dedent("""
     for name in ("mppi_numba_tpu_torch.density",
                  "mppi_numba_tpu_torch.ops.kernels.rollout_binned",
                  "mppi_numba_tpu_torch.ops.kernels.map_sample",
-                 "mppi_numba_tpu_torch.ops.kernels.roi_window",
                  "mppi_numba_tpu_torch.ops.roi",
                  "mppi_numba_tpu_torch.sim",
+                 "mppi_numba_tpu_torch.device_sim",
+                 "mppi_numba_tpu_torch.profiling",
+                 "mppi_numba_tpu_torch.graphs",
                  "mppi_numba_tpu_torch.barebone",
                  "mppi_numba_tpu_torch.probes.gather_probe"):
         assert name in names, name

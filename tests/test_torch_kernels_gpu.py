@@ -18,8 +18,8 @@ from mppi_numba_tpu_torch import Config, MPPIPlanner, TDM
 from mppi_numba_tpu_torch.models import bicycle_step, make_bicycle_step
 from mppi_numba_tpu_torch.probes import gather_probe
 from mppi_numba_tpu_torch.ops import packing
-from mppi_numba_tpu_torch.ops.kernels import (map_sample, roi_window,
-                                              rollout_binned, rollout_byte)
+from mppi_numba_tpu_torch.ops.kernels import (map_sample, rollout_binned,
+                                              rollout_byte)
 from mppi_numba_tpu_torch.ops.packing import pack_map_words
 from mppi_numba_tpu_torch.ops.sampling import decode_bins
 from mppi_numba_tpu_torch.ops.rollout import _clipped_controls_tk
@@ -701,72 +701,112 @@ def test_tdm_sample_grids_on_card():
     assert (grids == -128).any()            # columns summing below 100
 
 
-# -- the reachable-window crop (csrc/roi_window.cu) ------------------------------
+# -- the reachable-window crop: map_sample's crop mode ----------------------------
 
 
 def _crop_inputs(dev, H, W, B_lin, B_ang, res, lim0, seed=0):
+    """A map whose PMF columns sum to 100 (and one column short of it),
+    random masks and risk, and a task whose padded origin is ``lim0``."""
     from mppi_numba_tpu_torch.types import MapInputs
 
     rng = np.random.RandomState(seed)
     t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
-    plane = lambda *shape: t(rng.randint(-128, 128, shape).astype(np.int8))  # noqa: E731
-    maps = MapInputs(plane(B_lin, H, W), plane(B_ang, H, W),
-                     plane(B_lin), plane(B_ang), plane(H, W), plane(H, W),
-                     plane(H, W))
+
+    def pmf(B):
+        raw = rng.randint(1, 100, size=(B, H, W)).astype(float)
+        p = (raw / raw.sum(0) * 100).astype(np.int8)
+        p[-1] = 100 - p[:-1].sum(0)
+        p[:, 1, 1] = 0
+        return t(p)
+
+    maps = MapInputs(pmf(B_lin), pmf(B_ang),
+                     t(np.sort(rng.randint(-128, 128, B_lin)).astype(np.int8)),
+                     t(np.sort(rng.randint(-128, 128, B_ang)).astype(np.int8)),
+                     t((rng.rand(H, W) < 0.3).astype(np.int8)),
+                     t((rng.rand(H, W) < 0.3).astype(np.int8)),
+                     t(rng.randint(0, 101, (H, W)).astype(np.int8)))
     task = _task(dev)._replace(res=t(np.float32(res)),
                                xlim0=t(np.float32(lim0)),
                                ylim0=t(np.float32(lim0 - 0.3)))
     return maps, task
 
 
-@pytest.mark.parametrize("case", [
-    # H, W, rH, rW, B_lin, B_ang, res, lim0
-    (250, 250, 85, 85, 12, 12, 0.5, -0.5),
-    (64, 48, 13, 11, 6, 22, 0.3, -1.3),
-    (40, 40, 40, 17, 1, 2, 0.25, 0.0),
-])
-def test_roi_window_kernel_matches_plain_on_card(case):
-    """The crop kernel against its plain version on the card: every plane,
-    the offset and the shifted limits bit for bit, at cell edges, a float32
-    ulp either side of them, and off the map on every side."""
-    dev = _cuda_or_skip()
-    H, W, rH, rW, bl, ba, res, lim0 = case
-    maps, task = _crop_inputs(dev, H, W, bl, ba, res, lim0)
+def _crop_positions(W, res, lim0):
+    """x at every cell edge of a row, a float32 ulp either side, and off
+    the map on both sides."""
     f32 = np.float32
     edges = (lim0 + res * np.arange(-2, W + 2)).astype(f32)
-    xs = np.concatenate([edges, np.nextafter(edges, f32(-np.inf)),
-                         np.nextafter(edges, f32(np.inf)),
-                         f32([-50.0, 1e4])])
+    return np.concatenate([edges, np.nextafter(edges, f32(-np.inf)),
+                           np.nextafter(edges, f32(np.inf)),
+                           f32([-50.0, 1e4])])
+
+
+@pytest.mark.parametrize("layout", ["byte", "binned2", "binned", "binned8"])
+@pytest.mark.parametrize("case", [
+    # H, W, rH, rW, B_lin, B_ang, res, lim0, M
+    (250, 250, 85, 85, 12, 12, 0.5, -0.5, 16),
+    (250, 250, 85, 85, 4, 3, 0.5, 0.0, 3),
+    (64, 48, 13, 11, 4, 2, 0.3, -1.3, 1),
+    (40, 40, 40, 17, 2, 4, 0.25, 0.0, 5),
+])
+def test_map_sample_crop_matches_plain_on_card(case, layout):
+    """The crop mode against its plain version (``crop_window_plain`` then
+    ``sample_and_pack_window_plain``) on the card: payload, grids, offset
+    and shifted limits bit for bit, with and without the risk plane, for
+    robots at every cell edge of a row, a float32 ulp either side, and off
+    the map; one launch a call."""
+    dev = _cuda_or_skip()
+    H, W, rH, rW, bl, ba, res, lim0, M = case
+    if layout in ("binned2", "binned") and max(bl, ba) > (
+            4 if layout == "binned2" else 16):
+        bl = ba = 4
+    maps, task = _crop_inputs(dev, H, W, bl, ba, res, lim0)
+    xs = _crop_positions(W, res, lim0)
     rng = np.random.RandomState(1)
-    before = roi_window.crop_window.launches
-    for x in xs:
-        x0 = torch.tensor([x, f32(rng.choice(xs)), 0.3], device=dev)
-        t = task._replace(x0=x0)
-        got = roi_window.crop_window(maps, t, (H, W), (rH, rW))
-        want = roi_window.crop_window_plain(maps, t, (H, W), (rH, rW))
-        assert torch.equal(got[2], want[2]), (x, x0)
-        for name in maps._fields:
-            assert torch.equal(getattr(got[0], name), getattr(want[0], name))
-        for name in ("xlim0", "ylim0"):
-            assert torch.equal(getattr(got[1], name).reshape(()),
-                               getattr(want[1], name).reshape(())), (x, name)
+    key = torch.tensor([11, 2 ** 31 + 5], dtype=torch.int64, device=dev)
+    before = map_sample.sample_and_pack_crop.launches
+    calls = 0
+    for x in xs[::3] if H > 100 else xs:
+        t = task._replace(x0=torch.tensor(
+            [x, np.float32(rng.choice(xs)), 0.3], device=dev))
+        for risk in (False, True):
+            got = map_sample.sample_and_pack_crop(key, maps, t, M, layout,
+                                                  (rH, rW), risk=risk)
+            want = map_sample.sample_and_pack_crop_plain(
+                key, maps, t, M, layout, (rH, rW), risk=risk)
+            calls += 1
+            assert torch.equal(got[4], want[4]), (x, t.x0)
+            for name in ("xlim0", "ylim0"):
+                assert torch.equal(getattr(got[3], name).reshape(()),
+                                   getattr(want[3], name).reshape(())), x
+            for g, w in zip(_flat_outputs(got[:3]), _flat_outputs(want[:3])):
+                assert (g is None) == (w is None)
+                if g is not None:
+                    assert g.dtype == w.dtype and torch.equal(g, w), (
+                        x, risk, int((g != w).sum()))
     torch.cuda.synchronize()
-    assert roi_window.crop_window.launches == before + len(xs)
+    assert map_sample.sample_and_pack_crop.launches == before + calls
 
 
-def test_roi_window_rejects_bad_inputs():
+def test_map_sample_crop_rejects_bad_inputs():
     dev = _cuda_or_skip()
     maps, task = _crop_inputs(dev, 20, 20, 3, 3, 0.5, 0.0)
-    before = roi_window.crop_window.launches
-    with pytest.raises(ValueError, match="planes"):
-        roi_window.crop_window(maps._replace(obstacle=maps.obstacle.float()),
-                               task, (20, 20), (5, 5))
+    key = torch.tensor([1, 2], dtype=torch.int64, device=dev)
+    before = map_sample.sample_and_pack_crop.launches
+    with pytest.raises(ValueError, match="obstacle"):
+        map_sample.sample_and_pack_crop(
+            key, maps._replace(obstacle=maps.obstacle[:5]), task, 2, "byte",
+            (5, 5))
     with pytest.raises(ValueError, match="x0"):
-        roi_window.crop_window(maps, task._replace(res=task.res.double()),
-                               (20, 20), (5, 5))
+        map_sample.sample_and_pack_crop(
+            key, maps, task._replace(x0=task.x0.double()), 2, "byte", (5, 5))
+    with pytest.raises(ValueError, match="float32 scalar"):
+        map_sample.sample_and_pack_crop(
+            key, maps, task._replace(res=task.res.double()), 2, "byte",
+            (5, 5))
     with pytest.raises(ValueError, match="window"):
-        roi_window.crop_window(maps, task, (20, 20), (21, 5))
-    assert roi_window.crop_window.launches == before
+        map_sample.sample_and_pack_crop(key, maps, task, 2, "byte", (21, 5))
+    assert map_sample.sample_and_pack_crop.launches == before
 
 
 def _roi_planner(dev, roi):
@@ -797,16 +837,17 @@ def _roi_planner(dev, roi):
 def test_planner_roi_crop_equals_full_on_card():
     """A cropped planner and an uncropped one with the same seed give the
     same controls bit for bit on the card, the cropped grids being the
-    window of the uncropped ones; every solve samples and packs its maps
-    through the map_sample kernel once (``sample_and_pack_window``), and
-    every cropped solve crops through the roi_window kernel once."""
+    window of the uncropped ones; every uncropped solve samples and packs
+    its maps through the map_sample kernel once
+    (``sample_and_pack_window``), and every cropped solve through its crop
+    mode once (``sample_and_pack_crop``), no other launch for the crop."""
     dev = _cuda_or_skip()
     p_roi, p_full = _roi_planner(dev, True), _roi_planner(dev, False)
     rH, rW = p_roi._static().roi_shape
     assert (rH, rW) == (13, 13) and p_full._static().roi_shape is None
     before = map_sample.sample_and_pack_window.launches
     bins_before = map_sample.sample_traction_window.launches
-    crops = roi_window.crop_window.launches
+    crops = map_sample.sample_and_pack_crop.launches
     x = np.array([6.25, 7.25, 0.3])
     for _ in range(3):
         u_roi, u_full = p_roi.solve(), p_full.solve()
@@ -819,8 +860,128 @@ def test_planner_roi_crop_equals_full_on_card():
                                 u_roi[0, 0] * np.sin(x[2]), u_roi[0, 1]])
         p_roi.shift_and_update(x, u_roi)
         p_full.shift_and_update(x, u_full)
-    assert map_sample.sample_and_pack_window.launches == before + 6
+    assert map_sample.sample_and_pack_window.launches == before + 3
     assert map_sample.sample_traction_window.launches == bins_before
-    assert roi_window.crop_window.launches == crops + 3
+    assert map_sample.sample_and_pack_crop.launches == crops + 3
     np.testing.assert_array_equal(p_roi.get_state_rollout(),
                                   p_full.get_state_rollout())
+
+
+# -- CUDA graphs: the planner's solve and vis, the device simulator ---------------
+
+
+def _clone_all(tup):
+    return type(tup)(*(None if t is None else t.clone() for t in tup))
+
+
+@pytest.mark.parametrize("roi", [True, False])
+def test_planner_graph_solve_and_vis_equal_eager_on_card(roi):
+    """The planner's solves, replayed from its CUDA graph, against eager
+    solves of the same solver from a generator of the same seed, bit for
+    bit (controls, every ``SolveAux`` field, the vis rollouts), over solve
+    -> ``shift_and_update`` -> solve, then new params, then a new TDM;
+    each solve one map_sample launch (the crop mode's when cropping)."""
+    from mppi_numba_tpu_torch.solver import get_terrain_solver, get_terrain_vis
+
+    dev = _cuda_or_skip()
+    planner = _roi_planner(dev, roi)
+    gen = torch.Generator(device=dev).manual_seed(planner.seed)
+    u_e = torch.zeros((planner.num_steps, 2), device=dev)
+    wrapper = (map_sample.sample_and_pack_crop if roi
+               else map_sample.sample_and_pack_window)
+    x = np.array([6.25, 7.25, 0.3])
+    for step in range(5):
+        if step == 3:
+            params = dict(planner.params, xgoal=np.array([16.0, 19.0]))
+            planner.set_params(params)
+        if step == 4:
+            other = _roi_planner(dev, roi)
+            rng = np.random.RandomState(9)
+            raw = rng.randint(1, 50, size=(6, 48, 48))
+            pmf = np.floor(100 * raw / raw.sum(0)).astype(np.int8)
+            pmf[-1] += 100 - pmf.sum(0).astype(np.int8)
+            for tdm in (other.lin_tdm, other.ang_tdm):
+                tdm.set_TDM_from_PMF_grid(pmf, dict(
+                    res=0.5, xlimits=(0.0, 24.0), ylimits=(0.0, 24.0),
+                    bin_values=np.linspace(0.0, 1.0, 6),
+                    bin_values_bounds=(0.0, 1.0),
+                    det_dynamics_cvar_alpha=1.0))
+            planner.set_tdm(other.lin_tdm, other.ang_tdm)
+        static = planner._static()
+        maps = _clone_all(planner._map_inputs())
+        task = _clone_all(planner._task_device)
+        before = wrapper.launches
+        u = planner.solve()
+        assert wrapper.launches == before + 1
+        want_u, want_aux = get_terrain_solver(static, dev)(gen, maps, task,
+                                                           u_e)
+        assert np.array_equal(u, want_u.cpu().numpy()), step
+        for name in want_aux._fields:
+            assert torch.equal(getattr(planner._last_aux, name),
+                               getattr(want_aux, name)), (step, name)
+        states = planner.get_state_rollout()
+        want_states = get_terrain_vis(static)(
+            maps, task, want_u, planner.u_prev, want_aux.noise_vis,
+            want_aux.lin_grids, want_aux.ang_grids, want_aux.roi_offset)
+        assert np.array_equal(states, want_states.cpu().numpy()), step
+        x = x + 0.1 * np.array([u[0, 0] * np.cos(x[2]),
+                                u[0, 0] * np.sin(x[2]), u[0, 1]])
+        planner.shift_and_update(x, u)
+        u_e = torch.cat([want_u[1:], want_u[-1:]])
+        assert torch.equal(planner.u_cur, u_e)
+    assert len(planner._solve_graphs) == 1
+
+
+def test_solve_graph_outputs_are_overwritten_by_the_next_replay():
+    """A ``SolveGraph``'s outputs live in its memory pool: the next call
+    overwrites them, as its docstring says; a copy keeps them."""
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+
+    dev = _cuda_or_skip()
+    planner = _roi_planner(dev, False)
+    solver = get_terrain_solver(planner._static(), dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    maps, task = planner._map_inputs(), planner._task_device
+    u0 = torch.zeros((planner.num_steps, 2), device=dev)
+    graph = solver.capture(gen, maps, task, u0)
+    u1, aux1 = graph(gen, maps, task, u0)
+    kept = (u1.clone(), aux1.lin_grids.clone())
+    u2, aux2 = graph(gen, maps, task, u1)
+    assert u2 is u1 and aux2.lin_grids is aux1.lin_grids
+    assert not torch.equal(u2, kept[0])
+    assert not torch.equal(aux2.lin_grids, kept[1])
+    with pytest.raises(ValueError, match="captured on"):
+        graph(gen, _clone_all(maps), task, u0)
+
+
+@pytest.mark.parametrize("engine", ["make_device_trial", "make_episode_fn"])
+def test_device_trial_graph_equals_eager_on_card(engine):
+    """The device simulator's graph replays (a generator on the card)
+    against its eager loop (a callable making the same draws), bit for
+    bit, on a cropped world."""
+    from mppi_numba_tpu_torch import device_sim
+    from mppi_numba_tpu_torch.ops.sampling import draw_map_key
+
+    dev = _cuda_or_skip()
+    planner = _roi_planner(dev, True)
+    static = planner._static()
+    maps, task = planner._map_inputs(), planner._task_device
+    gt = torch.full((48, 48), 0.9, device=dev)
+    meta = torch.tensor([0.0, 0.0, 2.0], device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    g2 = torch.Generator(device=dev).manual_seed(4)
+
+    def draws(t):
+        key = draw_map_key(g2, dev)
+        return key, [torch.randn((static.num_control_rollouts,
+                                  static.num_steps, 2), generator=g2,
+                                 device=dev) for _ in range(static.num_opt)]
+
+    fn = getattr(device_sim, engine)(static, 25)
+    before = map_sample.sample_and_pack_crop.launches
+    got = fn(g, maps, task, gt, gt, meta)
+    replays = map_sample.sample_and_pack_crop.launches - before
+    want = fn(draws, maps, task, gt, gt, meta)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), (got, want)
+    assert replays >= int(got.steps) > 0

@@ -30,7 +30,8 @@ from mppi_numba_tpu.solver import get_terrain_solver as j_get_solver
 from mppi_numba_tpu.solver import get_terrain_vis as j_get_vis
 from mppi_numba_tpu_torch.config import SolverStatic
 from mppi_numba_tpu_torch.convert import to_port
-from mppi_numba_tpu_torch.ops.kernels.roi_window import crop_window
+from mppi_numba_tpu_torch.ops.kernels.map_sample import sample_and_pack_crop
+from mppi_numba_tpu_torch.ops.roi import crop_window_plain
 from mppi_numba_tpu_torch.ops.roi import roi_start as _roi_start
 from mppi_numba_tpu_torch.solver import get_terrain_solver
 from mppi_numba_tpu_torch.solver import get_terrain_vis
@@ -212,10 +213,12 @@ def test_roi_start_matches_jax(res, xlim0):
 @pytest.mark.parametrize("x0", [(4.25, 5.25), (0.1, 19.9), (-3.0, 30.0),
                                 (12.0, 0.25)])
 def test_crop_window_matches_jax(x0):
-    """``crop_window`` (its plain version on the CPU) against the JAX
-    package's ``_roi_start`` + ``_crop_maps`` + ``_shift_task_limits`` on
-    the same maps and task: every plane, the shifted limits and the offset
-    exact, inside the map, at its corners and off it."""
+    """``crop_window_plain`` (the plain version of the map-sampling
+    kernel's crop mode) against the JAX package's ``_roi_start`` +
+    ``_crop_maps`` + ``_shift_task_limits`` on the same maps and task:
+    every plane, the shifted limits and the offset exact, inside the map,
+    at its corners and off it; ``sample_and_pack_crop`` on CPU tensors
+    runs it (no launch) and returns the same task and offset."""
     jp = build_planner(jpkg, True, "speed", stochastic_pmf=True)
     jstatic = jp._static()
     maps, task = jp._map_inputs(), jp._build_task()
@@ -225,10 +228,14 @@ def test_crop_window_matches_jax(x0):
     j_task = j_shift_task_limits(task, oy, ox)
     t_maps, t_task, _ = to_port(maps, task, np.zeros((2, 2), np.float32),
                                 "cpu")
-    before = crop_window.launches
-    c_maps, c_task, offset = crop_window(t_maps, t_task, jstatic.map_shape,
-                                         jstatic.roi_shape)
-    assert crop_window.launches == before          # CPU: the plain version
+    c_maps, c_task, offset = crop_window_plain(
+        t_maps, t_task, jstatic.map_shape, jstatic.roi_shape)
+    before = sample_and_pack_crop.launches
+    *_, s_task, s_offset = sample_and_pack_crop(
+        torch.tensor([0, 7], dtype=torch.int64), t_maps, t_task, 2, "byte",
+        jstatic.roi_shape)
+    assert sample_and_pack_crop.launches == before  # CPU: the plain version
+    assert torch.equal(s_offset, offset)
     assert offset.dtype == torch.int32
     np.testing.assert_array_equal(offset.numpy(), [int(oy), int(ox)])
     for name in c_maps._fields:
@@ -236,7 +243,8 @@ def test_crop_window_matches_jax(x0):
                                       np.asarray(getattr(j_maps, name)))
     for name in ("xlim0", "ylim0"):
         assert (np.float32(getattr(c_task, name))
-                == np.float32(getattr(j_task, name)))
+                == np.float32(getattr(j_task, name))
+                == np.float32(getattr(s_task, name)))
 
 
 def _jax_roi_world(mode):

@@ -168,6 +168,65 @@ def test_sample_and_pack_matches_jax(layout, speed_map, case):
         assert payload[2] is not None
 
 
+# Robot positions (x, y) on the 17x19 map at res 0.5 (8.5 x 9.5 m from
+# the padded origin) for the crop mode: near each edge, off a corner, at
+# the centre, and on a cell edge.
+CROP_AT = {"west": (0.2, 4.0), "east": (9.4, 4.3), "south": (4.1, 0.1),
+           "north": (4.6, 8.4), "off_corner": (-3.0, 11.0),
+           "centre": (4.75, 4.25), "cell_edge": (5.0, 3.5)}
+
+
+@pytest.mark.parametrize("where", sorted(CROP_AT))
+@pytest.mark.parametrize("origin", [0.0, -0.5])
+@pytest.mark.parametrize("speed_map", [False, True])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_crop_mode_plain_matches_crop_then_sample_and_pack(layout, speed_map,
+                                                           origin, where):
+    """``sample_and_pack_crop`` on CPU tensors (the kernel's crop mode's
+    plain version) equals ``roi.crop_window_plain`` followed by
+    ``sample_and_pack_window_plain`` at the window, bit for bit: payload,
+    grids, offset and shifted limits; and its payload and grids are JAX's
+    draw and pack of JAX's window (``_roi_start``)."""
+    from mppi_numba_tpu.solver import _roi_start as j_roi_start
+    from mppi_numba_tpu_torch.ops.roi import crop_window_plain
+
+    B = LAYOUTS[layout][1]
+    maps = _maps(B, False, seed=100 + B)
+    M, (rH, rW) = 5, (9, 7)
+    f32 = np.float32
+    jtask = _task()._replace(
+        x0=np.array([*CROP_AT[where], 0.2], f32), res=f32(0.5),
+        xlim0=f32(origin), ylim0=f32(origin))
+    t_maps, t_task, _ = to_port(maps, jtask, None, "cpu")
+    key = _port_key(KEY)
+    before = map_sample.sample_and_pack_crop.launches
+    payload, lin_grids, ang_grids, c_task, offset = (
+        map_sample.sample_and_pack_crop(key, t_maps, t_task, M, layout,
+                                        (rH, rW), risk=speed_map))
+    assert map_sample.sample_and_pack_crop.launches == before   # CPU: plain
+    w_maps, w_task, w_offset = crop_window_plain(t_maps, t_task, (H, W),
+                                                 (rH, rW))
+    w_payload, w_lin, w_ang = map_sample.sample_and_pack_window_plain(
+        key, w_maps, t_task.alpha_dyn, M, layout,
+        window=((H, W), w_offset[0], w_offset[1]), risk=speed_map)
+    assert offset.dtype == torch.int32 and torch.equal(offset, w_offset)
+    for name in ("xlim0", "ylim0"):
+        assert torch.equal(getattr(c_task, name), getattr(w_task, name))
+    assert torch.equal(lin_grids, w_lin) and torch.equal(ang_grids, w_ang)
+    _assert_payload_equal(payload, tuple(w_payload) if layout != "byte"
+                          else w_payload)
+
+    oy, ox = (int(v) for v in j_roi_start(jtask, (H, W), (rH, rW)))
+    assert offset.tolist() == [oy, ox]
+    crop = (slice(None), slice(oy, oy + rH), slice(ox, ox + rW))
+    want, grids, _ = _jax_sample_and_pack(
+        layout, maps, 1.0, M, ((H, W), jnp.int32(oy), jnp.int32(ox)), None,
+        speed_map, crop)
+    np.testing.assert_array_equal(lin_grids.numpy(), np.asarray(grids[0]))
+    np.testing.assert_array_equal(ang_grids.numpy(), np.asarray(grids[1]))
+    _assert_payload_equal(payload, want)
+
+
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 def test_sample_and_pack_without_ang_plane(layout):
     """With no ang plane the payload's ang fields are 0: JAX's pack of the
