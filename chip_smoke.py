@@ -43,6 +43,15 @@ Phases (any failure exits non-zero; no error is swallowed):
    centre, at every cell edge of a row, an ulp either side and off the
    map, at the big-map world's shape (padded origin 0 and -res) and a
    ragged one.
+   The scenario axis (B scenarios in one launch, each with its own keys,
+   alpha_dyn, windows, robots, maps, tasks and controls): the map sampler
+   in its window mode (bins and every payload layout x risk) and its crop
+   mode (every layout x risk, robots in different windows and off the
+   map) at B = 3, both rollout kernels (byte and 2-, 4- and 8-bit cells x
+   fast, exact and bicycle x speed map) at B = 3, and the sweep's shape
+   (B = 30 episodes of the benchmark's 11x11 maps, M = K = 1024), each
+   batched launch bit for bit against its plain version and against the B
+   single launches.
    Then one small whole solve, the kernel path
    against its plain version on the card and against the CPU
    (``small_solve_witness``).
@@ -79,6 +88,18 @@ Phases (any failure exits non-zero; no error is swallowed):
    read once a chunk); and the gather probe's entry point
    (``probes.gather_probe.run``), every (mode, table size, rows), each
    case's 512-step chain held bit for bit against the plain chain.
+   World (l), the reference benchmark sweep
+   (``scripts/run_full_benchmark.py``'s protocol: 4 densities x 10
+   environments x 3 realizations = 120 paired episodes, K = M = 1024, T =
+   100, max_steps 150, 22 bins, 9x9 padded to 11x11), each of the four
+   paper methods at alpha 0.6 through ``benchmark.run_trials_device_rows``
+   in chunks of 30: one CUDA graph a batched step, captured once a
+   method, one map_sample launch and one rollout launch a replay (not an
+   episode); one batched solve step of a chunk against its 30 solves made
+   one at a time from the same draws (the kernels' outputs bit for bit, u
+   within rtol 2e-4 / atol 2e-5); ``benchmark.run_trials_rows`` (the
+   sequential engine) on 2 realizations a method; and a graphed planner's
+   checkpoint round trip (``checkpoint``), its next solve bit for bit.
 4. Timing with CUDA events: each rollout kernel over launches captured in
    a CUDA graph and over eager launches, in turns, against its plain
    version; the binned kernel in turns with the byte kernel on the same
@@ -99,8 +120,12 @@ Phases (any failure exits non-zero; no error is swallowed):
    big-map world's chained solves (graph and eager) and planner
    ``solve()`` calls cropped against uncropped, in turns; one device
    trial of the big-map world against ``sim.trial``'s host loop, steps
-   per second.  Each figure is printed as a JSON line with the card's name
-   and power limit.
+   per second; the kernels with a scenario axis at the sweep's shape (B =
+   30, and the det modes' M = 1) against 30 single launches; the sweep's
+   episodes per second for each method on one chunk, batched (its capture
+   apart) against in turn (one graph a scenario), and the peak device
+   memory of a batched step at chunks of 10, 30, 60 and 120.  Each figure
+   is printed as a JSON line with the card's name and power limit.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -211,6 +236,21 @@ KNOWN_UNIFORMS = [
 # The gather probe's case in the kernels line: the TPU probe's own (column
 # gather, its largest table, its 32-row tile).
 PROBE_TIMED_AT = "column_S6568_R32"
+# The reference benchmark sweep (scripts/run_full_benchmark.py:42-66,
+# benchmark.ipynb[cell 5]): 4 vegetation densities x 10 environments x 3
+# realizations = 120 paired episodes of a 9x9 grid (padded to 11x11, 22
+# bins) per (method, alpha), max_steps 150, K = M = 1024, T = 100; world
+# (l) runs the four paper methods at one alpha, in chunks of 30 episodes
+# (the JAX package's default batch_chunk).
+SWEEP_DENSITIES = [1.0, 0.7, 0.4, 0.1]
+SWEEP_ENVS, SWEEP_TRIALS, SWEEP_MAX_STEPS = 10, 3, 150
+SWEEP_GRID, SWEEP_MARGIN, SWEEP_RES = (9, 9), 1, 1.0
+SWEEP_ALPHA, SWEEP_CHUNK = 0.6, 30
+# The scenario-axis cases of phase 2: scenarios a launch.
+SCENARIOS = 3
+# Chunk sizes whose peak device memory phase 4 records (noisy_dyn, M = K =
+# 1024; 120 is the whole sweep in one batch).
+PEAK_CHUNKS = (10, 30, 60, 120)
 FOREST_ROWS, FOREST_COLS, FOREST_RES, FOREST_BINS = 138, 82, 0.5, 12
 # Steering range of the bicycle cases and world (rad): a vehicle's, and far
 # from tan's pole at pi/2.
@@ -461,7 +501,7 @@ def main():
     from mppi_numba_tpu_torch.solver import (get_barebone_solver,
                                              get_terrain_solver,
                                              get_terrain_vis)
-    from mppi_numba_tpu_torch.types import TerrainTask
+    from mppi_numba_tpu_torch.types import TerrainTask, scenario
 
     dev = torch.device("cuda")
     kernel = rollout_byte.terrain_rollout_costs_byte
@@ -944,6 +984,133 @@ def main():
         if name == "main_path_85x85_of_250x250":
             crop_timed_args = timed
 
+    # The scenario axis: SCENARIOS scenarios (their own keys, alpha_dyn,
+    # windows, robots, maps, tasks and controls) in one launch of each
+    # kernel, against the single launches and the batched plain version,
+    # bit for bit.
+    scenario_results = {"map_sample": [], "rollout_byte": [],
+                        "rollout_binned": []}
+    for seed, (name, M, hw, rwin, bins, layouts) in enumerate([
+            ("31x37_window_13x11", 16, (31, 37), (13, 11), 12,
+             FUSED_LAYOUTS[:1] + FUSED_LAYOUTS[2:]),
+            ("31x37_window_13x11_4bins", 16, (31, 37), (13, 11), 4,
+             FUSED_LAYOUTS),
+            ("11x11_M1", 1, (11, 11), (11, 11), 22, ("byte",))],
+            start=800):
+        scenario_results["map_sample"].append(check_scenario_sampling(
+            torch, dev, sampler, splain, fused, fplain, name,
+            scenario_sample_cases(torch, dev, M, hw, rwin, bins, 10 * seed),
+            layouts))
+    for seed, (name, H, W, rH, rW, bins, res, lim0, M) in enumerate([
+            ("13x11_of_64x48", 64, 48, 13, 11, 4, 0.3, -1.3, 5),
+            ("85x85_of_250x250", 250, 250, 85, 85, 4, BIGMAP_RES, 0.0, 8)],
+            start=850):
+        scenario_results["map_sample"].append(check_scenario_crop(
+            torch, dev, cropper, cplain, name, H, W, rH, rW, bins, res, lim0,
+            M, 10 * seed))
+
+    def vary_task(tv, b):
+        """Scenario b's task vector: x0, the goal, dt and the origin
+        moved."""
+        tv = tv.clone()
+        tv[0] += 0.25 * b
+        tv[3] -= 0.5 * b
+        tv[7] += 0.01 * b
+        tv[12] -= 0.1 * b
+        return tv
+
+    for seed, (layout, bins, model, sm) in enumerate(
+            [(layout, bins, model, sm)
+             for layout, bins in (("byte", 12), (2, 4), (4, 12), (8, 22))
+             for model in ("fast", "exact", "bicycle")
+             for sm in (False, True)], start=900):
+        K, M, T, H, W, res = 1024, 4, 60, 21, 30, 0.5
+        ft, step = models[model]
+        steer = STEER if step is not None else 3.14
+        if layout == "byte":
+            parts = [make_case(K, M, T, H, W, res, True, sm, 37 * seed + b,
+                               steer=steer) for b in range(SCENARIOS)]
+            parts = [(p[0], vary_task(p[1], b), *p[2:])
+                     for b, p in enumerate(parts)]
+            fn, pfn, which = kernel, plain, "rollout_byte"
+            kw = dict(H=H, W=W, T=T, speed_map=sm, fast_trig=ft,
+                      step_fn=step)
+        else:
+            parts = [make_binned_case(K, M, T, H, W, res, layout, bins, True,
+                                      sm, 37 * seed + b, past_last=True,
+                                      steer=steer)[0]
+                     for b in range(SCENARIOS)]
+            parts = [(*p[:3], vary_task(p[3], b), *p[4:])
+                     for b, p in enumerate(parts)]
+            fn, pfn, which = bkernel, bplain, "rollout_binned"
+            kw = dict(H=H, W=W, T=T, cell_bits=layout, fast_trig=ft,
+                      step_fn=step)
+        single = torch.stack([fn(*q, **kw) for q in parts])
+        args = stack_scenarios(torch, parts)
+        got = fn(*args, **kw)
+        want = pfn(*args, **kw)
+        torch.cuda.synchronize()
+        scenario_results[which].append(compare(
+            "scenarios_{}_{}{}".format(layout, model,
+                                       "_speed_map" if sm else ""),
+            got, want, ft, True, K=K, M=M, T=T, scenarios=SCENARIOS,
+            map="{}x{}".format(H, W), layout=layout, model=model,
+            speed_map=sm, single_launches_differing=int(
+                (got != single).sum())))
+        check(torch.equal(got, single), "rollout scenarios {} {}: the "
+              "batched launch differs from the single launches".format(
+                  layout, model))
+        del parts, args, got, want, single
+
+    # One case at the sweep's shape: 30 episodes of the benchmark sweep
+    # (11x11 padded maps, 22 bins, M = K = 1024, T = 100, fast trig), the
+    # map draw in the byte layout and the byte rollout, each batched
+    # against the 30 single launches and the batched plain version.
+    sweep_static, sweep_maps, sweep_task, _ = sweep_chunk("noisy_dyn",
+                                                          SWEEP_CHUNK)
+    B, M = SWEEP_CHUNK, sweep_static.num_grid_samples
+    K, T = sweep_static.num_control_rollouts, sweep_static.num_steps
+    H, W = sweep_static.map_shape
+    g = torch.Generator(device=dev).manual_seed(31)
+    sweep_keys = torch.randint(0, 2 ** 32, (B, 2), generator=g, device=dev)
+    got = fused(sweep_keys, sweep_maps, sweep_task.alpha_dyn, M, "byte")
+    want = fplain(sweep_keys, sweep_maps, sweep_task.alpha_dyn, M, "byte")
+    single = stack_scenarios(torch, [
+        fused(sweep_keys[b], scenario(sweep_maps, b),
+              sweep_task.alpha_dyn[b], M, "byte") for b in range(B)])
+    torch.cuda.synchronize()
+    differ = [bits_differing(torch, got, want),
+              bits_differing(torch, got, single)]
+    print(json.dumps(dict(case="map_sample_scenarios_sweep_shape",
+                          scenarios=B, M=M, map="{}x{}".format(H, W),
+                          layout="byte",
+                          entries_differing_plain_single=differ)), flush=True)
+    check(not any(differ), "map_sample at the sweep's shape: {}".format(
+        differ))
+    sweep_words = got[0]
+    u_sweep = torch.rand((B, T, 2), generator=g, device=dev) * 2.0 - 0.5
+    noise = (torch.randn((B, K, T, 2), generator=g, device=dev)
+             * sweep_task.u_std[:, None, None, :])
+    v_all, w_all = (x.contiguous() for x in _clipped_controls_tk(
+        u_sweep, noise, sweep_task.vrange, sweep_task.wrange))
+    sweep_tv = rollout_byte.build_task_vec(sweep_task)
+    sweep_kw = dict(H=H, W=W, T=T, fast_trig=sweep_static.fast_trig)
+    got = kernel(sweep_words, sweep_tv, v_all, w_all, **sweep_kw)
+    want = plain(sweep_words, sweep_tv, v_all, w_all, **sweep_kw)
+    single = torch.stack([kernel(sweep_words[b], sweep_tv[b], v_all[b],
+                                 w_all[b], **sweep_kw) for b in range(B)])
+    torch.cuda.synchronize()
+    scenario_results["rollout_byte"].append(compare(
+        "scenarios_sweep_shape", got, want, sweep_static.fast_trig, True,
+        K=K, M=M, T=T, scenarios=B, map="{}x{}".format(H, W),
+        single_launches_differing=int((got != single).sum())))
+    check(torch.equal(got, single), "rollout at the sweep's shape: the "
+          "batched launch differs from the single launches")
+    sweep_timed_args = dict(keys=sweep_keys, maps=sweep_maps,
+                            task=sweep_task, M=M, words=sweep_words,
+                            tv=sweep_tv, v=v_all, w=w_all, kw=sweep_kw)
+    del got, want, single, noise
+
     small_solve_witness(torch, dev, plain)
 
     # -- phase 3: the main paths ------------------------------------------------
@@ -1073,6 +1240,86 @@ def main():
           "gather probe: a chain differs from its plain version: {}".format(
               [r for r in probe_runs if not r["correct"]]))
     totals["gather_probe"] += launches["gather_probe"]
+
+    # World (l), the reference benchmark sweep: 120 paired episodes (4
+    # densities x 10 environments x 3 realizations) of each paper method
+    # at one alpha, through the row producer of run_trials_device on the
+    # card: one CUDA graph steps a chunk of 30 episodes, captured once per
+    # method; one map_sample launch and one rollout launch a replay, not an
+    # episode.
+    from mppi_numba_tpu_torch import benchmark
+    sweep_runs = {}
+    for method in benchmark.PAPER_METHODS:
+        torch.cuda.reset_peak_memory_stats()
+        set_counts(0)
+        args, kw = sweep_args(method_list=[method], batch_chunk=SWEEP_CHUNK,
+                              stats={})
+        t0 = time.perf_counter()
+        rows = benchmark.run_trials_device_rows(*args, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        st = kw["stats"][method]
+        replays = sum(st["chunk_steps"])
+        check(launches["map_sample_pack"] == launches["rollout_byte"]
+              == replays and st["captures"] == 1
+              and launches["rollout_binned"] == launches["map_sample_crop"]
+              == launches["map_sample_bins"] == launches["gather_probe"]
+              == 0, "sweep {}: launches {} for {} replays of {} "
+              "episodes".format(method, launches, replays, len(rows)))
+        for k in totals:
+            totals[k] += launches[k]
+        check(len(rows) == len(SWEEP_DENSITIES) * SWEEP_ENVS * SWEEP_TRIALS
+              and all(np.isfinite(r["cum_obj"]) for r in rows),
+              "sweep {}: {} rows".format(method, len(rows)))
+        success = float(np.mean([r["success"] for r in rows]))
+        sweep_runs[method] = dict(
+            seconds=seconds, success_rate=success, replays=replays,
+            chunk_steps=st["chunk_steps"], captures=st["captures"],
+            peak_mem_bytes=torch.cuda.max_memory_allocated())
+        print(json.dumps(dict(world="benchmark_sweep", method=method,
+                              alpha=SWEEP_ALPHA, episodes=len(rows),
+                              kernel_launches=launches,
+                              launches_per_replay=1,
+                              episodes_per_launch=SWEEP_CHUNK,
+                              **sweep_runs[method])), flush=True)
+    check(sweep_runs["noisy_dyn"]["success_rate"] > 0.5,
+          "sweep: noisy_dyn succeeded in {} of its episodes".format(
+              sweep_runs["noisy_dyn"]["success_rate"]))
+
+    # One batched solve step of a sweep chunk against its 30 solves made
+    # one at a time from the same draws: the kernels' outputs (the map
+    # draw and the rollout) bit for bit, u within rtol 2e-4 / atol 2e-5.
+    check_batched_solve_step(torch, dev, fused, scenario)
+
+    # run_trials (the sequential engine: sim.trial, one graphed planner a
+    # method) on 2 realizations for each method.
+    set_counts(0)
+    args, kw = sweep_args(method_list=list(benchmark.PAPER_METHODS))
+    args = args[:7] + ([0.4], 1, 2) + args[10:]
+    seq_rows = benchmark.run_trials_rows(*args, **kw)
+    launches = read_counts()
+    solves = sum(int(round(r["time_to_goal"] / 0.1)) if r["success"]
+                 else SWEEP_MAX_STEPS for r in seq_rows)
+    check(len(seq_rows) == 8 and launches["map_sample_pack"]
+          == launches["rollout_byte"] == solves
+          and launches["rollout_binned"] == 0,
+          "run_trials: {} rows, launches {} for {} solves".format(
+              len(seq_rows), launches, solves))
+    for k in totals:
+        totals[k] += launches[k]
+    print(json.dumps(dict(check="run_trials", rows=len(seq_rows),
+                          solves=solves, kernel_launches=launches,
+                          success=[bool(r["success"]) for r in seq_rows])),
+          flush=True)
+
+    # A planner's checkpoint round trip, its solves replayed from a graph.
+    set_counts(0)
+    ckpt = check_checkpoint_round_trip(torch)
+    launches = read_counts()
+    for k in totals:
+        totals[k] += launches[k]
+    print(json.dumps(dict(ckpt, kernel_launches=launches)), flush=True)
 
     # -- phase 4: timing ------------------------------------------------------------
     def time_kernels(fns, reps):
@@ -1405,9 +1652,101 @@ def main():
         host_loop_steps=host_steps, host_loop_ms=host_ms)
     del trial, tmaps, ttask, gt, meta, host_planner
 
+    # The kernels with a scenario axis at the sweep's shape (B = 30
+    # episodes of 11x11 maps, M = K = 1024, T = 100; and the det modes' M =
+    # 1) against 30 single launches of the same work, in turns, each over
+    # launches captured in a CUDA graph.
+    st = sweep_timed_args
+    B = SWEEP_CHUNK
+    m1 = dict(words=st["words"][:, :1].contiguous(), keys=st["keys"])
+    scenario_timed = {}
+    for name, batched, singles, bound in (
+            ("map_sample", lambda: fused(st["keys"], st["maps"],
+                                         st["task"].alpha_dyn, st["M"],
+                                         "byte"),
+             lambda: [fused(st["keys"][b], scenario(st["maps"], b),
+                            st["task"].alpha_dyn[b], st["M"], "byte")
+                      for b in range(B)],
+             map_sample_bound_ms(B * st["M"], 11, 11, 22, 22, "byte")),
+            ("map_sample_M1", lambda: fused(st["keys"], st["maps"],
+                                            st["task"].alpha_dyn, 1, "byte"),
+             lambda: [fused(st["keys"][b], scenario(st["maps"], b),
+                            st["task"].alpha_dyn[b], 1, "byte")
+                      for b in range(B)],
+             map_sample_bound_ms(B, 11, 11, 22, 22, "byte")),
+            ("rollout_byte", lambda: kernel(st["words"], st["tv"], st["v"],
+                                            st["w"], **st["kw"]),
+             lambda: [kernel(st["words"][b], st["tv"][b], st["v"][b],
+                             st["w"][b], **st["kw"]) for b in range(B)],
+             rollout_bound_ms(1024, B * st["M"], 100, 11, 11, True, False)),
+            ("rollout_byte_M1", lambda: kernel(m1["words"], st["tv"],
+                                               st["v"], st["w"],
+                                               **st["kw"]),
+             lambda: [kernel(m1["words"][b], st["tv"][b], st["v"][b],
+                             st["w"][b], **st["kw"]) for b in range(B)],
+             rollout_bound_ms(1024, B, 100, 11, 11, True, False))):
+        runs = time_kernels({"batched": batched, "singles": singles},
+                            5 if name.endswith("M1") else 3)
+        scenario_timed[name] = dict(
+            ms=min(runs["batched"]["graph"]),
+            singles_ms=min(runs["singles"]["graph"]),
+            bound_ms=bound[0], bound_by=bound[1])
+        emit("scenario_kernel_ms", scenario_timed[name]["ms"], "ms",
+             kernel=name, scenarios=B, runs=runs["batched"]["graph"],
+             eager_runs=runs["batched"]["eager"],
+             singles_ms=scenario_timed[name]["singles_ms"],
+             singles_runs=runs["singles"]["graph"],
+             singles_eager_runs=runs["singles"]["eager"],
+             bound_ms=bound[0], bound_by=bound[1])
+    del st, sweep_timed_args, m1
+
+    # The sweep's trials per second for each method on one chunk of 30
+    # episodes: the batch engine (one CUDA graph steps all 30; its capture
+    # timed apart: the first call captures, the second replays) against
+    # the in-turn engine (make_device_trial: one graph a scenario, each
+    # captured on its first call), in turns; and the peak device memory
+    # of a batched step of noisy_dyn at each chunk size of PEAK_CHUNKS.
+    sweep_timed = {}
+    for method in benchmark.PAPER_METHODS:
+        static, maps, task, gt = sweep_chunk(method, SWEEP_CHUNK)
+        res = time_sweep_chunk(torch, device_sim, static, maps, task, gt)
+        sweep_timed[method] = res
+        emit("sweep_episodes_per_s", res["batched_episodes_per_s"],
+             "episodes/s", method=method, episodes=SWEEP_CHUNK,
+             alpha=SWEEP_ALPHA, **{k: v for k, v in res.items()
+                                   if k != "batched_episodes_per_s"})
+    peak = {}
+    static, maps, task, gt = sweep_chunk("noisy_dyn", max(PEAK_CHUNKS))
+    for chunk in PEAK_CHUNKS:
+        engine = device_sim.make_device_trial_batch(static, 1)
+        sub = [type(t)(*(None if x is None else x[:chunk] for x in t))
+               for t in (maps, task)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engine(torch.Generator(device=dev).manual_seed(0), *sub,
+               *(x[:chunk] for x in gt))
+        torch.cuda.synchronize()
+        peak[chunk] = torch.cuda.max_memory_allocated() - base
+        del engine, sub
+    emit("sweep_step_peak_device_memory", peak[SWEEP_CHUNK], "bytes",
+         method="noisy_dyn", by_chunk=peak, M=1024, K=1024)
+    del static, maps, task, gt
+
     flag = case_results[0]
     forest = binned_timed["forest_140x84"]
     nib = binned_results[0]
+    # The probe's latency bound: a dependent chain cannot take less than
+    # its steps times one step of the same chain on a table that every
+    # load finds in L1 (the probe's smallest table, in the same mode and
+    # rows, this run); the table of PROBE_TIMED_AT lives in L2, slower.
+    probe_at = probe_timed[PROBE_TIMED_AT]
+    l1_step_ns = min(r["ns_per_step"] for r in probe_timed.values()
+                     if r["mode"] == probe_at["mode"]
+                     and r["R"] == probe_at["R"]
+                     and r["S"] == min(q["S"] for q in probe_timed.values()))
+    probe_latency_bound_ms = probe_at["iters"] * l1_step_ns * 1e-6
     print(json.dumps({"kernels": [{
         "name": "rollout_byte",
         "route": "cuda",
@@ -1428,6 +1767,9 @@ def main():
         "bicycle_max_rel_err": max(
             c["max_rel_err"] for c in bicycle_results["rollout_byte"]),
         "bicycle_ms_forest": bicycle_timed["rollout_byte"]["ms"],
+        "scenario_cases": len(scenario_results["rollout_byte"]),
+        "scenarios_b30": scenario_timed["rollout_byte"],
+        "scenarios_b30_M1": scenario_timed["rollout_byte_M1"],
     }, {
         "name": "rollout_binned",
         "route": "cuda",
@@ -1450,6 +1792,7 @@ def main():
             c["max_rel_err"] for c in bicycle_results["rollout_binned"]),
         "bicycle_ms_forest": bicycle_timed["rollout_binned"]["ms"],
         "bicycle_bound_ms_forest": bicycle_timed["rollout_binned"]["bound"][0],
+        "scenario_cases": len(scenario_results["rollout_binned"]),
     }, {
         "name": "map_sample",
         "route": "cuda",
@@ -1473,6 +1816,10 @@ def main():
         "ms_at": fused_ms_at,
         "cases": len(sample_results),
         "fused_combinations": sum(r["combinations"] for r in fused_results),
+        "scenario_combinations": sum(r["combinations"] for r in
+                                     scenario_results["map_sample"]),
+        "scenarios_b30": scenario_timed["map_sample"],
+        "scenarios_b30_M1": scenario_timed["map_sample_M1"],
     }, {
         "name": "roi_window",
         "kernel": "map_sample, crop mode (sample_and_pack_crop): the crop "
@@ -1502,6 +1849,9 @@ def main():
         "bound_ms": probe_timed[PROBE_TIMED_AT]["bound"][0],
         "bound_by": probe_timed[PROBE_TIMED_AT]["bound"][1],
         "library_ms": None,
+        "latency_bound_ms": probe_latency_bound_ms,
+        "latency_bound": "steps x one chain step on an L1-resident table "
+                         "({:.1f} ns, this run)".format(l1_step_ns),
         "timed_at": PROBE_TIMED_AT + ", 512 steps",
         "ns_per_step_at": {k: v["ns_per_step"]
                            for k, v in probe_timed.items()},
@@ -1853,6 +2203,330 @@ def small_world():
     return static, maps, task
 
 
+def sweep_problem(K=1024, M=1024):
+    """The reference benchmark's world, Config and params
+    (``scripts/run_full_benchmark.py::build_problem``), through the ported
+    ``benchmark`` module; the world is built anew each call (its densities
+    hold a stateful RandomState)."""
+    from mppi_numba_tpu_torch import Config, benchmark
+
+    world = benchmark.make_benchmark_world(num_bins=20,
+                                           rng=np.random.RandomState(0))
+    cfg = Config(T=10.0, dt=0.1, num_grid_samples=M, num_control_rollouts=K,
+                 max_speed_padding=5.0, num_vis_state_rollouts=50,
+                 max_map_dim=(15, 15), seed=1, use_tdm=True)
+    params = benchmark.default_benchmark_params(cfg, SWEEP_GRID, SWEEP_MARGIN)
+    params["u_std"] = np.array([2.0, 3.0])
+    return world, cfg, params
+
+
+def sweep_args(**kw):
+    """The positional arguments of ``benchmark.run_trials_device_rows`` /
+    ``run_trials_rows`` for the reference protocol at one alpha (world
+    rebuilt), and its keyword defaults updated by ``kw``."""
+    world, cfg, params = sweep_problem()
+    args = (cfg, world, SWEEP_MAX_STEPS, SWEEP_GRID, SWEEP_MARGIN, SWEEP_RES,
+            params, SWEEP_DENSITIES, SWEEP_ENVS, SWEEP_TRIALS, [SWEEP_ALPHA])
+    return args, dict(dict(verbose=False, device="cuda"), **kw)
+
+
+def sweep_chunk(method, B, K=1024, M=1024):
+    """The first B episodes of the sweep at ``SWEEP_ALPHA``
+    (``benchmark.DeviceSweep``): ``(static, maps, task, gt)``."""
+    from mppi_numba_tpu_torch import benchmark
+
+    world, cfg, params = sweep_problem(K, M)
+    sweep = benchmark.DeviceSweep(
+        cfg, world, SWEEP_GRID, SWEEP_MARGIN, SWEEP_RES, params,
+        SWEEP_DENSITIES, SWEEP_ENVS, SWEEP_TRIALS, device="cuda")
+    _, static, maps, task = sweep.inputs(method, SWEEP_ALPHA)
+
+    def first(tree):
+        return type(tree)(*(None if x is None else x[:B] for x in tree))
+
+    return static, first(maps), first(task), tuple(g[:B] for g in sweep.gt)
+
+
+def stack_scenarios(torch, parts):
+    """Per-scenario arguments (tensors, NamedTuples, tuples) stacked on a
+    new leading scenario axis; anything else (None, ints) the first's."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(parts)
+    if hasattr(first, "_replace"):
+        return type(first)(*(stack_scenarios(torch, list(f))
+                             for f in zip(*parts)))
+    if isinstance(first, tuple):
+        return tuple(stack_scenarios(torch, list(f)) for f in zip(*parts))
+    return first
+
+
+def bits_differing(torch, got, want):
+    """Entries that differ between two results (tensors through tuples and
+    NamedTuples; None must match None: a mismatch counts 1)."""
+    if isinstance(got, tuple):
+        return sum(bits_differing(torch, g, w) for g, w in zip(got, want))
+    if got is None or want is None:
+        return int((got is None) != (want is None))
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return max(got.numel(), want.numel(), 1)
+    return int((got != want).sum())
+
+
+def scenario_sample_cases(torch, dev, M, hw, rwin, bins, seed):
+    """SCENARIOS map-sampling cases of one shape (windows of ``rwin``
+    cells of an ``hw`` map), each with its own key, PMFs, bin values,
+    alpha_dyn and window offset: ``[(args, kw)]``."""
+    rH, rW = rwin
+    out = []
+    for s, alpha in zip(range(SCENARIOS), (1.0, 0.2, 0.6)):
+        oy, ox = min(s * 3, hw[0] - rH), min(s * 5, hw[1] - rW)
+        out.append(make_sample_case(torch, dev, M, hw, (oy, ox, rH, rW),
+                                    bins, bins, alpha, s == 1, 0, seed + s))
+    return out
+
+
+def check_scenario_sampling(torch, dev, sampler, splain, fused, fplain,
+                            name, cases, layouts):
+    """Window mode with a scenario axis: the scenarios of ``cases`` in one
+    launch against the single launches and against the batched plain
+    version, bit for bit, in the bins mode and each payload layout of
+    ``layouts`` with and without the risk plane.  Returns the record."""
+    M = cases[0][0][6]
+    kw0 = cases[0][1]
+    keys = stack_scenarios(torch, [a for a, _ in cases])
+    window = (kw0["window"][0],
+              *(torch.stack([kw["window"][i] for _, kw in cases])
+                for i in (1, 2)))
+    maps_each = [fused_case_maps(torch, a, 7 + i)
+                 for i, (a, _) in enumerate(cases)]
+    maps = stack_scenarios(torch, maps_each)
+    differ, combos = {}, 0
+    for layout in ("bins",) + tuple(layouts):
+        for risk in ((False,) if layout == "bins" else (False, True)):
+            if layout == "bins":
+                args = (*keys[:6], M)
+                got = sampler(*args, window=window)
+                want = splain(*args, window=window)
+                single = stack_scenarios(torch, [
+                    sampler(*a, window=kw["window"]) for a, kw in cases])
+            else:
+                got = fused(keys[0], maps, keys[5], M, layout, risk=risk,
+                            window=window)
+                want = fplain(keys[0], maps, keys[5], M, layout, risk=risk,
+                              window=window)
+                single = stack_scenarios(torch, [
+                    fused(a[0], m, a[5], M, layout, risk=risk,
+                          window=kw["window"])
+                    for (a, kw), m in zip(cases, maps_each)])
+            torch.cuda.synchronize()
+            differ["{}_risk{}".format(layout, int(risk))] = [
+                bits_differing(torch, got, want),
+                bits_differing(torch, got, single)]
+            combos += 1
+    res = dict(case="map_sample_scenarios_" + name, scenarios=len(cases),
+               M=M, window=list(cases[0][0][1].shape[1:]),
+               combinations=combos, entries_differing_plain_single=differ)
+    print(json.dumps(res), flush=True)
+    bad = {k: v for k, v in differ.items() if any(v)}
+    check(not bad, "map_sample scenarios {}: the batched launch differs "
+          "(from the plain version, from the single launches): {}".format(
+              name, bad))
+    return res
+
+
+def check_scenario_crop(torch, dev, cropper, cplain, name, H, W, rH, rW,
+                        bins, res, lim0, M, seed):
+    """Crop mode with a scenario axis: SCENARIOS robots (near an edge, at
+    the centre, off the map), each with its own map, key and alpha_dyn, in
+    one launch against the single launches and the batched plain version,
+    bit for bit (payload, grids, offsets, limits), every payload layout
+    with and without the risk plane.  Returns the record."""
+    cases = []
+    for s, ((x, y), alpha) in enumerate(zip(
+            [(lim0 + 0.3 * res, lim0 + 0.6 * H * res),
+             (lim0 + 0.55 * W * res, lim0 + 0.45 * H * res), (-1e4, 1e4)],
+            (1.0, 0.4, 0.8))):
+        key, maps, task = crop_case_inputs(torch, dev, H, W, bins, bins, res,
+                                           lim0, seed + s)
+        task = task._replace(
+            x0=torch.tensor([x, y, 0.0], dtype=torch.float32, device=dev),
+            alpha_dyn=torch.tensor(alpha, dtype=torch.float32, device=dev))
+        cases.append((key, maps, task))
+    key, maps, task = (stack_scenarios(torch, [c[i] for c in cases])
+                       for i in range(3))
+    differ, offsets = {}, None
+    for layout in FUSED_LAYOUTS:
+        for risk in (False, True):
+            got = cropper(key, maps, task, M, layout, (rH, rW), risk=risk)
+            want = cplain(key, maps, task, M, layout, (rH, rW), risk=risk)
+            single = stack_scenarios(torch, [
+                cropper(k, m, t, M, layout, (rH, rW), risk=risk)
+                for k, m, t in cases])
+            torch.cuda.synchronize()
+
+            def parts(out):
+                return (out[0], out[1], out[2], out[3].xlim0, out[3].ylim0,
+                        out[4])
+
+            differ["{}_risk{}".format(layout, int(risk))] = [
+                bits_differing(torch, parts(got), parts(want)),
+                bits_differing(torch, parts(got), parts(single))]
+            offsets = [tuple(o) for o in got[4].tolist()]
+    record = dict(case="map_sample_crop_scenarios_" + name,
+                  scenarios=len(cases), M=M, map="{}x{}".format(H, W),
+                  window=[rH, rW], offsets=offsets,
+                  combinations=len(differ),
+                  entries_differing_plain_single=differ)
+    print(json.dumps(record), flush=True)
+    bad = {k: v for k, v in differ.items() if any(v)}
+    check(not bad, "crop scenarios {}: the batched launch differs (from "
+          "the plain version, from the single launches): {}".format(
+              name, bad))
+    check(len(set(offsets)) == len(cases), "crop scenarios {}: offsets {}"
+          .format(name, offsets))
+    return record
+
+
+def check_batched_solve_step(torch, dev, fused, scenario):
+    """One batched solve of a sweep chunk (noisy_dyn, SWEEP_CHUNK episodes,
+    M = K = 1024) against its solves made one at a time from the same map
+    keys and noise: the map draw's payload and grids and the rollout's
+    costs bit for bit, u within rtol 2e-4 / atol 2e-5 (the CVaR sort and
+    the softmax's sums run batched).  Its launches are comparisons and are
+    not counted.  Returns the record."""
+    from mppi_numba_tpu_torch.graphs import counted_wrappers
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+
+    static, maps, task, _ = sweep_chunk("noisy_dyn", SWEEP_CHUNK)
+    counts = [(w, w.launches) for w in counted_wrappers()]
+    solver = get_terrain_solver(static, dev)
+    B, K, T = SWEEP_CHUNK, static.num_control_rollouts, static.num_steps
+    M = static.num_grid_samples
+    g = torch.Generator(device=dev).manual_seed(5)
+    keys = torch.randint(0, 2 ** 32, (B, 2), generator=g, device=dev)
+    eps = torch.randn((B, K, T, 2), generator=g, device=dev)
+    u0 = torch.rand((B, T, 2), generator=g, device=dev) - 0.2
+    u_b, aux_b = solver.solve_from_key(keys, [eps], maps, task, u0)
+    words_b = fused(keys, maps, task.alpha_dyn, M, "byte")[0]
+    noise = eps * task.u_std[:, None, None, :]
+    costs_b = solver._rollout(words_b, task, u0, noise)
+    worst = 0.0
+    for b in range(B):
+        mb, tb = scenario(maps, b), scenario(task, b)
+        u_s, aux_s = solver.solve_from_key(keys[b], [eps[b]], mb, tb, u0[b])
+        words_s = fused(keys[b], mb, tb.alpha_dyn, M, "byte")[0]
+        costs_s = solver._rollout(words_s, tb, u0[b], noise[b])
+        check(torch.equal(words_b[b], words_s)
+              and torch.equal(aux_b.lin_grids[b], aux_s.lin_grids)
+              and torch.equal(aux_b.ang_grids[b], aux_s.ang_grids)
+              and torch.equal(costs_b[b], costs_s),
+              "batched solve: scenario {}'s kernel outputs differ from its "
+              "single solve's".format(b))
+        check(bool(torch.allclose(u_b[b], u_s, rtol=2e-4, atol=2e-5)),
+              "batched solve: scenario {}'s u differs from its single "
+              "solve's by {}".format(b, float((u_b[b] - u_s).abs().max())))
+        worst = max(worst, float((u_b[b] - u_s).abs().max()))
+    for w, n in counts:
+        w.launches = n
+    res = dict(check="batched_solve_step", scenarios=B, K=K, M=M, T=T,
+               kernel_outputs_bitwise=True, u_max_abs_diff=worst,
+               rtol=2e-4, atol=2e-5)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def check_checkpoint_round_trip(torch):
+    """``checkpoint.save_planner_state`` / ``load_planner_state`` on a
+    planner whose solves replay a CUDA graph (world (g), tdm): saved after
+    three closed-loop solves, the next solve bit for bit from the planner
+    restored in place (after another solve) and from a fresh planner (its
+    graph captured before the load)."""
+    import os
+    import tempfile
+    from mppi_numba_tpu_torch import checkpoint
+
+    planner, _, _ = setup_world("benchmark_9x9_tdm")
+    x = np.array(planner.params["x0"], dtype=float)
+    for _ in range(3):
+        u = planner.solve()
+        x = x + 0.1 * np.array([u[0, 0] * np.cos(x[2]),
+                                u[0, 0] * np.sin(x[2]), u[0, 1]])
+        planner.shift_and_update(x, u)
+    fd, path = tempfile.mkstemp(suffix=".pkl")
+    os.close(fd)
+    try:
+        checkpoint.save_planner_state(planner, path)
+        want = planner.solve()
+        planner.solve()
+        checkpoint.load_planner_state(planner, path)
+        again = planner.solve()
+        fresh, _, _ = setup_world("benchmark_9x9_tdm")
+        fresh.solve()
+        checkpoint.load_planner_state(fresh, path)
+        other = fresh.solve()
+    finally:
+        os.remove(path)
+    check(np.array_equal(again, want) and np.array_equal(other, want)
+          and len(planner._solve_graphs) == len(fresh._solve_graphs) == 1,
+          "checkpoint: the restored planners' next solves differ by {} / "
+          "{}".format(float(np.abs(again - want).max()),
+                      float(np.abs(other - want).max())))
+    return dict(check="checkpoint_round_trip", solves_before_save=3,
+                graphed=True, next_solve_bitwise=True)
+
+
+def time_sweep_chunk(torch, device_sim, static, maps, task, gt):
+    """One chunk of sweep episodes, in turns: the batch engine's first call
+    (its capture and its run), its second call (replays only), and the
+    in-turn engine (one ``make_device_trial`` a scenario, each capturing
+    its graph on its first call) over the same episodes; host seconds,
+    each ending in a synchronize.  Returns the record."""
+    from mppi_numba_tpu_torch.types import scenario
+
+    B = task.x0.shape[0]
+    dev = task.x0.device
+
+    def batched():
+        engine = device_sim.make_device_trial_batch(static,
+                                                    SWEEP_MAX_STEPS)
+        g = torch.Generator(device=dev)
+        times = []
+        for _ in range(2):
+            g.manual_seed(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = engine(g, maps, task, *gt)
+            out.steps.cpu()
+            times.append(time.perf_counter() - t0)
+        return times, engine.steps_run, int(out.success.sum())
+
+    def in_turn():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = 0
+        for b in range(B):
+            trial = device_sim.make_device_trial(static, SWEEP_MAX_STEPS)
+            out = trial(torch.Generator(device=dev).manual_seed(1 + b),
+                        scenario(maps, b), scenario(task, b),
+                        *(x[b] for x in gt))
+            steps += int(out.steps)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, steps
+
+    b1, turn1, turn2, b2 = batched(), in_turn(), in_turn(), batched()
+    first = [b1[0][0], b2[0][0]]
+    replay = [b1[0][1], b2[0][1]]
+    turns = [turn1[0], turn2[0]]
+    return dict(batched_episodes_per_s=B / min(replay),
+                batched_replay_s=replay, batched_first_call_s=first,
+                capture_s=[f - r for f, r in zip(first, replay)],
+                batched_steps=b1[1], batched_successes=b1[2],
+                in_turn_episodes_per_s=B / min(turns), in_turn_s=turns,
+                in_turn_steps=[turn1[1], turn2[1]],
+                in_turn_captures=B, batched_captures=1)
+
+
 def random_pmf(rng, B, H, W):
     """bench.py's flagship PMF: random int8 percentages summing to 100."""
     raw = rng.randint(0, 100, size=(B, H, W)).astype(float)
@@ -1912,49 +2586,6 @@ def forest_costmap(seed=0):
     cm[debris] = 180
     cm[:20, :20] = 0                                  # clear start area
     return cm
-
-
-def benchmark_world(num_bins=20, rng=None):
-    """The reference benchmark's two-terrain world, as
-    ``mppi_numba_tpu/benchmark.py::make_benchmark_world`` builds it:
-    Vegetation bimodal {0, 0.8} traction, Dirt unimodal 0.65."""
-    from mppi_numba_tpu_torch import GaussianMixture, Terrain
-
-    pmf_bounds = [0, 1.0]
-    bush_lin = GaussianMixture(pmf_bounds, pmf_bounds, [0.6, 0.4], [0, 0.8],
-                               [0.15, 0.1], rng=rng)
-    bush_ang = GaussianMixture(pmf_bounds, pmf_bounds, [0.6, 0.4], [0, 0.8],
-                               [0.15, 0.1], rng=rng)
-    dirt_lin = GaussianMixture(pmf_bounds, pmf_bounds, [1], [0.65], [0.1],
-                               rng=rng)
-    dirt_ang = GaussianMixture(pmf_bounds, pmf_bounds, [1], [0.65], [0.1],
-                               rng=rng)
-    bush = Terrain("Vegetation", np.array((0, 250, 0)) / 255.0,
-                   bush_lin, bush_ang)
-    dirt = Terrain("Dirt", np.array((200, 190, 160)) / 255.0,
-                   dirt_lin, dirt_ang)
-    lin_terrain2pmf = {bush: bush_lin.get_pmf(num_bins),
-                       dirt: dirt_lin.get_pmf(num_bins)}
-    ang_terrain2pmf = {bush: bush_ang.get_pmf(num_bins),
-                       dirt: dirt_ang.get_pmf(num_bins)}
-    bin_values = lin_terrain2pmf[bush][0]
-    return dict(id2name={0: dirt.name, 1: bush.name},
-                name2terrain={bush.name: bush, dirt.name: dirt},
-                lin_terrain2pmf=lin_terrain2pmf,
-                ang_terrain2pmf=ang_terrain2pmf, bin_values=bin_values,
-                bin_values_bounds=(np.min(bin_values), np.max(bin_values)),
-                num_pmf_bins=len(bin_values))
-
-
-def semantic_grid(grid_shape, mud_margin, grass_density, rng):
-    """The benchmark's random semantic map: Vegetation (1) inside a Dirt
-    (0) margin (``mppi_numba_tpu/benchmark.py::make_semantic_grid``)."""
-    sg = np.zeros(grid_shape, dtype=np.int8)
-    rand_num = rng.rand(grid_shape[0] - 2 * mud_margin,
-                        grid_shape[1] - 2 * mud_margin)
-    sg[mud_margin:-mud_margin, mud_margin:-mud_margin][
-        rand_num < grass_density] = 1
-    return sg
 
 
 def setup_world(world, crop=True, padded_origin=0.0):
@@ -2063,9 +2694,11 @@ def setup_world(world, crop=True, padded_origin=0.0):
         mean_ang = mean_lin
         x0, goal = np.array([4.0, 4.0, 1.2]), np.array([15.0, 60.0])
     else:
+        from mppi_numba_tpu_torch.benchmark import (make_benchmark_world,
+                                                    make_semantic_grid)
         rng = np.random.RandomState(1)
-        bw = benchmark_world(num_bins=20, rng=rng)
-        sg = semantic_grid((9, 9), 1, 0.4, rng)
+        bw = make_benchmark_world(num_bins=20, rng=rng)
+        sg = make_semantic_grid((9, 9), 1, 0.4, rng)
         res = 1.0
         det = None if mode == "tdm" else det_alpha
         for tdm, key in ((lin, "lin_terrain2pmf"), (ang, "ang_terrain2pmf")):

@@ -58,6 +58,19 @@
 // (-fmad=false; s = 100 * alpha_dyn is rounded once to float32, as the
 // plain version rounds it).
 //
+// The scenario axis.  A launch samples the maps of B scenarios (the
+// episodes of a batch: the JAX package's solve under jax.vmap), each with
+// its own key, alpha_dyn, planes, bin values and, cropping, its own robot
+// and limits: blockIdx.z is the scenario b, and every input and output has
+// a scenario stride (the key 2 words, a PMF B * its plane, a mask or risk
+// plane its cells, the outputs' rows b * M + m, the shared words their
+// count).  Each scenario's counters are its own (m * HW + cell under its
+// own key), so the 2^32 guard holds per scenario.  A single solve is
+// B = 1 of the same launch; that addressing costs the large single launches
+// 2-5% on the H100 against the kernel without a scenario axis (PERF.md
+// section 6), whether the scenario's key, alpha_dyn and output row
+// are held in registers (as here) or read from shared memory.
+//
 // Design.  `sampled` is an integer in [0, 100] (u < 1, alpha_dyn in (0, 1]),
 // so a cell's rank is a function of 101 values.  A block owns a tile of
 // kTile = 128 cells and a run of map samples.  It first builds, for each
@@ -122,6 +135,8 @@ constexpr int kMinSamplesPerBlock = 16;
 
 enum Layout { kBins = 0, kByte = 1, kCells2 = 2, kCells4 = 3, kCells8 = 4 };
 
+// Every pointer is scenario 0's; scenario b's lies a scenario stride on
+// (the shapes below are one scenario's).
 struct Params {
   const int64_t* key;           // (2,) uint32 words
   const int32_t* oy;            // window start, or null for 0
@@ -150,7 +165,17 @@ struct Params {
   int M, n_cells, rH, rW, H, W, words_per_row, samples_per_block;
   uint32_t HW, m_offset;
   size_t plane_stride;          // a PMF bin's stride: n_cells, or HW cropping
+  // Scenario strides: a PMF's (B * plane_stride), an obstacle, unknown or
+  // risk plane's (plane_stride), the shared mask and risk words'.
+  size_t pmf_scenario[2];
+  int mask_count, risk_count;
 };
+
+// Scenario b's plane `pl` of the PMFs.
+__device__ __forceinline__ const int8_t* scenario_pmf(const Params& p,
+                                                      int pl, int b) {
+  return p.pmf[pl] + static_cast<size_t>(b) * p.pmf_scenario[pl];
+}
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -160,18 +185,19 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 // (ops/roi.py::roi_start, every float operation round-to-nearest), else
 // the given offsets or 0.
 template <bool CROP>
-__device__ __forceinline__ void window_start(const Params& p, int& oy,
+__device__ __forceinline__ void window_start(const Params& p, int b, int& oy,
                                              int& ox) {
   if (!CROP) {
-    oy = p.oy ? *p.oy : 0;
-    ox = p.ox ? *p.ox : 0;
+    oy = p.oy ? p.oy[b] : 0;
+    ox = p.ox ? p.ox[b] : 0;
     return;
   }
-  const float r = *p.res;
+  const float r = p.res[b];
+  const float* x0 = p.x0 + 3 * b;
   const int cx =
-      static_cast<int>(floorf(__fdiv_rn(__fsub_rn(p.x0[0], *p.xlim0), r)));
+      static_cast<int>(floorf(__fdiv_rn(__fsub_rn(x0[0], p.xlim0[b]), r)));
   const int cy =
-      static_cast<int>(floorf(__fdiv_rn(__fsub_rn(p.x0[1], *p.ylim0), r)));
+      static_cast<int>(floorf(__fdiv_rn(__fsub_rn(x0[1], p.ylim0[b]), r)));
   oy = clampi(clampi(cy, 0, p.H - 1) - p.rH / 2, 0, p.H - p.rH);
   ox = clampi(clampi(cx, 0, p.W - 1) - p.rW / 2, 0, p.W - p.rW);
 }
@@ -218,12 +244,15 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
 }
 
 // The rank by the loop over the bins: the cold path for `sampled` outside
-// the table's 0..100.
-__device__ __noinline__ int rank_loop(const int8_t* __restrict__ pmf, int B,
-                                      size_t stride, int sampled) {
+// the table's 0..100.  The plane's scenario offset is taken here, so that
+// the hot loop does no address arithmetic for a branch it rarely takes.
+__device__ __noinline__ int rank_loop(const int8_t* __restrict__ pmf,
+                                      size_t scenario_stride, int B,
+                                      size_t stride, int src, int sampled) {
+  pmf += blockIdx.z * scenario_stride + src;
   int cum = 0, r = 0;
-  for (int b = 0; b < B; ++b) {
-    cum += pmf[b * stride];
+  for (int bin = 0; bin < B; ++bin) {
+    cum += pmf[bin * stride];
     r += cum < sampled;
   }
   return r;
@@ -283,18 +312,21 @@ __global__ void __launch_bounds__(kBlock, LAYOUT == kCells2 ? 2 : 4)
   constexpr bool kCells = LAYOUT >= kCells2;
   __shared__ uint8_t table[2][kLevels][kTile];     // 25,856 bytes
   __shared__ int8_t lut[2][kLut];                  // 512 bytes
-
+ 
   const int tid = threadIdx.x;
   const int tile0 = blockIdx.x * kTile;
+  const int b = blockIdx.z;                        // the scenario
   const bool has_ang = p.pmf[1] != nullptr;
   int oy, ox;
-  window_start<CROP>(p, oy, ox);
+  window_start<CROP>(p, b, oy, ox);
   if (CROP && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) {
-    const float r = *p.res;
-    p.offset_out[0] = oy;
-    p.offset_out[1] = ox;
-    p.lims_out[0] = __fadd_rn(*p.xlim0, __fmul_rn(static_cast<float>(ox), r));
-    p.lims_out[1] = __fadd_rn(*p.ylim0, __fmul_rn(static_cast<float>(oy), r));
+    const float r = p.res[b];
+    p.offset_out[2 * b] = oy;
+    p.offset_out[2 * b + 1] = ox;
+    p.lims_out[2 * b] =
+        __fadd_rn(p.xlim0[b], __fmul_rn(static_cast<float>(ox), r));
+    p.lims_out[2 * b + 1] =
+        __fadd_rn(p.ylim0[b], __fmul_rn(static_cast<float>(oy), r));
   }
 
   // -- the inverse-CDF tables of this tile, and the decode LUTs ------------
@@ -302,19 +334,22 @@ __global__ void __launch_bounds__(kBlock, LAYOUT == kCells2 ? 2 : 4)
     uint32_t* t32 = reinterpret_cast<uint32_t*>(&table[0][0][0]);
     for (int i = tid; i < 2 * kLevels * kTile / 4; i += kBlock) t32[i] = 0u;
     for (int i = tid; i < 2 * kLut; i += kBlock) {
-      const int pl = i / kLut, b = i % kLut;
-      lut[pl][b] = (pl == 0 || has_ang) && b < p.B[pl]
-                       ? p.qbins[pl][b] : static_cast<int8_t>(-128);
+      const int pl = i / kLut;
+      const int bin = i % kLut;
+      lut[pl][bin] = (pl == 0 || has_ang) && bin < p.B[pl]
+                         ? p.qbins[pl][b * p.B[pl] + bin]
+                         : static_cast<int8_t>(-128);
     }
     __syncthreads();
     const int pl = tid / kTile, c = tid % kTile;
     const int cell = tile0 + c;
     if (cell < p.n_cells && (pl == 0 || has_ang)) {
-      const int8_t* col = p.pmf[pl] + source_cell<CROP>(p, cell, oy, ox);
+      const int8_t* col =
+          scenario_pmf(p, pl, b) + source_cell<CROP>(p, cell, oy, ox);
       int cum = 0;
 #pragma unroll 4
-      for (int b = 0; b < p.B[pl]; ++b) {
-        cum += col[b * p.plane_stride];
+      for (int bin = 0; bin < p.B[pl]; ++bin) {
+        cum += col[bin * p.plane_stride];
         // cum_b < s  <=>  s >= cum_b + 1: counted from level cum_b + 1 on.
         const int v = cum + 1 > 0 ? cum + 1 : 0;
         if (v < kLevels) table[pl][v][c] += 1;
@@ -335,9 +370,16 @@ __global__ void __launch_bounds__(kBlock, LAYOUT == kCells2 ? 2 : 4)
   if (cell0 >= p.n_cells) return;          // no barrier follows
   const int valid = min(P, p.n_cells - cell0);
 
-  const uint32_t k0 = static_cast<uint32_t>(p.key[0]);
-  const uint32_t k1 = static_cast<uint32_t>(p.key[1]);
-  const float s = 100.0f * *p.alpha_dyn;
+  const uint32_t k0 = static_cast<uint32_t>(p.key[2 * b]);
+  const uint32_t k1 = static_cast<uint32_t>(p.key[2 * b + 1]);
+  const float s = 100.0f * p.alpha_dyn[b];
+  const int row0 = b * p.M;           // B * M < 2^31 (gridDim.z < 2^16)
+  // The scenario's obstacle, unknown and risk planes (read before the
+  // sample loop), and its first output row.
+  const size_t plane_off = static_cast<size_t>(b) * p.plane_stride;
+  const int8_t* obstacle = p.obstacle + plane_off;
+  const int8_t* unknown = p.unknown + plane_off;
+  const int8_t* risk = p.risk ? p.risk + plane_off : nullptr;
 
   // base: the cell's index in the map, the counter's and, cropping, where
   // its planes lie (else at the cell itself: see src below).
@@ -352,8 +394,8 @@ __global__ void __launch_bounds__(kBlock, LAYOUT == kCells2 ? 2 : 4)
     fixed[j] = 0u;
     if (LAYOUT == kByte) {
       const int src = CROP ? static_cast<int>(base[j]) : cell;
-      fixed[j] = widen(p.obstacle[src]) << 16 | widen(p.unknown[src]) << 17;
-      if (p.risk) fixed[j] |= widen(p.risk[src]) << 18;
+      fixed[j] = widen(obstacle[src]) << 16 | widen(unknown[src]) << 17;
+      if (risk) fixed[j] |= widen(risk[src]) << 18;
     }
   }
 
@@ -364,19 +406,20 @@ __global__ void __launch_bounds__(kBlock, LAYOUT == kCells2 ? 2 : 4)
       uint32_t w = 0u;
       for (int q = 0; q < 16 && cell0 + q < p.n_cells; ++q) {
         const int c = source_cell<CROP>(p, cell0 + q, oy, ox);
-        w |= (widen(p.obstacle[c]) | widen(p.unknown[c]) << 1) << (2 * q);
+        w |= (widen(obstacle[c]) | widen(unknown[c]) << 1) << (2 * q);
       }
-      p.mask_words[cell0 / 16] = static_cast<int32_t>(w);
+      p.mask_words[b * p.mask_count + cell0 / 16] = static_cast<int32_t>(w);
     }
-    if (p.risk) {
+    if (risk) {
 #pragma unroll
       for (int i = 0; i < P; i += 4) {
         if (cell0 + i >= p.n_cells) break;
         uint32_t w = 0u;
         for (int q = 0; q < 4 && cell0 + i + q < p.n_cells; ++q)
-          w |= widen(p.risk[source_cell<CROP>(p, cell0 + i + q, oy, ox)])
+          w |= widen(risk[source_cell<CROP>(p, cell0 + i + q, oy, ox)])
                << (8 * q);
-        p.risk_words[(cell0 + i) / 4] = static_cast<int32_t>(w);
+        p.risk_words[b * p.risk_count + (cell0 + i) / 4] =
+            static_cast<int32_t>(w);
       }
     }
   }
@@ -411,11 +454,11 @@ __global__ void __launch_bounds__(kBlock, LAYOUT == kCells2 ? 2 : 4)
             if (has_ang) ra[j] = table[1][sampled][c0 + j];
           } else {
             const int src = CROP ? static_cast<int>(base[j]) : cell0 + j;
-            rl[j] = rank_loop(p.pmf[0] + src, p.B[0], p.plane_stride,
-                              sampled);
+            rl[j] = rank_loop(p.pmf[0], p.pmf_scenario[0], p.B[0],
+                              p.plane_stride, src, sampled);
             if (has_ang)
-              ra[j] = rank_loop(p.pmf[1] + src, p.B[1], p.plane_stride,
-                                sampled);
+              ra[j] = rank_loop(p.pmf[1], p.pmf_scenario[1], p.B[1],
+                                p.plane_stride, src, sampled);
           }
         }
         gl[j] = lut[0][rl[j]];
@@ -423,7 +466,8 @@ __global__ void __launch_bounds__(kBlock, LAYOUT == kCells2 ? 2 : 4)
         if (j >= valid) gl[j] = ga[j] = 0;
       }
 
-      const size_t e0 = static_cast<size_t>(mm) * p.n_cells + cell0;
+      const size_t row_out = static_cast<size_t>(row0 + mm);
+      const size_t e0 = row_out * p.n_cells + cell0;
       store_bytes<P>(p.grid[0] + e0, gl, valid);
       if (has_ang) store_bytes<P>(p.grid[1] + e0, ga, valid);
 
@@ -444,8 +488,7 @@ __global__ void __launch_bounds__(kBlock, LAYOUT == kCells2 ? 2 : 4)
           w[j] = widen(gl[j]) | widen(ga[j]) << 8 | fixed[j];
         store_words<P>(p.payload + e0, w, valid);
       } else {
-        int32_t* row_words =
-            p.payload + static_cast<size_t>(mm) * p.words_per_row;
+        int32_t* row_words = p.payload + row_out * p.words_per_row;
         if (LAYOUT == kCells8) {
           uint32_t h[P], w[2];
 #pragma unroll
@@ -506,7 +549,12 @@ int launch(int layout, dim3 grid, cudaStream_t st, const Params& p) {
 // float32 (3,), xlim0 / ylim0 / res float32 scalars, offset_out int32 (2,)
 // and lims_out float32 (2,), all non-null (else all null); the planes are
 // then the (H, W) map's, (B, H, W) and (H, W), oy / ox are null and the
-// outputs are the (rH, rW) window's.  With no ang plane
+// outputs are the (rH, rW) window's.  num_scenarios (B) scenarios, each
+// a scenario stride from scenario 0's pointers: key (B, 2); oy / ox,
+// alpha_dyn, xlim0 / ylim0 / res (B,); x0 (B, 3); offset_out and lims_out
+// (B, 2); the PMFs (B, bins, ., .), qbins (B, bins), obstacle / unknown /
+// risk (B, ., .); the grids, bins and payload (B, M, ...); the mask and
+// risk words (B, words).  With no ang plane
 // (ang_pmf, ang_q and the ang outputs null, B_ang 0) only the lin plane is
 // ranked and the ang fields of the payload are 0.  H * W is the full map's
 // cell count and W its width (the counter's strides).  Launches on
@@ -521,7 +569,8 @@ extern "C" int map_sample_launch(
     void* lin_grid, void* ang_grid, void* payload, void* mask_words,
     void* risk_words, const void* x0, const void* xlim0, const void* ylim0,
     const void* res, void* offset_out, void* lims_out, int M, int rH, int rW,
-    int B_lin, int B_ang, int H, int W, int m_offset, void* stream) {
+    int B_lin, int B_ang, int H, int W, int m_offset, int num_scenarios,
+    void* stream) {
   Params p;
   p.key = static_cast<const int64_t*>(key);
   p.oy = static_cast<const int32_t*>(oy);
@@ -557,20 +606,27 @@ extern "C" int map_sample_launch(
   p.W = W;
   p.plane_stride = x0 != nullptr ? static_cast<size_t>(H) * W
                                  : static_cast<size_t>(p.n_cells);
+  p.pmf_scenario[0] = static_cast<size_t>(B_lin) * p.plane_stride;
+  p.pmf_scenario[1] = static_cast<size_t>(B_ang) * p.plane_stride;
+  p.mask_count = (p.n_cells + 15) / 16;
+  p.risk_count = (p.n_cells + 3) / 4;
   const int per_word = layout == kCells2 ? 8 : layout == kCells4 ? 4 : 2;
   p.words_per_row = (p.n_cells + per_word - 1) / per_word;
   p.HW = static_cast<uint32_t>(H) * static_cast<uint32_t>(W);
   p.m_offset = static_cast<uint32_t>(m_offset);
 
+  if (num_scenarios < 1 || num_scenarios > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int gx = (p.n_cells + kTile - 1) / kTile;
-  int gy = (kTargetBlocks + gx - 1) / gx;
+  // About kTargetBlocks blocks over all the scenarios.
+  int gy = (kTargetBlocks + gx * num_scenarios - 1) / (gx * num_scenarios);
   const int most = (M + kMinSamplesPerBlock - 1) / kMinSamplesPerBlock;
   if (gy > most) gy = most;
   if (gy > 65535) gy = 65535;
   if (gy < 1) gy = 1;
   p.samples_per_block = (M + gy - 1) / gy;
   gy = (M + p.samples_per_block - 1) / p.samples_per_block;
-  const dim3 grid(gx, gy);
+  const dim3 grid(gx, gy, num_scenarios);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return x0 != nullptr ? launch<true>(layout, grid, st, p)
                        : launch<false>(layout, grid, st, p);

@@ -23,6 +23,10 @@
 // bins) is read, not recomputed, so a binned layout equals the byte kernel
 // bit for bit on maps whose PMF columns sum to 100.
 //
+// Scenario axis: blockIdx.z is the scenario b; cells (B, M, n_words), mask
+// (B, ceil(H*W/16)), risk (B, ceil(H*W/4)), lut (B, 2, 16), task
+// (B, task_stride), v / w (B, T, K), out (B, K, M) (rollout_step.cuh).
+//
 // Design: the byte kernel's (csrc/rollout_step.cuh holds the step loop
 // and its tiling).  For 2- and 4-bit cells each block expands the 2 x 16
 // LUT into a shared table of (lin, ang) pairs indexed by a cell's whole
@@ -97,7 +101,7 @@ rollout_binned_kernel(const int32_t* __restrict__ cells,
                       const float* __restrict__ w_all,
                       float* __restrict__ cost_out,
                       int K, int M, int H, int W, int T, int n_words,
-                      float wheelbase) {
+                      int task_stride, float wheelbase) {
   constexpr int S = Tiling<MODEL>::kSamples;
   // (lut[0][code & low], lut[1][(code >> CELL_BITS) & low]) for every
   // code of a 2- or 4-bit cell.
@@ -105,11 +109,13 @@ rollout_binned_kernel(const int32_t* __restrict__ cells,
   constexpr int kLow = (1 << CELL_BITS) - 1;
   __shared__ float2 s_pairs[kPairs];
   __shared__ float s_step[SPEED_MAP ? kStepTable : 1];
-  const Task tk(task);
+  const int b = blockIdx.z;                       // the scenario
+  const Task tk(task + (size_t)b * task_stride);
   if (CELL_BITS != 8) {
+    const float* lut_b = lut + b * 2 * kLutBins;
     for (int code = threadIdx.x; code < kPairs; code += blockDim.x)
       s_pairs[code] = make_float2(
-          lut[code & kLow], lut[kLutBins + ((code >> CELL_BITS) & kLow)]);
+          lut_b[code & kLow], lut_b[kLutBins + ((code >> CELL_BITS) & kLow)]);
   }
   if (SPEED_MAP) fill_step_table(s_step, tk);
   if (CELL_BITS != 8 || SPEED_MAP) __syncthreads();
@@ -120,17 +126,20 @@ rollout_binned_kernel(const int32_t* __restrict__ cells,
   BinnedDecoder<CELL_BITS, S, SPEED_MAP> dec;
 #pragma unroll
   for (int s = 0; s < S; ++s)
-    dec.plane[s] = opaque(cells + (size_t)min(m0 + s, M - 1) * n_words);
-  dec.mask = opaque(mask);
-  dec.risk = opaque(risk);
+    dec.plane[s] =
+        opaque(cells + ((size_t)b * M + min(m0 + s, M - 1)) * n_words);
+  const size_t hw = (size_t)H * W;
+  dec.mask = opaque(mask + (size_t)b * ((hw + 15) / 16));
+  dec.risk = SPEED_MAP ? opaque(risk + (size_t)b * ((hw + 3) / 4)) : risk;
   dec.pairs = s_pairs;
   dec.lin_lb = tk.lin_lb;
   dec.lin_ratio = tk.lin_ratio;
   dec.ang_lb = tk.ang_lb;
   dec.ang_ratio = tk.ang_ratio;
+  const size_t tk_off = (size_t)b * T * K;
   rollout_loop<S, FAST_TRIG, SPEED_MAP, MODEL>(
-      dec, tk, v_all, w_all, s_step, cost_out, k, K, m0, M, H, W, T,
-      wheelbase);
+      dec, tk, v_all + tk_off, w_all + tk_off, s_step, cost_out, b, k, K, m0,
+      M, H, W, T, wheelbase);
 }
 
 // The arguments every instantiation takes, bundled for the dispatch.
@@ -143,7 +152,7 @@ struct Args {
   const float* v;
   const float* w;
   float* out;
-  int K, M, H, W, T, n_words;
+  int K, M, H, W, T, n_words, B, task_stride;
   float wheelbase;
   cudaStream_t stream;
 };
@@ -156,11 +165,13 @@ struct Launch {
     const int err = cached_check<kernel>();
     if (err != 0) return err;
     using Tl = Tiling<MODEL>;
+    if (a.B < 1 || a.B > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((a.K + Tl::kBlock - 1) / Tl::kBlock,
-                    (a.M + Tl::kSamples - 1) / Tl::kSamples);
+                    (a.M + Tl::kSamples - 1) / Tl::kSamples, a.B);
     kernel<<<grid, Tl::kBlock, 0, a.stream>>>(
         a.cells, a.mask, a.lut, a.risk, a.task, a.v, a.w, a.out, a.K, a.M,
-        a.H, a.W, a.T, a.n_words, a.wheelbase);
+        a.H, a.W, a.T, a.n_words, a.task_stride, a.wheelbase);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -202,11 +213,12 @@ int dispatch(int cell_bits, int speed_map, int fast_trig, int model, A arg) {
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  Pointers are device pointers:
-// cells int32 (M, n_words), mask int32 (ceil(H*W/16),), lut float32
-// (2, 16) (unused, may be null, for cell_bits 8), risk int32
-// (ceil(H*W/4),) (read only when speed_map), task float32 (>= 18),
-// v / w float32 (T, K), out float32 (K, M).  model: 0 unicycle, 1 bicycle
+// Plain C entry point, bound with ctypes.  Pointers are device pointers
+// of B scenarios: cells int32 (B, M, n_words), mask int32
+// (B, ceil(H*W/16)), lut float32 (B, 2, 16) (unused, may be null, for
+// cell_bits 8), risk int32 (B, ceil(H*W/4)) (read only when speed_map),
+// task float32 (B, task_stride) (task_stride >= 18), v / w float32
+// (B, T, K), out float32 (B, K, M).  model: 0 unicycle, 1 bicycle
 // (wheelbase read only then).  Launches on `stream`, does not synchronise,
 // and returns cudaGetLastError() so the caller sees a refused launch; an
 // unknown cell_bits or model, fast trig with a model other than the
@@ -217,8 +229,8 @@ extern "C" int rollout_binned_launch(const void* cells, const void* mask,
                                      const void* task, const void* v,
                                      const void* w, void* out, int K, int M,
                                      int H, int W, int T, int n_words,
-                                     int cell_bits, int speed_map,
-                                     int fast_trig, int model,
+                                     int B, int task_stride, int cell_bits,
+                                     int speed_map, int fast_trig, int model,
                                      float wheelbase, void* stream) {
   const Args a{static_cast<const int32_t*>(cells),
                static_cast<const int32_t*>(mask),
@@ -228,7 +240,7 @@ extern "C" int rollout_binned_launch(const void* cells, const void* mask,
                static_cast<const float*>(v),
                static_cast<const float*>(w),
                static_cast<float*>(out),
-               K, M, H, W, T, n_words, wheelbase,
+               K, M, H, W, T, n_words, B, task_stride, wheelbase,
                static_cast<cudaStream_t>(stream)};
   return dispatch<Launch>(cell_bits, speed_map, fast_trig, model, a);
 }

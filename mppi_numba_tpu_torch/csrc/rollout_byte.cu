@@ -16,6 +16,9 @@
 // kernel's lane padding of K, chunk transpose, (8, 128) task tile, m_tile
 // or t_unroll exists here: the ragged edges of K and M are masked.
 //
+// Scenario axis: blockIdx.z is the scenario b; words (B, M, H, W), task
+// (B, task_stride), v / w (B, T, K), out (B, K, M) (rollout_step.cuh).
+//
 // Decode: one int32 word per cell, lin | ang << 8 | obs << 16 | unk << 17
 // | risk << 18 (ops/packing.py::pack_map_words; bytes sign-extended when
 // packed, fields selected as the TPU kernel does).
@@ -57,10 +60,12 @@ rollout_byte_kernel(const int32_t* __restrict__ words,
                     const float* __restrict__ v_all,
                     const float* __restrict__ w_all,
                     float* __restrict__ cost_out,
-                    int K, int M, int H, int W, int T, float wheelbase) {
+                    int K, int M, int H, int W, int T, int task_stride,
+                    float wheelbase) {
   constexpr int S = Tiling<MODEL>::kSamples;
   __shared__ float s_step[SPEED_MAP ? kStepTable : 1];
-  const Task tk(task);
+  const int b = blockIdx.z;                       // the scenario
+  const Task tk(task + (size_t)b * task_stride);
   if (SPEED_MAP) {
     fill_step_table(s_step, tk);
     __syncthreads();
@@ -72,14 +77,15 @@ rollout_byte_kernel(const int32_t* __restrict__ words,
   ByteDecoder<S, SPEED_MAP> dec;
 #pragma unroll
   for (int s = 0; s < S; ++s)
-    dec.map[s] = opaque(words + (size_t)min(m0 + s, M - 1) * H * W);
+    dec.map[s] = opaque(words + ((size_t)b * M + min(m0 + s, M - 1)) * H * W);
   dec.lin_lb = tk.lin_lb;
   dec.lin_ratio = tk.lin_ratio;
   dec.ang_lb = tk.ang_lb;
   dec.ang_ratio = tk.ang_ratio;
+  const size_t tk_off = (size_t)b * T * K;
   rollout_loop<S, FAST_TRIG, SPEED_MAP, MODEL>(
-      dec, tk, v_all, w_all, s_step, cost_out, k, K, m0, M, H, W, T,
-      wheelbase);
+      dec, tk, v_all + tk_off, w_all + tk_off, s_step, cost_out, b, k, K, m0,
+      M, H, W, T, wheelbase);
 }
 
 // Calls F<fast_trig, speed_map, model>::run(args...) for the pairs that
@@ -103,15 +109,17 @@ template <bool FAST_TRIG, bool SPEED_MAP, int MODEL>
 struct Launch {
   static int run(const int32_t* words, const float* task, const float* v,
                  const float* w, float* out, int K, int M, int H, int W,
-                 int T, float wheelbase, cudaStream_t stream) {
+                 int T, int B, int task_stride, float wheelbase,
+                 cudaStream_t stream) {
     constexpr auto kernel = rollout_byte_kernel<FAST_TRIG, SPEED_MAP, MODEL>;
     const int err = cached_check<kernel>();
     if (err != 0) return err;
     using Tl = Tiling<MODEL>;
+    if (B < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((K + Tl::kBlock - 1) / Tl::kBlock,
-                    (M + Tl::kSamples - 1) / Tl::kSamples);
+                    (M + Tl::kSamples - 1) / Tl::kSamples, B);
     kernel<<<grid, Tl::kBlock, 0, stream>>>(words, task, v, w, out, K, M, H,
-                                            W, T, wheelbase);
+                                            W, T, task_stride, wheelbase);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -126,23 +134,25 @@ struct Info {
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  Pointers are device pointers:
-// words int32 (M, H, W), task float32 (>= 18), v / w float32 (T, K),
-// out float32 (K, M).  model: 0 unicycle, 1 bicycle (wheelbase read only
-// then).  Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() so the caller sees a refused launch; fast trig with a
-// model other than the unicycle, an unknown model, or an instantiation
+// Plain C entry point, bound with ctypes.  Pointers are device pointers
+// of B scenarios: words int32 (B, M, H, W), task float32 (B, task_stride)
+// (task_stride >= 18), v / w float32 (B, T, K), out float32 (B, K, M).
+// model: 0 unicycle, 1 bicycle (wheelbase read only then).  Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() so the
+// caller sees a refused launch; fast trig with a model other than the
+// unicycle, an unknown model, B outside 1..65535, or an instantiation
 // whose shared memory exceeds 48 KB returns cudaErrorInvalidValue.
 extern "C" int rollout_byte_launch(const void* words, const void* task,
                                    const void* v, const void* w, void* out,
                                    int K, int M, int H, int W, int T,
-                                   int speed_map, int fast_trig, int model,
-                                   float wheelbase, void* stream) {
+                                   int B, int task_stride, int speed_map,
+                                   int fast_trig, int model, float wheelbase,
+                                   void* stream) {
   return dispatch<Launch>(
       speed_map, fast_trig, model, static_cast<const int32_t*>(words),
       static_cast<const float*>(task), static_cast<const float*>(v),
       static_cast<const float*>(w), static_cast<float*>(out), K, M, H, W, T,
-      wheelbase, static_cast<cudaStream_t>(stream));
+      B, task_stride, wheelbase, static_cast<cudaStream_t>(stream));
 }
 
 // The tiling and resources of the instantiation a launch with these

@@ -36,6 +36,13 @@
 // The tiling (block width, samples per thread) is a compile-time property
 // of each instantiation (Tiling below); the wrappers read it back from
 // the library, never pass it.
+//
+// The scenario axis: a launch rolls out B scenarios (the episodes of a
+// batch, the JAX package's rollout under jax.vmap), blockIdx.z the
+// scenario b.  Each kernel offsets its inputs by b's strides (the task
+// vector, the controls (T, K), the map planes); this loop writes
+// cost_out[b, k, m].  Offsets are size_t: B * M * H * W passes 2^31 at
+// B = 120, M = 1024 and 250 x 250.
 
 #pragma once
 
@@ -137,15 +144,16 @@ __device__ __forceinline__ void fill_step_table(float* s_step,
   }
 }
 
-// The T-step loop of thread (k, samples m0 .. m0 + S - 1), written to
-// cost_out[k, m] for m < M.  dec(s, cell) decodes flat cell `cell` of
-// the thread's s-th sample (a sample past M re-reads sample M - 1).
+// The T-step loop of thread (k, samples m0 .. m0 + S - 1) of scenario b,
+// written to cost_out[b, k, m] for m < M; v_all and w_all are b's (T, K).
+// dec(s, cell) decodes flat cell `cell` of the thread's s-th sample (a
+// sample past M re-reads sample M - 1).
 template <int S, bool FAST_TRIG, bool SPEED_MAP, int MODEL, class Decoder>
 __device__ __forceinline__ void rollout_loop(
     const Decoder& dec, const Task& tk, const float* __restrict__ v_all,
     const float* __restrict__ w_all, const float* s_step,
-    float* __restrict__ cost_out, int k, int K, int m0, int M, int H, int W,
-    int T, float wheelbase) {
+    float* __restrict__ cost_out, int b, int k, int K, int m0, int M, int H,
+    int W, int T, float wheelbase) {
   const float x_hi = (float)(W - 1), y_hi = (float)(H - 1);
   // Flat cell = yb * W + xb - bias, in 32-bit unsigned arithmetic, from
   // the 2^23-biased patterns xb, yb of the clamped floors.
@@ -241,7 +249,7 @@ __device__ __forceinline__ void rollout_loop(
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     if (m0 + s < M)
-      cost_out[(size_t)k * M + m0 + s] =
+      cost_out[((size_t)b * K + k) * M + m0 + s] =
           cost[s] + active[s] * sqrtf(dist2[s]) / (tk.v_post + 1e-6f);
   }
 }

@@ -23,7 +23,8 @@ unicycle_step.kernel_model = ("unicycle", 0.0)
 
 
 def clip_controls(u_nom, vrange, wrange):
-    """Clamp nominal (v, w) controls ``(..., 2)`` to their actuation ranges."""
-    v = torch.clamp(u_nom[..., 0], vrange[0], vrange[1])
-    w = torch.clamp(u_nom[..., 1], wrange[0], wrange[1])
+    """Clamp nominal (v, w) controls ``(..., 2)`` to their actuation ranges
+    ``(..., 2)`` (lower, upper), broadcast against ``u_nom[..., 0]``."""
+    v = torch.clamp(u_nom[..., 0], vrange[..., 0], vrange[..., 1])
+    w = torch.clamp(u_nom[..., 1], wrange[..., 0], wrange[..., 1])
     return v, w

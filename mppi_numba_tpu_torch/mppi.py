@@ -500,3 +500,7 @@ def shifted_useq(u_cur_device, last_useq_np, u_np, num_shifts):
     return torch.tensor(u_shifted.astype(np.float32),
                         device=u_cur_device.device)
 
+
+
+# The reference's class name, as the JAX package keeps it.
+MPPI_Numba = MPPIPlanner

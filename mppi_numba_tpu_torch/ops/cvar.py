@@ -26,9 +26,12 @@ def cvar_from_costs(costs_km, cvar_numel):
 
 
 def cvar_from_costs_dynamic(costs_km, cvar_alpha):
-    """CVaR with alpha as a float32 tensor: sort descending + masked mean."""
+    """CVaR with alpha as a float32 tensor: sort descending + masked mean.
+    With a leading scenario axis, costs ``(B, K, M)`` and one alpha a
+    scenario ``(B,)``; returns ``(B, K)``."""
     M = costs_km.shape[-1]
     srt = torch.sort(costs_km, dim=-1, descending=True).values
-    numel = torch.ceil(M * cvar_alpha).to(torch.int32)
-    mask = (torch.arange(M, device=costs_km.device) < numel).to(costs_km.dtype)
+    numel = torch.ceil(M * cvar_alpha).to(torch.int32)[..., None]  # (.., 1)
+    mask = (torch.arange(M, device=costs_km.device)
+            < numel[..., None]).to(costs_km.dtype)                  # (.., 1, M)
     return (srt * mask).sum(-1) / numel.to(costs_km.dtype)

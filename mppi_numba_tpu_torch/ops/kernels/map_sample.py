@@ -18,6 +18,12 @@ crop, ``_roi_start`` + ``_crop_maps`` + ``_shift_task_limits``
 the window it works out from the task, so the cropped solve makes no
 launch of its own for the crop.  The kernel is bound by integer operations
 (see the source).
+
+A leading scenario axis B on the key ``(B, 2)`` and on every map plane,
+bin table, alpha_dyn and (cropping) task field samples B scenarios in one
+launch, each under its own key: the JAX package's draw under
+``jax.vmap``.  The outputs then carry the same leading axis.  Without it
+the call is one scenario, B = 1 of the same launch.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 from ..packing import pack_payload
 from ..roi import crop_window_plain
 from ..sampling import decode_bins, traction_bins_from_uniforms, uniform_window
+from ...types import per_scenario
 
 KERNEL_SOURCE = "mppi_numba_tpu_torch/csrc/map_sample.cu"
 REPLACES = ("mppi_numba_tpu/ops/sampling.py:156,219,246 (uniform_window + "
@@ -54,6 +61,13 @@ def sample_traction_window_plain(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins,
     """Plain PyTorch version of the kernel's 'bins' layout:
     ``uniform_window``, the ranks and the decode.  Arguments as for
     ``sample_traction_window``."""
+    if key.dim() == 2:
+        return per_scenario(
+            sample_traction_window_plain,
+            (key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, alpha_dyn,
+             num_samples),
+            dict(window=window, m_offset=m_offset,
+                 full_num_samples=full_num_samples))
     _, rH, rW = lin_pmf.shape
     full_hw, oy, ox = window if window is not None else ((rH, rW), 0, 0)
     u = uniform_window(key, num_samples, full_hw, oy, ox, (rH, rW),
@@ -73,6 +87,12 @@ def sample_and_pack_window_plain(key, maps, alpha_dyn, num_samples, layout,
     ``sample_traction_window_plain``, then ``packing.pack_payload``, the
     composition the solve runs on the CPU.  Arguments and result as for
     ``sample_and_pack_window``."""
+    if key.dim() == 2:
+        return per_scenario(
+            sample_and_pack_window_plain,
+            (key, maps, alpha_dyn, num_samples, layout),
+            dict(window=window, risk=risk, m_offset=m_offset,
+                 full_num_samples=full_num_samples))
     lin_bins, ang_bins, lin_grids, ang_grids = sample_traction_window_plain(
         key, maps.lin_pmf, maps.ang_pmf, maps.lin_qbins, maps.ang_qbins,
         alpha_dyn, num_samples, window=window, m_offset=m_offset,
@@ -87,6 +107,10 @@ def sample_and_pack_crop_plain(key, maps, task, num_samples, layout,
     """Plain PyTorch version of the kernel's crop mode:
     ``roi.crop_window_plain``, then ``sample_and_pack_window_plain`` at
     the window.  Arguments and result as for ``sample_and_pack_crop``."""
+    if key.dim() == 2:
+        return per_scenario(sample_and_pack_crop_plain,
+                            (key, maps, task, num_samples, layout,
+                             roi_shape), dict(risk=risk))
     map_shape = tuple(maps.obstacle.shape)
     cmaps, ctask, offset = crop_window_plain(maps, task, map_shape,
                                              roi_shape)
@@ -104,18 +128,23 @@ def _entry_point():
 
     fn = load("map_sample").map_sample_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 24
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_scalar(value, dtype, device):
-    """A scalar the kernel reads on the card: a one-element ``dtype``
-    tensor on ``device``, passed as it is (no copy to the host)."""
+def _check_scalar(value, dtype, device, lead=()):
+    """A scalar the kernel reads on the card: a ``dtype`` tensor of shape
+    ``lead`` (one value a scenario; 0-d or one element without a scenario
+    axis) on ``device``, passed as it is (no copy to the host)."""
     if not (isinstance(value, torch.Tensor) and value.dtype == dtype
-            and value.numel() == 1 and value.device == device):
-        raise ValueError("map_sample: expected a {} scalar tensor on {}, "
-                         "got {!r}".format(dtype, device, value))
+            and value.device == device and value.is_contiguous()
+            and (tuple(value.shape) == lead if lead
+                 else value.numel() == 1)):
+        raise ValueError("map_sample: expected a {} {} tensor on {}, "
+                         "got {!r}".format(dtype, "scalar" if not lead
+                                           else "{} per-scenario".format(
+                                               lead), device, value))
     return value
 
 
@@ -123,9 +152,12 @@ def _check_cuda_args(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, M, H, W,
                      grids=(), window_hw=None):
     """The kernel's inputs: the key, the PMF planes, their bin values and
     any int8 ``grids`` (the masks and risk plane) of the planes' (pH, pW);
-    the window is the planes' unless ``window_hw`` (crop mode) gives it."""
+    the window is the planes' unless ``window_hw`` (crop mode) gives it.
+    With a scenario axis (key ``(B, 2)``) every one has a leading B."""
     dev = lin_pmf.device
-    rH, rW = lin_pmf.shape[1:] if lin_pmf.dim() == 3 else (-1, -1)
+    lead = tuple(key.shape[:-1])
+    nd = 3 + len(lead)
+    rH, rW = lin_pmf.shape[-2:] if lin_pmf.dim() == nd else (-1, -1)
     wH, wW = (rH, rW) if window_hw is None else window_hw
     if (ang_pmf is None) != (ang_qbins is None):
         raise ValueError("map_sample: ang_pmf and ang_qbins must both be "
@@ -133,23 +165,29 @@ def _check_cuda_args(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, M, H, W,
     if ang_pmf is None:
         ang_pmf, ang_qbins = lin_pmf, lin_qbins
     checks = [
-        (key.dtype == torch.int64 and tuple(key.shape) == (2,)
-         and key.is_contiguous(), "key must be contiguous int64 (2,)"),
-        (all(p.dtype == torch.int8 and p.dim() == 3
-             and tuple(p.shape[1:]) == (rH, rW) and p.is_contiguous()
-             and p.shape[0] <= MAX_PLANE_BINS
+        (key.dtype == torch.int64 and key.dim() in (1, 2)
+         and key.shape[-1] == 2 and key.is_contiguous()
+         and 1 <= (lead[0] if lead else 1) <= 65535,
+         "key must be contiguous int64 (2,), or (B, 2) for B <= 65535 "
+         "scenarios"),
+        (all(p.dtype == torch.int8 and p.dim() == nd
+             and tuple(p.shape[:-3]) == lead
+             and tuple(p.shape[-2:]) == (rH, rW) and p.is_contiguous()
+             and p.shape[-3] <= MAX_PLANE_BINS
              for p in (lin_pmf, ang_pmf)),
          "lin_pmf / ang_pmf must be contiguous int8 (B, pH, pW) planes of "
-         "one shape, B <= {}".format(MAX_PLANE_BINS)),
-        (all(q.dtype == torch.int8 and tuple(q.shape) == (p.shape[0],)
+         "one shape, B <= {}, with the key's scenarios".format(
+             MAX_PLANE_BINS)),
+        (all(q.dtype == torch.int8
+             and tuple(q.shape) == lead + (p.shape[-3],)
              and q.is_contiguous()
              for q, p in ((lin_qbins, lin_pmf), (ang_qbins, ang_pmf))),
          "lin_qbins / ang_qbins must be contiguous int8 (B,) of their PMF's "
-         "bins"),
-        (all(g.dtype == torch.int8 and tuple(g.shape) == (rH, rW)
+         "bins, with the key's scenarios"),
+        (all(g.dtype == torch.int8 and tuple(g.shape) == lead + (rH, rW)
              and g.is_contiguous() for g in grids),
          "obstacle / unknown / risk must be contiguous int8 (pH, pW) "
-         "planes of the PMFs' shape"),
+         "planes of the PMFs' shape, with the key's scenarios"),
         (all(a.device == dev
              for a in (key, ang_pmf, lin_qbins, ang_qbins, *grids)),
          "all inputs must be on one device"),
@@ -171,10 +209,11 @@ def _launch(layout, key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, alpha_dyn,
     and, by layout, lin_bins / ang_bins, payload, mask_words, risk_words;
     cropping, offset and lims."""
     dev = lin_pmf.device
-    rH, rW = lin_pmf.shape[1:] if lin_pmf.dim() == 3 else (-1, -1)
+    lead = tuple(key.shape[:-1])            # (B,) or () for one scenario
+    rH, rW = lin_pmf.shape[-2:] if lin_pmf.dim() >= 3 else (-1, -1)
     if crop is not None:
         task, (rH, rW) = crop
-        full_hw, oy, ox = (tuple(lin_pmf.shape[1:]), None, None)
+        full_hw, oy, ox = (tuple(lin_pmf.shape[-2:]), None, None)
     else:
         task = None
         full_hw, oy, ox = (window if window is not None
@@ -191,22 +230,28 @@ def _launch(layout, key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, alpha_dyn,
         raise NotImplementedError(
             "counter-addressed draws support M*H*W < 2**32 (got {})".format(
                 full_m * H * W))
-    offsets = [None if o is None else _check_scalar(o, torch.int32, dev)
+    if (lead[0] if lead else 1) * M >= 2 ** 31:
+        raise ValueError("map_sample: scenarios x M must stay below 2**31")
+    offsets = [None if o is None else _check_scalar(o, torch.int32, dev,
+                                                     lead)
                for o in (oy, ox)]
-    alpha = _check_scalar(alpha_dyn, torch.float32, dev)
+    alpha = _check_scalar(alpha_dyn, torch.float32, dev, lead)
     crop_in = [None] * 4
     if task is not None:
-        if not (task.x0.dtype == torch.float32 and task.x0.numel() == 3
+        if not (task.x0.dtype == torch.float32
+                and tuple(task.x0.shape) == lead + (3,)
                 and task.x0.is_contiguous() and task.x0.device == dev):
             raise ValueError("map_sample: x0 must be a contiguous float32 "
-                             "(3,) tensor on {}".format(dev))
-        crop_in = [task.x0] + [_check_scalar(v, torch.float32, dev)
+                             "(3,) tensor on {}, (B, 3) with the key's "
+                             "scenarios".format(dev))
+        crop_in = [task.x0] + [_check_scalar(v, torch.float32, dev, lead)
                                for v in (task.xlim0, task.ylim0, task.res)]
     has_ang = ang_pmf is not None
     n = rH * rW
 
     def empty(shape, dtype, want=True):
-        return torch.empty(shape, dtype=dtype, device=dev) if want else None
+        return (torch.empty(lead + shape, dtype=dtype, device=dev) if want
+                else None)
 
     i32, i8 = torch.int32, torch.int8
     out = dict(lin_bins=None, ang_bins=None, payload=None, mask_words=None,
@@ -240,8 +285,8 @@ def _launch(layout, key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, alpha_dyn,
                                 "ang_grid", "payload", "mask_words",
                                 "risk_words")),
         *(ptr(t) for t in crop_in), ptr(out["offset"]), ptr(out["lims"]),
-        M, rH, rW, lin_pmf.shape[0], ang_pmf.shape[0] if has_ang else 0, H,
-        W, m_offset, stream)
+        M, rH, rW, lin_pmf.shape[-3], ang_pmf.shape[-3] if has_ang else 0, H,
+        W, m_offset, lead[0] if lead else 1, stream)
     if err != 0:
         raise RuntimeError("map_sample kernel launch failed: CUDA error "
                            "{}".format(err))
@@ -269,6 +314,10 @@ def sample_traction_window(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins,
         draw's maps.  None: the PMFs are the whole map.
       m_offset / full_num_samples: rows ``[m_offset, m_offset + M)`` of a
         ``full_num_samples``-row draw.
+
+    Scenarios: a key ``(S, 2)`` samples S scenarios in one launch; every
+    other tensor argument then has a leading S (the offsets and alpha_dyn
+    ``(S,)``), and so has every output.
 
     Returns:
       ``(lin_bins, ang_bins, lin_grids, ang_grids)``: int32 and int8
@@ -309,6 +358,9 @@ def sample_and_pack_window(key, maps, alpha_dyn, num_samples, layout,
       layout: 'byte', 'binned2', 'binned' or 'binned8' (the solver's
         layouts, ``packing.pack_payload``).
       risk: write the risk plane (speed-map mode).
+
+    Scenarios: as for ``sample_traction_window``, every field of ``maps``
+    with the key's leading axis.
 
     Returns:
       ``(payload, lin_grids, ang_grids)``: the payload as
@@ -353,6 +405,12 @@ def sample_and_pack_crop(key, maps, task, num_samples, layout, roi_shape,
         res place the window (``roi.roi_start``), alpha_dyn the draw.
       roi_shape: the window's ``(rH, rW)``.
 
+    Scenarios: as for ``sample_traction_window``, every field of ``maps``
+    and the task's x0 ``(S, 3)``, xlim0, ylim0, res and alpha_dyn ``(S,)``
+    with the key's leading axis; the window is worked out per scenario,
+    and the task's limits and the offsets come back ``(S,)`` and ``(S,
+    2)``.
+
     Returns:
       ``(payload, lin_grids, ang_grids, task, offset)``: the window's
       payload and grids as ``sample_and_pack_window`` gives them, the task
@@ -380,7 +438,8 @@ def sample_and_pack_crop(key, maps, task, num_samples, layout, roi_shape,
                (out["payload"], out["mask_words"], out["risk_words"]))
     lims = out["lims"]
     return (payload, out["lin_grid"], out["ang_grid"],
-            task._replace(xlim0=lims[0], ylim0=lims[1]), out["offset"])
+            task._replace(xlim0=lims[..., 0], ylim0=lims[..., 1]),
+            out["offset"])
 
 
 sample_and_pack_crop.launches = 0

@@ -11,7 +11,10 @@ or 8; see ``ops/packing.py``) plus the shared mask plane and, in speed-map
 mode, the shared risk-byte plane.  2- and 4-bit cells hold bin indices
 decoded through ``build_bin_luts``; 8-bit cells hold decoded values,
 decoded inline as ``lb + ratio * value``.  Like the byte kernel it is
-bound by instruction issue; see ``csrc/rollout_step.cuh``.
+bound by instruction issue; see ``csrc/rollout_step.cuh``.  Every plane,
+the LUT, the task vector and the controls may carry a leading scenario
+axis B, as the byte kernel's arguments do: one launch, costs ``(B, K,
+M)``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import functools
 import torch
 
 from ...models import kernel_model
-from .rollout_byte import bind, check_fast_trig, plain_rollout, read_tiling
+from ...types import per_scenario
+from .rollout_byte import (bind, check_fast_trig, check_scenario_args,
+                           plain_rollout, read_tiling, scenarios)
 
 KERNEL_SOURCE = "mppi_numba_tpu_torch/csrc/rollout_binned.cu"
 REPLACES = "mppi_numba_tpu/ops/pallas/rollout_kernel.py:387"
@@ -38,15 +43,21 @@ def build_bin_luts(task, lin_qbins, ang_qbins):
     """Per-bin effective traction: float32 ``(2, LUT_BINS)``, row 0 linear,
     row 1 angular, ``lb + ratio * float(qbin)`` (two rounded operations,
     as the byte decode), entries past each table's bins zero.  Rows 0/1 of
-    the JAX package's ``(8, 128)`` LUT tile."""
+    the JAX package's ``(8, 128)`` LUT tile.  With a leading scenario axis
+    (qbins ``(B, bins)``, the task's scalars ``(B,)``): ``(B, 2,
+    LUT_BINS)``, one LUT a scenario."""
     f32 = torch.float32
     for q in (lin_qbins, ang_qbins):
-        if q.shape[0] > LUT_BINS:
+        if q.shape[-1] > LUT_BINS:
             raise ValueError("build_bin_luts: {} bins exceed the {}-entry "
-                             "LUT".format(q.shape[0], LUT_BINS))
-    lut = torch.zeros((2, LUT_BINS), dtype=f32, device=lin_qbins.device)
-    lut[0, :lin_qbins.shape[0]] = task.lin_lb + task.lin_ratio * lin_qbins.to(f32)
-    lut[1, :ang_qbins.shape[0]] = task.ang_lb + task.ang_ratio * ang_qbins.to(f32)
+                             "LUT".format(q.shape[-1], LUT_BINS))
+    lead = tuple(lin_qbins.shape[:-1])
+    lut = torch.zeros(lead + (2, LUT_BINS), dtype=f32,
+                      device=lin_qbins.device)
+    for row, q, lb, ratio in ((0, lin_qbins, task.lin_lb, task.lin_ratio),
+                              (1, ang_qbins, task.ang_lb, task.ang_ratio)):
+        lut[..., row, :q.shape[-1]] = (lb[..., None]
+                                       + ratio[..., None] * q.to(f32))
     return lut
 
 
@@ -68,9 +79,19 @@ def terrain_rollout_costs_binned_plain(cells, mask, lut, task_vec, v_all,
       risk: int32 ``(ceil(H*W/4),)`` from ``pack_risk_bytes`` in speed-map
         mode, else None.
 
+      With a leading scenario axis on every given argument (``cells (B,
+      M, words)``, ``mask (B, words)``, ``lut (B, 2, LUT_BINS)``, the
+      byte kernel's) each scenario is rolled out in turn.
+
     Returns:
-      float32 ``(K, M)`` rollout costs incl. terminal, excl. coupling.
+      float32 ``(K, M)`` rollout costs incl. terminal, excl. coupling
+      (``(B, K, M)`` with the scenario axis).
     """
+    if cells.dim() == 3:
+        return per_scenario(terrain_rollout_costs_binned_plain,
+                            (cells, mask, lut, task_vec, v_all, w_all, risk),
+                            dict(H=H, W=W, T=T, cell_bits=cell_bits,
+                                 fast_trig=fast_trig, step_fn=step_fn))
     f32, i32 = torch.float32, torch.int32
     M, n_words = cells.shape
     flat = cells.reshape(-1)
@@ -116,7 +137,7 @@ def _entry_points():
 
     lib = load("rollout_binned")
     return bind(lib.rollout_binned_launch,
-                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
                 + [ctypes.c_float, ctypes.c_void_p],
                 lib.rollout_binned_info, 4)
 
@@ -135,17 +156,18 @@ def kernel_tiling(*, cell_bits, speed_map=False, fast_trig=False,
 def _launch(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
             cell_bits, fast_trig, model, wheelbase):
     fn = _entry_points()[0]
-    M, n_words = cells.shape
-    K = v_all.shape[1]
-    out = torch.empty((K, M), dtype=torch.float32, device=cells.device)
+    M, n_words = cells.shape[-2:]
+    K = v_all.shape[-1]
+    lead = tuple(cells.shape[:-2])          # (B,) or () for one scenario
+    out = torch.empty(lead + (K, M), dtype=torch.float32, device=cells.device)
     stream = torch.cuda.current_stream(cells.device).cuda_stream
     err = fn(cells.data_ptr(), mask.data_ptr(),
              0 if lut is None else lut.data_ptr(),
              0 if risk is None else risk.data_ptr(),
              task_vec.data_ptr(), v_all.data_ptr(), w_all.data_ptr(),
-             out.data_ptr(), K, M, H, W, T, n_words, cell_bits,
-             int(risk is not None), int(fast_trig), model, wheelbase,
-             stream)
+             out.data_ptr(), K, M, H, W, T, n_words, scenarios(lead),
+             task_vec.shape[-1], cell_bits, int(risk is not None),
+             int(fast_trig), model, wheelbase, stream)
     if err != 0:
         raise RuntimeError("rollout_binned kernel launch failed: CUDA error "
                            "{}".format(err))
@@ -157,30 +179,32 @@ def _check_cuda_args(cells, mask, lut, task_vec, v_all, w_all, risk, H, W,
                      T, cell_bits):
     dev = cells.device
     hw = H * W
-    M = cells.shape[0] if cells.dim() == 2 else -1
-    K = v_all.shape[1] if v_all.dim() == 2 else -1
+    lead = tuple(cells.shape[:-2])
+    M = cells.shape[-2] if cells.dim() in (2, 3) else -1
+    K = v_all.shape[-1] if v_all.dim() >= 2 else -1
 
     def words(dtype, shape, a):
         return (a is not None and a.dtype == dtype and a.is_contiguous()
-                and tuple(a.shape) == shape and a.device == dev)
+                and tuple(a.shape) == lead + shape and a.device == dev)
 
     checks = [
         (cell_bits in CELLS_PER_WORD, "cell_bits must be 2, 4 or 8"),
         (words(torch.int32, (M, -(-hw // CELLS_PER_WORD.get(cell_bits, 1))),
                cells),
-         "cells must be contiguous int32 (M, ceil(H*W / cells per word))"),
+         "cells must be contiguous int32 (M, ceil(H*W / cells per word)), "
+         "or with a leading scenario axis B"),
         (words(torch.int32, (-(-hw // 16),), mask),
-         "mask must be contiguous int32 (ceil(H*W/16),)"),
+         "mask must be contiguous int32 (ceil(H*W/16),), with the cells' "
+         "scenarios"),
         (cell_bits == 8 or words(torch.float32, (2, LUT_BINS), lut),
-         "lut must be contiguous float32 (2, {})".format(LUT_BINS)),
+         "lut must be contiguous float32 (2, {}), with the cells' "
+         "scenarios".format(LUT_BINS)),
         (risk is None or words(torch.int32, (-(-hw // 4),), risk),
-         "risk must be contiguous int32 (ceil(H*W/4),)"),
-        (words(torch.float32, tuple(task_vec.shape), task_vec)
-         and task_vec.dim() == 1 and task_vec.numel() >= 18,
-         "task_vec must be contiguous float32 (19,)"),
-        (words(torch.float32, (T, K), v_all) and words(torch.float32, (T, K),
-                                                        w_all),
-         "v_all / w_all must be contiguous float32 (T, K)"),
+         "risk must be contiguous int32 (ceil(H*W/4),), with the cells' "
+         "scenarios"),
+        *check_scenario_args(lead, task_vec, v_all, w_all, T, K),
+        (all(a.device == dev for a in (task_vec, v_all, w_all)),
+         "all inputs must be on one device"),
         (M >= 1 and K >= 1 and hw >= 1 and M < 65536,
          "need K >= 1, 1 <= M < 65536 and a non-empty map"),
     ]
@@ -192,7 +216,8 @@ def _check_cuda_args(cells, mask, lut, task_vec, v_all, w_all, risk, H, W,
 def terrain_rollout_costs_binned(cells, mask, lut, task_vec, v_all, w_all,
                                  risk=None, *, H, W, T, cell_bits,
                                  fast_trig=False, step_fn=None):
-    """Rollout costs ``(K, M)`` over a binned cell plane.
+    """Rollout costs ``(K, M)`` over a binned cell plane (``(B, K, M)``
+    for B scenarios in one launch: every argument with a leading B).
 
     On CUDA tensors this launches the hand-written kernel and adds one to
     ``terrain_rollout_costs_binned.launches``; the kernel runs the built-in

@@ -8,6 +8,12 @@ replaces ``mppi_numba_tpu/ops/pallas/rollout_kernel.py::_rollout_kernel``
 instruction issue, not by bytes; its tiling is a compile-time property of
 each instantiation, which ``kernel_tiling`` reads back from the library.
 See ``csrc/rollout_step.cuh``.
+
+Every argument may carry a leading scenario axis B (words ``(B, M, H,
+W)``, the task vector ``(B, 19)``, the controls ``(B, T, K)``; costs
+``(B, K, M)``): the JAX kernel under ``jax.vmap``, one launch for all B
+scenarios.  Without it the call is the single scenario, B = 1 of the same
+launch.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import functools
 import torch
 
 from ...models import kernel_model, unicycle_step
+from ...types import per_scenario
 
 KERNEL_SOURCE = "mppi_numba_tpu_torch/csrc/rollout_byte.cu"
 REPLACES = "mppi_numba_tpu/ops/pallas/rollout_kernel.py:99"
@@ -29,19 +36,23 @@ TASK_VEC_LEN = 19
 
 def build_task_vec(task):
     """Pack the TerrainTask scalars the kernel needs into a float32 (19,)
-    tensor: row 0 of the JAX package's (8, 128) task tile."""
-    vmax = torch.maximum(torch.abs(task.vrange[0]), torch.abs(task.vrange[1]))
+    tensor: row 0 of the JAX package's (8, 128) task tile.  A task whose
+    fields carry a leading scenario axis (x0 ``(B, 3)``, scalars ``(B,)``)
+    gives ``(B, 19)``, row b scenario b's vector."""
+    vmax = torch.maximum(torch.abs(task.vrange[..., 0]),
+                         torch.abs(task.vrange[..., 1]))
     tr_ub = torch.maximum(task.lin_lb, task.lin_lb + task.lin_ratio * 127.0)
     max_cells_per_step = vmax * tr_ub * task.dt / task.res
     return torch.stack([
-        task.x0[0], task.x0[1], task.x0[2],
-        task.xgoal[0], task.xgoal[1],
+        task.x0[..., 0], task.x0[..., 1], task.x0[..., 2],
+        task.xgoal[..., 0], task.xgoal[..., 1],
         task.goal_tolerance, task.v_post_rollout, task.dt,
         task.dist_weight, task.obs_penalty, task.unknown_penalty,
         1.0 / task.res, task.xlim0, task.ylim0,
         task.lin_lb, task.lin_ratio, task.ang_lb, task.ang_ratio,
         max_cells_per_step,
-    ]).to(torch.float32)
+    ], dim=-1).to(torch.float32)
+
 
 
 def terrain_rollout_costs_byte_plain(words, task_vec, v_all, w_all, *, H, W,
@@ -56,10 +67,18 @@ def terrain_rollout_costs_byte_plain(words, task_vec, v_all, w_all, *, H, W,
       v_all / w_all: float32 ``(T, K)`` pre-clipped noisy controls.
       step_fn: dynamics for exact mode (default the unicycle); fast_trig
         hard-codes the unicycle rotation.
+      With a leading scenario axis on all four (``(B, M, H, W)``, ``(B,
+      19)``, ``(B, T, K)``) each scenario is rolled out in turn.
 
     Returns:
-      float32 ``(K, M)`` rollout costs incl. terminal, excl. coupling.
+      float32 ``(K, M)`` rollout costs incl. terminal, excl. coupling
+      (``(B, K, M)`` with the scenario axis).
     """
+    if words.dim() == 4:
+        return per_scenario(terrain_rollout_costs_byte_plain,
+                            (words, task_vec, v_all, w_all),
+                            dict(H=H, W=W, T=T, speed_map=speed_map,
+                                 fast_trig=fast_trig, step_fn=step_fn))
     f32 = torch.float32
     M = words.shape[0]
     flat = words.reshape(-1)
@@ -201,7 +220,7 @@ def _entry_points():
 
     lib = load("rollout_byte")
     return bind(lib.rollout_byte_launch,
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                 + [ctypes.c_float, ctypes.c_void_p],
                 lib.rollout_byte_info, 3)
 
@@ -219,13 +238,15 @@ def kernel_tiling(*, speed_map=False, fast_trig=False, step_fn=None):
 def _launch(words, task_vec, v_all, w_all, H, W, T, speed_map, fast_trig,
             model, wheelbase):
     fn = _entry_points()[0]
-    M = words.shape[0]
-    K = v_all.shape[1]
-    out = torch.empty((K, M), dtype=torch.float32, device=words.device)
+    M = words.shape[-3]
+    K = v_all.shape[-1]
+    lead = tuple(words.shape[:-3])          # (B,) or () for one scenario
+    out = torch.empty(lead + (K, M), dtype=torch.float32, device=words.device)
     stream = torch.cuda.current_stream(words.device).cuda_stream
     err = fn(words.data_ptr(), task_vec.data_ptr(), v_all.data_ptr(),
              w_all.data_ptr(), out.data_ptr(), K, M, H, W, T,
-             int(speed_map), int(fast_trig), model, wheelbase, stream)
+             scenarios(lead), task_vec.shape[-1], int(speed_map),
+             int(fast_trig), model, wheelbase, stream)
     if err != 0:
         raise RuntimeError("rollout_byte kernel launch failed: CUDA error "
                            "{}".format(err))
@@ -233,19 +254,40 @@ def _launch(words, task_vec, v_all, w_all, H, W, T, speed_map, fast_trig,
     return out
 
 
+def scenarios(lead):
+    """The scenario count of a leading axis ``lead`` (``()``: one)."""
+    return lead[0] if lead else 1
+
+
+def check_scenario_args(lead, task_vec, v_all, w_all, T, K):
+    """Checks shared by both rollout kernels: the task vector ``lead +
+    (>= 18,)`` and the controls ``lead + (T, K)``, with ``lead`` the
+    map's leading scenario axis (``()`` or ``(B,)``, 1 <= B < 65536)."""
+    return [
+        (len(lead) <= 1 and 1 <= scenarios(lead) < 65536,
+         "need one scenario axis of 1 <= B < 65536"),
+        (task_vec.dtype == torch.float32
+         and tuple(task_vec.shape[:-1]) == lead
+         and task_vec.shape[-1] >= 18 and task_vec.is_contiguous(),
+         "task_vec must be contiguous float32 (19,), or (B, 19) with "
+         "the maps' scenarios"),
+        (all(a.dtype == torch.float32 and tuple(a.shape) == lead + (T, K)
+             and a.is_contiguous() for a in (v_all, w_all)),
+         "v_all / w_all must be contiguous float32 (T, K), or (B, T, K) "
+         "with the maps' scenarios"),
+    ]
+
+
 def _check_cuda_args(words, task_vec, v_all, w_all, H, W, T):
     dev = words.device
-    M = words.shape[0] if words.dim() == 3 else -1
-    K = v_all.shape[1] if v_all.dim() == 2 else -1
+    lead = tuple(words.shape[:-3])
+    M = words.shape[-3] if words.dim() in (3, 4) else -1
+    K = v_all.shape[-1] if v_all.dim() >= 2 else -1
     checks = [
-        (words.dtype == torch.int32 and tuple(words.shape) == (M, H, W)
-         and words.is_contiguous(), "words must be contiguous int32 (M, H, W)"),
-        (task_vec.dtype == torch.float32 and task_vec.dim() == 1
-         and task_vec.numel() >= 18 and task_vec.is_contiguous(),
-         "task_vec must be contiguous float32 (19,)"),
-        (all(a.dtype == torch.float32 and tuple(a.shape) == (T, K)
-             and a.is_contiguous() for a in (v_all, w_all)),
-         "v_all / w_all must be contiguous float32 (T, K)"),
+        (words.dtype == torch.int32 and tuple(words.shape) == lead + (M, H, W)
+         and words.is_contiguous(),
+         "words must be contiguous int32 (M, H, W) or (B, M, H, W)"),
+        *check_scenario_args(lead, task_vec, v_all, w_all, T, K),
         (all(a.device == dev for a in (task_vec, v_all, w_all)),
          "all inputs must be on one device"),
         (M >= 1 and K >= 1 and H >= 1 and W >= 1 and M < 65536,
@@ -258,7 +300,8 @@ def _check_cuda_args(words, task_vec, v_all, w_all, H, W, T):
 
 def terrain_rollout_costs_byte(words, task_vec, v_all, w_all, *, H, W, T,
                                speed_map=False, fast_trig=False, step_fn=None):
-    """Rollout costs ``(K, M)`` over byte-packed map words.
+    """Rollout costs ``(K, M)`` over byte-packed map words (``(B, K, M)``
+    for B scenarios in one launch: every argument with a leading B).
 
     On CUDA tensors this launches the hand-written kernel and adds one to
     ``terrain_rollout_costs_byte.launches``; the kernel runs the built-in

@@ -28,10 +28,14 @@ from .costs import (barebone_stage_cost, barebone_term_cost, stage_cost,
 
 
 def _clipped_controls_tk(u_cur, noise, vrange, wrange):
-    """Pre-clip noisy controls for all steps: returns (T, K) v and w."""
-    v = torch.clamp(u_cur[:, 0][:, None] + noise[:, :, 0].T, vrange[0], vrange[1])
-    w = torch.clamp(u_cur[:, 1][:, None] + noise[:, :, 1].T, wrange[0], wrange[1])
-    return v, w
+    """Pre-clip noisy controls for all steps: returns (T, K) v and w
+    (``(B, T, K)`` with a leading scenario axis on every argument)."""
+    def clip(i, rng):
+        return torch.clamp(u_cur[..., i, None]
+                           + noise[..., i].transpose(-1, -2),
+                           rng[..., 0, None, None], rng[..., 1, None, None])
+
+    return clip(0, vrange), clip(1, wrange)
 
 
 def cell_index(x, y, xlim0, ylim0, inv_res, H, W):
@@ -119,10 +123,12 @@ def terrain_rollout_costs(packed_words, task, u_cur, noise, *, speed_map=False,
 def control_coupling(u_cur, noise, u_std, lambda_weight):
     """MPPI information-theoretic coupling: lambda * sum_t (u/sigma^2) . eps.
 
-    Summed over all T steps regardless of early goal reach.  Returns ``(K,)``.
+    Summed over all T steps regardless of early goal reach.  Returns ``(K,)``
+    (``(B, K)`` with a leading scenario axis on every argument).
     """
-    scaled = u_cur / (u_std * u_std)                              # (T, 2)
-    return lambda_weight * torch.sum(noise * scaled[None], dim=(1, 2))
+    scaled = u_cur / (u_std * u_std)[..., None, :]                # (T, 2)
+    return lambda_weight[..., None] * torch.sum(noise * scaled[..., None, :, :],
+                                                dim=(-2, -1))
 
 
 def _start_states(x0, V):

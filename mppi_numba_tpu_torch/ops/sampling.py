@@ -117,10 +117,11 @@ def uniform_window(key, num_samples, full_hw, oy, ox, window_hw, m_offset=0,
     return uniform01_at_counters(key, idx).reshape(num_samples, rH * rW)
 
 
-def draw_map_key(generator, device):
+def draw_map_key(generator, device, lead=()):
     """One solve's map key: two uint32 words from ``generator``, as an
-    int64 ``(2,)`` tensor on ``device``."""
-    return torch.randint(0, 2 ** 32, (2,), generator=generator,
+    int64 ``(2,)`` tensor on ``device``; ``lead + (2,)``, one key a
+    scenario, for a leading scenario axis ``lead``."""
+    return torch.randint(0, 2 ** 32, tuple(lead) + (2,), generator=generator,
                          device=device, dtype=torch.int64)
 
 

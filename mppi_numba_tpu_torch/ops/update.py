@@ -7,6 +7,10 @@
 The weighted noise sum is a product and a sum over k, not a matrix product,
 so it stays in full float32 whatever the caller's TF32 settings
 (``torch.backends.cuda.matmul.allow_tf32``, float32 matmul precision).
+
+Every argument may carry a leading scenario axis B (the JAX update under
+``jax.vmap``): costs ``(B, K)``, noise ``(B, K, T, 2)``, u ``(B, T, 2)``,
+lambda ``(B,)`` and the ranges ``(B, 2)``.
 """
 
 from __future__ import annotations
@@ -27,12 +31,13 @@ def update_useq(costs, noise, u_cur, lambda_weight, vrange, wrange):
       vrange, wrange: ``(2,)`` actuation bounds.
 
     Returns:
-      (u_new ``(T, 2)``, weights ``(K,)``).
+      (u_new ``(T, 2)``, weights ``(K,)``), each with the leading scenario
+      axis of the arguments.
     """
-    beta = torch.min(costs)
-    w = torch.exp(-(costs - beta) / lambda_weight)
-    w = w / torch.sum(w)
-    du = torch.sum(w[:, None, None] * noise, dim=0)
+    beta = torch.min(costs, dim=-1, keepdim=True).values
+    w = torch.exp(-(costs - beta) / lambda_weight[..., None])
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    du = torch.sum(w[..., None, None] * noise, dim=-3)
     u_new = u_cur + du
-    v, om = clip_controls(u_new, vrange, wrange)
+    v, om = clip_controls(u_new, vrange[..., None, :], wrange[..., None, :])
     return torch.stack([v, om], dim=-1), w

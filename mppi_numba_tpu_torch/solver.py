@@ -15,6 +15,14 @@ On a card the planner replays the solve from a CUDA graph
 (``TerrainSolver.capture``, ``SolveGraph``): one launch from the host a
 solve.
 
+A batch of B scenarios (the episodes of a benchmark sweep; the JAX
+package's solve under ``jax.vmap``) solves as one: every ``MapInputs`` and
+``TerrainTask`` field, the controls ``(B, T, 2)``, the map keys ``(B, 2)``
+and the noise ``(B, K, T, 2)`` carry a leading scenario axis, the map
+sampling and the rollout are one launch each for all B, and the CVaR and
+the update reduce over their own axes per scenario.  One ``SolveGraph``
+replays a batched solve as it does a single one.
+
 The draws come from a ``torch.Generator``: the map key and the noise.
 ``TerrainSolver.solve_from_key`` is the rest of the solve as a pure function
 of the draws, and ``solve_from_draws`` the same after the map's uniforms
@@ -45,7 +53,7 @@ from .ops.rollout import (_clipped_controls_tk, barebone_rollout_costs,
 from .ops.sampling import (decode_bins, draw_map_key,
                            traction_bins_from_uniforms)
 from .ops.update import update_useq
-from .types import SolveAux
+from .types import SolveAux, per_scenario
 
 # Sentinel for SolverStatic.cvar_numel: alpha read from the task at run time.
 DYNAMIC_CVAR = -1
@@ -130,6 +138,11 @@ def make_rollout_backend(static: SolverStatic, device):
 
     def rollout(payload, task, u, noise):
         if backend == "eager":
+            if u.dim() == 3:        # the plain oracle, one scenario a call
+                return per_scenario(terrain_rollout_costs,
+                                    (payload, task, u, noise),
+                                    dict(speed_map=speed_map,
+                                         step_fn=step_fn))
             return terrain_rollout_costs(payload, task, u, noise,
                                          speed_map=speed_map, step_fn=step_fn)
         v_all, w_all = _clipped_controls_tk(u, noise, task.vrange,
@@ -161,11 +174,16 @@ class TerrainSolver:
     def __call__(self, generator, maps, task, u0):
         """Draw this solve's map key and noise from ``generator`` and solve.
 
-        Returns ``(u_new (T, 2), SolveAux)``.
+        Returns ``(u_new (T, 2), SolveAux)``.  With a leading scenario axis
+        (``u0`` ``(B, T, 2)``, the maps and the task batched) it draws B
+        map keys ``(B, 2)`` and the noise ``(B, K, T, 2)``, and returns
+        ``u_new (B, T, 2)`` and a ``SolveAux`` of batched fields.
         """
         s = self.static
-        map_key = draw_map_key(generator, self.device)
-        eps_list = [torch.randn((s.num_control_rollouts, s.num_steps, 2),
+        lead = tuple(u0.shape[:-2])
+        map_key = draw_map_key(generator, self.device, lead)
+        eps_list = [torch.randn(lead + (s.num_control_rollouts, s.num_steps,
+                                        2),
                                 generator=generator, device=self.device,
                                 dtype=torch.float32)
                     for _ in range(s.num_opt)]
@@ -180,7 +198,7 @@ class TerrainSolver:
     def _check_bins(self, maps):
         """A 2- or 4-bit cell holds at most 4 or 16 bins a plane."""
         cell_bits = CELL_BITS.get(self.backend)
-        bins = max(maps.lin_pmf.shape[0], maps.ang_pmf.shape[0])
+        bins = max(maps.lin_pmf.shape[-3], maps.ang_pmf.shape[-3])
         if cell_bits in (2, 4) and bins > MAX_BINS[cell_bits]:
             raise ValueError(
                 "backend {!r} holds at most {} PMF bins; the maps have {} "
@@ -198,6 +216,11 @@ class TerrainSolver:
           maps / task: ``MapInputs`` / ``TerrainTask`` on the device, of the
             full padded map.
           u0: float32 ``(T, 2)`` nominal control sequence.
+
+        Scenarios: map keys ``(B, 2)``, noise ``(B, K, T, 2)``, every field
+        of the maps and the task and ``u0`` with the same leading B solve B
+        scenarios in one map-sampling launch and one rollout launch an
+        iteration.
 
         The maps are sampled, decoded and packed in the backend's layout by
         one ``sample_and_pack_window``, or when cropping one
@@ -226,7 +249,8 @@ class TerrainSolver:
 
         ``uniforms``: float32 ``(M, h*w)`` per-cell map uniforms in [0, 1)
         at the solver's map shape (the reachable window when cropping).
-        The other arguments as for ``solve_from_key``.
+        The other arguments as for ``solve_from_key``, one scenario (no
+        leading scenario axis).
         """
         s = self.static
         self._check_bins(maps)
@@ -259,7 +283,7 @@ class TerrainSolver:
         u = u0
         noise = costs = weights = None
         for i in range(s.num_opt):
-            noise = eps_list[i] * task.u_std
+            noise = eps_list[i] * task.u_std[..., None, None, :]
             costs_km = self._rollout(payload, task, u, noise)
             if s.cvar_numel == DYNAMIC_CVAR:
                 cvar = cvar_from_costs_dynamic(costs_km, task.cvar_alpha)
@@ -269,9 +293,11 @@ class TerrainSolver:
                                             task.lambda_weight)
             u, weights = update_useq(costs, noise, u, task.lambda_weight,
                                      task.vrange, task.wrange)
-        roi_offset = (torch.zeros(2, dtype=torch.int32, device=self.device)
+        roi_offset = (torch.zeros(tuple(u0.shape[:-2]) + (2,),
+                                  dtype=torch.int32, device=self.device)
                       if offset is None else offset)
-        aux = SolveAux(costs=costs, weights=weights, noise_vis=noise[:V],
+        aux = SolveAux(costs=costs, weights=weights,
+                       noise_vis=noise[..., :V, :, :],
                        lin_grids=lin_grids, ang_grids=ang_grids,
                        roi_offset=roi_offset)
         return u, aux
@@ -336,7 +362,9 @@ def get_terrain_solver(static: SolverStatic, device="cuda"):
 
     Returned callable: ``(generator, maps, task, u0) -> (u_new, SolveAux)``,
     with ``.solve_from_key(map_key, eps_list, maps, task, u0)`` and
-    ``.solve_from_draws(uniforms, eps_list, maps, task, u0)``.
+    ``.solve_from_draws(uniforms, eps_list, maps, task, u0)``.  The call
+    and ``solve_from_key`` also take a batch of scenarios (a leading axis
+    on every tensor).
     """
     return _cached_solver(static, torch.device(device))
 

@@ -704,3 +704,7 @@ def sample_realization_from_pmf_grid(lin_pmf_grid, ang_pmf_grid, bin_values,
 
     return TractionGrid(draw(lin_pmf_grid), draw(ang_pmf_grid), res=res,
                         xlimits=xlimits, ylimits=ylimits)
+
+
+# The reference's class name, as the JAX package keeps it.
+TDM_Numba = TDM

@@ -1,4 +1,6 @@
-"""NamedTuples of tensors exchanged between the planner and the solver.
+"""NamedTuples of tensors exchanged between the planner and the solver,
+and the helpers that take one scenario of a batch (a leading scenario
+axis on every tensor) and stack scenarios back into a batch.
 
 Field names and order match ``mppi_numba_tpu.types`` so that
 ``convert.py`` can carry state across by name.
@@ -7,6 +9,8 @@ Field names and order match ``mppi_numba_tpu.types`` so that
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import torch
 
 
 class TerrainTask(NamedTuple):
@@ -53,6 +57,43 @@ class SolveAux(NamedTuple):
     lin_grids: object     # (M, H, W) int8 sampled linear traction grids
     ang_grids: object     # (M, H, W) int8 sampled angular traction grids
     roi_offset: object = None  # (2,) int32 window start (oy, ox); zeros uncropped
+
+
+def scenario(value, b):
+    """Scenario ``b`` of a value with a leading scenario axis: a tensor's
+    row ``b``; NamedTuples (``MapInputs``, ``TerrainTask``) and tuples field
+    by field; anything else (None, ints, strings) as it is."""
+    if hasattr(value, "_replace"):
+        return type(value)(*(scenario(f, b) for f in value))
+    if isinstance(value, tuple):
+        return tuple(scenario(f, b) for f in value)
+    if hasattr(value, "shape"):
+        return value[b]
+    return value
+
+
+def stack_scenarios(parts):
+    """Per-scenario results (tensors, NamedTuples and tuples of them, None)
+    stacked on a new leading scenario axis."""
+    first = parts[0]
+    if first is None:
+        return None
+    if hasattr(first, "_replace"):
+        return type(first)(*(stack_scenarios(list(f)) for f in zip(*parts)))
+    if isinstance(first, tuple):
+        return tuple(stack_scenarios(list(f)) for f in zip(*parts))
+    return torch.stack(parts)
+
+
+def per_scenario(fn, args, kwargs):
+    """``fn`` called on each scenario of batched ``args`` and ``kwargs``
+    (``scenario``), its results stacked (``stack_scenarios``): a
+    single-scenario plain version over a leading scenario axis."""
+    B = next(a for a in args if hasattr(a, "shape")).shape[0]
+    return stack_scenarios([
+        fn(*scenario(tuple(args), b),
+           **{k: scenario(v, b) for k, v in kwargs.items()})
+        for b in range(B)])
 
 
 class BareboneTask(NamedTuple):

@@ -124,25 +124,45 @@ def test_trial_matches_jax(engine, goal):
         assert int(want.steps) < MAX_STEPS
 
 
+def _jax_batch_draws(keys):
+    """``step -> (map_keys (B, 2), eps_list [(B, K, T, 2)])``: each
+    scenario's JAX draws (``_jax_draws``) stacked on the scenario axis."""
+    each = [_jax_draws(k) for k in keys]
+
+    def draws(t):
+        parts = [d(t) for d in each]
+        return (torch.stack([p[0] for p in parts]),
+                [torch.stack([p[1][i] for p in parts]) for i in range(2)])
+
+    return draws
+
+
+def _batch_inputs(worlds):
+    ports = [_port_inputs(w) for w in worlds]
+    maps = type(ports[0][0])(*(torch.stack(f) for f in zip(
+        *(p[0] for p in ports))))
+    task = type(ports[0][1])(*(torch.stack(f) for f in zip(
+        *(p[1] for p in ports))))
+    return ports, (maps, task, *(torch.stack([p[i] for p in ports])
+                                 for i in (2, 3, 4)))
+
+
 def test_batch_matches_jax_and_single():
-    """Two scenarios (one reaches its goal, one times out) through the
-    batch engine against JAX's vmapped batch, and each against the port's
-    single trial, as ``tests/test_device_sim.py`` holds JAX's."""
+    """Two scenarios (one reaches its goal, one times out) stepped together
+    by the batch engine (one batched solve a step) against JAX's vmapped
+    batch, and each against the port's single trial, as
+    ``tests/test_device_sim.py`` holds JAX's."""
     jstatic, tstatic = _statics()
     worlds = [_world(GOALS["reached"], 0), _world(GOALS["timeout"], 1)]
     keys = [jax.random.PRNGKey(7), jax.random.PRNGKey(8)]
     stacked = jax.tree.map(lambda *xs: np.stack(xs), *worlds)
     want = jsim.make_device_trial_batch(jstatic, MAX_STEPS)(
         jnp.stack(keys), *stacked)
-    ports = [_port_inputs(w) for w in worlds]
-    batch_in = [type(ports[0][0])(*(torch.stack(f) for f in zip(
-        *(p[0] for p in ports))))]
-    batch_in.append(type(ports[0][1])(*(torch.stack(f) for f in zip(
-        *(p[1] for p in ports)))))
-    batch_in += [torch.stack([p[i] for p in ports]) for i in (2, 3, 4)]
-    got = tsim.make_device_trial_batch(tstatic, MAX_STEPS)(
-        [_jax_draws(k) for k in keys], *batch_in)
+    ports, batch_in = _batch_inputs(worlds)
+    engine = tsim.make_device_trial_batch(tstatic, MAX_STEPS)
+    got = engine(_jax_batch_draws(keys), *batch_in)
     assert got.steps.shape == (2,) and got.success.dtype == torch.bool
+    assert engine.steps_run == MAX_STEPS      # one episode never arrives
     single = tsim.make_device_trial(tstatic, MAX_STEPS)
     for i in range(2):
         _assert_same(type(got)(*(f[i] for f in got)),
@@ -153,6 +173,79 @@ def test_batch_matches_jax_and_single():
         np.testing.assert_allclose(float(one.cum_obj), float(got.cum_obj[i]),
                                    rtol=1e-5)
     assert [bool(s) for s in got.success] == [True, False]
+
+
+def test_batch_stops_once_every_episode_has_arrived():
+    """A batch whose episodes all reach their goals stops stepping then
+    (the steps after are masked, so nothing changes), with JAX's masked
+    results; a single episode is a batch of one, bit for bit."""
+    jstatic, tstatic = _statics()
+    worlds = [_world(GOALS["reached"], 0), _world(GOALS["reached"], 2)]
+    keys = [jax.random.PRNGKey(7), jax.random.PRNGKey(9)]
+    stacked = jax.tree.map(lambda *xs: np.stack(xs), *worlds)
+    want = jsim.make_device_trial_batch(jstatic, MAX_STEPS)(
+        jnp.stack(keys), *stacked)
+    ports, batch_in = _batch_inputs(worlds)
+    engine = tsim.make_device_trial_batch(tstatic, MAX_STEPS)
+    got = engine(_jax_batch_draws(keys), *batch_in)
+    assert bool(got.success.all())
+    assert engine.steps_run == int(got.steps.max()) < MAX_STEPS
+    for i in range(2):
+        _assert_same(type(got)(*(f[i] for f in got)),
+                     type(want)(*(f[i] for f in want)))
+        alone = tsim.make_device_trial_batch(tstatic, MAX_STEPS)(
+            _jax_batch_draws([keys[i]]),
+            *(type(x)(*(f[i:i + 1] for f in x)) if hasattr(x, "_replace")
+              else x[i:i + 1] for x in batch_in))
+        for a, b in zip(alone, got):
+            assert torch.equal(a[0], b[i])
+
+
+def test_batch_step_follows_jax_step_along_its_trajectory():
+    """The batched step (solve, ground-truth step, shift) against JAX's
+    ``_make_step_core`` along JAX's own closed-loop trajectory, 40 steps
+    of two scenarios, each step fed JAX's state, controls and draws:
+    states, shifted controls and goal distances within the whole-solve
+    tolerance at every step.  (Left to run free, the two closed loops part
+    ways: float32 ordering differences grow about 10x every two steps.)"""
+    from mppi_numba_tpu.solver import get_terrain_solver as j_get_solver
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+
+    jstatic, tstatic = _statics()
+    steps = 40
+    worlds = [_world(GOALS["timeout"], 0), _world((9.5, 3.0), 1)]
+    stacked = jax.tree.map(lambda *xs: jnp.asarray(np.stack(xs)), *worlds)
+    j_step = jax.jit(jax.vmap(jsim._make_step_core(j_get_solver(jstatic))))
+    _, (maps, task, gl, ga, gm) = _batch_inputs(worlds)
+    solver = get_terrain_solver(tstatic, "cpu")
+    keys = jnp.stack([jax.random.PRNGKey(11), jax.random.PRNGKey(12)])
+    x = stacked[1].x0
+    u = jnp.zeros((2, T, 2), jnp.float32)
+    for t in range(steps):
+        pair = jax.vmap(jax.random.split)(keys)
+        subs = pair[:, 1]
+        draws = [_jax_draws_of(s) for s in subs]
+        map_keys = torch.stack([d[0] for d in draws])
+        eps = [torch.stack([d[1][i] for d in draws]) for i in range(2)]
+        step = tsim._make_step_core(
+            lambda m, tk, uu: solver.solve_from_key(map_keys, eps, m, tk, uu))
+        got = step(torch.tensor(np.asarray(x)), torch.tensor(np.asarray(u)),
+                   maps, task, gl, ga, gm)
+        x, u, keys, dist = j_step(x, u, keys, stacked[0], stacked[1],
+                                  *stacked[2:])
+        for g, w in zip(got, (x, u, dist)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                       atol=ATOL, err_msg=str(t))
+
+
+def _jax_draws_of(sub):
+    """The map key and the noise a JAX solve draws from its key ``sub``."""
+    kmap, knoise = jax.random.split(sub)
+    return (torch.tensor(np.asarray(jax.random.key_data(kmap))
+                         .astype(np.int64)),
+            [torch.tensor(np.asarray(jax.random.normal(
+                jax.random.fold_in(knoise, i), (K, T, 2),
+                dtype=jnp.float32))) for i in range(2)])
 
 
 def test_generator_draws_match_the_solvers_own():

@@ -16,6 +16,9 @@ _CPU_SOLVE = textwrap.dedent("""
     import sys
     import numpy as np
     import mppi_numba_tpu_torch as port
+    # Importing the package needs neither pandas nor matplotlib (the card's
+    # machine has neither).
+    assert "pandas" not in sys.modules and "matplotlib" not in sys.modules
 
     cfg = port.Config(T=1.0, dt=0.1, num_grid_samples=4,
                       num_control_rollouts=100, max_map_dim=(20, 20),
@@ -69,6 +72,28 @@ _CPU_SOLVE = textwrap.dedent("""
     from mppi_numba_tpu_torch.probes import gather_probe
     t, x, mod = gather_probe.make_inputs("flat", 8, 4, "cpu")
     assert gather_probe.flat_gather_chain(t, x, mod, 8).shape == (4, 128)
+    # The benchmark sweep's row producer (no pandas), a planner checkpoint
+    # and the JAX package's experiment pickle (its Config mapped to the
+    # port's), and the angle helpers.
+    from mppi_numba_tpu_torch import benchmark, checkpoint, utils
+    world = benchmark.make_benchmark_world(num_bins=4,
+                                           rng=np.random.RandomState(0))
+    bcfg = port.Config(T=0.5, dt=0.1, num_grid_samples=4,
+                       num_control_rollouts=100, max_speed_padding=1.0,
+                       max_map_dim=(9, 9), use_tdm=True)
+    bp = benchmark.default_benchmark_params(bcfg, (5, 5), 1)
+    rows = benchmark.run_trials_device_rows(
+        bcfg, world, 2, (5, 5), 1, 1.0, bp, [0.4], 1, 2, [0.6],
+        method_list=benchmark.PAPER_METHODS, verbose=False, device="cpu")
+    assert len(rows) == 8 and "pandas" not in sys.modules
+    import tempfile, os
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_planner_state(planner, os.path.join(d, "p.pkl"))
+        checkpoint.load_planner_state(planner, os.path.join(d, "p.pkl"))
+    exp = checkpoint.load_experiment(
+        "mppi_benchmark/envs_10_trials_3_densities_4_device.pickle")
+    assert isinstance(exp["cfg"], port.Config)
+    assert abs(utils.normalize_angle(7.0) - (7.0 - 2 * np.pi)) < 1e-12
     # Every module of the port, and chip_smoke.py (its main() runs only
     # as a script).
     import importlib, pkgutil
@@ -85,7 +110,13 @@ _CPU_SOLVE = textwrap.dedent("""
                  "mppi_numba_tpu_torch.profiling",
                  "mppi_numba_tpu_torch.graphs",
                  "mppi_numba_tpu_torch.barebone",
-                 "mppi_numba_tpu_torch.probes.gather_probe"):
+                 "mppi_numba_tpu_torch.probes.gather_probe",
+                 "mppi_numba_tpu_torch.benchmark",
+                 "mppi_numba_tpu_torch.benchmark_vis",
+                 "mppi_numba_tpu_torch.visualization",
+                 "mppi_numba_tpu_torch.checkpoint",
+                 "mppi_numba_tpu_torch.utils",
+                 "mppi_numba_tpu_torch.utils.angles"):
         assert name in names, name
     import chip_smoke
     # Nothing of JAX, of the JAX package, or of scripts/ (whose modules

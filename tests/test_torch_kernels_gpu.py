@@ -985,3 +985,351 @@ def test_device_trial_graph_equals_eager_on_card(engine):
     for a, b in zip(got, want):
         assert torch.equal(a, b), (got, want)
     assert replays >= int(got.steps) > 0
+
+
+# -- the scenario axis: B scenarios in one launch ---------------------------------
+
+
+def _stack(parts):
+    """Per-scenario arguments (tensors, NamedTuples, tuples) stacked on a
+    new leading scenario axis; anything else (None, ints) is the first's."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(parts)
+    if hasattr(first, "_replace"):
+        return type(first)(*(_stack(list(f)) for f in zip(*parts)))
+    if isinstance(first, tuple):
+        return tuple(_stack(list(f)) for f in zip(*parts))
+    return first
+
+
+def _assert_same(got, want, what):
+    """Equal bit for bit, tensor by tensor through tuples (None matching
+    None)."""
+    if isinstance(got, tuple):
+        assert isinstance(want, tuple) and len(got) == len(want), what
+        for g, w in zip(got, want):
+            _assert_same(g, w, what)
+        return
+    assert (got is None) == (want is None), what
+    if got is not None:
+        assert got.dtype == want.dtype and torch.equal(got, want), (
+            what, int((got != want).sum()))
+
+
+@pytest.mark.parametrize("layout", ["bins", "byte", "binned2", "binned",
+                                    "binned8"])
+def test_map_sample_scenarios_match_single_and_plain_on_card(layout):
+    """Three scenarios (their own keys, alpha_dyn, window offsets and maps)
+    in one window-mode launch equal the three single launches and the
+    batched plain version, bit for bit, with and without the risk plane."""
+    dev = _cuda_or_skip()
+    M, H, W, win = 16, 31, 37, (5, 9, 13, 11)
+    bins = 4 if layout == "binned2" else 12
+    singles = [_map_sample_args(dev, M, H, W, (win[0] + s, win[1] - s,
+                                               *win[2:]),
+                                bins, bins, alpha, seed=s)
+               for s, alpha in enumerate((1.0, 0.2, 0.6))]
+    for risk in (False, True):
+        outs = []
+        for args, kw in singles:
+            if layout == "bins":
+                outs.append(map_sample.sample_traction_window(*args, **kw))
+            else:
+                maps = _fused_maps(args, risk_seed=7)
+                outs.append(map_sample.sample_and_pack_window(
+                    args[0], maps, args[5], M, layout, risk=risk, **kw))
+        batch_args = _stack([a for a, _ in singles])
+        kw0 = singles[0][1]
+        batch_kw = dict(kw0, window=(kw0["window"][0], *(
+            torch.stack([kw["window"][i] for _, kw in singles])
+            for i in (1, 2))))
+        before = (map_sample.sample_traction_window.launches
+                  + map_sample.sample_and_pack_window.launches)
+        if layout == "bins":
+            args = (*batch_args[:6], M)
+            got = map_sample.sample_traction_window(*args, **batch_kw)
+            want = map_sample.sample_traction_window_plain(*args, **batch_kw)
+        else:
+            maps = _stack([_fused_maps(a, risk_seed=7) for a, _ in singles])
+            got = map_sample.sample_and_pack_window(
+                batch_args[0], maps, batch_args[5], M, layout, risk=risk,
+                **batch_kw)
+            want = map_sample.sample_and_pack_window_plain(
+                batch_args[0], maps, batch_args[5], M, layout, risk=risk,
+                **batch_kw)
+        torch.cuda.synchronize()
+        assert (map_sample.sample_traction_window.launches
+                + map_sample.sample_and_pack_window.launches) == before + 1
+        _assert_same(got, want, (layout, risk, "plain"))
+        _assert_same(got, _stack(outs), (layout, risk, "single"))
+
+
+@pytest.mark.parametrize("layout", ["byte", "binned2", "binned", "binned8"])
+def test_map_sample_crop_scenarios_match_single_and_plain_on_card(layout):
+    """The crop mode with three scenarios (robots in different windows, one
+    off the map; their own maps, keys and alpha_dyn) in one launch equals
+    three single launches and the batched plain version, bit for bit:
+    payload, grids, offsets and shifted limits."""
+    dev = _cuda_or_skip()
+    H, W, rH, rW, M = 64, 48, 13, 11, 5
+    bins = 4 if layout == "binned2" else 12
+    cases = []
+    for s, (x, y, alpha) in enumerate(((3.0, 4.0, 1.0), (13.7, 2.2, 0.4),
+                                       (-5.0, 30.0, 0.8))):
+        maps, task = _crop_inputs(dev, H, W, bins, bins, 0.3, -1.3, seed=s)
+        task = task._replace(
+            x0=torch.tensor([x, y, 0.3], device=dev),
+            alpha_dyn=torch.tensor(alpha, dtype=torch.float32, device=dev))
+        key = torch.tensor([s + 1, 2 ** 31 + 7 * s], dtype=torch.int64,
+                           device=dev)
+        cases.append((key, maps, task))
+    key = torch.stack([c[0] for c in cases])
+    maps = _stack([c[1] for c in cases])
+    task = _stack([c[2] for c in cases])
+    for risk in (False, True):
+        singles = [map_sample.sample_and_pack_crop(k, m, t, M, layout,
+                                                   (rH, rW), risk=risk)
+                   for k, m, t in cases]
+        before = map_sample.sample_and_pack_crop.launches
+        got = map_sample.sample_and_pack_crop(key, maps, task, M, layout,
+                                              (rH, rW), risk=risk)
+        torch.cuda.synchronize()
+        assert map_sample.sample_and_pack_crop.launches == before + 1
+        want = map_sample.sample_and_pack_crop_plain(key, maps, task, M,
+                                                     layout, (rH, rW),
+                                                     risk=risk)
+        for name, g, w, s in (
+                ("payload", got[0], want[0], _stack([o[0] for o in singles])),
+                ("grids", got[1:3], want[1:3],
+                 _stack([o[1:3] for o in singles])),
+                ("offset", got[4], want[4], _stack([o[4] for o in singles])),
+                ("lims", (got[3].xlim0, got[3].ylim0),
+                 (want[3].xlim0, want[3].ylim0),
+                 (torch.stack([o[3].xlim0 for o in singles]),
+                  torch.stack([o[3].ylim0 for o in singles])))):
+            _assert_same(g, w, (layout, risk, name, "plain"))
+            _assert_same(g, s, (layout, risk, name, "single"))
+        assert len({tuple(o) for o in got[4].tolist()}) == 3
+
+
+def _vary_task_vecs(tvs):
+    """Per-scenario task vectors made to differ: x0, the goal, dt and the
+    map origin move with the scenario."""
+    out = []
+    for b, tv in enumerate(tvs):
+        tv = tv.clone()
+        tv[0] += 0.25 * b
+        tv[3] -= 0.5 * b
+        tv[7] += 0.01 * b
+        tv[12] -= 0.1 * b
+        out.append(tv)
+    return out
+
+
+@pytest.mark.parametrize("speed_map", [False, True])
+@pytest.mark.parametrize("model", ["fast", "exact", "bicycle"])
+@pytest.mark.parametrize("layout", ["byte", 2, 4, 8])
+def test_rollout_scenarios_match_single_and_plain_on_card(layout, model,
+                                                          speed_map):
+    """Three scenarios (their own maps, tasks and controls) in one rollout
+    launch equal three single launches and the batched plain version, bit
+    for bit, on the byte kernel and each binned layout."""
+    dev = _cuda_or_skip()
+    K, M, T, H, W = 300, 5, 40, 21, 30
+    fast_trig, step_fn = _MODELS[model]
+    steer = 0.5 if model == "bicycle" else 2.5
+    if layout == "byte":
+        parts = [_inputs(dev, K, M, T, H, W, True, speed_map, seed=s,
+                         steer=steer) for s in range(3)]
+        tvs = _vary_task_vecs([p[1] for p in parts])
+        parts = [(p[0], tv, *p[2:]) for p, tv in zip(parts, tvs)]
+        kernel = rollout_byte.terrain_rollout_costs_byte
+        plain = rollout_byte.terrain_rollout_costs_byte_plain
+        kw = dict(H=H, W=W, T=T, speed_map=speed_map, fast_trig=fast_trig,
+                  step_fn=step_fn)
+    else:
+        parts = [_binned_inputs(dev, layout, K, M, T, H, W, speed_map,
+                                past_last=True, seed=s, steer=steer)[0]
+                 for s in range(3)]
+        tvs = _vary_task_vecs([p[3] for p in parts])
+        parts = [(*p[:3], tv, *p[4:]) for p, tv in zip(parts, tvs)]
+        kernel = rollout_binned.terrain_rollout_costs_binned
+        plain = rollout_binned.terrain_rollout_costs_binned_plain
+        kw = dict(H=H, W=W, T=T, cell_bits=layout, fast_trig=fast_trig,
+                  step_fn=step_fn)
+    singles = torch.stack([kernel(*p, **kw) for p in parts])
+    args = _stack(parts)
+    before = kernel.launches
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and got.shape == (3, K, M)
+    assert torch.equal(got, singles)
+    assert torch.equal(got, plain(*args, **kw))
+
+
+def test_rollout_scenarios_reject_mismatched_axes_on_card():
+    dev = _cuda_or_skip()
+    K, M, T, H, W = 64, 3, 10, 9, 9
+    parts = [_inputs(dev, K, M, T, H, W, False, False, seed=s)
+             for s in range(2)]
+    words, tv, v, w = _stack(parts)
+    kernel = rollout_byte.terrain_rollout_costs_byte
+    before = kernel.launches
+    with pytest.raises(ValueError, match="task_vec"):
+        kernel(words, tv[0], v, w, H=H, W=W, T=T)
+    with pytest.raises(ValueError, match="v_all"):
+        kernel(words, tv, v[0], w, H=H, W=W, T=T)
+    binned, _ = _binned_inputs(dev, 4, K, M, T, H, W, False, False)
+    cells, mask, lut, tv1, v1, w1, _ = binned
+    with pytest.raises(ValueError, match="mask"):
+        rollout_binned.terrain_rollout_costs_binned(
+            cells[None], mask, lut[None], tv1[None], v1[None], w1[None],
+            H=H, W=W, T=T, cell_bits=4)
+    assert kernel.launches == before
+
+
+def _sweep_chunk(dev, method, B, K=1024, M=1024):
+    """The first B episodes of the reference benchmark sweep at alpha 0.6
+    (``benchmark.DeviceSweep``: 9x9 grids padded to 11x11, 22 bins):
+    ``(static, maps, task, gt)`` of ``method``."""
+    from mppi_numba_tpu_torch import benchmark
+
+    world = benchmark.make_benchmark_world(num_bins=20,
+                                           rng=np.random.RandomState(0))
+    cfg = Config(T=10.0, dt=0.1, num_grid_samples=M, num_control_rollouts=K,
+                 max_speed_padding=5.0, max_map_dim=(15, 15), seed=1,
+                 use_tdm=True)
+    sweep = benchmark.DeviceSweep(
+        cfg, world, (9, 9), 1, 1.0,
+        benchmark.default_benchmark_params(cfg, (9, 9), 1),
+        [1.0, 0.7, 0.4, 0.1], 10, 3, device=dev)
+    _, static, maps, task = sweep.inputs(method, 0.6)
+
+    def first(tree):
+        return type(tree)(*(None if x is None else x[:B] for x in tree))
+
+    return static, first(maps), first(task), tuple(g[:B] for g in sweep.gt)
+
+
+def test_batched_solve_equals_single_solves_on_card():
+    """One batched solve of a sweep chunk (B = 30 of the 11x11 benchmark
+    maps, M = K = 1024) against the 30 solves made one at a time from the
+    same draws: the sampled grids bit for bit, one map_sample launch and
+    one rollout launch in all, and u within rtol 2e-4 / atol 2e-5."""
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+    from mppi_numba_tpu_torch.types import scenario
+
+    dev = _cuda_or_skip()
+    static, maps, task, _ = _sweep_chunk(dev, "noisy_dyn", 30)
+    solver = get_terrain_solver(static, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, K, T = 30, static.num_control_rollouts, static.num_steps
+    keys = torch.randint(0, 2 ** 32, (B, 2), generator=g, device=dev)
+    eps = [torch.randn((B, K, T, 2), generator=g, device=dev)]
+    u0 = torch.zeros((B, T, 2), device=dev) + 0.3
+    launches = (map_sample.sample_and_pack_window.launches,
+                rollout_byte.terrain_rollout_costs_byte.launches)
+    u_b, aux_b = solver.solve_from_key(keys, eps, maps, task, u0)
+    assert (map_sample.sample_and_pack_window.launches,
+            rollout_byte.terrain_rollout_costs_byte.launches) == (
+                launches[0] + 1, launches[1] + 1)
+    for b in range(B):
+        u_s, aux_s = solver.solve_from_key(keys[b], [eps[0][b]],
+                                           scenario(maps, b),
+                                           scenario(task, b), u0[b])
+        assert torch.equal(aux_b.lin_grids[b], aux_s.lin_grids), b
+        torch.testing.assert_close(u_b[b], u_s, rtol=2e-4, atol=2e-5)
+
+
+def test_device_trial_batch_graph_equals_eager_on_card():
+    """A sweep chunk (B = 6 episodes, risk_dyn, K = 256) through the batch
+    engine: its graph replays (one capture, reused by a second call on the
+    same generator) against the eager loop (a callable making the same
+    draws), bit for bit; one map_sample launch and one rollout launch a
+    replay, whatever the batch."""
+    from mppi_numba_tpu_torch import device_sim
+    from mppi_numba_tpu_torch.ops.sampling import draw_map_key
+
+    dev = _cuda_or_skip()
+    static, maps, task, gt = _sweep_chunk(dev, "risk_dyn", 6, K=256)
+    engine = device_sim.make_device_trial_batch(static, 60)
+    g = torch.Generator(device=dev)
+    g2 = torch.Generator(device=dev).manual_seed(4)
+
+    def draws(t):
+        return (draw_map_key(g2, dev, (6,)),
+                [torch.randn((6, static.num_control_rollouts,
+                              static.num_steps, 2), generator=g2,
+                             device=dev)])
+
+    results = []
+    for _ in range(2):
+        g.manual_seed(4)
+        before = (map_sample.sample_and_pack_window.launches,
+                  rollout_byte.terrain_rollout_costs_byte.launches)
+        results.append(engine(g, maps, task, *gt))
+        replays = engine.steps_run
+        assert (map_sample.sample_and_pack_window.launches - before[0],
+                rollout_byte.terrain_rollout_costs_byte.launches
+                - before[1]) == (replays, replays)
+    assert engine.captures == 1
+    g2.manual_seed(4)
+    want = engine(draws, maps, task, *gt)
+    for got in results:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (got, want)
+
+
+def test_checkpoint_round_trip_of_a_graphed_planner_on_card(tmp_path):
+    """A planner whose solves replay a CUDA graph, saved after three solves
+    and restored (into a fresh planner, and into itself after more
+    solves), gives the next solve bit for bit."""
+    from mppi_numba_tpu_torch import checkpoint
+
+    dev = _cuda_or_skip()
+    planner = _roi_planner(dev, False)
+    x = np.array([6.25, 7.25, 0.3])
+    for _ in range(3):
+        u = planner.solve()
+        x = x + 0.1 * np.array([u[0, 0], u[0, 0], u[0, 1]])
+        planner.shift_and_update(x, u)
+    path = tmp_path / "planner.pkl"
+    checkpoint.save_planner_state(planner, path)
+    want = planner.solve()
+    fresh = _roi_planner(dev, False)
+    fresh.solve()                        # capture its graph first
+    checkpoint.load_planner_state(fresh, path)
+    assert np.array_equal(fresh.solve(), want)
+    planner.solve()
+    checkpoint.load_planner_state(planner, path)
+    assert np.array_equal(planner.solve(), want)
+    assert len(planner._solve_graphs) == len(fresh._solve_graphs) == 1
+
+
+def test_batched_solve_graph_equals_eager_on_card():
+    """A batched solve (6 sweep episodes, noisy_dyn, M = 256) captured in
+    a ``SolveGraph`` and replayed three times, each fed the last one's
+    controls, against the eager batched solve from a generator of the same
+    seed, bit for bit; one map_sample and one rollout launch a replay."""
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+
+    dev = _cuda_or_skip()
+    static, maps, task, _ = _sweep_chunk(dev, "noisy_dyn", 6, K=512, M=256)
+    solver = get_terrain_solver(static, dev)
+    u0 = torch.zeros((6, static.num_steps, 2), device=dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    g2 = torch.Generator(device=dev).manual_seed(8)
+    graph = solver.capture(g, maps, task, u0.clone())
+    u_e = u0
+    for _ in range(3):
+        before = (map_sample.sample_and_pack_window.launches,
+                  rollout_byte.terrain_rollout_costs_byte.launches)
+        u_g, aux_g = graph(g, maps, task, graph.u0)
+        assert (map_sample.sample_and_pack_window.launches - before[0],
+                rollout_byte.terrain_rollout_costs_byte.launches
+                - before[1]) == (1, 1)
+        u_e, aux_e = solver(g2, maps, task, u_e)
+        assert torch.equal(u_g, u_e)
+        for name in aux_e._fields:
+            assert torch.equal(getattr(aux_g, name), getattr(aux_e, name))

@@ -9,7 +9,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 import mppi_numba_tpu as jpkg
 import mppi_numba_tpu.terrain as jterrain
 import mppi_numba_tpu_torch as tpkg
@@ -165,11 +164,15 @@ def test_densities_and_terrains_equal():
 
 
 def _benchmark_pair(seed=1):
-    """chip_smoke.py's port-side benchmark world and the JAX package's,
-    from the same seed: ``(port world, jax world, semantic grid)``."""
+    """chip_smoke.py's port-side benchmark world (built, as chip_smoke's
+    ``setup_world`` builds it, by the ported ``benchmark`` module) and the
+    JAX package's, from the same seed: ``(port world, jax world, semantic
+    grid)``."""
+    from mppi_numba_tpu_torch import benchmark
+
     rng = np.random.RandomState(seed)
-    tw = chip_smoke.benchmark_world(num_bins=20, rng=rng)
-    sg = chip_smoke.semantic_grid((9, 9), 1, 0.4, rng)
+    tw = benchmark.make_benchmark_world(num_bins=20, rng=rng)
+    sg = benchmark.make_semantic_grid((9, 9), 1, 0.4, rng)
     rng = np.random.RandomState(seed)
     jw = make_benchmark_world(num_bins=20, rng=rng)
     np.testing.assert_array_equal(sg, make_semantic_grid((9, 9), 1, 0.4, rng))
