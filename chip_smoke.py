@@ -42,7 +42,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    without the risk plane, for robots near each edge of the map, at its
    centre, at every cell edge of a row, an ulp either side and off the
    map, at the big-map world's shape (padded origin 0 and -res) and a
-   ragged one.
+   ragged one; and its M slices (``m_offset``, ``full_num_samples``: the
+   sharded solve's draw), rows [a, b) against the plain version and
+   against the rows of the whole draw, every layout x risk.
    The scenario axis (B scenarios in one launch, each with its own keys,
    alpha_dyn, windows, robots, maps, tasks and controls): the map sampler
    in its window mode (bins and every payload layout x risk) and its crop
@@ -126,6 +128,27 @@ Phases (any failure exits non-zero; no error is swallowed):
    apart) against in turn (one graph a scenario), and the peak device
    memory of a batched step at chunks of 10, 30, 60 and 120.  Each figure
    is printed as a JSON line with the card's name and power limit.
+
+5. The sharded solve (``mppi_numba_tpu_torch.parallel``).  NCCL at world
+   size 1 in this process: world (a)'s solve on a (1, 1, 1) mesh through
+   the sharded entry point, bit for bit with the single ``TerrainSolver``
+   from the same generator state, both eager and timed in turns (what
+   the sharding code costs at one rank), its launches counted.  Then
+   ``SHARDED_RANKS`` gloo ranks spawned on the one card (the kernels built
+   by this process), each at full width: world (a) on meshes (1, 4, 1),
+   (1, 2, 2) and (2, 2, 1) with 4 scenarios and the run-time-alpha solve
+   at (1, 2, 2), world (k) (the big map's 85x85 window, 4-bit cells: the
+   crop with an m offset) at (1, 2, 2) and world (d) (det_dyn, M = 1:
+   replicated over m) at (1, 4, 1), each rank's u within rtol 2e-4 /
+   atol 2e-5 of the single solve of the same draws and its gathered
+   payload bit for bit the unsharded launch's rows, its ``map_sample``
+   and rollout launches counted around the solve and its collectives
+   counted against the port's design (none staged through the host);
+   and ``make_sharded_trial_batch`` on 8 noisy_dyn episodes of world (l)
+   against ``make_device_trial_batch`` on the same episodes (steps and
+   success exact, cum_obj within rtol 1e-4).  Each figure is a JSON line
+   with the card's name and power limit; the 4-rank times are labelled
+   "4 ranks sharing one card: not a scaling figure".
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -983,6 +1006,18 @@ def main():
         timed = res_crop.pop("timed_args")
         if name == "main_path_85x85_of_250x250":
             crop_timed_args = timed
+    # The crop mode's M slices, as the sharded solve draws them: rows [a,
+    # b) of an M-row draw at m_offset = a (world (k)'s rank at (k, m) = (0,
+    # 1) of a (1, 2, 2) mesh; a ragged slice), against the plain version
+    # and against the rows of the kernel's whole draw, bit for bit.
+    for seed, (name, H, W, rH, rW, bins, res, lim0, M, a, b) in enumerate([
+            ("m_slice_85x85_of_250x250", 250, 250, 85, 85, BIGMAP_BINS,
+             BIGMAP_RES, 0.0, 1024, 512, 768),
+            ("m_slice_13x11_of_64x48", 64, 48, 13, 11, 6, 0.3, -1.3, 8, 3,
+             7)], start=780):
+        crop_results.append(check_crop_m_slices(
+            torch, dev, cropper, cplain, name, H, W, rH, rW, bins, res, lim0,
+            M, a, b, seed))
 
     # The scenario axis: SCENARIOS scenarios (their own keys, alpha_dyn,
     # windows, robots, maps, tasks and controls) in one launch of each
@@ -1747,12 +1782,19 @@ def main():
                      and r["R"] == probe_at["R"]
                      and r["S"] == min(q["S"] for q in probe_timed.values()))
     probe_latency_bound_ms = probe_at["iters"] * l1_step_ns * 1e-6
+    # -- phase 5: the sharded solve ---------------------------------------------
+    set_counts()
+    ws1_launches = sharded_world_size_one(torch, emit)
+    sharded_multi_rank(torch, emit)
+
     print(json.dumps({"kernels": [{
         "name": "rollout_byte",
         "route": "cuda",
         "source": rollout_byte.KERNEL_SOURCE,
         "replaces": rollout_byte.REPLACES,
         "launches": totals["rollout_byte"],
+        "launches_sharded_world_size_1": ws1_launches.get(
+            "terrain_rollout_costs_byte", 0),
         "max_abs_err": flag["max_abs_err"],
         "ms": min(kernel_ms),
         "plain_ms": min(plain_ms),
@@ -1799,6 +1841,8 @@ def main():
         "source": map_sample.KERNEL_SOURCE,
         "replaces": map_sample.REPLACES,
         "launches": totals["map_sample"],
+        "launches_sharded_world_size_1": ws1_launches.get(
+            "sample_and_pack_window", 0),
         "max_abs_err": max(r["max_abs_err"]
                            for r in sample_results + fused_results),
         "ms": min(sample_runs["pack"]["graph"]),
@@ -2093,6 +2137,56 @@ def check_crop_mode(torch, dev, cropper, cplain, name, H, W, rH, rW, B_lin,
     check(len(offsets) > 2, "crop mode {}: the window did not move: {}"
           .format(name, offsets))
     return dict(res_crop, timed_args=timed)
+
+
+def check_crop_m_slices(torch, dev, cropper, cplain, name, H, W, rH, rW,
+                        bins, res, lim0, M, a, b, seed):
+    """The crop mode's rows [a, b) of an M-row draw (``m_offset = a``,
+    ``full_num_samples = M``) against its plain version and against the
+    same rows of the kernel's whole M-row draw: payload planes, grids,
+    shared words, offset and limits bit for bit, every layout x risk."""
+    key, maps, task = crop_case_inputs(torch, dev, H, W, bins, bins, res,
+                                       lim0, seed)
+    task = task._replace(x0=torch.tensor(
+        [lim0 + 0.4 * W * res, lim0 + 0.55 * H * res, 0.0], device=dev))
+    differ, err, combos = 0, 0.0, 0
+    for layout in FUSED_LAYOUTS:
+        for risk in (False, True):
+            args = (key, maps, task)
+            kw = dict(risk=risk, m_offset=a, full_num_samples=M)
+            got = cropper(*args, b - a, layout, (rH, rW), **kw)
+            want = cplain(*args, b - a, layout, (rH, rW), **kw)
+            whole = cropper(*args, M, layout, (rH, rW), risk=risk)
+            rows = flat_payload(whole)
+            # The per-sample planes and the grids are rows of the whole
+            # draw; the shared mask and risk words are the whole draw's.
+            m_axis = -3 if layout == "byte" else -2
+            rows[0] = rows[0].narrow(m_axis, a, b - a)
+            rows[-2] = rows[-2].narrow(-3, a, b - a)
+            rows[-1] = rows[-1].narrow(-3, a, b - a)
+            for other in (want, None):
+                ref = rows if other is None else flat_payload(other)
+                pairs = [(g, w) for g, w in zip(flat_payload(got), ref)
+                         if g is not None or w is not None]
+                check(all(g is not None and w is not None
+                          for g, w in pairs),
+                      "crop m slice {}: an output is missing".format(name))
+                o = whole if other is None else other
+                pairs += [(got[3].xlim0, o[3].xlim0),
+                          (got[3].ylim0, o[3].ylim0), (got[4], o[4])]
+                differ += sum(int((g.reshape(-1) != w.reshape(-1)).sum())
+                              for g, w in pairs)
+                err = max([err] + [float((g.double() - w.double()).abs()
+                                         .max()) for g, w in pairs])
+            combos += 1
+    rec = dict(case="map_sample_crop_" + name, map="{}x{}".format(H, W),
+               window=[rH, rW], bins=bins, M=M, rows=[a, b],
+               combinations=combos, entries_differing=differ,
+               max_abs_err=err)
+    print(json.dumps(rec), flush=True)
+    check(differ == 0, "crop m slice {}: {} entries differ".format(
+        name, differ))
+    return rec
 
 
 def flat_payload(out):
@@ -3240,6 +3334,468 @@ def time_solve_chains(run, torch, n, reps):
         for name, fn in fns.items()}
     out["launches_per_replay"] = fns["graph"].captured_launches
     return out
+
+
+# -- phase 5: the sharded solve -------------------------------------------------
+
+# Ranks of the multi-rank cases: processes sharing the one card, gloo
+# collectives on CUDA tensors (NCCL takes one rank a card).
+SHARDED_RANKS = 4
+# (case, world, mesh (scenario, k, m), scenarios, run-time alpha), each at
+# the world's full width: (a) the flagship, (k) the big map cropped to its
+# 85x85 window on 4-bit cells (the crop with an m offset), (d) det_dyn
+# with M = 1 (replicated over m).
+SHARDED_CASES = (
+    ("a_k4", "flagship_11x11", (1, 4, 1), 4, False),
+    ("a_k2_m2", "flagship_11x11", (1, 2, 2), 4, False),
+    ("a_s2_k2", "flagship_11x11", (2, 2, 1), 4, False),
+    ("a_dynamic_k2_m2", "flagship_11x11", (1, 2, 2), 4, True),
+    ("k_k2_m2", BIGMAP, (1, 2, 2), 2, False),
+    ("d_k4", "forest_140x84_det_dyn", (1, 4, 1), 2, False),
+)
+SHARDED_SOLVES = 5          # timed solves a case, after one untimed
+WS1_SOLVES = 20             # world size 1: solves of each entry, in turns
+SHARDED_SEED = 5
+# The sharded episode batch: noisy_dyn episodes of world (l).
+SHARDED_TRIAL_EPISODES, SHARDED_TRIAL_STEPS = 8, 12
+SHARDED_LABEL = "4 ranks sharing one card: not a scaling figure"
+COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "all_gather",
+               "broadcast", "reduce_scatter_tensor", "all_to_all_single",
+               "send", "recv")
+
+
+class CountedCollectives:
+    """Every ``torch.distributed`` collective made inside the block:
+    ``calls`` of ``(name, group size, tensors' device types)``."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist = dist
+        self.calls = []
+
+    def __enter__(self):
+        dist = self.dist
+        self.saved = {n: getattr(dist, n) for n in COLLECTIVES}
+
+        def wrap(name, fn):
+            def counted(*args, **kwargs):
+                size = dist.get_world_size(kwargs.get("group"))
+                kinds = sorted({a.device.type for a in args
+                                if hasattr(a, "device")})
+                self.calls.append((name, size, kinds))
+                return fn(*args, **kwargs)
+            return counted
+
+        for name, fn in self.saved.items():
+            setattr(dist, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+    def summary(self):
+        out = {}
+        for name, size, _ in self.calls:
+            key = "{}(group of {})".format(name, size)
+            out[key] = out.get(key, 0) + 1
+        return out
+
+    def staged(self):
+        """Collectives handed anything but CUDA tensors (none: the port
+        stages nothing through the host)."""
+        return sorted({name for name, _, kinds in self.calls
+                       if kinds != ["cuda"]})
+
+
+def sharded_case_inputs(torch, world, S, dynamic):
+    """A world's full-width solve, batched over S scenarios (its maps;
+    each scenario its own start): ``(static, maps, task, u0)`` on the
+    card."""
+    from mppi_numba_tpu_torch.solver import DYNAMIC_CVAR
+
+    planner, _, _ = setup_world(world)
+    static = planner._static()
+    maps, task = planner._map_inputs(), planner._task_device
+    if dynamic:
+        static = dataclasses.replace(static, cvar_numel=DYNAMIC_CVAR)
+        task = task._replace(cvar_alpha=torch.tensor(0.2, device="cuda"))
+
+    def batch(t):
+        return None if t is None else t.expand(
+            (S,) + tuple(t.shape)).clone()
+
+    maps = type(maps)(*(batch(t) for t in maps))
+    task = type(task)(*(batch(t) for t in task))
+    shift = torch.tensor([[0.2 * s, 0.1 * s, 0.0] for s in range(S)],
+                         device="cuda")
+    task = task._replace(x0=task.x0 + shift)
+    u0 = torch.zeros((S, static.num_steps, 2), device="cuda")
+    return static, maps, task, u0
+
+
+def unsharded_payload(torch, static, maps, task, seed):
+    """The per-sample payload planes of the single solve's map draw (one
+    launch of all M rows) from a generator of ``seed``."""
+    from mppi_numba_tpu_torch.ops.kernels import map_sample
+    from mppi_numba_tpu_torch.solver import draw_solve, make_rollout_backend
+
+    _, layout, _, _ = make_rollout_backend(static, "cuda")
+    keys, _ = draw_solve(torch.Generator(device="cuda").manual_seed(seed),
+                         static, "cuda", (task.x0.shape[0],))
+    risk = static.mode == "speed_map"
+    M = static.num_grid_samples
+    if static.roi_shape:
+        packed = map_sample.sample_and_pack_crop(
+            keys, maps, task, M, layout, static.roi_shape, risk=risk)[0]
+    else:
+        packed = map_sample.sample_and_pack_window(
+            keys, maps, task.alpha_dyn, M, layout, risk=risk)[0]
+    return packed[0] if isinstance(packed, tuple) else packed
+
+
+def cpu_tree(t):
+    """A tensor, or a NamedTuple of tensors and Nones, copied to the host."""
+    if hasattr(t, "_replace"):
+        return type(t)(*(cpu_tree(f) for f in t))
+    return None if t is None else t.cpu()
+
+
+def cuda_tree(t):
+    """A tensor, or a NamedTuple of tensors and Nones, copied to the card."""
+    if hasattr(t, "_replace"):
+        return type(t)(*(cuda_tree(f) for f in t))
+    return None if t is None else t.cuda()
+
+
+def time_host(torch, fn, n):
+    """Host-clock ms of each of ``n`` calls of ``fn``, each ended by a
+    synchronize."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def sharded_world_size_one(torch, emit):
+    """NCCL at world size 1, in this process: world (a)'s solve on a (1,
+    1, 1) mesh through the sharded entry point against the single
+    ``TerrainSolver`` from the same generator state, bit for bit, both
+    eager, timed in turns.  Returns the sharded run's launch counts."""
+    import socket
+
+    import torch.distributed as dist
+    from mppi_numba_tpu_torch.graphs import counted_wrappers
+    from mppi_numba_tpu_torch.parallel import multihost
+    from mppi_numba_tpu_torch.parallel.mesh import make_mesh
+    from mppi_numba_tpu_torch.parallel.sharded import (
+        get_sharded_terrain_solver)
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize("tcp://localhost:{}".format(port), 1, 0)
+    try:
+        check(dist.get_backend() == "nccl", "world size 1: backend {}".format(
+            dist.get_backend()))
+        static, maps, task, u0 = sharded_case_inputs(
+            torch, "flagship_11x11", 1, False)
+        mesh = make_mesh(1, 1, num_map_shards=1)
+        sharded = get_sharded_terrain_solver(static, mesh)
+        single = get_terrain_solver(static, "cuda")
+        gen = lambda: torch.Generator(device="cuda").manual_seed(  # noqa: E731
+            SHARDED_SEED)
+        wrappers = counted_wrappers()
+        for w in wrappers:
+            w.launches = 0
+        with CountedCollectives() as coll:
+            u_sh, costs_sh = sharded(gen(), maps, task, u0)
+            torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in wrappers if w.launches}
+        u_one, aux = single(gen(), maps, task, u0)
+        torch.cuda.synchronize()
+        same = torch.equal(u_sh, u_one) and torch.equal(costs_sh, aux.costs)
+        check(same, "world size 1: the sharded solve differs from the single "
+              "solve: max |du| {}".format(float((u_sh - u_one).abs().max())))
+        check(launches.get("sample_and_pack_window") == 1
+              and launches.get("terrain_rollout_costs_byte")
+              == static.num_opt, "world size 1 launches: {}".format(
+                  launches))
+        times = {"sharded": [], "single": []}
+        for _ in range(WS1_SOLVES):
+            times["sharded"] += time_host(
+                torch, lambda: sharded(gen(), maps, task, u0), 1)
+            times["single"] += time_host(
+                torch, lambda: single(gen(), maps, task, u0), 1)
+        emit("sharded_world_size_1_solve_ms", min(times["sharded"]), "ms",
+             single_solve_ms=min(times["single"]),
+             sharded_median_ms=float(np.median(times["sharded"])),
+             single_median_ms=float(np.median(times["single"])),
+             sharded_all_ms=times["sharded"], single_all_ms=times["single"],
+             backend=dist.get_backend(), mesh=[1, 1, 1],
+             world="flagship_11x11",
+             bitwise_equal=same, collectives=coll.summary(),
+             staged_through_host=coll.staged(), launches=launches,
+             timing="host clock, eager solves, in turns, {} each".format(
+                 WS1_SOLVES))
+        check(not coll.staged(), "world size 1: collectives on host "
+              "tensors: {}".format(coll.staged()))
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def expected_collectives(static, mesh):
+    """The collectives one sharded solve makes by the port's design,
+    ``{"name(group of n)": count}`` (``parallel/sharded.py``)."""
+    _, n_k, n_m = mesh
+    M, it = static.num_grid_samples, static.num_opt
+    n_m = n_m if M % n_m == 0 else 1
+    want = {}
+
+    def add(name, size, n):
+        key = "{}(group of {})".format(name, size)
+        want[key] = want.get(key, 0) + n
+
+    add("all_reduce", n_k, 3 * it)
+    if n_k > 1 and (M // n_m) % n_k == 0:
+        add("all_gather_into_tensor", n_k, 1)
+    if n_m > 1:
+        add("all_reduce" if static.cvar_numel >= M
+            else "all_gather_into_tensor", n_m, it)
+    return want
+
+
+def sharded_multi_rank(torch, emit):
+    """The multi-rank cases: ``SHARDED_RANKS`` gloo ranks spawned on the
+    one card, the kernels already built by this process.  Each case's
+    single-card solve (and the unsharded draw's payload) is computed here
+    and every rank holds its shard against it; the sharded episode batch
+    against ``make_device_trial_batch`` on the same episodes.  A rank that
+    fails or hangs (the process group's timeout) fails the smoke."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from mppi_numba_tpu_torch import device_sim
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+
+    jobs, inputs = [], {}
+    for case, world, mesh, S, dynamic in SHARDED_CASES:
+        key = (world, S, dynamic)
+        if key not in inputs:
+            inputs[key] = sharded_case_inputs(torch, world, S, dynamic)
+        static, maps, task, u0 = inputs[key]
+        u, aux = get_terrain_solver(static, "cuda")(
+            torch.Generator(device="cuda").manual_seed(SHARDED_SEED), maps,
+            task, u0)
+        jobs.append(dict(
+            kind="solve", case=case, world=world, mesh=mesh, static=static,
+            maps=cpu_tree(maps), task=cpu_tree(task), u0=u0.cpu(),
+            seed=SHARDED_SEED, u=u.cpu(), costs=aux.costs.cpu(),
+            payload=unsharded_payload(torch, static, maps, task,
+                                      SHARDED_SEED).cpu()))
+    static, maps, task, gt = sweep_chunk("noisy_dyn", SHARDED_TRIAL_EPISODES)
+    want = device_sim.make_device_trial_batch(static, SHARDED_TRIAL_STEPS)(
+        torch.Generator(device="cuda").manual_seed(SHARDED_SEED), maps, task,
+        *gt)
+    jobs.append(dict(kind="trial", case="l_trial_batch", mesh=(2, 2, 1),
+                     static=static, maps=cpu_tree(maps), task=cpu_tree(task),
+                     gt=tuple(g.cpu() for g in gt),
+                     steps=SHARDED_TRIAL_STEPS, seed=SHARDED_SEED,
+                     want=cpu_tree(want)))
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs_path = tmp + "/jobs.pkl"
+        with open(jobs_path, "wb") as f:
+            pickle.dump(jobs, f)
+        t0 = time.perf_counter()
+        mp.spawn(sharded_rank, args=(SHARDED_RANKS, tmp + "/store",
+                                     jobs_path, tmp),
+                 nprocs=SHARDED_RANKS, join=True)
+        spawn_s = time.perf_counter() - t0
+        records = []
+        for rank in range(SHARDED_RANKS):
+            with open("{}/rank{}.pkl".format(tmp, rank), "rb") as f:
+                records += pickle.load(f)
+    by_case = {}
+    for rec in records:
+        by_case.setdefault(rec["case"], []).append(rec)
+    for job in jobs:
+        recs = by_case[job["case"]]
+        check(len(recs) == SHARDED_RANKS, "{}: {} ranks reported".format(
+            job["case"], len(recs)))
+        staged = sorted({n for r in recs for n in r["staged"]})
+        check(not staged, "{}: collectives staged through the host: "
+              "{}".format(job["case"], staged))
+        s = job["static"]
+        rollout = sum(n for w, n in recs[0]["launches"].items()
+                      if w.startswith("terrain_rollout"))
+        sampled = sum(n for w, n in recs[0]["launches"].items()
+                      if w.startswith("sample_and_pack"))
+        if job["kind"] == "trial":
+            for r in recs:
+                check(r["steps_equal"] and r["success_equal"]
+                      and r["cum_obj_rel_err"] <= 1e-4,
+                      "sharded trial batch rank {}: steps {} success {} "
+                      "cum_obj rel err {}".format(
+                          r["rank"], r["steps_equal"], r["success_equal"],
+                          r["cum_obj_rel_err"]))
+                steps = r["steps_run"]
+                ms_ = sum(n for w, n in r["launches"].items()
+                          if w.startswith("sample_and_pack"))
+                ro_ = sum(n for w, n in r["launches"].items()
+                          if w.startswith("terrain_rollout"))
+                check(steps > 0 and ms_ == steps
+                      and ro_ == steps * s.num_opt,
+                      "sharded trial batch rank {}: {} steps, launches "
+                      "{}".format(r["rank"], steps, r["launches"]))
+            emit("sharded_trial_batch_ms", max(r["ms"] for r in recs), "ms",
+                 label=SHARDED_LABEL, mesh=list(job["mesh"]),
+                 episodes=SHARDED_TRIAL_EPISODES,
+                 max_steps=SHARDED_TRIAL_STEPS, world="l (noisy_dyn)",
+                 steps_run=[r["steps_run"] for r in recs],
+                 captures=[r["captures"] for r in recs],
+                 launches=[r["launches"] for r in recs],
+                 collectives=recs[0]["collectives"], staged_through_host=[],
+                 steps_success_exact=True,
+                 cum_obj_max_rel_err=max(r["cum_obj_rel_err"] for r in recs),
+                 timing="host clock, the whole batch on every rank")
+            continue
+        want_coll = expected_collectives(s, job["mesh"])
+        for r in recs:
+            check(r["u_within_tol"], "{} rank {}: u off the single solve "
+                  "by {}".format(job["case"], r["rank"], r["u_max_abs_err"]))
+            check(r["payload_bitwise"], "{} rank {}: the gathered payload "
+                  "differs from the unsharded draw".format(job["case"],
+                                                           r["rank"]))
+            check(r["collectives"] == want_coll, "{} rank {}: collectives "
+                  "{}, expected {}".format(job["case"], r["rank"],
+                                           r["collectives"], want_coll))
+            check(r["launches"] == recs[0]["launches"],
+                  "{}: launches differ between ranks".format(job["case"]))
+        check(sampled == 1 and rollout == s.num_opt,
+              "{}: launches {}".format(job["case"], recs[0]["launches"]))
+        emit("sharded_solve_ms", min(recs[0]["ms"]), "ms",
+             label=SHARDED_LABEL, case=job["case"], world=job["world"],
+             mesh=list(job["mesh"]), scenarios=job["u0"].shape[0],
+             K=s.num_control_rollouts, M=s.num_grid_samples, T=s.num_steps,
+             backend=get_terrain_solver(s, "cuda").backend,
+             ms_by_rank=[min(r["ms"]) for r in recs],
+             median_ms_by_rank=[float(np.median(r["ms"])) for r in recs],
+             u_max_abs_err=max(r["u_max_abs_err"] for r in recs),
+             costs_max_abs_err=max(r["costs_max_abs_err"] for r in recs),
+             payload_bitwise=True,
+             payload_shape_by_rank=[r["payload_shape"] for r in recs],
+             launches_per_rank=recs[0]["launches"],
+             collectives_per_solve=recs[0]["collectives"],
+             staged_through_host=[],
+             timing="host clock, eager solves, min of {}".format(
+                 SHARDED_SOLVES))
+    emit("sharded_phase_spawn_to_exit_s", spawn_s, "s", label=SHARDED_LABEL,
+         ranks=SHARDED_RANKS, backend="gloo (CUDA tensors)")
+
+
+def sharded_rank(rank, world, store, jobs_path, out_dir):
+    """One rank of the multi-rank phase (spawned): every case's sharded
+    solve and the sharded episode batch, each checked against the
+    parent's single-card results; writes its records."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from mppi_numba_tpu_torch.graphs import counted_wrappers
+    from mppi_numba_tpu_torch.parallel import multihost
+    from mppi_numba_tpu_torch.parallel.mesh import make_mesh
+    from mppi_numba_tpu_torch.parallel.sharded import (
+        get_sharded_terrain_solver, make_sharded_trial_batch)
+    from mppi_numba_tpu_torch.solver import draw_solve
+
+    torch.set_num_threads(1)
+    multihost.initialize("file://" + store, world, rank, backend="gloo")
+    try:
+        with open(jobs_path, "rb") as f:
+            jobs = pickle.load(f)
+        meshes = {}
+        wrappers = counted_wrappers()
+        records = []
+        for job in jobs:
+            shape = job["mesh"]
+            if shape not in meshes:
+                meshes[shape] = make_mesh(shape[0], shape[1],
+                                          num_map_shards=shape[2])
+            mesh = meshes[shape]
+            static = job["static"]
+            for w in wrappers:
+                w.launches = 0
+            if job["kind"] == "trial":
+                batch = make_sharded_trial_batch(static, job["steps"], mesh)
+                with CountedCollectives() as coll:
+                    t0 = time.perf_counter()
+                    res = batch(torch.Generator(device="cuda").manual_seed(
+                        job["seed"]), cuda_tree(job["maps"]),
+                        cuda_tree(job["task"]),
+                        *(g.cuda() for g in job["gt"]))
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                want = job["want"]
+                records.append(dict(
+                    case=job["case"], rank=rank, ms=ms,
+                    steps_equal=torch.equal(res.steps.cpu(), want.steps),
+                    success_equal=torch.equal(res.success.cpu(),
+                                              want.success),
+                    cum_obj_rel_err=float(((res.cum_obj.cpu() - want.cum_obj)
+                                           / want.cum_obj).abs().max()),
+                    steps_run=batch.engine.steps_run,
+                    captures=batch.engine.captures,
+                    launches={w.__name__: w.launches for w in wrappers
+                              if w.launches},
+                    collectives=coll.summary(), staged=coll.staged()))
+                continue
+            solver = get_sharded_terrain_solver(static, mesh)
+            S = job["u0"].shape[0]
+            s_local = S // shape[0]
+            rows = slice(solver.my_s * s_local, (solver.my_s + 1) * s_local)
+            maps, task = (cuda_tree(type(t)(*(
+                None if f is None else f[rows] for f in t)))
+                for t in (job["maps"], job["task"]))
+            u0 = job["u0"][rows].cuda()
+            gen = lambda: torch.Generator(device="cuda").manual_seed(  # noqa: E731
+                job["seed"])
+            # The main path: counts set to 0 just before, read just after.
+            with CountedCollectives() as coll:
+                u, costs = solver(gen(), maps, task, u0)
+                torch.cuda.synchronize()
+            launches = {w.__name__: w.launches for w in wrappers
+                        if w.launches}
+            keys, _ = draw_solve(gen(), static, "cuda", (S,))
+            packed, _ = solver.sample_payload(keys, maps, task)
+            planes = packed[0] if isinstance(packed, tuple) else packed
+            want_planes = job["payload"][rows, solver.m_slice]
+            ks = slice(solver.k0, solver.k0 + solver.k_local)
+            u_err = (u.cpu() - job["u"][rows]).abs()
+            u_ok = bool((u_err <= 2e-5 + 2e-4 * job["u"][rows].abs()).all())
+            ms = time_host(torch, lambda: solver(gen(), maps, task, u0),
+                           SHARDED_SOLVES)
+            records.append(dict(
+                case=job["case"], rank=rank, mesh=list(shape),
+                u_within_tol=u_ok, u_max_abs_err=float(u_err.max()),
+                costs_max_abs_err=float((costs.cpu() - job["costs"][rows, ks])
+                                        .abs().max()),
+                payload_bitwise=torch.equal(planes.cpu(), want_planes),
+                payload_shape=list(planes.shape),
+                launches=launches, collectives=coll.summary(),
+                staged=coll.staged(), ms=ms))
+        with open("{}/rank{}.pkl".format(out_dir, rank), "wb") as f:
+            pickle.dump(records, f)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

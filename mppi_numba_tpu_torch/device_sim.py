@@ -32,7 +32,7 @@ import torch
 
 from .config import SolverStatic
 from .graphs import Captured
-from .solver import get_terrain_solver
+from .solver import draw_solve, get_terrain_solver
 
 # Replays between two reads of ``reached`` on the host.
 CHUNK_STEPS = 10
@@ -151,15 +151,14 @@ class _Graphed:
     its inputs: one capture serves every run on the same generator and
     shapes (the chunks of a sweep, its alpha values)."""
 
-    def __init__(self, solver, generator, maps, task, gt, num_steps):
+    def __init__(self, solve, generator, maps, task, gt, num_steps):
         self.generator = generator
         self.maps = type(maps)(*(t.clone() for t in maps))
         self.task = type(task)(*(None if t is None else t.clone()
                                  for t in task))
         self.gt = tuple(t.clone() for t in gt)
         self.ep = _Episodes(self.task.x0, num_steps)
-        step_core = _make_step_core(
-            lambda m, tk, u: solver(generator, m, tk, u))
+        step_core = _make_step_core(solve)
 
         def one_step():
             self.ep.step(step_core, self.maps, self.task, self.gt)
@@ -191,15 +190,42 @@ class _Engine:
     """A batch of closed-loop episodes (``make_device_trial_batch``);
     ``early_exit`` stops once every episode has reached its goal (read on
     the host once a chunk of replays, or once a step when eager): the
-    masked steps after that change nothing."""
+    masked steps after that change nothing.
 
-    def __init__(self, static, max_steps, early_exit):
+    ``shard=(index, count)``: the episodes given are slice ``index`` of
+    ``count`` equal slices of a larger batch (``parallel.sharded``), whose
+    draws each step makes, keeping the slice's rows: the slice's episodes
+    then run as they do in the whole batch."""
+
+    def __init__(self, static, max_steps, early_exit, shard=None):
         self.static = static
         self.max_steps = max_steps
         self.early_exit = early_exit
+        self.shard = shard
         self._graphed = None
         self.steps_run = 0      # steps the last run stepped (host count)
         self.captures = 0       # graphs captured by this engine
+
+    def _slice(self, b):
+        """The rows of a ``b``-episode slice in the whole batch, and its
+        size."""
+        index, count = self.shard or (0, 1)
+        return slice(index * b, (index + 1) * b), b * count
+
+    def _generator_solve(self, solver, generator):
+        """``solve(maps, task, u)`` drawing from ``generator``."""
+        if self.shard is None:
+            return lambda m, tk, u: solver(generator, m, tk, u)
+
+        def solve(m, tk, u):
+            rows, n = self._slice(u.shape[0])
+            map_keys, eps_list = draw_solve(generator, self.static, u.device,
+                                            (n,))
+            return solver.solve_from_key(map_keys[rows],
+                                         [e[rows] for e in eps_list], m, tk,
+                                         u)
+
+        return solve
 
     def __call__(self, draws, maps, task, gt_lin, gt_ang, gt_meta):
         dev = maps.lin_pmf.device
@@ -209,20 +235,26 @@ class _Engine:
         if graphed:
             g = self._graphed
             if g is None or not g.fits(draws, maps, task, gt):
-                g = self._graphed = _Graphed(solver, draws, maps, task, gt,
-                                             self.static.num_steps)
+                g = self._graphed = _Graphed(
+                    self._generator_solve(solver, draws), draws, maps, task,
+                    gt, self.static.num_steps)
                 self.captures += 1
             g.load(maps, task, gt)
             ep, task, one_step = g.ep, g.task, g.call.replay
         else:
             ep = _Episodes(task.x0, self.static.num_steps)
             t_box = [0]            # the step a callable's draws are for
-
-            def solve(m, tk, u):
-                if isinstance(draws, torch.Generator):
-                    return solver(draws, m, tk, u)
-                map_keys, eps_list = draws(t_box[0])
-                return solver.solve_from_key(map_keys, eps_list, m, tk, u)
+            if isinstance(draws, torch.Generator):
+                solve = self._generator_solve(solver, draws)
+            else:
+                def solve(m, tk, u):
+                    map_keys, eps_list = draws(t_box[0])
+                    if self.shard is not None:
+                        rows, _ = self._slice(u.shape[0])
+                        map_keys = map_keys[rows]
+                        eps_list = [e[rows] for e in eps_list]
+                    return solver.solve_from_key(map_keys, eps_list, m, tk,
+                                                 u)
 
             step_core = _make_step_core(solve)
 

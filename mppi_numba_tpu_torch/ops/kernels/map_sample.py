@@ -103,20 +103,24 @@ def sample_and_pack_window_plain(key, maps, alpha_dyn, num_samples, layout,
 
 
 def sample_and_pack_crop_plain(key, maps, task, num_samples, layout,
-                               roi_shape, risk=False):
+                               roi_shape, risk=False, m_offset=0,
+                               full_num_samples=None):
     """Plain PyTorch version of the kernel's crop mode:
     ``roi.crop_window_plain``, then ``sample_and_pack_window_plain`` at
     the window.  Arguments and result as for ``sample_and_pack_crop``."""
     if key.dim() == 2:
         return per_scenario(sample_and_pack_crop_plain,
                             (key, maps, task, num_samples, layout,
-                             roi_shape), dict(risk=risk))
+                             roi_shape),
+                            dict(risk=risk, m_offset=m_offset,
+                                 full_num_samples=full_num_samples))
     map_shape = tuple(maps.obstacle.shape)
     cmaps, ctask, offset = crop_window_plain(maps, task, map_shape,
                                              roi_shape)
     payload, lin_grids, ang_grids = sample_and_pack_window_plain(
         key, cmaps, task.alpha_dyn, num_samples, layout,
-        window=(map_shape, offset[0], offset[1]), risk=risk)
+        window=(map_shape, offset[0], offset[1]), risk=risk,
+        m_offset=m_offset, full_num_samples=full_num_samples)
     return payload, lin_grids, ang_grids, ctask, offset
 
 
@@ -394,12 +398,14 @@ sample_and_pack_window.launches = 0
 
 
 def sample_and_pack_crop(key, maps, task, num_samples, layout, roi_shape,
-                         risk=False):
+                         risk=False, m_offset=0, full_num_samples=None):
     """``sample_and_pack_window`` on the reachable window around the robot,
     the crop done in the same launch.
 
     Args:
-      key, num_samples, layout, risk: as for ``sample_and_pack_window``.
+      key, num_samples, layout, risk, m_offset, full_num_samples: as for
+        ``sample_and_pack_window`` (rows ``[m_offset, m_offset +
+        num_samples)`` of a ``full_num_samples``-row draw).
       maps: ``MapInputs`` of the whole (H, W) map.
       task: ``TerrainTask`` on the maps' device: its x0, xlim0, ylim0 and
         res place the window (``roi.roi_start``), alpha_dyn the draw.
@@ -426,10 +432,12 @@ def sample_and_pack_crop(key, maps, task, num_samples, layout, roi_shape,
         raise ValueError("map_sample: unknown payload layout {!r}".format(
             layout))
     if not maps.lin_pmf.is_cuda:
-        return sample_and_pack_crop_plain(key, maps, task, num_samples,
-                                          layout, roi_shape, risk=risk)
+        return sample_and_pack_crop_plain(
+            key, maps, task, num_samples, layout, roi_shape, risk=risk,
+            m_offset=m_offset, full_num_samples=full_num_samples)
     out = _launch(layout, key, maps.lin_pmf, maps.ang_pmf, maps.lin_qbins,
-                  maps.ang_qbins, task.alpha_dyn, num_samples, None, 0, None,
+                  maps.ang_qbins, task.alpha_dyn, num_samples, None,
+                  m_offset, full_num_samples,
                   masks=(maps.obstacle, maps.unknown),
                   risk_map=maps.risk if risk else None,
                   crop=(task, tuple(roi_shape)))

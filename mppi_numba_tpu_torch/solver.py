@@ -159,6 +159,30 @@ def make_rollout_backend(static: SolverStatic, device):
     return backend, layout, finish, rollout
 
 
+def check_bins(backend, maps):
+    """A 2- or 4-bit cell holds at most 4 or 16 bins a plane."""
+    cell_bits = CELL_BITS.get(backend)
+    bins = max(maps.lin_pmf.shape[-3], maps.ang_pmf.shape[-3])
+    if cell_bits in (2, 4) and bins > MAX_BINS[cell_bits]:
+        raise ValueError(
+            "backend {!r} holds at most {} PMF bins; the maps have {} "
+            "(set SolverStatic.num_pmf_bins for 'auto' routing)".format(
+                backend, MAX_BINS[cell_bits], bins))
+
+
+def draw_solve(generator, static: SolverStatic, device, lead=()):
+    """One terrain solve's draws from ``generator``, in the order the solve
+    makes them: the map key ``lead + (2,)`` (``draw_map_key``), then
+    ``num_opt`` standard normal noise tensors ``lead + (K, T, 2)``."""
+    map_key = draw_map_key(generator, device, lead)
+    eps_list = [torch.randn(lead + (static.num_control_rollouts,
+                                    static.num_steps, 2),
+                            generator=generator, device=device,
+                            dtype=torch.float32)
+                for _ in range(static.num_opt)]
+    return map_key, eps_list
+
+
 class TerrainSolver:
     """The terrain solve for one ``SolverStatic`` on one device."""
 
@@ -179,14 +203,8 @@ class TerrainSolver:
         map keys ``(B, 2)`` and the noise ``(B, K, T, 2)``, and returns
         ``u_new (B, T, 2)`` and a ``SolveAux`` of batched fields.
         """
-        s = self.static
-        lead = tuple(u0.shape[:-2])
-        map_key = draw_map_key(generator, self.device, lead)
-        eps_list = [torch.randn(lead + (s.num_control_rollouts, s.num_steps,
-                                        2),
-                                generator=generator, device=self.device,
-                                dtype=torch.float32)
-                    for _ in range(s.num_opt)]
+        map_key, eps_list = draw_solve(generator, self.static, self.device,
+                                       tuple(u0.shape[:-2]))
         return self.solve_from_key(map_key, eps_list, maps, task, u0)
 
     def capture(self, generator, maps, task, u0):
@@ -194,16 +212,6 @@ class TerrainSolver:
         ``SolveGraph``, called as the solver is."""
         return SolveGraph(self, generator, maps, task, u0)
 
-
-    def _check_bins(self, maps):
-        """A 2- or 4-bit cell holds at most 4 or 16 bins a plane."""
-        cell_bits = CELL_BITS.get(self.backend)
-        bins = max(maps.lin_pmf.shape[-3], maps.ang_pmf.shape[-3])
-        if cell_bits in (2, 4) and bins > MAX_BINS[cell_bits]:
-            raise ValueError(
-                "backend {!r} holds at most {} PMF bins; the maps have {} "
-                "(set SolverStatic.num_pmf_bins for 'auto' routing)".format(
-                    self.backend, MAX_BINS[cell_bits], bins))
 
     def solve_from_key(self, map_key, eps_list, maps, task, u0):
         """The solve after the draws of the map key and the noise.
@@ -228,7 +236,7 @@ class TerrainSolver:
         shifted task (one kernel launch on the card either way).
         """
         s = self.static
-        self._check_bins(maps)
+        check_bins(self.backend, maps)
         risk = s.mode == "speed_map"
         if s.roi_shape:
             packed, lin_grids, ang_grids, task, offset = sample_and_pack_crop(
@@ -253,7 +261,7 @@ class TerrainSolver:
         leading scenario axis).
         """
         s = self.static
-        self._check_bins(maps)
+        check_bins(self.backend, maps)
         offset = None
         if s.roi_shape:
             maps, task, offset = crop_window_plain(maps, task, s.map_shape,

@@ -116,8 +116,17 @@ _CPU_SOLVE = textwrap.dedent("""
                  "mppi_numba_tpu_torch.visualization",
                  "mppi_numba_tpu_torch.checkpoint",
                  "mppi_numba_tpu_torch.utils",
-                 "mppi_numba_tpu_torch.utils.angles"):
+                 "mppi_numba_tpu_torch.utils.angles",
+                 "mppi_numba_tpu_torch.parallel",
+                 "mppi_numba_tpu_torch.parallel.collectives",
+                 "mppi_numba_tpu_torch.parallel.mesh",
+                 "mppi_numba_tpu_torch.parallel.sharded",
+                 "mppi_numba_tpu_torch.parallel.multihost"):
         assert name in names, name
+    # The parallel modules, imported by name as well as by the walk above.
+    from mppi_numba_tpu_torch.parallel import mesh, multihost, sharded
+    assert sharded.get_sharded_terrain_solver and multihost.initialize
+    assert mesh.make_mesh
     import chip_smoke
     # Nothing of JAX, of the JAX package, or of scripts/ (whose modules
     # import as top-level names: gather_probe, _bench_common, ...).

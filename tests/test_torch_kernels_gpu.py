@@ -1333,3 +1333,108 @@ def test_batched_solve_graph_equals_eager_on_card():
         assert torch.equal(u_g, u_e)
         for name in aux_e._fields:
             assert torch.equal(getattr(aux_g, name), getattr(aux_e, name))
+
+
+@pytest.mark.parametrize("layout", ["byte", "binned2", "binned", "binned8"])
+def test_map_sample_crop_m_slices_match_plain_on_card(layout):
+    """The crop mode's rows [a, b) of an M-row draw (``m_offset = a``, the
+    sharded solve's draw) against its plain version and against the same
+    rows of the kernel's whole draw, bit for bit, with and without the
+    risk plane."""
+    dev = _cuda_or_skip()
+    bins = 4
+    maps, task = _crop_inputs(dev, 250, 250, bins, bins, 0.5, 0.0)
+    task = task._replace(x0=torch.tensor([61.3, 70.9, 0.3], device=dev))
+    key = torch.tensor([7, 2 ** 32 - 9], dtype=torch.int64, device=dev)
+    M, a, b = 64, 16, 48
+    m_axis = -3 if layout == "byte" else -2
+    for risk in (False, True):
+        kw = dict(risk=risk, m_offset=a, full_num_samples=M)
+        got = map_sample.sample_and_pack_crop(key, maps, task, b - a, layout,
+                                              (85, 85), **kw)
+        want = map_sample.sample_and_pack_crop_plain(
+            key, maps, task, b - a, layout, (85, 85), **kw)
+        whole = map_sample.sample_and_pack_crop(key, maps, task, M, layout,
+                                                (85, 85), risk=risk)
+        for g, w in zip(_flat_outputs(got[:3]), _flat_outputs(want[:3])):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert torch.equal(g, w), (risk, int((g != w).sum()))
+        g_planes = got[0] if isinstance(got[0], tuple) else (got[0],)
+        w_planes = whole[0] if isinstance(whole[0], tuple) else (whole[0],)
+        assert torch.equal(g_planes[0], w_planes[0].narrow(m_axis, a, b - a))
+        for g, w in zip(g_planes[1:], w_planes[1:]):
+            assert (g is None and w is None) or torch.equal(g, w)
+        assert torch.equal(got[1], whole[1].narrow(-3, a, b - a))
+        assert torch.equal(got[4], whole[4])
+
+
+def _one_rank_group(tmp_path):
+    """A process group of this process alone (NCCL, the default on a
+    card) and its (1, 1, 1) mesh."""
+    from mppi_numba_tpu_torch.parallel import multihost
+    from mppi_numba_tpu_torch.parallel.mesh import make_mesh
+
+    multihost.initialize("file://{}".format(tmp_path / "store"), 1, 0)
+    return make_mesh(1, 1, num_map_shards=1)
+
+
+def test_sharded_solve_one_rank_equals_single_on_card(tmp_path):
+    """The sharded solve of 4 sweep episodes (noisy_dyn, K = 512, M = 256)
+    on a one-rank NCCL mesh equals the single batched solve from a
+    generator of the same seed bit for bit, in one map_sample launch and
+    one rollout launch an iteration, its payload the single draw's."""
+    import torch.distributed as dist
+    from mppi_numba_tpu_torch.parallel.sharded import (
+        get_sharded_terrain_solver)
+    from mppi_numba_tpu_torch.solver import draw_solve, get_terrain_solver
+
+    dev = _cuda_or_skip()
+    static, maps, task, _ = _sweep_chunk(dev, "noisy_dyn", 4, K=512, M=256)
+    mesh = _one_rank_group(tmp_path)
+    try:
+        sharded = get_sharded_terrain_solver(static, mesh)
+        u0 = torch.zeros((4, static.num_steps, 2), device=dev) + 0.2
+        before = (map_sample.sample_and_pack_window.launches,
+                  rollout_byte.terrain_rollout_costs_byte.launches)
+        u_s, costs_s = sharded(torch.Generator(device=dev).manual_seed(3),
+                               maps, task, u0)
+        assert (map_sample.sample_and_pack_window.launches - before[0],
+                rollout_byte.terrain_rollout_costs_byte.launches
+                - before[1]) == (1, static.num_opt)
+        u_1, aux = get_terrain_solver(static, dev)(
+            torch.Generator(device=dev).manual_seed(3), maps, task, u0)
+        assert torch.equal(u_s, u_1) and torch.equal(costs_s, aux.costs)
+        keys, _ = draw_solve(torch.Generator(device=dev).manual_seed(3),
+                             static, dev, (4,))
+        packed, _ = sharded.sample_payload(keys, maps, task)
+        want = map_sample.sample_and_pack_window(
+            keys, maps, task.alpha_dyn, static.num_grid_samples, "byte")[0]
+        assert torch.equal(packed, want)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_trial_batch_one_rank_equals_local_on_card(tmp_path):
+    """``make_sharded_trial_batch`` on a one-rank mesh (its engine replays
+    one CUDA graph a step of the whole batch's draws) against
+    ``make_device_trial_batch`` on the same 4 episodes and seed: every
+    metric bit for bit."""
+    import torch.distributed as dist
+    from mppi_numba_tpu_torch.device_sim import make_device_trial_batch
+    from mppi_numba_tpu_torch.parallel.sharded import make_sharded_trial_batch
+
+    dev = _cuda_or_skip()
+    static, maps, task, gt = _sweep_chunk(dev, "noisy_dyn", 4, K=512, M=256)
+    mesh = _one_rank_group(tmp_path)
+    try:
+        batch = make_sharded_trial_batch(static, 12, mesh)
+        got = batch(torch.Generator(device=dev).manual_seed(5), maps, task,
+                    *gt)
+        assert batch.engine.captures == 1 and batch.engine.steps_run > 0
+        want = make_device_trial_batch(static, 12)(
+            torch.Generator(device=dev).manual_seed(5), maps, task, *gt)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    finally:
+        dist.destroy_process_group()
