@@ -37,16 +37,18 @@ def time_cuda(fn, reps, warmup):
     return start.elapsed_time(end) / reps
 
 
-def time_cuda_graph(fn, reps, warmup):
+def time_cuda_graph(fn, reps, warmup, generator=None):
     """Mean device time of ``fn`` in ms over ``reps`` calls captured in one
     CUDA graph and replayed (CUDA events around the replay), after
     ``warmup`` eager calls: the launches' own time, without the host's
-    time to make each launch, which exceeds a short kernel's."""
+    time to make each launch, which exceeds a short kernel's.
+    ``generator``: the ``torch.Generator`` that ``fn`` draws from, if
+    any (``graphs.Captured``)."""
     from .graphs import Captured
 
     for _ in range(warmup):
         fn()
-    graph = Captured(lambda: [fn() for _ in range(reps)])
+    graph = Captured(lambda: [fn() for _ in range(reps)], generator)
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)

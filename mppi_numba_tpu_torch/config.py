@@ -16,8 +16,11 @@ from typing import Tuple
 rec_max_control_rollouts = 15000
 rec_min_control_rollouts = 100
 
-# Kept for API compatibility with code written against the reference.
+# Kept for API compatibility with code written against the reference
+# (the JAX package's ``config.py`` has the same three); they select nothing.
 max_threads_per_block = 1024
+max_square_block_dim = (32, 32)
+max_blocks = 2**31 - 1
 
 
 class Config:

@@ -95,7 +95,11 @@ class Captured:
         warmed = [w.launches for w in wrappers]
         if generator is not None:
             graph.register_generator_state(generator)
-        with torch.cuda.graph(graph):
+        # Capture on the side stream, on this device: torch.cuda.graph's
+        # own default stream is made once a process, on the device current
+        # at its first use, and a capture on another card's stream records
+        # nothing.
+        with torch.cuda.graph(graph, stream=side):
             self.outputs = fn()
         self._captured = [(w, w.launches - n)
                           for w, n in zip(wrappers, warmed)

@@ -279,18 +279,21 @@ def _launch(layout, key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, alpha_dyn,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _entry_point()(
-        LAYOUTS[layout], key.data_ptr(), *(ptr(o) for o in offsets),
-        alpha.data_ptr(),
-        *(ptr(t) for t in (lin_pmf, ang_pmf, lin_qbins, ang_qbins, obstacle,
-                           unknown, risk_map)),
-        *(ptr(out[k]) for k in ("lin_bins", "ang_bins", "lin_grid",
-                                "ang_grid", "payload", "mask_words",
-                                "risk_words")),
-        *(ptr(t) for t in crop_in), ptr(out["offset"]), ptr(out["lims"]),
-        M, rH, rW, lin_pmf.shape[-3], ang_pmf.shape[-3] if has_ang else 0, H,
-        W, m_offset, lead[0] if lead else 1, stream)
+    # The runtime launches on its current device: make it the tensors'.
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _entry_point()(
+            LAYOUTS[layout], key.data_ptr(), *(ptr(o) for o in offsets),
+            alpha.data_ptr(),
+            *(ptr(t) for t in (lin_pmf, ang_pmf, lin_qbins, ang_qbins,
+                               obstacle, unknown, risk_map)),
+            *(ptr(out[k]) for k in ("lin_bins", "ang_bins", "lin_grid",
+                                    "ang_grid", "payload", "mask_words",
+                                    "risk_words")),
+            *(ptr(t) for t in crop_in), ptr(out["offset"]),
+            ptr(out["lims"]), M, rH, rW, lin_pmf.shape[-3],
+            ang_pmf.shape[-3] if has_ang else 0, H, W, m_offset,
+            lead[0] if lead else 1, stream)
     if err != 0:
         raise RuntimeError("map_sample kernel launch failed: CUDA error "
                            "{}".format(err))

@@ -143,14 +143,16 @@ def _entry_points():
 
 
 def kernel_tiling(*, cell_bits, speed_map=False, fast_trig=False,
-                  step_fn=None):
+                  step_fn=None, device=None):
     """The tiling (block width, map samples per thread) and resources of
     the instantiation that a launch with these options runs, read from the
-    built library (needs nvcc and a card)."""
+    built library on ``device`` (default: the current card; needs nvcc and
+    a card)."""
     model, _ = kernel_model(step_fn)
     check_fast_trig(fast_trig, step_fn)
-    return read_tiling(_entry_points()[1], cell_bits, int(speed_map),
-                       int(fast_trig), model)
+    with torch.cuda.device(device):
+        return read_tiling(_entry_points()[1], cell_bits, int(speed_map),
+                           int(fast_trig), model)
 
 
 def _launch(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
@@ -160,14 +162,16 @@ def _launch(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
     K = v_all.shape[-1]
     lead = tuple(cells.shape[:-2])          # (B,) or () for one scenario
     out = torch.empty(lead + (K, M), dtype=torch.float32, device=cells.device)
-    stream = torch.cuda.current_stream(cells.device).cuda_stream
-    err = fn(cells.data_ptr(), mask.data_ptr(),
-             0 if lut is None else lut.data_ptr(),
-             0 if risk is None else risk.data_ptr(),
-             task_vec.data_ptr(), v_all.data_ptr(), w_all.data_ptr(),
-             out.data_ptr(), K, M, H, W, T, n_words, scenarios(lead),
-             task_vec.shape[-1], cell_bits, int(risk is not None),
-             int(fast_trig), model, wheelbase, stream)
+    # The runtime launches on its current device: make it the tensors'.
+    with torch.cuda.device(cells.device):
+        stream = torch.cuda.current_stream(cells.device).cuda_stream
+        err = fn(cells.data_ptr(), mask.data_ptr(),
+                 0 if lut is None else lut.data_ptr(),
+                 0 if risk is None else risk.data_ptr(),
+                 task_vec.data_ptr(), v_all.data_ptr(), w_all.data_ptr(),
+                 out.data_ptr(), K, M, H, W, T, n_words, scenarios(lead),
+                 task_vec.shape[-1], cell_bits, int(risk is not None),
+                 int(fast_trig), model, wheelbase, stream)
     if err != 0:
         raise RuntimeError("rollout_binned kernel launch failed: CUDA error "
                            "{}".format(err))

@@ -225,14 +225,17 @@ def _entry_points():
                 lib.rollout_byte_info, 3)
 
 
-def kernel_tiling(*, speed_map=False, fast_trig=False, step_fn=None):
+def kernel_tiling(*, speed_map=False, fast_trig=False, step_fn=None,
+                  device=None):
     """The tiling (block width, map samples per thread) and resources of
     the instantiation that a launch with these options runs, read from the
-    built library (needs nvcc and a card)."""
+    built library on ``device`` (default: the current card; needs nvcc and
+    a card)."""
     model, _ = kernel_model(step_fn)
     check_fast_trig(fast_trig, step_fn)
-    return read_tiling(_entry_points()[1], int(speed_map), int(fast_trig),
-                       model)
+    with torch.cuda.device(device):
+        return read_tiling(_entry_points()[1], int(speed_map),
+                           int(fast_trig), model)
 
 
 def _launch(words, task_vec, v_all, w_all, H, W, T, speed_map, fast_trig,
@@ -242,11 +245,13 @@ def _launch(words, task_vec, v_all, w_all, H, W, T, speed_map, fast_trig,
     K = v_all.shape[-1]
     lead = tuple(words.shape[:-3])          # (B,) or () for one scenario
     out = torch.empty(lead + (K, M), dtype=torch.float32, device=words.device)
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    err = fn(words.data_ptr(), task_vec.data_ptr(), v_all.data_ptr(),
-             w_all.data_ptr(), out.data_ptr(), K, M, H, W, T,
-             scenarios(lead), task_vec.shape[-1], int(speed_map),
-             int(fast_trig), model, wheelbase, stream)
+    # The runtime launches on its current device: make it the tensors'.
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream(words.device).cuda_stream
+        err = fn(words.data_ptr(), task_vec.data_ptr(), v_all.data_ptr(),
+                 w_all.data_ptr(), out.data_ptr(), K, M, H, W, T,
+                 scenarios(lead), task_vec.shape[-1], int(speed_map),
+                 int(fast_trig), model, wheelbase, stream)
     if err != 0:
         raise RuntimeError("rollout_byte kernel launch failed: CUDA error "
                            "{}".format(err))

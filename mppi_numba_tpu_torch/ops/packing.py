@@ -175,3 +175,24 @@ def pack_payload(layout, lin_bins, ang_bins, lin_grids, ang_grids, maps,
         raise ValueError("unknown payload layout {!r}".format(layout))
     return (cells, pack_mask_nibbles(maps.obstacle, maps.unknown),
             None if risk_map is None else pack_risk_bytes(risk_map))
+
+
+def unpack_lin(words):
+    """The linear traction byte of ``pack_map_words``' words."""
+    return (words >> LIN_SHIFT) & 0xFF
+
+
+def unpack_ang(words):
+    """The angular traction byte of ``pack_map_words``' words."""
+    return (words >> ANG_SHIFT) & 0xFF
+
+
+def unpack_cell_penalty_mask(words):
+    """The ``(obstacle, unknown)`` 0/1 indicators of ``pack_map_words``'
+    words."""
+    return (words >> OBS_SHIFT) & 1, (words >> UNK_SHIFT) & 1
+
+
+def unpack_risk(words):
+    """The risk byte of ``pack_map_words``' words (speed-map mode)."""
+    return (words >> RISK_SHIFT) & 0xFF

@@ -166,3 +166,74 @@ def decode_bins(qbin_values, bin_idx):
     lut = torch.cat([qbin_values, fill])
     return torch.index_select(lut, 0, bin_idx.reshape(-1)).reshape(
         bin_idx.shape)
+
+
+# -- the JAX package's samplers ------------------------------------------------
+
+
+def _sample_window(key, pmf_grid, qbin_values, alpha_dyn, num_samples,
+                   window, m_window):
+    """``sample_traction_bins`` and ``sample_traction_grids``: ``(bins,
+    grids)`` (grids None without ``qbin_values``)."""
+    _, H, W = pmf_grid.shape
+    full_hw, oy, ox = window if window is not None else ((H, W), 0, 0)
+    full_m, m0 = (m_window if m_window is not None
+                  else (num_samples, 0))
+    dev = pmf_grid.device
+    if dev.type != "cuda":
+        u = uniform_window(key, num_samples, full_hw, oy, ox, (H, W),
+                           m_offset=m0, full_num_samples=full_m)
+        bins = traction_bins_from_uniforms(u, pmf_grid, alpha_dyn)
+        return bins, (None if qbin_values is None
+                      else decode_bins(qbin_values, bins))
+    from .kernels.map_sample import sample_traction_window
+
+    def on_card(v):
+        return torch.as_tensor(v, dtype=torch.int32, device=dev)
+
+    qbins = (torch.zeros(pmf_grid.shape[0], dtype=torch.int8, device=dev)
+             if qbin_values is None else qbin_values)
+    alpha = torch.as_tensor(alpha_dyn, dtype=torch.float32, device=dev)
+    bins, _, grids, _ = sample_traction_window(
+        key, pmf_grid, None, qbins, None, alpha, num_samples,
+        window=None if window is None else (full_hw, on_card(oy),
+                                            on_card(ox)),
+        m_offset=int(m0), full_num_samples=full_m)
+    return bins, (None if qbin_values is None else grids)
+
+
+def sample_traction_bins(key, pmf_grid, alpha_dyn, num_samples, window=None,
+                         m_window=None):
+    """Per-cell PMF bin indices of ``num_samples`` sampled maps: int32
+    ``(M, H, W)``; the JAX package's ``sample_traction_bins``, bit for bit.
+
+    Args:
+      key: int64 ``(2,)`` tensor of the draw's uint32 key words (JAX's
+        ``jax.random.key_data``).
+      pmf_grid: int8 ``(B, H, W)`` PMF.
+      alpha_dyn: the quantile restriction (float, or float32 tensor).
+      num_samples: M.
+      window: ``(full_hw, oy, ox)`` when the PMF is a window of a
+        ``full_hw`` map starting at ``(oy, ox)``: each cell's uniform is
+        drawn at its global counter.
+      m_window: ``(full_M, m_offset)``: rows ``[m_offset, m_offset + M)``
+        of a ``full_M``-row draw.
+
+    On the CPU: ``uniform_window`` then ``traction_bins_from_uniforms``.
+    On a card: one launch of the map-sampling kernel in its bins mode
+    (``ops.kernels.map_sample.sample_traction_window``).
+    """
+    return _sample_window(key, pmf_grid, None, alpha_dyn, num_samples,
+                          window, m_window)[0]
+
+
+def sample_traction_grids(key, pmf_grid, qbin_values, alpha_dyn, num_samples,
+                          window=None, m_window=None):
+    """``num_samples`` sampled int8 traction grids ``(M, H, W)``: the bins
+    of ``sample_traction_bins`` decoded through ``qbin_values`` (int8
+    ``(B,)``) by ``decode_bins``; the JAX package's
+    ``sample_traction_grids``, bit for bit.  Arguments as for
+    ``sample_traction_bins``; on a card one launch of the map-sampling
+    kernel in its bins mode, which decodes in the same pass."""
+    return _sample_window(key, pmf_grid, qbin_values, alpha_dyn,
+                          num_samples, window, m_window)[1]

@@ -40,9 +40,10 @@ REPLACES = "scripts/gather_probe.py:95"
 ITERS = 512
 LANES = 128
 MODES = ("column", "flat")
-# Table rows: the TPU probe's four sizes (4 KB to 3.4 MB), then 32 MB
-# (inside the 50 MB L2) and 256 MB (HBM).
-SIZES = (8, 64, 512, 6568, 65536, 524288)
+# Table rows: the TPU probe's four sizes (4 KB to 3.4 MB), 512 KB (the
+# smallest table past an SM's 256 KB of L1 and shared memory: its step is
+# an L2 hit), then 32 MB (inside the 50 MB L2) and 256 MB (HBM).
+SIZES = (8, 64, 512, 1024, 6568, 65536, 524288)
 # Index-tile rows: the TPU's tile (latency) and 132 SMs x 1024 threads over
 # 128 lanes (a full card of chains in flight).
 ROWS = (32, 1056)
@@ -116,10 +117,12 @@ def _launch(table, idx, mod, iters, flat, check_values):
     fn.restype = ctypes.c_int
     out = torch.empty_like(idx)
     R, L = idx.shape
-    stream = torch.cuda.current_stream(idx.device).cuda_stream
-    err = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, L,
-             table.shape[0], table.numel(), int(mod), int(iters), int(flat),
-             stream)
+    # The runtime launches on its current device: make it the tensors'.
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream(idx.device).cuda_stream
+        err = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, L,
+                 table.shape[0], table.numel(), int(mod), int(iters),
+                 int(flat), stream)
     if err != 0:
         raise RuntimeError("gather_probe kernel launch failed: CUDA error "
                            "{}".format(err))

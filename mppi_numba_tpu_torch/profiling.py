@@ -61,15 +61,16 @@ def _time_chain(run, device):
         run()
         total = time.perf_counter() - t0
         return total, total
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize(device)
-    start.record()
-    t0 = time.perf_counter()
-    run()
-    enqueue = time.perf_counter() - t0
-    end.record()
-    end.synchronize()
+    with torch.cuda.device(device):     # events on the device's stream
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(device)
+        start.record()
+        t0 = time.perf_counter()
+        run()
+        enqueue = time.perf_counter() - t0
+        end.record()
+        end.synchronize()
     return start.elapsed_time(end) / 1e3, enqueue
 
 

@@ -121,20 +121,38 @@ _CPU_SOLVE = textwrap.dedent("""
                  "mppi_numba_tpu_torch.parallel.collectives",
                  "mppi_numba_tpu_torch.parallel.mesh",
                  "mppi_numba_tpu_torch.parallel.sharded",
-                 "mppi_numba_tpu_torch.parallel.multihost"):
+                 "mppi_numba_tpu_torch.parallel.multihost",
+                 "mppi_numba_tpu_torch.drivers",
+                 "mppi_numba_tpu_torch.drivers.bench",
+                 "mppi_numba_tpu_torch.drivers.bigmap_bench",
+                 "mppi_numba_tpu_torch.drivers.model_bench",
+                 "mppi_numba_tpu_torch.drivers.serve_bench",
+                 "mppi_numba_tpu_torch.drivers.profile_flagship",
+                 "mppi_numba_tpu_torch.drivers.scaling_bench"):
         assert name in names, name
+    # The drivers, imported by name, one of them run on the CPU.
+    from mppi_numba_tpu_torch.drivers import (bench, bigmap_bench,
+                                              model_bench, profile_flagship,
+                                              scaling_bench, serve_bench)
+    assert bench.main(["--device", "cpu", "--k", "100", "--m", "4", "--t",
+                       "5", "--iters", "1"]) == 0
+    assert (bigmap_bench.build and model_bench.bench_scale
+            and profile_flagship.stages and scaling_bench.build_case
+            and serve_bench.episodes)
     # The parallel modules, imported by name as well as by the walk above.
     from mppi_numba_tpu_torch.parallel import mesh, multihost, sharded
     assert sharded.get_sharded_terrain_solver and multihost.initialize
     assert mesh.make_mesh
     import chip_smoke
-    # Nothing of JAX, of the JAX package, or of scripts/ (whose modules
-    # import as top-level names: gather_probe, _bench_common, ...).
+    # Nothing of JAX, of the JAX package, of the root bench.py, or of
+    # scripts/ (whose modules import as top-level names: gather_probe,
+    # _bench_common, ...).
     import os
     scripts = {f[:-3] for f in os.listdir("scripts") if f.endswith(".py")}
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "mppi_numba_tpu" or m.startswith("mppi_numba_tpu.")
+                    or m == "bench"
                     or m == "scripts" or m.startswith("scripts.")
                     or m.split(".")[0] in scripts)
     assert not loaded, loaded

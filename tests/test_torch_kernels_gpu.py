@@ -1438,3 +1438,135 @@ def test_sharded_trial_batch_one_rank_equals_local_on_card(tmp_path):
             assert g.dtype == w.dtype and torch.equal(g, w)
     finally:
         dist.destroy_process_group()
+
+
+def _two_cards_or_skip():
+    _cuda_or_skip()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _on(dev, tree):
+    """Tensors (through dicts, tuples and NamedTuples; anything else
+    kept) on ``dev``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _on(dev, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_on(dev, t) for t in tree)) if hasattr(
+            tree, "_replace") else tuple(_on(dev, t) for t in tree)
+    return tree
+
+
+def _same_on(got, want, dev):
+    """``got`` on ``dev`` and equal to ``want`` bit for bit."""
+    if isinstance(want, torch.Tensor):
+        assert got.device == dev and torch.equal(got.cpu(), want.cpu())
+    elif isinstance(want, tuple):
+        for g, w in zip(got, want):
+            _same_on(g, w, dev)
+    else:
+        assert got is None and want is None
+
+
+def test_kernels_and_solves_on_the_second_card():
+    """With the current device left at ``cuda:0``, each kernel launch and
+    each solve on ``cuda:1`` tensors runs on ``cuda:1`` and equals the same
+    call on ``cuda:0`` bit for bit: ``map_sample`` (bins mode, fused, crop
+    mode), both rollout kernels, an eager ``TerrainSolver`` solve and a
+    graph-replayed ``MPPIPlanner`` solve; a launch given tensors of both
+    cards raises."""
+    from mppi_numba_tpu_torch.ops.kernels.map_sample import (
+        sample_and_pack_crop, sample_and_pack_window)
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+    from mppi_numba_tpu_torch.types import MapInputs
+
+    d0, d1 = _two_cards_or_skip()
+    torch.cuda.set_device(d0)
+    args, kw = _map_sample_args(d0, 16, 31, 37, (5, 9, 13, 11), 12, 12, 0.2)
+    want = map_sample.sample_traction_window(*args, **kw)
+    got = map_sample.sample_traction_window(*_on(d1, args), **_on(d1, kw))
+    assert torch.cuda.current_device() == 0
+    _same_on(got, want, d1)
+
+    maps, task = _crop_inputs(d0, 250, 250, 4, 4, 0.5, 0.0)
+    task = task._replace(x0=torch.tensor([61.3, 70.9, 0.3], device=d0))
+    key = torch.tensor([7, 2 ** 32 - 9], dtype=torch.int64, device=d0)
+    for fn, fargs in ((sample_and_pack_window,
+                       (key, maps, task.alpha_dyn, 64, "binned")),
+                      (sample_and_pack_crop,
+                       (key, maps, task, 64, "binned", (85, 85)))):
+        want = fn(*fargs, risk=True)
+        got = fn(*_on(d1, fargs), risk=True)
+        _same_on(got, want, d1)
+    with pytest.raises(ValueError, match="one device"):
+        sample_and_pack_window(key.to(d1), maps, task.alpha_dyn, 64, "byte")
+
+    args = _inputs(d0, 200, 7, 30, 13, 15, True, True)
+    kw = dict(H=13, W=15, T=30, speed_map=True)
+    _same_on(rollout_byte.terrain_rollout_costs_byte(*_on(d1, args), **kw),
+             rollout_byte.terrain_rollout_costs_byte(*args, **kw), d1)
+    with pytest.raises(ValueError, match="one device"):
+        rollout_byte.terrain_rollout_costs_byte(args[0], args[1].to(d1),
+                                                *args[2:], **kw)
+    binned, _ = _binned_inputs(d0, 4, 200, 7, 30, 13, 15, True, False)
+    kw = dict(H=13, W=15, T=30, cell_bits=4)
+    _same_on(rollout_binned.terrain_rollout_costs_binned(*_on(d1, binned),
+                                                         **kw),
+             rollout_binned.terrain_rollout_costs_binned(*binned, **kw), d1)
+    with pytest.raises(ValueError):
+        rollout_binned.terrain_rollout_costs_binned(
+            binned[0].to(d1), *binned[1:], **kw)
+    assert torch.cuda.current_device() == 0
+
+    planners = {d: _roi_planner(d, True) for d in (d0, d1)}
+    x = np.array([6.25, 7.25, 0.3])
+    for _ in range(3):
+        us = {d: p.solve() for d, p in planners.items()}
+        assert np.array_equal(us[d1], us[d0])
+        assert planners[d1]._solve_graphs and planners[d1].u_cur.device == d1
+        x = x + 0.1 * np.array([us[d0][0, 0] * np.cos(x[2]),
+                                us[d0][0, 0] * np.sin(x[2]), us[d0][0, 1]])
+        for p in planners.values():
+            p.shift_and_update(x, us[d0])
+    assert torch.cuda.current_device() == 0
+
+    p0 = planners[d0]
+    static = p0._static()
+    maps0 = MapInputs(*(t.clone() for t in p0._map_inputs()))
+    task0 = type(p0._task_device)(*(None if t is None else t.clone()
+                                    for t in p0._task_device))
+    out = {}
+    for d in (d0, d1):
+        u0 = torch.zeros((static.num_steps, 2), device=d)
+        out[d] = get_terrain_solver(static, d)(
+            torch.Generator(device=d).manual_seed(4), _on(d, maps0),
+            _on(d, task0), u0)
+    _same_on(out[d1], out[d0], d1)
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.parametrize("window", [False, True])
+def test_ops_samplers_on_card_equal_cpu(window):
+    """``ops.sample_traction_bins`` / ``sample_traction_grids`` on a card
+    (one launch of ``map_sample`` in its bins mode each) equal the CPU
+    path bit for bit, on the whole map and on a window of rows [3, 11) of
+    a 16-row draw."""
+    from mppi_numba_tpu_torch.ops.sampling import (sample_traction_bins,
+                                                   sample_traction_grids)
+
+    dev = _cuda_or_skip()
+    args, _ = _map_sample_args(dev, 8, 31, 37, (5, 9, 13, 11), 12, 12, 0.2)
+    key, pmf, _, qbins, _, alpha, M = args
+    kw = (dict(window=((31, 37), 5, 9), m_window=(16, 3)) if window
+          else {})
+    before = map_sample.sample_traction_window.launches
+    bins = sample_traction_bins(key, pmf, alpha, M, **kw)
+    grids = sample_traction_grids(key, pmf, qbins, alpha, M, **kw)
+    assert map_sample.sample_traction_window.launches == before + 2
+    cpu = [t.cpu() for t in (key, pmf, qbins, alpha)]
+    assert torch.equal(bins.cpu(), sample_traction_bins(
+        cpu[0], cpu[1], cpu[3], M, **kw))
+    assert torch.equal(grids.cpu(), sample_traction_grids(*cpu, M, **kw))

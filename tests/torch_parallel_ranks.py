@@ -236,8 +236,21 @@ def _static_job(job, mesh_of):
     return out
 
 
+def _scaling_job(job, mesh_of):
+    """``drivers.scaling_bench`` on this process group (``job["argv"]``):
+    its records and what it printed."""
+    import io
+
+    from mppi_numba_tpu_torch.drivers import scaling_bench
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        records = scaling_bench.run(scaling_bench.parse_args(job["argv"]))
+    return dict(records=records, stdout=out.getvalue())
+
+
 JOBS = {"solve": _solve_job, "ops": _ops_job, "trial": _trial_job,
-        "static": _static_job}
+        "static": _static_job, "scaling": _scaling_job}
 
 
 def _rank(rank, world, store, jobs_path, out_dir):
