@@ -84,8 +84,10 @@ Phases (any failure exits non-zero; no error is swallowed):
    again with the padded origin at -res (a TDM's limits from 0): grids and
    offsets exact, controls within rtol 2e-4 / atol 2e-5;
    ``BareboneMPPI`` on ``examples/barebone_mppi.py``'s task (no kernel:
-   plain torch ops), 20
-   closed-loop solves; one episode of the big-map world through
+   plain torch ops), 20 closed-loop solves replayed from its CUDA graph
+   and the vis from its vis graph, each held bit for bit against eager
+   calls from a generator of the same seed (``BareboneMirror``); one
+   episode of the big-map world through
    ``device_sim.make_device_trial`` (one CUDA graph a step, ``reached``
    read once a chunk); and the gather probe's entry point
    (``probes.gather_probe.run``), every (mode, table size, rows), each
@@ -118,7 +120,8 @@ Phases (any failure exits non-zero; no error is swallowed):
    beside the host's time to enqueue them, and planner ``solve()`` times
    on the host clock, and the device's busy time and kernel launches per
    solve by kernel; the host time of ``get_state_rollout`` (graph) and
-   of the eager vis in the forest world; the barebone chained solve; the
+   of the eager vis in the forest world; the barebone chained solve,
+   replayed from a graph and eager in turns (with its kernels a replay); the
    big-map world's chained solves (graph and eager) and planner
    ``solve()`` calls cropped against uncropped, in turns; one device
    trial of the big-map world against ``sim.trial``'s host loop, steps
@@ -133,7 +136,13 @@ Phases (any failure exits non-zero; no error is swallowed):
    size 1 in this process: world (a)'s solve on a (1, 1, 1) mesh through
    the sharded entry point, bit for bit with the single ``TerrainSolver``
    from the same generator state, both eager and timed in turns (what
-   the sharding code costs at one rank), its launches counted.  Then
+   the sharding code costs at one rank), its launches counted; then the
+   sharded solve of each ``SHARDED_CASES`` problem (world, scenarios,
+   run-time alpha) on that mesh captured in a CUDA graph with its NCCL
+   collectives (``ShardedTerrainSolver.capture``), 3 replays each bit for
+   bit against the eager sharded solve and the single solve, no
+   collective from the host during a replay; world (a)'s graph timed in
+   turns with the eager sharded and single solves.  Then
    ``SHARDED_RANKS`` gloo ranks spawned on the one card (the kernels built
    by this process), each at full width: world (a) on meshes (1, 4, 1),
    (1, 2, 2) and (2, 2, 1) with 4 scenarios and the run-time-alpha solve
@@ -143,7 +152,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    atol 2e-5 of the single solve of the same draws and its gathered
    payload bit for bit the unsharded launch's rows, its ``map_sample``
    and rollout launches counted around the solve and its collectives
-   counted against the port's design (none staged through the host);
+   counted against the port's design (none staged through the host),
+   each solve eager (gloo runs its collectives on the host: capture
+   raises on every rank, and that is checked);
    and ``make_sharded_trial_batch`` on 8 noisy_dyn episodes of world (l)
    against ``make_device_trial_batch`` on the same episodes (steps and
    success exact, cum_obj within rtol 1e-4).  Each figure is a JSON line
@@ -156,7 +167,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    (the headline line), every ``bigmap_bench`` row, ``model_bench``,
    ``serve_bench``, ``profile_flagship`` (its sampler checks included)
    and ``scaling_bench`` under ``torchrun`` on one NCCL rank at world
-   (a)'s shape.  A non-zero exit, a missing line, a number that is not
+   (a)'s shape; the barebone row must carry its graph's kernels and its
+   eager time, the scaling line its graph replay bit for bit with the
+   eager sharded solve.  A non-zero exit, a missing line, a number that is not
    finite, a failed check or a driver whose lines show no launch of the
    map-sampling and rollout kernels fails the run.
 
@@ -1250,7 +1263,10 @@ def main():
          first_solve_ms=barebone["solve_ms_first"], solves=barebone["solves"],
          K=barebone["K"], T=barebone["T"], kernel_launches=launches,
          goal_dist_start=barebone["dist0"], goal_dist_end=barebone["dist_end"],
-         state_rollout_shape=barebone["vis_shape"])
+         state_rollout_shape=barebone["vis_shape"],
+         graph_equals_eager=barebone["graph_equals_eager"],
+         kernels_per_replay=barebone["kernel_nodes"],
+         vis_kernels_per_replay=barebone["vis_kernel_nodes"])
     check(barebone["dist_end"] < barebone["dist0"],
           "barebone: goal distance did not shrink")
 
@@ -1576,23 +1592,43 @@ def main():
          T=forest_planner.num_steps)
     del aux, eager_vis
 
-    # The barebone solve: chained on the device clock, with the host's
-    # enqueue time beside it, in turns with planner solve() calls.
+    # The barebone solve: chained on the device clock, replayed from a
+    # CUDA graph (a SolveGraph on the planner's task and a controls buffer
+    # of its own) and eager, in turns, with the host's enqueue time beside
+    # each, and planner solve() calls between.
     bb = barebone["planner"]
     bsolver = get_barebone_solver(bb._static(), dev)
-    bgen = torch.Generator(device=dev).manual_seed(1)
-    chain_ms, enqueue_ms, solve_ms = [], [], []
-    for _ in range(3):
-        per, enq = chained_solve_time(
-            lambda g, _maps, task, u: bsolver(g, task, u), None,
-            bb._task_device, torch.zeros((barebone["T"], 2), device=dev),
-            num_iters=20, generator=bgen, with_enqueue=True)
-        chain_ms.append(per * 1e3)
-        enqueue_ms.append(enq * 1e3)
+    bu0 = torch.zeros((barebone["T"], 2), device=dev)
+    bgens = {name: torch.Generator(device=dev).manual_seed(1)
+             for name in ("graph", "eager")}
+    bfns = {"graph": bsolver.capture(bgens["graph"], bb._task_device,
+                                     torch.zeros_like(bu0)),
+            "eager": bsolver}
+    chain_ms = {"graph": [], "eager": []}
+    enqueue_ms = {"graph": [], "eager": []}
+    solve_ms = []
+    for r in range(3):
+        for name in (("graph", "eager") if r % 2 == 0
+                     else ("eager", "graph")):
+            fn = bfns[name]
+            per, enq = chained_solve_time(
+                lambda g, _maps, task, u: fn(g, task, u), None,
+                bb._task_device, bu0, num_iters=20, generator=bgens[name],
+                with_enqueue=True)
+            chain_ms[name].append(per * 1e3)
+            enqueue_ms[name].append(enq * 1e3)
         solve_ms.append(time_planner_solves(bb, 20))
-    emit("barebone_chained_solve_ms", float(np.median(chain_ms)), "ms",
-         solves=20, runs=chain_ms, host_enqueue_ms=enqueue_ms,
-         planner_solve_host_ms=solve_ms, K=barebone["K"], T=barebone["T"])
+    emit("barebone_chained_solve_ms", float(np.median(chain_ms["graph"])),
+         "ms", solves=20, runs=chain_ms["graph"],
+         host_enqueue_ms=enqueue_ms["graph"],
+         eager_ms=float(np.median(chain_ms["eager"])),
+         eager_runs=chain_ms["eager"],
+         eager_host_enqueue_ms=enqueue_ms["eager"],
+         kernels_per_replay=bfns["graph"].kernel_nodes,
+         planner_solve_host_ms=solve_ms, K=barebone["K"], T=barebone["T"],
+         timing="device clock, CUDA-graph replays and eager chains in "
+                "turns")
+    del bfns
 
     # Solve times in one phase, in turns: chained solves replayed from a
     # CUDA graph and eager, on the device clock (with the host's enqueue
@@ -1798,7 +1834,7 @@ def main():
     probe_latency_bound_ms = probe_at["iters"] * l2_step_ns * 1e-6
     # -- phase 5: the sharded solve ---------------------------------------------
     set_counts()
-    ws1_launches = sharded_world_size_one(torch, emit)
+    ws1_launches, ws1_graph_launches = sharded_world_size_one(torch, emit)
     sharded_multi_rank(torch, emit)
 
     # -- phase 6: the drivers ----------------------------------------------------
@@ -1811,6 +1847,8 @@ def main():
         "replaces": rollout_byte.REPLACES,
         "launches": totals["rollout_byte"],
         "launches_sharded_world_size_1": ws1_launches.get(
+            "terrain_rollout_costs_byte", 0),
+        "launches_sharded_graph_replays": ws1_graph_launches.get(
             "terrain_rollout_costs_byte", 0),
         "max_abs_err": flag["max_abs_err"],
         "ms": min(kernel_ms),
@@ -1835,6 +1873,8 @@ def main():
         "source": rollout_binned.KERNEL_SOURCE,
         "replaces": rollout_binned.REPLACES,
         "launches": totals["rollout_binned"],
+        "launches_sharded_graph_replays": ws1_graph_launches.get(
+            "terrain_rollout_costs_binned", 0),
         "max_abs_err": nib["max_abs_err"],
         "ms": forest["ms"],
         "plain_ms": forest["plain_ms"],
@@ -1860,6 +1900,9 @@ def main():
         "launches": totals["map_sample"],
         "launches_sharded_world_size_1": ws1_launches.get(
             "sample_and_pack_window", 0),
+        "launches_sharded_graph_replays": sum(
+            ws1_graph_launches.get(w, 0) for w in ("sample_and_pack_window",
+                                                   "sample_and_pack_crop")),
         "max_abs_err": max(r["max_abs_err"]
                            for r in sample_results + fused_results),
         "ms": min(sample_runs["pack"]["graph"]),
@@ -3224,10 +3267,53 @@ def run_device_trial(torch, max_steps):
                 timed_args=(trial, maps, task, gt, meta))
 
 
+class BareboneMirror(EagerMirror):
+    """``EagerMirror`` for ``BareboneMPPI``: eager barebone solves (no
+    maps) beside the planner's graph replays, from a generator of the
+    planner's seed, on copies of its task taken before each solve; the
+    controls, every ``SolveAux`` field and the vis bit for bit."""
+
+    def _inputs(self):
+        task = self.planner._task_device
+        return None, type(task)(*(t.clone() for t in task))
+
+    def after_solve(self, u, world):
+        from mppi_numba_tpu_torch.solver import get_barebone_solver
+
+        torch, p = self.torch, self.planner
+        solver = get_barebone_solver(self.static, p.device)
+        want_u, self.aux = self._uncounted(lambda: solver(
+            self.gen, self.task, self.u))
+        got = p._last_aux
+        differ = [f for f in self.aux._fields
+                  if (getattr(got, f) is None) != (getattr(self.aux, f)
+                                                   is None)
+                  or (getattr(got, f) is not None and not torch.equal(
+                      getattr(got, f), getattr(self.aux, f)))]
+        check(np.array_equal(u, want_u.cpu().numpy()) and not differ,
+              "{}: solve {} replayed from its graph differs from the eager "
+              "solve (u max diff {}, aux fields {})".format(
+                  world, self.solves,
+                  float(np.abs(u - want_u.cpu().numpy()).max()), differ))
+        self.u_prev = want_u
+        self.u = torch.cat([want_u[1:], want_u[-1:]])
+        self.solves += 1
+
+    def vis(self):
+        from mppi_numba_tpu_torch.solver import get_barebone_vis
+
+        _, task = self._inputs()
+        return self._uncounted(lambda: get_barebone_vis(self.static)(
+            task, self.u, self.u_prev, self.aux.noise_vis)).cpu().numpy()
+
+
 def run_barebone():
     """``SOLVES`` closed-loop solves of ``examples/barebone_mppi.py``'s task
     (K = 1024, T = 50, two circle obstacles) through ``BareboneMPPI``'s
-    public entry points, then ``get_state_rollout``."""
+    public entry points, then ``get_state_rollout``: each solve (a graph
+    replay) and the vis held bit for bit against eager calls from a
+    generator of the same seed (``BareboneMirror``); one solve graph and
+    one vis graph."""
     from mppi_numba_tpu_torch import BareboneConfig, BareboneMPPI
 
     cfg = BareboneConfig(T=5.0, dt=0.1, num_control_rollouts=1024,
@@ -3242,9 +3328,11 @@ def run_barebone():
                   obstacle_radius=np.array([1.5, 1]), obs_penalty=1e6)
     planner = BareboneMPPI(cfg, device="cuda")
     planner.setup(params)
+    mirror = BareboneMirror(planner)
     dist0 = float(np.hypot(*(goal - x[:2])))
     times = []
     for _ in range(SOLVES):
+        mirror.before_solve()
         t0 = time.perf_counter()
         u = planner.solve()
         times.append((time.perf_counter() - t0) * 1e3)
@@ -3252,14 +3340,20 @@ def run_barebone():
               and np.isfinite(u).all(), "barebone: bad controls")
         check(planner.u_prev is planner.u_cur,
               "barebone: u_prev does not alias the solved controls")
+        mirror.after_solve(u, "barebone")
         v, w = float(u[0, 0]), float(u[0, 1])
         x = x + cfg.dt * np.array([v * np.cos(x[2]), v * np.sin(x[2]), w])
         planner.shift_and_update(x, u, num_shifts=1)
+    vis_shape = check_state_rollout("barebone", planner, x, mirror)
+    (graph,), (vis_graph,) = (planner._solve_graphs.values(),
+                              planner._vis_graphs.values())
     return dict(solves=SOLVES, solve_ms_first=times[0],
                 solve_ms_median=float(np.median(times[1:])),
                 K=cfg.num_control_rollouts, T=cfg.num_steps, dist0=dist0,
                 dist_end=float(np.hypot(*(goal - x[:2]))),
-                vis_shape=check_state_rollout("barebone", planner, x),
+                vis_shape=vis_shape, graph_equals_eager=True,
+                kernel_nodes=graph.kernel_nodes,
+                vis_kernel_nodes=vis_graph._call.kernel_nodes,
                 planner=planner)
 
 
@@ -3376,6 +3470,7 @@ SHARDED_CASES = (
 SHARDED_SOLVES = 5          # timed solves a case, after one untimed
 WS1_SOLVES = 20             # world size 1: solves of each entry, in turns
 SHARDED_SEED = 5
+GRAPH_REPLAYS = 3           # replays of each case's captured sharded solve
 # The sharded episode batch: noisy_dyn episodes of world (l).
 SHARDED_TRIAL_EPISODES, SHARDED_TRIAL_STEPS = 8, 12
 SHARDED_LABEL = "4 ranks sharing one card: not a scaling figure"
@@ -3505,8 +3600,12 @@ def time_host(torch, fn, n):
 def sharded_world_size_one(torch, emit):
     """NCCL at world size 1, in this process: world (a)'s solve on a (1,
     1, 1) mesh through the sharded entry point against the single
-    ``TerrainSolver`` from the same generator state, bit for bit, both
-    eager, timed in turns.  Returns the sharded run's launch counts."""
+    ``TerrainSolver`` from the same generator state, bit for bit, eager;
+    then the sharded solve of every ``SHARDED_CASES`` problem captured in
+    a CUDA graph on that mesh (``sharded_graph_replays``), and world (a)'s
+    eager sharded, replayed sharded and single solves timed in turns.
+    Returns the launch counts of the eager sharded solve and of the
+    replays."""
     import socket
 
     import torch.distributed as dist
@@ -3547,28 +3646,112 @@ def sharded_world_size_one(torch, emit):
               and launches.get("terrain_rollout_costs_byte")
               == static.num_opt, "world size 1 launches: {}".format(
                   launches))
-        times = {"sharded": [], "single": []}
+        graph_launches = sharded_graph_replays(torch, mesh, emit)
+        graph = sharded.capture(gen(), maps, task, u0.clone())
+        times = {"sharded": [], "graph": [], "single": []}
         for _ in range(WS1_SOLVES):
             times["sharded"] += time_host(
                 torch, lambda: sharded(gen(), maps, task, u0), 1)
+            times["graph"] += time_host(
+                torch, lambda: graph(graph.generator, maps, task, u0), 1)
             times["single"] += time_host(
                 torch, lambda: single(gen(), maps, task, u0), 1)
         emit("sharded_world_size_1_solve_ms", min(times["sharded"]), "ms",
              single_solve_ms=min(times["single"]),
+             graph_solve_ms=min(times["graph"]),
              sharded_median_ms=float(np.median(times["sharded"])),
+             graph_median_ms=float(np.median(times["graph"])),
              single_median_ms=float(np.median(times["single"])),
-             sharded_all_ms=times["sharded"], single_all_ms=times["single"],
+             sharded_all_ms=times["sharded"], graph_all_ms=times["graph"],
+             single_all_ms=times["single"],
              backend=dist.get_backend(), mesh=[1, 1, 1],
              world="flagship_11x11",
              bitwise_equal=same, collectives=coll.summary(),
              staged_through_host=coll.staged(), launches=launches,
-             timing="host clock, eager solves, in turns, {} each".format(
-                 WS1_SOLVES))
+             torch=torch.__version__,
+             nccl=".".join(str(v) for v in torch.cuda.nccl.version()),
+             timing="host clock, a solve ended by a synchronize, {} each of "
+                    "eager sharded, replayed sharded and single (eager) in "
+                    "turns".format(WS1_SOLVES))
         check(not coll.staged(), "world size 1: collectives on host "
               "tensors: {}".format(coll.staged()))
-        return launches
+        return launches, graph_launches
     finally:
         dist.destroy_process_group()
+
+
+def sharded_graph_replays(torch, mesh, emit):
+    """On the one-rank NCCL ``mesh``: the sharded solve of every
+    ``SHARDED_CASES`` problem (world, scenarios, run-time alpha) captured
+    in a CUDA graph (``ShardedTerrainSolver.capture``) and replayed
+    ``GRAPH_REPLAYS`` times, each fed the last one's controls and drawing
+    on from the generator, against the eager sharded solve and the single
+    solve of generators of the same seed in the same chain, bit for bit (u
+    and costs); no collective from the host during the replays, one
+    map_sample launch and one rollout launch an iteration.  Returns the
+    replays' launch counts (counted from 0 just before, read just
+    after)."""
+    from mppi_numba_tpu_torch.graphs import counted_wrappers
+    from mppi_numba_tpu_torch.parallel.sharded import (
+        get_sharded_terrain_solver)
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+
+    wrappers = counted_wrappers()
+    total = {}
+    seen = set()
+    for case, world, _, S, dynamic in SHARDED_CASES:
+        if (world, S, dynamic) in seen:
+            continue
+        seen.add((world, S, dynamic))
+        static, maps, task, u0 = sharded_case_inputs(torch, world, S,
+                                                     dynamic)
+        sharded = get_sharded_terrain_solver(static, mesh)
+        single = get_terrain_solver(static, "cuda")
+        gens = [torch.Generator(device="cuda").manual_seed(SHARDED_SEED)
+                for _ in range(3)]
+        graph = sharded.capture(gens[0], maps, task, u0.clone())
+        u_e = u_s = u0
+        for w in wrappers:
+            w.launches = 0
+        bitwise, host_calls = [], []
+        for _ in range(GRAPH_REPLAYS):
+            with CountedCollectives() as coll:
+                u_g, c_g = graph(gens[0], maps, task, graph.u0)
+                torch.cuda.synchronize()
+            host_calls += coll.calls
+            # The eager solves are comparisons: their launches uncounted.
+            replayed = [w.launches for w in wrappers]
+            u_e, c_e = sharded(gens[1], maps, task, u_e)
+            u_s, aux = single(gens[2], maps, task, u_s)
+            for w, n in zip(wrappers, replayed):
+                w.launches = n
+            bitwise.append([torch.equal(u_g, u_e), torch.equal(c_g, c_e),
+                            torch.equal(u_g, u_s),
+                            torch.equal(c_g, aux.costs)])
+        launches = {w.__name__: w.launches for w in wrappers if w.launches}
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        check(not host_calls, "{}: a replay made collectives from the host: "
+              "{}".format(case, host_calls))
+        sampled = sum(n for w, n in launches.items()
+                      if w.startswith("sample_and_pack"))
+        rolled = sum(n for w, n in launches.items()
+                     if w.startswith("terrain_rollout"))
+        check(all(all(b) for b in bitwise), "{}: the replayed sharded solve "
+              "differs (u vs eager, costs vs eager, u vs single, costs vs "
+              "single, a row a replay): {}".format(case, bitwise))
+        check(sampled == GRAPH_REPLAYS
+              and rolled == GRAPH_REPLAYS * static.num_opt,
+              "{}: replays launched {}".format(case, launches))
+        emit("sharded_graph_world_size_1", True, "bit for bit",
+             case=case, world=world, scenarios=S, run_time_alpha=dynamic,
+             mesh=[1, 1, 1], replays=GRAPH_REPLAYS,
+             against=["eager sharded solve", "single solve"],
+             backend=sharded.backend, launches=launches,
+             kernels_per_replay=graph.kernel_nodes,
+             node_counts=graph._call.node_counts,
+             host_collectives_per_replay=0)
+    return total
 
 
 def expected_collectives(static, mesh):
@@ -3700,6 +3883,10 @@ def sharded_multi_rank(torch, emit):
                                            r["collectives"], want_coll))
             check(r["launches"] == recs[0]["launches"],
                   "{}: launches differ between ranks".format(job["case"]))
+            check(r["capture_refused"] is not None
+                  and "NCCL" in r["capture_refused"],
+                  "{} rank {}: capture on gloo did not refuse: {}".format(
+                      job["case"], r["rank"], r["capture_refused"]))
         check(sampled == 1 and rollout == s.num_opt,
               "{}: launches {}".format(job["case"], recs[0]["launches"]))
         emit("sharded_solve_ms", min(recs[0]["ms"]), "ms",
@@ -3716,8 +3903,9 @@ def sharded_multi_rank(torch, emit):
              launches_per_rank=recs[0]["launches"],
              collectives_per_solve=recs[0]["collectives"],
              staged_through_host=[],
-             timing="host clock, eager solves, min of {}".format(
-                 SHARDED_SOLVES))
+             capture_refused=recs[0]["capture_refused"],
+             timing="host clock, eager solves (gloo: no graph), min of "
+                    "{}".format(SHARDED_SOLVES))
     emit("sharded_phase_spawn_to_exit_s", spawn_s, "s", label=SHARDED_LABEL,
          ranks=SHARDED_RANKS, backend="gloo (CUDA tensors)")
 
@@ -3803,6 +3991,13 @@ def sharded_rank(rank, world, store, jobs_path, out_dir):
             u_ok = bool((u_err <= 2e-5 + 2e-4 * job["u"][rows].abs()).all())
             ms = time_host(torch, lambda: solver(gen(), maps, task, u0),
                            SHARDED_SOLVES)
+            # Gloo runs collectives on the host: no graph, and capture
+            # says so (every rank raises alike, before any collective).
+            try:
+                solver.capture(gen(), maps, task, u0)
+                refused = None
+            except RuntimeError as exc:
+                refused = str(exc)
             records.append(dict(
                 case=job["case"], rank=rank, mesh=list(shape),
                 u_within_tol=u_ok, u_max_abs_err=float(u_err.max()),
@@ -3811,7 +4006,7 @@ def sharded_rank(rank, world, store, jobs_path, out_dir):
                 payload_bitwise=torch.equal(planes.cpu(), want_planes),
                 payload_shape=list(planes.shape),
                 launches=launches, collectives=coll.summary(),
-                staged=coll.staged(), ms=ms))
+                staged=coll.staged(), ms=ms, capture_refused=refused))
         with open("{}/rank{}.pkl".format(out_dir, rank), "wb") as f:
             pickle.dump(records, f)
     finally:
@@ -3929,7 +4124,9 @@ def run_drivers(card, emit):
                     "scale_K1024_det_dyn", "scale_K10240_det_dyn",
                     "scale_K10240_tdm"]
           and all("ms_per_solve" in r for r in recs)
-          and all(launched_kernels(r) for r in recs[1:]),
+          and all(launched_kernels(r) for r in recs[1:])
+          and recs[0].get("captured_launches", 0) > 0
+          and recs[0].get("eager_ms_per_solve", 0) > 0,
           "driver model_bench: rows {}".format(names))
 
     recs = out["serve_bench"]
@@ -3953,6 +4150,9 @@ def run_drivers(card, emit):
     recs = out["scaling_bench"]
     check(len(recs) >= 1 and all(
         r["check"]["within_tolerance"] and launched_kernels(r)
+        and r["check"]["graph_bitwise_eager"]
+        and r["check"]["graph_within_tolerance"]
+        and r["kernel_nodes"] > 0 and r["eager_solves_per_s"] > 0
         for r in recs), "driver scaling_bench: {}".format(recs))
 
     emit("drivers_phase_s", sum(seconds.values()), "s", per_driver=seconds)

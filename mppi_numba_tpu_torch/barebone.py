@@ -5,6 +5,15 @@ information-theoretic MPPI with nominal unicycle dynamics, squared-distance
 costs and circular obstacles, as plain PyTorch ops on one device (the JAX
 package has no kernel for it either).  Randomness comes from a
 ``torch.Generator`` on the planner's device, seeded from ``cfg.seed``.
+
+The planner keeps its solve's inputs in buffers that it updates in place,
+as ``MPPIPlanner`` does: the task (``set_params`` and ``shift_and_update``
+write into it) and the shifted nominal controls.  On a card ``solve()``
+replays the solve from a CUDA graph captured on those buffers (one per
+``SolverStatic``; a change of the obstacle count is a new one, on new task
+buffers) and ``get_state_rollout()`` replays the visualisation rollouts
+from another; on the CPU both run eagerly.  A replay equals the eager call
+bit for bit.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ import numpy as np
 import torch
 
 from .config import SolverStatic, rec_min_control_rollouts
+from .graphs import VisGraph
 from .mppi import shifted_useq
 from .ops.costs import BAREBONE_DEFAULT_DIST_WEIGHT, BAREBONE_DEFAULT_OBS_COST
 from .solver import get_barebone_solver, get_barebone_vis
@@ -76,13 +86,20 @@ class BareboneMPPI:
         self.u_seq0 = np.zeros((self.num_steps, 2), dtype=np.float32)
         self.params = None
         self.params_set = False
-        self.u_cur = torch.tensor(self.u_seq0, device=self.device)
+        # u_cur is the last solve's output, or the buffer that
+        # shift_and_update writes the shifted sequence into (the captured
+        # solve's input).
+        self._u_in = torch.tensor(self.u_seq0, device=self.device)
+        self.u_cur = self._u_in
         self.u_prev = torch.tensor(self.u_seq0, device=self.device)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.seed)
         self._last_aux = None
         self._task_device = None
         self._last_useq_np = None
+        # On a card: SolverStatic -> SolveGraph, and -> VisGraph.
+        self._solve_graphs = {}
+        self._vis_graphs = {}
 
     def setup(self, params):
         self.set_params(params)
@@ -90,9 +107,19 @@ class BareboneMPPI:
     def set_params(self, params):
         self.params = copy.deepcopy(params)
         self.params_set = True
-        # Staged once per params change; per-replan updates touch only x0
-        # (see shift_and_update).
-        self._task_device = self._task()
+        # Staged once per params change, into the planner's task buffers;
+        # per-replan updates touch only x0 (see shift_and_update).  Another
+        # obstacle count gives buffers of other shapes, and drops the
+        # graphs captured on the old ones.
+        task = self._task()
+        old = self._task_device
+        if old is None or any(a.shape != b.shape for a, b in zip(task, old)):
+            self._task_device = task
+            self._solve_graphs.clear()
+            self._vis_graphs.clear()
+        else:
+            for dst, src in zip(old, task):
+                dst.copy_(src)
 
     def check_solve_conditions(self):
         if not self.params_set:
@@ -141,13 +168,25 @@ class BareboneMPPI:
 
     def solve(self):
         """Optimize and return the control sequence ``(num_steps, 2)`` as
-        host float32."""
+        host float32.
+
+        On a card the solve is replayed from a CUDA graph (captured at the
+        first solve of each ``SolverStatic``); its outputs then live in the
+        graph's memory, and the next solve overwrites them
+        (``get_state_rollout()`` reads them before it)."""
         if not self.check_solve_conditions():
             print("MPPI solve condition not met. Cannot solve. Return")
             return
         static = self._static()
+        task = self._task_device
         solver = get_barebone_solver(static, self.device)
-        u_new, aux = solver(self._generator, self._task_device, self.u_cur)
+        if self.device.type == "cuda":
+            graph = self._solve_graphs.get(static)
+            if graph is None:
+                graph = self._solve_graphs[static] = solver.capture(
+                    self._generator, task, self._u_in)
+            solver = graph
+        u_new, aux = solver(self._generator, task, self.u_cur)
         self.u_cur = u_new
         # The reference's quirk, kept as the JAX package keeps it: the
         # "previous" controls alias the freshly updated ones.
@@ -160,23 +199,35 @@ class BareboneMPPI:
         return self._last_useq_np.copy()
 
     def shift_and_update(self, new_x0, u_cur, num_shifts=1):
+        """Receding-horizon update, into the planner's buffers: the new x0
+        into the task's, and the shifted controls (shifted on the device
+        when ``u_cur`` is the sequence the last solve returned, else the
+        shifted host array uploaded) into the solve's input."""
         new_x0 = np.asarray(new_x0).copy()
         self.params["x0"] = new_x0
-        self._task_device = self._task_device._replace(
-            x0=torch.tensor(new_x0.astype(np.float32), device=self.device))
+        self._task_device.x0.copy_(torch.from_numpy(
+            new_x0.astype(np.float32)))
         u_np = np.asarray(u_cur, dtype=np.float32)
-        self.u_cur = shifted_useq(self.u_cur, self._last_useq_np, u_np,
-                                  num_shifts)
+        self._u_in.copy_(shifted_useq(self.u_cur, self._last_useq_np, u_np,
+                                      num_shifts))
+        self.u_cur = self._u_in
         self._last_useq_np = None   # a second shift must re-upload
 
     def get_state_rollout(self):
         """Visualisation rollouts of the last solve: host float32
-        ``(num_vis, T+1, 3)``."""
+        ``(num_vis, T+1, 3)``; on a card replayed from a CUDA graph (one
+        for each ``SolverStatic``)."""
         assert self.params_set, "MPPI parameters are not set"
         if self._last_aux is None:
             print("No solve has produced rollout data yet. Cannot visualize.")
             return None
-        states = get_barebone_vis(self._last_static)(
-            self._task_device, self.u_cur, self.u_prev,
-            self._last_aux.noise_vis)
-        return states.cpu().numpy()
+        static = self._last_static
+        head, tail = (self._task_device,), (self._last_aux.noise_vis,)
+        vis = get_barebone_vis(static)
+        if self.device.type != "cuda":
+            return vis(*head, self.u_cur, self.u_prev, *tail).cpu().numpy()
+        graph = self._vis_graphs.get(static)
+        if graph is None or not graph.reads(head, tail):
+            graph = self._vis_graphs[static] = VisGraph(vis, head, tail,
+                                                        self.u_cur)
+        return graph(self.u_cur, self.u_prev).cpu().numpy()

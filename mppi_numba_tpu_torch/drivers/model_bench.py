@@ -3,9 +3,11 @@ of ``scripts/model_bench.py``.
 
 * The barebone engine at the reference's own benchmark shape (K = 1000,
   T = 50, two circle obstacles: ``barebone_mppi_numba.ipynb``'s), chained
-  solves on the device clock.  The port's barebone solve runs eagerly (no
-  CUDA graph yet, ROADMAP A1): its row says ``"eager": true``, and the
-  host's launches set its pace.
+  solves on the device clock, replayed from a CUDA graph
+  (``BareboneSolver.capture``) as the planner replays them on a card,
+  with the same chain of eager solves beside them (``eager_ms_per_solve``:
+  there the host's launches set the pace) and the kernels one replay
+  launches (``captured_launches``).
 * The unicycle (fast trig) and the bicycle (exact trig), both inside the
   rollout kernels, at K = M = 1024, T = 100 on an 11x11 map with 12 bins
   (``bigmap_bench.build``), replayed from a CUDA graph.
@@ -59,22 +61,32 @@ def barebone_planner(K=1000, device=None):
 
 
 def bench_barebone(K=1000, n=BAREBONE_CHAIN, device=None):
-    """The least of three chains of ``n`` eager barebone solves, ms per
-    solve (device clock on a card)."""
+    """The barebone engine's chained solves, ms per solve (device clock on
+    a card): ``(graph ms, eager ms, kernels a replay)``, each the least of
+    three chains of ``n`` solves, graph and eager in turns.  On the CPU
+    there is no graph: ``(eager ms, eager ms, None)`` from one set of
+    chains."""
     planner = barebone_planner(K, device)
     static = planner._static()
-    fn = get_barebone_solver(static, planner.device)
+    solver = get_barebone_solver(static, planner.device)
     task = planner._task_device
-
-    def as_terrain_sig(generator, maps, task, u):
-        del maps
-        return fn(generator, task, u)
-
     u0 = torch.zeros((static.num_steps, 2), device=planner.device)
-    return min(1e3 * chained_solve_time(
-        as_terrain_sig, None, task, u0, num_iters=n,
-        generator=torch.Generator(device=planner.device).manual_seed(1 + r))
-        for r in range(3))
+    gens = {name: torch.Generator(device=planner.device).manual_seed(1)
+            for name in ("graph", "eager")}
+    fns = {"eager": solver}
+    if planner.device.type == "cuda":
+        fns["graph"] = solver.capture(gens["graph"], task,
+                                      torch.zeros_like(u0))
+    ms = {name: [] for name in fns}
+    for r in range(3):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            fn = fns[name]
+            ms[name].append(1e3 * chained_solve_time(
+                lambda g, _maps, t, u: fn(g, t, u), None, task, u0,
+                num_iters=n, generator=gens[name]))
+    graph = fns.get("graph")
+    return (min(ms["graph" if graph else "eager"]), min(ms["eager"]),
+            graph.kernel_nodes if graph else None)
 
 
 def bench_terrain_model(model, backend="auto", device=None, small=False):
@@ -112,11 +124,11 @@ def main(argv=None):
     tag = dict(card=card, clock=clock(device))
     # --small cuts the barebone engine's chains only: its config sets a
     # floor of 100 rollouts.
-    ms = bench_barebone(n=SMALL_CHAIN if args.small else BAREBONE_CHAIN,
-                        device=device)
-    emit(dict(scenario="barebone_K1000_T50", ms_per_solve=ms, eager=True,
-              card=card, clock=clock(device).replace("CUDA-graph replays",
-                                                     "eager")))
+    ms, eager_ms, kernels = bench_barebone(
+        n=SMALL_CHAIN if args.small else BAREBONE_CHAIN, device=device)
+    emit(dict(scenario="barebone_K1000_T50", ms_per_solve=ms,
+              eager_ms_per_solve=eager_ms, captured_launches=kernels,
+              **tag))
     for model in ("unicycle", "bicycle"):
         before = launch_counts()
         ms = bench_terrain_model(model, "auto", device, args.small)

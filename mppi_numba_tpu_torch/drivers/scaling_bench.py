@@ -20,28 +20,40 @@ bins).  Rank 0 first times the single-card ``TerrainSolver`` on all S
 scenarios (one batched solve) while the other ranks wait at a barrier;
 then each mesh ``(scenario, k, m)`` of ``--mesh`` (default: the JAX
 script's split of the world into scenario and k shards) is timed with
-``ShardedTerrainSolver``, each iteration ended by a synchronize and a
-barrier.  Both are eager (the sharded solve has no CUDA graph yet,
-ROADMAP A5), on the host clock.  Per mesh rank 0 prints one JSON line:
+``ShardedTerrainSolver``.  Every timing is the JAX script's loop: ``iters``
+solves dispatched back to back, each fed the last one's controls, then
+one synchronize (and on a mesh one barrier), on the host clock; the least
+of ``ROUNDS`` such chains.  On NCCL the solves are CUDA-graph replays
+(``TerrainSolver.capture``; ``ShardedTerrainSolver.capture``, its
+collectives inside the graph), and the same loop of eager solves runs in
+turns with them (graph, eager, eager, graph, ...); on gloo (``--device
+cpu``) the solves are eager, and the line says so (``clock``).  Per mesh
+rank 0 prints one JSON line:
 
-* ``solves_per_s`` and ``efficiency`` against the single card's;
+* ``solves_per_s`` and ``efficiency`` against the single card's
+  (``single_solves_per_s``), graph replays on NCCL; ``eager_solves_per_s``
+  and ``eager_efficiency`` (against ``eager_single_solves_per_s``) the
+  eager loop's, None on gloo, where the first pair is eager;
 * ``check``: the gathered u against the single solve of the same
   generator draws, all S scenarios in one batched solve: within rtol 2e-4
   / atol 2e-5 on every mesh (a sum across ranks reorders float32
   additions, and on a card a batch of S_local scenarios reduces in
   another order than a batch of S), bit for bit where it is (reported);
   on a scenario-only mesh ``(N, 1, 1)`` also against one card's solves of
-  the ranks' slices of S_local scenarios, bit for bit; a miss raises on
-  every rank;
+  the ranks' slices of S_local scenarios, bit for bit; on NCCL the graph's
+  first replay against the eager sharded solve of the same draws on every
+  rank (``graph_bitwise_eager``, reported) and, gathered, against the
+  single solve within the same tolerance; a miss raises on every rank;
 * ``collectives_share``: NCCL's kernel time over all kernel time of a
-  sharded solve on rank 0 (``torch.profiler``, after a warm-up; a
-  kernel of a collective includes its wait for the other ranks), None
+  replayed sharded solve on rank 0 (``torch.profiler``, after a warm-up;
+  a kernel of a collective includes its wait for the other ranks), None
   on gloo, whose collectives run on the host;
 * ``draw_ms``: a rank's draw of the whole solve's noise and map keys
   (``solver.draw_solve``: every rank draws all S scenarios' and keeps its
   rows), CUDA events;
-* ``rank_spread``: the ranks' median solve times (before the barrier),
-  max over min.
+* ``rank_spread``: the ranks' chain times (each rank's, at its own
+  synchronize, before the barrier), max over min;
+* ``kernel_nodes``: the kernels one replay of the rank's graph launches.
 
 ``--episodes`` instead runs ``make_sharded_trial_batch`` on noisy_dyn
 episodes of the reference benchmark sweep (``benchmark.DeviceSweep``),
@@ -60,7 +72,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import statistics
 import time
 
 import numpy as np
@@ -80,6 +91,7 @@ from ._common import (SMALL_EPISODES, SMALL_STEPS, add_device_arg,
                       card_line, emit, launch_counts, launched_since, sync)
 
 CHECK_SEED = 7
+ROUNDS = 3       # chains of each loop, in turns
 # cum_obj of the sharded episode batch against one card's batch of all E
 # episodes at full length: four H100s read 3.6e-7 at E = 8, 150 steps.
 EPISODE_RTOL = 1e-5
@@ -176,6 +188,39 @@ def _timed(fn, device):
     return time.perf_counter() - t0, out
 
 
+def _chain(solve, u, iters, device):
+    """Host seconds of ``iters`` solves dispatched back to back, each fed
+    the last one's controls, then one synchronize (the JAX script's loop);
+    ``solve(u) -> u``."""
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        u = solve(u)
+    sync(device)
+    return time.perf_counter() - t0
+
+
+def _loops(solvers, u0, iters, device, meet=False):
+    """``{name: [seconds of each chain]}``: ``ROUNDS`` chains of each of
+    ``solvers`` (``{name: solve(u) -> u}``), in turns (a, b, b, a, ...).
+    With ``meet``, the ranks start each chain together after a barrier
+    and end it at one: each entry is then ``(seconds to the end of the
+    slowest rank, this rank's seconds at its synchronize)``."""
+    names = list(solvers)
+    out = {name: [] for name in names}
+    for r in range(ROUNDS):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            if not meet:
+                out[name].append(_chain(solvers[name], u0, iters, device))
+                continue
+            dist.barrier()
+            t0 = time.perf_counter()
+            mine = _chain(solvers[name], u0, iters, device)
+            dist.barrier()
+            out[name].append((time.perf_counter() - t0, mine))
+    return out
+
+
 def _rows(tree, rows):
     return type(tree)(*(None if f is None else f[rows].contiguous()
                         for f in tree))
@@ -240,22 +285,37 @@ def collectives_share(solve, device):
     return nccl / total, nccl / PROFILED_SOLVES, total / PROFILED_SOLVES
 
 
-def single_rate(static, maps, task, u0, iters, device):
+def _graphed(device):
+    """Whether this run times graph replays: NCCL on cards."""
+    return device.type == "cuda" and "nccl" in str(dist.get_backend())
+
+
+def single_rates(static, maps, task, u0, iters, device):
     """Rank 0's single-card solves per second over all S scenarios (one
-    batched eager solve an iteration, each ended by a synchronize)."""
+    batched solve a call): ``{"graph": ..., "eager": ...}`` on NCCL (the
+    solve replayed from a ``SolveGraph`` and eager, in turns), ``{"eager":
+    ...}`` on gloo."""
     solver = TerrainSolver(static, device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    solver(gen, maps, task, u0)
-    times = [_timed(lambda: solver(gen, maps, task, u0), device)[0]
-             for _ in range(iters)]
-    return u0.shape[0] / statistics.mean(times)
+    gens = {name: torch.Generator(device=device).manual_seed(0)
+            for name in ("graph", "eager")}
+    solvers = {}
+    if _graphed(device):
+        graph = solver.capture(gens["graph"], maps, task, u0.clone())
+        solvers["graph"] = lambda u: graph(gens["graph"], maps, task, u)[0]
+    solvers["eager"] = lambda u: solver(gens["eager"], maps, task, u)[0]
+    for solve in solvers.values():
+        solve(u0)
+    chains = _loops(solvers, u0, iters, device)
+    return {name: u0.shape[0] * iters / min(t) for name, t in chains.items()}
 
 
-def measure_mesh(shape, static, maps, task, u0, args, device, single_sps):
-    """One mesh: its check, throughput and costs; a record on every rank
-    (rank 0's is printed)."""
+def measure_mesh(shape, static, maps, task, u0, args, device, single):
+    """One mesh: its checks, throughput and costs; a record on every rank
+    (rank 0's is printed).  ``single``: the single card's rates
+    (``single_rates``)."""
     rank, n = dist.get_rank(), dist.get_world_size()
     S = u0.shape[0]
+    graphed = _graphed(device)
     mesh = make_mesh(shape[0], shape[1], devices=device.type,
                      num_map_shards=shape[2])
     solver = get_sharded_terrain_solver(static, mesh)
@@ -269,14 +329,29 @@ def measure_mesh(shape, static, maps, task, u0, args, device, single_sps):
     # The check: the gathered u against the single solve of the same draws
     # (all S in one batched solve); on a scenario-only mesh also against
     # one card's solves of the ranks' slices, each a batch of S_local as a
-    # rank solves it, bit for bit.
+    # rank solves it, bit for bit; on NCCL the graph's first replay
+    # against the eager sharded solve, and gathered against the single.
     scenario_only = shape[1] == 1 and shape[2] == 1
     u, _ = solver(gen(CHECK_SEED), l_maps, l_task, l_u0)
     got = gather_scenarios(mesh, u)
-    verdict = [0.0] * 4
+    graph = graph_got = None
+    graph_bitwise = torch.ones(1, device=device)
+    if graphed:
+        g_graph = gen(CHECK_SEED)
+        graph = solver.capture(g_graph, l_maps, l_task, l_u0.clone())
+        u_g = graph(g_graph, l_maps, l_task, l_u0)[0]
+        graph_bitwise[0] = float(torch.equal(u_g, u))
+        graph_got = gather_scenarios(mesh, u_g)
+    dist.all_reduce(graph_bitwise, op=dist.ReduceOp.MIN)
+    verdict = [0.0] * 6
     if rank == 0:
-        single = TerrainSolver(static, device)
-        want, _ = single(gen(CHECK_SEED), maps, task, u0)
+        single_solver = TerrainSolver(static, device)
+        want, _ = single_solver(gen(CHECK_SEED), maps, task, u0)
+
+        def within(x):
+            return float(bool((((x - want).abs() <= ATOL + RTOL
+                                * want.abs()).all())))
+
         err = (got - want).abs()
         slices_bitwise = -1.0
         if scenario_only:
@@ -284,62 +359,84 @@ def measure_mesh(shape, static, maps, task, u0, args, device, single_sps):
             parts = []
             for i in range(shape[0]):
                 r = slice(i * s_local, (i + 1) * s_local)
-                parts.append(single.solve_from_key(
+                parts.append(single_solver.solve_from_key(
                     keys[r], [e[r] for e in eps], _rows(maps, r),
                     _rows(task, r), u0[r])[0])
             slices_bitwise = float(torch.equal(torch.cat(parts), got))
+        graph_err = graph_within = -1.0
+        if graph_got is not None:
+            graph_err = float((graph_got - want).abs().max())
+            graph_within = within(graph_got)
         verdict = [float(err.max()), float(torch.equal(got, want)),
-                   float(bool((err <= ATOL + RTOL * want.abs()).all())),
-                   slices_bitwise]
-    max_err, bitwise, within, slices_bitwise = _broadcast(verdict, device)
+                   within(got), slices_bitwise, graph_err, graph_within]
+    (max_err, bitwise, within_tol, slices_bitwise, graph_err,
+     graph_within) = _broadcast(verdict, device)
     check = dict(u_max_abs_err=max_err, bitwise=bool(bitwise),
-                 within_tolerance=bool(within),
+                 within_tolerance=bool(within_tol),
                  slices_bitwise=(bool(slices_bitwise) if scenario_only
                                  else None),
                  expected="bit for bit" if scenario_only else
-                 "rtol 2e-4 / atol 2e-5")
-    if not within or slices_bitwise == 0.0:
+                 "rtol 2e-4 / atol 2e-5",
+                 graph_bitwise_eager=(bool(graph_bitwise.item()) if graphed
+                                      else None),
+                 graph_u_max_abs_err=graph_err if graphed else None,
+                 graph_within_tolerance=(bool(graph_within) if graphed
+                                         else None))
+    if (not within_tol or slices_bitwise == 0.0 or graph_within == 0.0):
         raise RuntimeError("scaling_bench mesh {}: the sharded u is off the "
                            "single solve: {}".format(shape, check))
 
     g = gen(0)
-
-    def solve():
-        return solver(g, l_maps, l_task, l_u0)
-
+    solvers = {}
+    if graphed:
+        solvers["graph"] = lambda x: graph(g_graph, l_maps, l_task, x)[0]
+    solvers["eager"] = lambda x: solver(g, l_maps, l_task, x)[0]
     before = launch_counts()
-    solve()
+    next(iter(solvers.values()))(l_u0)
     launches = launched_since(before)
-    solve_s, iter_s = [], []
-    for _ in range(args.iters):
-        dist.barrier()
-        t, _ = _timed(solve, device)
-        solve_s.append(t)
-        t0 = time.perf_counter()
-        dist.barrier()
-        iter_s.append(t + time.perf_counter() - t0)
-    medians = all_gather_cat(torch.tensor(
-        [statistics.median(solve_s)], dtype=torch.float64, device=device),
-        0, None).tolist()
-    share, nccl_us, kernel_us = collectives_share(solve, device)
-    sps = S / statistics.mean(iter_s)
+    for solve in solvers.values():
+        solve(l_u0)
+    chains = _loops(solvers, l_u0, args.iters, device, meet=True)
+    timed = "graph" if graphed else "eager"
+    best = min(range(ROUNDS), key=lambda r: chains[timed][r][0])
+    mine = all_gather_cat(torch.tensor(
+        [chains[timed][best][1]], dtype=torch.float64, device=device), 0,
+        None).tolist()
+    rate = {name: S * args.iters / min(t for t, _ in c)
+            for name, c in chains.items()}
+    share, nccl_us, kernel_us = collectives_share(
+        lambda: solvers[timed](l_u0), device)
+    sps, eager_sps = rate[timed], rate["eager"] if graphed else None
     return dict(
         scenario="scaling", devices=n,
         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
-        solves_per_s=sps, efficiency=sps / (n * single_sps),
-        single_solves_per_s=single_sps, check=check,
+        solves_per_s=sps, efficiency=sps / (n * single[timed]),
+        single_solves_per_s=single[timed],
+        eager_solves_per_s=eager_sps,
+        eager_efficiency=(eager_sps / (n * single["eager"]) if graphed
+                          else None),
+        eager_single_solves_per_s=single["eager"] if graphed else None,
+        check=check,
         collectives_share=share, nccl_us_per_solve=nccl_us,
         kernel_us_per_solve=kernel_us,
         draw_ms=draw_ms(static, S, device),
-        rank_median_solve_ms=[m * 1e3 for m in medians],
-        rank_spread=max(medians) / min(medians),
+        rank_chain_ms=[t * 1e3 / args.iters for t in mine],
+        rank_spread=max(mine) / min(mine),
         backend=solver.backend, collectives=dist.get_backend(),
         launches_per_solve=launches,
+        kernel_nodes=graph.kernel_nodes if graphed else None,
         shape=dict(S=S, K=static.num_control_rollouts,
                    M=static.num_grid_samples, T=static.num_steps,
                    map=list(static.map_shape)),
-        clock="host clock, eager, each iteration ended by a synchronize "
-              "and a barrier")
+        clock=("host clock: {} CUDA-graph replays (collectives inside) "
+               "dispatched back to back, then one synchronize and one "
+               "barrier, the least of {} chains; eager_*: the same loop of "
+               "eager solves, in turns".format(args.iters, ROUNDS)
+               if graphed else
+               "host clock, eager ({} collectives run on the host: no "
+               "graph): {} solves dispatched back to back, then one "
+               "synchronize and one barrier, the least of {} chains".format(
+                   dist.get_backend(), args.iters, ROUNDS)))
 
 
 def episode_batch(args, n):
@@ -480,13 +577,14 @@ def run(args):
     # The port's 'auto' routes by the bins (JAX's tests VMEM instead).
     static = dataclasses.replace(static,
                                  num_pmf_bins=maps.lin_qbins.shape[-1])
-    single_sps = (single_rate(static, maps, task, u0, args.iters, device)
-                  if rank == 0 else 0.0)
+    names = ("graph", "eager") if _graphed(device) else ("eager",)
+    rates = (single_rates(static, maps, task, u0, args.iters, device)
+             if rank == 0 else dict.fromkeys(names, 0.0))
     dist.barrier()
-    (single_sps,) = _broadcast([single_sps], device)
+    single = dict(zip(names, _broadcast([rates[k] for k in names], device)))
     for shape in meshes:
         records.append(measure_mesh(shape, static, maps, task, u0, args,
-                                    device, single_sps))
+                                    device, single))
         if rank == 0:
             emit(records[-1])
     return records

@@ -5,9 +5,10 @@ PyTorch launches a kernel for every op, and in most of the port's solves
 the host takes longer to make those launches than the device takes to run
 them (``PERF.md`` section 5).  The JAX package runs one XLA program per
 solve; here ``Captured`` records the launches of one call in a CUDA graph
-and ``replay()`` reruns them.  The solve (``solver.SolveGraph``), the
-planner's visualisation rollouts and the device simulator's step are
-captured this way on a card.
+and ``replay()`` reruns them.  The solves (``solver.SolveGraph``: the
+terrain solve, the barebone solve and the sharded solve with its NCCL
+collectives), the planners' visualisation rollouts (``VisGraph``) and the
+device simulator's step are captured this way on a card.
 
 A graph reruns its launches on the addresses it captured: its inputs are
 tensors that outlive it, updated in place between replays (``copy_``),
@@ -17,7 +18,14 @@ next replay overwrites them.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+# CUgraphNodeType (CUDA's cuda.h): the node kinds a capture makes.
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+               4: "graph", 5: "empty", 6: "wait_event", 7: "event_record",
+               10: "mem_alloc", 11: "mem_free"}
 
 
 def counted_wrappers():
@@ -52,13 +60,19 @@ class Captured:
       device: the CUDA device ``fn`` runs on (default: the current one);
         the capture and each replay run on its current stream.
 
+    The capture's error mode is thread-local: only this thread's calls
+    that are unsafe during a capture break it, not another thread's (NCCL's
+    watchdog polls its events while a capture of collectives runs).
+
     Before the capture, one eager call on a side stream builds and loads
     the kernels' libraries and entry points; the generator's state and
     ``keep`` are then put back, so the first replay does what an eager call
     made instead of the capture would.  Launch counts (the wrappers of
     ``counted_wrappers``): the warm-up call and the capture are set-up and
     leave them as they were; each replay adds the launches it captured.
-    A capture that fails raises; nothing falls back to eager calls.
+    ``node_counts`` counts the graph's nodes by kind (``"kernel"``: every
+    kernel a replay launches, torch's own included).  A capture that fails
+    raises; nothing falls back to eager calls.
     """
 
     def __init__(self, fn, generator=None, keep=(), device=None):
@@ -70,7 +84,9 @@ class Captured:
             self._capture(fn, generator, keep)
 
     def _capture(self, fn, generator, keep):
-        graph = torch.cuda.CUDAGraph()
+        # keep_graph: the captured cudaGraph_t stays readable (its nodes
+        # are counted), and the graph is instantiated below.
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         if generator is not None and not hasattr(graph,
                                                  "register_generator_state"):
             raise RuntimeError(
@@ -99,8 +115,11 @@ class Captured:
         # own default stream is made once a process, on the device current
         # at its first use, and a capture on another card's stream records
         # nothing.
-        with torch.cuda.graph(graph, stream=side):
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
             self.outputs = fn()
+        self.node_counts = _node_counts(graph.raw_cuda_graph())
+        graph.instantiate()
         self._captured = [(w, w.launches - n)
                           for w, n in zip(wrappers, warmed)
                           if w.launches != n]
@@ -113,6 +132,11 @@ class Captured:
         """``{wrapper name: launches}`` of one replay."""
         return {w.__name__: n for w, n in self._captured}
 
+    @property
+    def kernel_nodes(self):
+        """The kernels one replay launches."""
+        return self.node_counts.get("kernel", 0)
+
     def replay(self):
         """Rerun the captured launches on the current stream; returns
         ``outputs``, which this replay has overwritten."""
@@ -121,6 +145,62 @@ class Captured:
         for w, n in self._captured:
             w.launches += n
         return self.outputs
+
+
+def _node_counts(raw_graph):
+    """``{node kind: count}`` of a ``cudaGraph_t`` (an address), read
+    through libcuda's ``cuGraphGetNodes`` and ``cuGraphNodeGetType``."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_void_p),
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_int)]
+
+    def call(fn, *args):
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError("{} returned CUresult {}".format(fn.__name__,
+                                                                rc))
+
+    graph = ctypes.c_void_p(int(raw_graph))
+    n = ctypes.c_size_t(0)
+    call(cuda.cuGraphGetNodes, graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call(cuda.cuGraphGetNodes, graph, nodes, ctypes.byref(n))
+    counts = {}
+    kind = ctypes.c_int()
+    for node in nodes[:n.value]:
+        call(cuda.cuGraphNodeGetType, node, ctypes.byref(kind))
+        name = _NODE_TYPES.get(kind.value, "type {}".format(kind.value))
+        counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+class VisGraph:
+    """Visualisation rollouts ``vis(*head, u_cur, u_prev, *tail)`` captured
+    in a CUDA graph on ``head`` and ``tail`` (a planner's buffers and one
+    solve graph's outputs), the two control sequences copied into the
+    graph's own buffers at each call: the terrain planner's (``head`` the
+    maps and the task; ``tail`` the noise rows, the grids and the window's
+    offset) and the barebone planner's (the task; the noise rows)."""
+
+    def __init__(self, vis, head, tail, u_like):
+        self.head, self.tail = tuple(head), tuple(tail)
+        self._u = (torch.empty_like(u_like), torch.empty_like(u_like))
+        self._call = Captured(lambda: vis(*self.head, *self._u, *self.tail),
+                              device=u_like.device)
+
+    def reads(self, head, tail):
+        """Whether the graph reads these inputs (the same objects)."""
+        return all(same_tensors(a, b) for a, b in
+                   zip(tuple(head) + tuple(tail), self.head + self.tail))
+
+    def __call__(self, u_cur, u_prev):
+        """The (V, T+1, 3) states, in the graph's memory."""
+        self._u[0].copy_(u_cur)
+        self._u[1].copy_(u_prev)
+        return self._call.replay()
 
 
 def same_tensors(a, b):

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .config import Config, SolverStatic
-from .graphs import Captured, same_tensors
+from .graphs import VisGraph, same_tensors
 from .models import has_displacement_bound
 from .ops.costs import (DEFAULT_DIST_WEIGHT, DEFAULT_OBS_COST,
                         DEFAULT_UNKNOWN_COST)
@@ -92,7 +92,7 @@ class MPPIPlanner:
         self._last_useq_np = None
         self._compacted_planes = None
         self._compacted_token = None
-        # On a card: SolverStatic -> SolveGraph, and -> _VisGraph.
+        # On a card: SolverStatic -> SolveGraph, and -> VisGraph.
         self._solve_graphs = {}
         self._vis_graphs = {}
 
@@ -434,41 +434,16 @@ class MPPIPlanner:
             return None
         aux = self._last_aux
         static = self._last_static
-        inputs = (self._map_inputs(), self._task_device, aux.noise_vis,
-                  aux.lin_grids, aux.ang_grids, aux.roi_offset)
-        if self.device.type != "cuda":
-            states = get_terrain_vis(static)(*inputs[:2], self.u_cur,
-                                             self.u_prev, *inputs[2:])
-            return states.cpu().numpy()
-        graph = self._vis_graphs.get(static)
-        if graph is None or not graph.reads(inputs):
-            graph = self._vis_graphs[static] = _VisGraph(static, inputs,
-                                                         self.u_cur)
-        return graph(self.u_cur, self.u_prev).cpu().numpy()
-
-
-class _VisGraph:
-    """A planner's visualisation rollouts captured in a CUDA graph, on its
-    map and task buffers and one solve graph's outputs (``inputs``: maps,
-    task, noise_vis, lin_grids, ang_grids, roi_offset), with the two
-    control sequences copied into its own buffers at each call."""
-
-    def __init__(self, static, inputs, u_like):
-        self.inputs = inputs
-        self._u = (torch.empty_like(u_like), torch.empty_like(u_like))
+        head = (self._map_inputs(), self._task_device)
+        tail = (aux.noise_vis, aux.lin_grids, aux.ang_grids, aux.roi_offset)
         vis = get_terrain_vis(static)
-        maps, task, *rest = inputs
-        self._call = Captured(lambda: vis(maps, task, *self._u, *rest),
-                              device=u_like.device)
-
-    def reads(self, inputs):
-        return all(same_tensors(a, b) for a, b in zip(inputs, self.inputs))
-
-    def __call__(self, u_cur, u_prev):
-        """The (V, T+1, 3) states, in the graph's memory."""
-        self._u[0].copy_(u_cur)
-        self._u[1].copy_(u_prev)
-        return self._call.replay()
+        if self.device.type != "cuda":
+            return vis(*head, self.u_cur, self.u_prev, *tail).cpu().numpy()
+        graph = self._vis_graphs.get(static)
+        if graph is None or not graph.reads(head, tail):
+            graph = self._vis_graphs[static] = VisGraph(vis, head, tail,
+                                                        self.u_cur)
+        return graph(self.u_cur, self.u_prev).cpu().numpy()
 
 
 def _unpack_task(flat):

@@ -37,6 +37,12 @@ the same generator state (``solver.draw_solve``) and keeps its rows.  The
 sharded solve then rolls out exactly the single solve's rollouts, and
 differs from it only in the order of the sums across ranks; on one rank it
 equals it bit for bit.
+
+On an NCCL mesh of cards ``ShardedTerrainSolver.capture`` records a rank's
+whole solve, its collectives included, in one CUDA graph
+(``solver.SolveGraph``): a replay makes no collective from the host.
+Gloo runs its collectives on the host, which a graph cannot hold, so a
+gloo mesh (or a CPU one) solves eagerly and refuses to capture.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.distributed as dist
 
 from ..config import SolverStatic
 from ..ops.cvar import (cvar_from_costs, cvar_from_costs_distributed,
@@ -53,7 +60,7 @@ from ..ops.kernels.map_sample import (sample_and_pack_crop,
                                       sample_and_pack_window)
 from ..ops.rollout import control_coupling
 from ..ops.update import update_useq
-from ..solver import (DYNAMIC_CVAR, check_bins, draw_solve,
+from ..solver import (DYNAMIC_CVAR, SolveGraph, check_bins, draw_solve,
                       make_rollout_backend)
 from .collectives import all_gather_cat
 from .mesh import MAP_AXIS, ROLLOUT_AXIS, SCENARIO_AXIS, rank_device
@@ -105,6 +112,7 @@ class ShardedTerrainSolver:
         self.k0 = my_k * self.k_local
         # The map samples this rank rolls out.
         self.m_slice = slice(my_m * m_local, (my_m + 1) * m_local)
+        self.s_group = mesh.get_group(SCENARIO_AXIS)
         self.k_group = mesh.get_group(ROLLOUT_AXIS)
         self.m_group = mesh.get_group(MAP_AXIS)
         # The k ranks of one m shard split its draw, then gather it.
@@ -123,6 +131,61 @@ class ShardedTerrainSolver:
         map_keys, eps_list = draw_solve(generator, self.static, self.device,
                                         (S,))
         return self.solve_from_key(map_keys, eps_list, maps, task, u0)
+
+    def capture(self, generator, maps, task, u0):
+        """This rank's solve captured in a CUDA graph with its collectives
+        inside: a ``solver.SolveGraph`` with ``TerrainSolver.capture``'s
+        contract (``u0 <- solve(u0)``; the same generator, maps and task
+        objects, updated in place; the outputs ``(u, costs)`` in the
+        graph's memory pool).  Every replay makes the same collectives
+        in the graph, none from the host.
+
+        Collective: every rank of the mesh captures, in the same order.
+        First the ranks agree on the inputs' shapes (a bad one raises on
+        every rank), then run one collective on each of the mesh's groups
+        (NCCL makes a group's communicator at its first collective, which
+        cannot happen during a capture), then meet at a barrier.
+
+        Only an NCCL mesh on cards captures.  Gloo's collectives run on
+        the host, and a CPU mesh has no graph: both raise, and nothing
+        falls back to eager calls (call the solver itself there).
+        """
+        backends = {str(dist.get_backend(g)) for g in
+                    (self.s_group, self.k_group, self.m_group)}
+        if self.device.type != "cuda" or any("nccl" not in b
+                                             for b in backends):
+            raise RuntimeError(
+                "the sharded solve captures its collectives in a CUDA graph "
+                "only on an NCCL mesh of cards; this mesh runs {} on {} "
+                "tensors: call the solver eagerly".format(
+                    "/".join(sorted(backends)), self.device.type))
+        self._agree_on_inputs(maps, task, u0)
+        for group in (self.s_group, self.k_group, self.m_group):
+            dist.all_reduce(torch.zeros(1, device=self.device), group=group)
+        dist.barrier(device_ids=[self.device.index])
+        return SolveGraph(self, generator, maps, task, u0)
+
+    def _agree_on_inputs(self, maps, task, u0):
+        """Raise on every rank unless every rank's ``u0`` is ``(S_local,
+        T, 2)`` with the same ``S_local`` and every map and task field
+        leads with ``S_local`` on this rank's device (one all-reduce over
+        the process group)."""
+        s_local = u0.shape[0] if u0.dim() == 3 else -1
+        ok = (u0.dim() == 3 and tuple(u0.shape[1:]) == (
+            self.static.num_steps, 2) and all(
+                t.device == self.device and t.dim() > 0
+                and t.shape[0] == s_local
+                for t in (*maps, *task, u0) if t is not None))
+        votes = torch.tensor([float(ok), s_local, -s_local],
+                             dtype=torch.float64, device=self.device)
+        dist.all_reduce(votes, op=dist.ReduceOp.MIN)
+        ok_all, lo, neg_hi = votes.tolist()
+        if ok_all != 1.0 or lo != -neg_hi:
+            raise ValueError(
+                "capture of the sharded solve: a rank's inputs are not "
+                "(S_local, ...) on its card with one S_local on every rank "
+                "(u0 (S_local, T={}, 2); this rank's u0 {})".format(
+                    self.static.num_steps, tuple(u0.shape)))
 
     def _scenario_rows(self, s_local):
         """This rank's scenarios in the batch of all S."""
@@ -213,9 +276,12 @@ def _cached_sharded_solver(static, mesh_key, mesh):
 
 def get_sharded_terrain_solver(static: SolverStatic, mesh):
     """The sharded solver, cached per static signature and per mesh: its
-    axes, shape and ranks."""
+    axes, shape and ranks, and the mesh object itself (a ``DeviceMesh``
+    compares equal to one of the same shape built on a later process
+    group, whose groups the cached solver does not hold)."""
     mesh_key = (tuple(mesh.mesh_dim_names), tuple(mesh.shape),
-                tuple(mesh.mesh.flatten().tolist()), mesh.device_type)
+                tuple(mesh.mesh.flatten().tolist()), mesh.device_type,
+                id(mesh))
     return _cached_sharded_solver(static, mesh_key, mesh)
 
 

@@ -11,9 +11,9 @@ control-coupling term and apply the softmax update.  The det_dyn and
 speed_map modes (costmap shares speed_map) solve over M = 1 map with a
 collapsed PMF; speed_map adds the risk plane to the stage time cost.
 
-On a card the planner replays the solve from a CUDA graph
-(``TerrainSolver.capture``, ``SolveGraph``): one launch from the host a
-solve.
+On a card the planners replay the solve from a CUDA graph
+(``TerrainSolver.capture`` and ``BareboneSolver.capture``, both a
+``SolveGraph``): one launch from the host a solve.
 
 A batch of B scenarios (the episodes of a benchmark sweep; the JAX
 package's solve under ``jax.vmap``) solves as one: every ``MapInputs`` and
@@ -212,7 +212,6 @@ class TerrainSolver:
         ``SolveGraph``, called as the solver is."""
         return SolveGraph(self, generator, maps, task, u0)
 
-
     def solve_from_key(self, map_key, eps_list, maps, task, u0):
         """The solve after the draws of the map key and the noise.
 
@@ -312,33 +311,37 @@ class TerrainSolver:
 
 
 class SolveGraph:
-    """A terrain solve captured in a CUDA graph: ``u0 <- solve(u0)``.
+    """A solve captured in a CUDA graph: ``u0 <- solve(u0)``.
 
-    Made by ``TerrainSolver.capture(generator, maps, task, u0)`` after one
-    eager warm-up call (``graphs.Captured``).  ``graph(generator, maps,
-    task, u0)`` replays it and returns ``(u_new, SolveAux)`` as the solver
-    does, bit for bit with an eager call from the generator's state:
+    Made by ``TerrainSolver.capture(generator, maps, task, u0)``,
+    ``BareboneSolver.capture(generator, task, u0)`` or
+    ``ShardedTerrainSolver.capture(generator, maps, task, u0)`` (its NCCL
+    collectives inside) after one eager warm-up call
+    (``graphs.Captured``).  ``graph(generator, *inputs, u0)`` replays it
+    and returns what the solver returns (``(u_new, SolveAux)``; the sharded
+    solve's ``(u, costs)``), bit for bit with an eager call from the
+    generator's state:
 
-    * the graph reads the maps, the task and its ``u0`` where they lay at
-      capture: pass the same objects, and change them in place (``copy_``)
-      between calls, never rebind them; other maps or a task raise;
+    * the graph reads its inputs (the maps and the task, or the task) where
+      they lay at capture: pass the same objects, and change them in place
+      (``copy_``) between calls, never rebind them; other inputs raise;
     * ``u0`` may be another tensor: it is copied into the graph's first
       (no copy when it is that tensor, or the last call's ``u_new``, which
       the graph has already written back there);
-    * each replay draws the map key and the noise from the generator
-      registered at capture, and advances it as an eager call would;
-    * ``u_new`` and the ``SolveAux`` live in the graph's memory pool and
-      the next call overwrites them: copy out what must outlive it.
+    * each replay draws from the generator registered at capture, and
+      advances it as an eager call would;
+    * the outputs live in the graph's memory pool and the next call
+      overwrites them: copy out what must outlive it.
     """
 
-    def __init__(self, solver, generator, maps, task, u0):
-        self.generator, self.maps, self.task, self.u0 = (generator, maps,
-                                                         task, u0)
+    def __init__(self, solver, generator, *args):
+        *inputs, u0 = args
+        self.generator, self.inputs, self.u0 = generator, tuple(inputs), u0
 
         def run():
-            u, aux = solver(generator, maps, task, u0)
-            u0.copy_(u)
-            return u, aux
+            out = solver(generator, *inputs, u0)
+            u0.copy_(out[0])
+            return out
 
         self._call = Captured(run, generator, keep=(u0,),
                               device=solver.device)
@@ -348,13 +351,20 @@ class SolveGraph:
         """``{kernel wrapper: launches}`` of one call."""
         return self._call.captured_launches
 
-    def __call__(self, generator, maps, task, u0):
+    @property
+    def kernel_nodes(self):
+        """The kernels one call launches, torch's own included."""
+        return self._call.kernel_nodes
+
+    def __call__(self, generator, *args):
+        *inputs, u0 = args
         if not (generator is self.generator
-                and same_tensors(maps, self.maps)
-                and same_tensors(task, self.task)):
+                and len(inputs) == len(self.inputs)
+                and all(same_tensors(a, b)
+                        for a, b in zip(inputs, self.inputs))):
             raise ValueError(
-                "a captured solve replays on the generator, maps and task "
-                "it was captured on: update those tensors in place")
+                "a captured solve replays on the generator and inputs it "
+                "was captured on: update those tensors in place")
         if u0 is not self.u0 and u0 is not self._call.outputs[0]:
             self.u0.copy_(u0)
         return self._call.replay()
@@ -442,6 +452,12 @@ class BareboneSolver:
                                 dtype=torch.float32)
                     for _ in range(s.num_opt)]
         return self.solve_from_draws(eps_list, task, u0)
+
+    def capture(self, generator, task, u0):
+        """This solve captured in a CUDA graph on these tensors: a
+        ``SolveGraph``, called as the solver is (``graph(generator, task,
+        u0)``): the engine's many small torch launches replayed as one."""
+        return SolveGraph(self, generator, task, u0)
 
     def solve_from_draws(self, eps_list, task, u0):
         """The solve after the draws: ``num_opt`` float32 ``(K, T, 2)``

@@ -163,3 +163,74 @@ def test_closed_loop_reaches_goal_on_cpu():
     assert states.shape == (20, 51, 3) and np.isfinite(states).all()
     np.testing.assert_array_equal(
         states[:, 0], np.broadcast_to(x.astype(np.float32), (20, 3)))
+
+
+def _pair_params(**change):
+    """``_params()`` with ``change``, for both packages' planners."""
+    return dict(_params(), **change)
+
+
+def test_planner_keeps_its_buffers_across_updates():
+    """``set_params`` writes into the task buffers and ``shift_and_update``
+    into them and the controls buffer, which the captured solve reads on
+    a card: the same objects throughout, and ``u_cur`` is that buffer
+    after a shift.  Another obstacle count gives new task buffers."""
+    planner = tpkg.BareboneMPPI(tpkg.BareboneConfig(
+        T=2.0, dt=0.1, num_control_rollouts=128, seed=2), device="cpu")
+    planner.setup(_params())
+    task, u_in = tuple(planner._task_device), planner._u_in
+    assert planner.u_cur is u_in
+    planner.set_params(_pair_params(xgoal=np.array([6.0, 4.0]),
+                                    lambda_weight=2.0))
+    u = planner.solve()
+    planner.shift_and_update(np.array([0.1, 0.2, 0.3]), u)
+    planner.shift_and_update(np.array([0.2, 0.3, 0.4]),
+                             np.ones((20, 2), np.float32))
+    assert all(a is b for a, b in zip(planner._task_device, task))
+    assert planner._u_in is u_in and planner.u_cur is u_in
+    np.testing.assert_array_equal(planner._task_device.xgoal.numpy(),
+                                  np.float32([6.0, 4.0]))
+    planner.set_params(_pair_params(
+        obstacle_positions=np.array([[5, 4.5], [2, 1], [1, 3]]),
+        obstacle_radius=np.array([1.5, 1, 0.5])))
+    assert planner._task_device.obs_pos.shape == (3, 2)
+    assert planner._task_device.x0 is not task[0]
+
+
+def test_planner_buffers_equal_jax_after_updates():
+    """After ``set_params``, a second ``set_params`` with other values and
+    three ``shift_and_update`` calls (JAX's solved sequence, the port's
+    solved sequence, a host array), the task fields and ``u_cur`` equal
+    the JAX planner's exactly.  Each package shifts on the device when
+    handed its own solved sequence and uploads the shifted host array
+    otherwise; both give the same numbers."""
+    kw = dict(T=2.0, dt=0.1, num_control_rollouts=128, seed=4)
+    jp = jpkg.BareboneMPPI(jpkg.BareboneConfig(**kw))
+    tp = tpkg.BareboneMPPI(tpkg.BareboneConfig(**kw), device="cpu")
+
+    def same():
+        for f in JTask._fields:
+            np.testing.assert_array_equal(
+                getattr(tp._task_device, f).numpy(),
+                np.asarray(getattr(jp._task_device, f)), err_msg=f)
+        np.testing.assert_array_equal(tp.u_cur.numpy(), np.asarray(jp.u_cur))
+
+    for p in (jp, tp):
+        p.setup(_params())
+    same()
+    other = _pair_params(x0=np.array([0.5, -0.25, 0.1]),
+                         xgoal=np.array([6.5, 4.0]), lambda_weight=3.0,
+                         u_std=np.array([0.5, 0.8]), dist_weight=4.0,
+                         obstacle_positions=np.array([[4, 3.5], [1, 2]]),
+                         obstacle_radius=np.array([1.0, 0.5]))
+    for p in (jp, tp):
+        p.set_params(other)
+    same()
+    rng = np.random.RandomState(5)
+    for step in range(3):
+        j_u, t_u = jp.solve(), tp.solve()
+        u = (j_u, t_u, rng.uniform(-1, 1, (20, 2)).astype(np.float32))[step]
+        x = np.array([0.1 * step, 0.05, 0.2 + step])
+        for p in (jp, tp):
+            p.shift_and_update(x, u.copy())
+        same()

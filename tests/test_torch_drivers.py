@@ -238,7 +238,12 @@ def test_model_main_on_cpu(capsys):
         "barebone_K1000_T50", "terrain_K1024_M1024_T100_unicycle",
         "terrain_K1024_M1024_T100_bicycle", "scale_K1024_det_dyn",
         "scale_K10240_det_dyn", "scale_K10240_tdm"]
-    assert lines[0]["eager"] is True
+    # The barebone row: graph replays on a card, with the eager chain and
+    # the replay's kernels beside; the CPU has no graph.
+    assert "eager" not in lines[0]
+    assert lines[0]["clock"] == "host clock, eager (cpu)"
+    assert np.isfinite(lines[0]["eager_ms_per_solve"])
+    assert lines[0]["captured_launches"] is None
     assert all(np.isfinite(r["ms_per_solve"]) for r in lines)
     assert lines[1]["backend"] == "auto"
 
@@ -297,6 +302,11 @@ def test_scaling_two_gloo_ranks_pass_their_check(scaling_two_ranks):
         assert r["devices"] == 2 and r["check"]["within_tolerance"]
         assert r["solves_per_s"] > 0 and r["efficiency"] > 0
         assert r["collectives_share"] is None and r["draw_ms"] > 0
+        # Gloo solves eagerly, and the line says so.
+        assert r["clock"].startswith("host clock, eager (gloo")
+        assert r["eager_solves_per_s"] is None and r["kernel_nodes"] is None
+        assert r["check"]["graph_bitwise_eager"] is None
+        assert len(r["rank_chain_ms"]) == 2 and r["rank_spread"] >= 1
     assert recs[0]["check"]["bitwise"] and recs[0]["check"]["slices_bitwise"]
     assert recs[1]["check"]["slices_bitwise"] is None
     assert [r["check"] for r in rank1["solve"]["records"]] == [

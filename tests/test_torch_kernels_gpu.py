@@ -1440,6 +1440,167 @@ def test_sharded_trial_batch_one_rank_equals_local_on_card(tmp_path):
         dist.destroy_process_group()
 
 
+def test_sharded_solve_graph_one_rank_equals_eager_and_single_on_card(
+        tmp_path):
+    """``ShardedTerrainSolver.capture`` on a one-rank NCCL mesh (4 sweep
+    episodes, noisy_dyn, K = 512, M = 256): three replays, each fed the
+    last one's controls and drawing on from the generator, bit for bit
+    against the eager sharded solve and the single solve of generators of
+    the same seed in the same chain (u and costs); one map_sample launch
+    and one rollout launch an iteration a replay; no collective from the
+    host during a replay."""
+    import torch.distributed as dist
+    from mppi_numba_tpu_torch.parallel.sharded import (
+        get_sharded_terrain_solver)
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+
+    dev = _cuda_or_skip()
+    static, maps, task, _ = _sweep_chunk(dev, "noisy_dyn", 4, K=512, M=256)
+    mesh = _one_rank_group(tmp_path)
+    try:
+        sharded = get_sharded_terrain_solver(static, mesh)
+        single = get_terrain_solver(static, dev)
+        u0 = torch.zeros((4, static.num_steps, 2), device=dev) + 0.2
+        gens = [torch.Generator(device=dev).manual_seed(3)
+                for _ in range(3)]
+        graph = sharded.capture(gens[0], maps, task, u0.clone())
+        assert graph.kernel_nodes > 0
+        u_e = u_s = u0
+        calls = []
+        saved = dist.all_reduce
+        for _ in range(3):
+            before = (map_sample.sample_and_pack_window.launches,
+                      rollout_byte.terrain_rollout_costs_byte.launches)
+            dist.all_reduce = lambda *a, **k: calls.append(a)
+            try:
+                u_g, c_g = graph(gens[0], maps, task, graph.u0)
+            finally:
+                dist.all_reduce = saved
+            assert (map_sample.sample_and_pack_window.launches - before[0],
+                    rollout_byte.terrain_rollout_costs_byte.launches
+                    - before[1]) == (1, static.num_opt)
+            u_e, c_e = sharded(gens[1], maps, task, u_e)
+            u_s, aux = single(gens[2], maps, task, u_s)
+            assert torch.equal(u_g, u_e) and torch.equal(c_g, c_e)
+            assert torch.equal(u_g, u_s) and torch.equal(c_g, aux.costs)
+        assert not calls
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_capture_refuses_gloo_on_card(tmp_path):
+    """Gloo ranks on a card (collectives on the host) solve eagerly:
+    ``capture`` raises and names the reason."""
+    import torch.distributed as dist
+    from mppi_numba_tpu_torch.parallel import multihost
+    from mppi_numba_tpu_torch.parallel.mesh import make_mesh
+    from mppi_numba_tpu_torch.parallel.sharded import (
+        get_sharded_terrain_solver)
+
+    dev = _cuda_or_skip()
+    static, maps, task, _ = _sweep_chunk(dev, "noisy_dyn", 2, K=256, M=64)
+    multihost.initialize("file://{}".format(tmp_path / "store"), 1, 0,
+                         backend="gloo")
+    try:
+        mesh = make_mesh(1, 1, num_map_shards=1)
+        solver = get_sharded_terrain_solver(static, mesh)
+        u0 = torch.zeros((2, static.num_steps, 2), device=dev)
+        with pytest.raises(RuntimeError, match="only on an NCCL mesh"):
+            solver.capture(torch.Generator(device=dev), maps, task, u0)
+        u, _ = solver(torch.Generator(device=dev).manual_seed(1), maps, task,
+                      u0)
+        assert torch.isfinite(u).all()
+    finally:
+        dist.destroy_process_group()
+
+
+def _barebone_planner(dev, seed=1):
+    """``examples/barebone_mppi.py``'s planner (K = 1024, T = 50)."""
+    from mppi_numba_tpu_torch import BareboneConfig, BareboneMPPI
+
+    cfg = BareboneConfig(T=5.0, dt=0.1, num_control_rollouts=1024,
+                         num_vis_state_rollouts=20, seed=seed)
+    planner = BareboneMPPI(cfg, device=dev)
+    planner.setup(dict(
+        dt=0.1, x0=np.array([0.0, 0.0, np.pi / 4]), xgoal=np.array([7, 5]),
+        goal_tolerance=0.5, dist_weight=10, lambda_weight=1.0, num_opt=1,
+        u_std=np.array([1.0, 1.0]), vrange=np.array([0.0, 2.0]),
+        wrange=np.array([-np.pi, np.pi]),
+        obstacle_positions=np.array([[5, 4.5], [2, 1]]),
+        obstacle_radius=np.array([1.5, 1]), obs_penalty=1e6))
+    return planner
+
+
+def test_barebone_solve_and_vis_graphs_equal_eager_on_card():
+    """``BareboneSolver.capture`` replayed three times, each fed the last
+    one's controls, and ``get_barebone_vis`` in a ``graphs.VisGraph``,
+    against eager calls from a generator of the same seed, bit for bit
+    (u, every ``SolveAux`` field, the states)."""
+    from mppi_numba_tpu_torch.graphs import VisGraph
+    from mppi_numba_tpu_torch.solver import (get_barebone_solver,
+                                             get_barebone_vis)
+
+    dev = _cuda_or_skip()
+    planner = _barebone_planner(dev)
+    static, task = planner._static(), planner._task_device
+    solver = get_barebone_solver(static, dev)
+    g, g2 = (torch.Generator(device=dev).manual_seed(6) for _ in range(2))
+    graph = solver.capture(g, task, torch.zeros((50, 2), device=dev))
+    assert graph.kernel_nodes > 100
+    u_e = torch.zeros((50, 2), device=dev)
+    for _ in range(3):
+        u_g, aux_g = graph(g, task, graph.u0)
+        u_e, aux_e = solver(g2, task, u_e)
+        assert torch.equal(u_g, u_e)
+        for f in ("costs", "weights", "noise_vis"):
+            assert torch.equal(getattr(aux_g, f), getattr(aux_e, f)), f
+    vis = get_barebone_vis(static)
+    vgraph = VisGraph(vis, (task,), (aux_g.noise_vis,), u_g)
+    shifted = torch.cat([u_g[1:], u_g[-1:]])
+    assert torch.equal(vgraph(shifted, u_g),
+                       vis(task, shifted, u_e, aux_e.noise_vis))
+
+
+def test_barebone_planner_graph_closed_loop_equals_eager_on_card():
+    """A graphed ``BareboneMPPI`` closed loop against the eager solver and
+    vis from a generator of the planner's seed, bit for bit, over solves,
+    shifts, new params of the same shapes (the same graph) and a third
+    obstacle (a new ``SolverStatic``: a second graph on new buffers)."""
+    from mppi_numba_tpu_torch.solver import (get_barebone_solver,
+                                             get_barebone_vis)
+
+    dev = _cuda_or_skip()
+    planner = _barebone_planner(dev)
+    gen = torch.Generator(device=dev).manual_seed(planner.seed)
+    u_e = torch.zeros((50, 2), device=dev)
+    x = np.array([0.0, 0.0, np.pi / 4])
+    for step in range(8):
+        if step == 4:
+            planner.set_params(dict(planner.params, xgoal=np.array([6, 6])))
+        if step == 6:
+            planner.set_params(dict(
+                planner.params,
+                obstacle_positions=np.array([[5, 4.5], [2, 1], [1, 4]]),
+                obstacle_radius=np.array([1.5, 1, 0.5])))
+        static = planner._static()
+        task = type(planner._task_device)(*(
+            t.clone() for t in planner._task_device))
+        u = planner.solve()
+        assert planner.u_prev is planner.u_cur
+        want, aux = get_barebone_solver(static, dev)(gen, task, u_e)
+        assert np.array_equal(u, want.cpu().numpy()), step
+        x = x + 0.1 * np.array([u[0, 0] * np.cos(x[2]),
+                                u[0, 0] * np.sin(x[2]), u[0, 1]])
+        planner.shift_and_update(x, u)
+        u_e = torch.cat([want[1:], want[-1:]])
+        assert torch.equal(planner.u_cur, u_e)
+        task.x0.copy_(torch.tensor(x, dtype=torch.float32))
+        states = planner.get_state_rollout()
+        assert np.array_equal(states, get_barebone_vis(static)(
+            task, u_e, want, aux.noise_vis).cpu().numpy()), step
+    assert len(planner._solve_graphs) == len(planner._vis_graphs) == 1
+
+
 def _two_cards_or_skip():
     _cuda_or_skip()
     if torch.cuda.device_count() < 2:

@@ -57,8 +57,10 @@ def test_initialize_reads_the_environment_and_needs_a_card(monkeypatch):
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
-    static, _, _, _ = ranks.build_case(2)
-    jobs = {"static": dict(kind="static", mesh=(1, 2, 1), static=static)}
+    static, maps, task, u0 = ranks.build_case(2)
+    jobs = {"static": dict(kind="static", mesh=(1, 2, 1), static=static),
+            "capture": dict(kind="capture", mesh=(1, 2, 1), static=static,
+                            maps=maps, task=task, u0=u0)}
     return ranks.run_group(2, jobs, tmp_path_factory.mktemp("two"))
 
 
@@ -92,6 +94,48 @@ def test_default_meshes(two_ranks):
     for res in two_ranks:
         assert res["static"]["balanced"] == (1, 2, 1)
         assert res["static"]["global"] == (2, 1, 1)
+
+
+def test_capture_refuses_gloo_and_checks_shapes_on_every_rank(two_ranks):
+    """``ShardedTerrainSolver.capture`` on a gloo CPU mesh raises on every
+    rank, naming NCCL and the backend, with no fallback; the capture's
+    shape agreement raises on both ranks when one rank's ``u0`` is off."""
+    for res in two_ranks:
+        msg = res["capture"]["capture"]
+        assert msg is not None and "only on an NCCL mesh" in msg
+        assert "gloo" in msg and "cpu" in msg
+        assert "one S_local on every rank" in res["capture"]["agree"]
+
+
+def test_sharded_solver_cache_follows_the_process_group(tmp_path):
+    """A mesh of the same shape on a later process group (after
+    ``destroy_process_group``) compares equal to the first; the cached
+    sharded solver must not hand back the first one's dead groups."""
+    import torch
+    import torch.distributed as dist
+
+    from mppi_numba_tpu_torch.parallel.mesh import ROLLOUT_AXIS, make_mesh
+    from mppi_numba_tpu_torch.parallel.sharded import (
+        get_sharded_terrain_solver)
+
+    static, maps, task, u0 = ranks.build_case(1)
+    static = SolverStatic(**static)
+    maps, task, u0 = ranks.port_inputs(maps, task, u0)
+    solvers = []
+    for i in range(2):
+        multihost.initialize("file://{}".format(tmp_path / "s{}".format(i)),
+                             1, 0, backend="gloo")
+        try:
+            mesh = make_mesh(1, 1, devices="cpu")
+            solver = get_sharded_terrain_solver(static, mesh)
+            assert get_sharded_terrain_solver(static, mesh) is solver
+            assert solver.k_group is mesh.get_group(ROLLOUT_AXIS)
+            u, _ = solver(torch.Generator().manual_seed(0), maps, task, u0)
+            assert torch.isfinite(u).all()
+            solvers.append(solver)
+        finally:
+            dist.destroy_process_group()
+    assert solvers[0] is not solvers[1]
 
 
 @pytest.mark.parametrize("mesh_axis", ["scenario", "k"])

@@ -236,6 +236,33 @@ def _static_job(job, mesh_of):
     return out
 
 
+def _capture_job(job, mesh_of):
+    """``ShardedTerrainSolver.capture`` on this gloo CPU mesh (it must
+    refuse, naming why), and the capture's agreement on input shapes with
+    rank 1's ``u0`` one step short: what each rank raised."""
+    from mppi_numba_tpu_torch.config import SolverStatic
+    from mppi_numba_tpu_torch.parallel.sharded import (
+        get_sharded_terrain_solver)
+
+    mesh = mesh_of(job["mesh"])
+    solver = get_sharded_terrain_solver(SolverStatic(**job["static"]), mesh)
+    maps, task, u0 = port_inputs(job["maps"], job["task"], job["u0"])
+    out = {}
+    try:
+        solver.capture(torch.Generator().manual_seed(0), maps, task, u0)
+        out["capture"] = None
+    except RuntimeError as e:
+        out["capture"] = str(e)
+    if dist.get_rank() == 1:
+        u0 = u0[:, 1:]
+    try:
+        solver._agree_on_inputs(maps, task, u0)
+        out["agree"] = None
+    except ValueError as e:
+        out["agree"] = str(e)
+    return out
+
+
 def _scaling_job(job, mesh_of):
     """``drivers.scaling_bench`` on this process group (``job["argv"]``):
     its records and what it printed."""
@@ -250,7 +277,8 @@ def _scaling_job(job, mesh_of):
 
 
 JOBS = {"solve": _solve_job, "ops": _ops_job, "trial": _trial_job,
-        "static": _static_job, "scaling": _scaling_job}
+        "static": _static_job, "scaling": _scaling_job,
+        "capture": _capture_job}
 
 
 def _rank(rank, world, store, jobs_path, out_dir):
