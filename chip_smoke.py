@@ -173,11 +173,47 @@ Phases (any failure exits non-zero; no error is swallowed):
    finite, a failed check or a driver whose lines show no launch of the
    map-sampling and rollout kernels fails the run.
 
+7. The examples and the sweep drivers (``mppi_numba_tpu_torch.examples``,
+   the counterparts of ``examples/*.py``, and ``drivers.full_benchmark`` /
+   ``drivers.engine_ab_check``, of ``scripts/run_full_benchmark.py`` /
+   ``scripts/engine_ab_check.py``), each run as a subprocess from the
+   repository's root at full width on the card, its lines echoed: every
+   mode of every example, ``full_benchmark`` at one environment and
+   realization a density with the four paper methods (80 trials) and
+   ``engine_ab_check`` at one of each (8 trials an engine).  A non-zero
+   exit, a first line that is not the card line, a number that is not
+   finite, a missing outcome line, a terrain example that did not launch
+   the map-sampling and a rollout kernel, a planner that replayed no CUDA
+   graph, or a file written outside the run's ``--out-dir`` (under
+   ``build/smoke_phase7/``) fails the run; so does a sweep pickle without
+   the JAX script's keys.  Each example's success, time to goal and steps
+   are printed; a miss does not fail the run.  Then, in this process,
+   every terrain world of the examples, built by its example (every mode
+   of terrain_planning and planner_animation; external PMF at K = 2048 /
+   M = 512, the costmap's M = 1 route, the confidence map with its
+   unknown mask), each over 5 closed-loop solves replayed from the
+   planner's graphs and held bit for bit against eager solves
+   (``EagerMirror``), with the last vis; every kernel call of those eager
+   solves held bit for bit against the wrapper's plain version on the
+   same inputs (``held_against_plain``); and for the animation's worlds
+   each step's frame rollouts (``get_state_rollout()`` before the shift)
+   bit for bit with the eager vis.  Phase 2's cases hold the kernels at
+   these shapes too.  Their launches and the subprocesses' are the
+   ``kernels`` line's ``launches_phase7``.
+
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
+
+The run reaps every process it starts, orphans included
+(``become_subreaper``).  Before its last two lines it stops them all
+(``stop_started_processes``): multiprocessing's resource tracker, which
+phase 5's ``mp.spawn`` starts and the interpreter would leave to end after
+it, and any other, which fails the run.  It stops them again on its way
+out if a phase failed.
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -534,6 +570,7 @@ def main():
               file=sys.stderr)
         return 2
 
+    become_subreaper()
     from mppi_numba_tpu_torch._card import (card_line, time_cuda,
                                             time_cuda_graph)
     from mppi_numba_tpu_torch.models import bicycle_step, make_bicycle_step
@@ -690,6 +727,20 @@ def main():
         # World (b)'s shape, with its penalty cells.
         ("main_path_250x250", 1024, 1024, 100, 250, 250, 0.25, True, True,
          False),
+        # The examples' byte-route shapes (phase 7): terrain_planning's
+        # det and speed at M = 1 on its 11x11 map, and planner_animation's
+        # 8x14 worlds (tdm, det, speed; T = 80) and 14x8 example world.
+        ("terrain_det_11x11_M1", 1024, 1, 100, 11, 11, 1.0, True, True,
+         False),
+        ("terrain_speed_11x11_M1", 1024, 1, 100, 11, 11, 1.0, True, True,
+         True),
+        ("animation_tdm_8x14", 1024, 1024, 80, 8, 14, 1.0, True, True,
+         False),
+        ("animation_det_8x14_M1", 1024, 1, 80, 8, 14, 1.0, True, True, False),
+        ("animation_speed_8x14_M1", 1024, 1, 80, 8, 14, 1.0, True, True,
+         True),
+        ("animation_example_14x8", 1024, 1024, 100, 14, 8, 1.0, True, True,
+         False),
     ]
     case_results = []
     flagship_args = None
@@ -736,6 +787,14 @@ def main():
          False, True, True),
         ("ragged_nibble", 1000, 37, 37, 140, 84, 0.5, 4, 12, False, True,
          False),
+        # The examples' shapes (phase 7): external PMF at K = 2048 / M =
+        # 512, the costmap's M = 1 speed map, the confidence map.
+        ("crumb_32x42_external_pmf", 2048, 512, 80, 32, 42, 0.5, 2, 4, True,
+         True, False),
+        ("crumb_26x32_costmap_speed_map", 1024, 1, 40, 26, 32, 0.5, 2, 2,
+         True, True, True),
+        ("crumb_62x42_confidence", 1024, 64, 60, 62, 42, 0.5, 2, 4, True,
+         True, False),
     ]
     binned_results = []
     for seed, (name, K, M, T, H, W, res, cb, B, ft, pen, sm) in enumerate(
@@ -962,6 +1021,28 @@ def main():
          "signed", 0),
         ("M4_signed_alpha-0.7", 4, (60, 70), (0, 0, 60, 70), 12, 12, -0.7,
          "signed", 0),
+        # The examples' maps and support-compacted bins (phase 7); the
+        # fused check's random planes hold unknown cells.
+        ("terrain_11x11_21bins", 1024, (11, 11), (0, 0, 11, 11), 21, 21, 1.0,
+         False, 0),
+        ("terrain_det_11x11_M1_3bins", 1, (11, 11), (0, 0, 11, 11), 3, 3,
+         0.2, False, 0),
+        ("terrain_speed_11x11_M1_2bins", 1, (11, 11), (0, 0, 11, 11), 2, 2,
+         0.2, False, 0),
+        ("external_pmf_32x42_4bins", 512, (32, 42), (0, 0, 32, 42), 4, 4,
+         1.0, False, 0),
+        ("costmap_26x32_M1_2bins", 1, (26, 32), (0, 0, 26, 32), 2, 2, 1.0,
+         False, 0),
+        ("confidence_62x42_4bins", 64, (62, 42), (0, 0, 62, 42), 4, 4, 1.0,
+         False, 0),
+        ("animation_8x14_21bins", 1024, (8, 14), (0, 0, 8, 14), 21, 21, 1.0,
+         False, 0),
+        ("animation_det_8x14_M1_3bins", 1, (8, 14), (0, 0, 8, 14), 3, 3,
+         0.2, False, 0),
+        ("animation_speed_8x14_M1_2bins", 1, (8, 14), (0, 0, 8, 14), 2, 2,
+         0.2, False, 0),
+        ("animation_example_14x8_21bins", 1024, (14, 8), (0, 0, 14, 8), 21,
+         21, 1.0, False, 0),
     ]
     # The shapes each timed world's solve gives the fused kernel, and its
     # layout there (det_140x84_M1: world (d)'s M = 1).
@@ -1840,9 +1921,19 @@ def main():
     # -- phase 6: the drivers ----------------------------------------------------
     run_drivers(card, emit)
 
+    # -- phase 7: the examples and the sweep drivers ------------------------------
+    set_counts()
+    phase7 = run_phase7(card, emit)
+    in_process = read_counts()
+    for k in phase7:
+        phase7[k] += in_process[k]
+    left = stop_started_processes()
+    check(not left, "processes left running: {}".format(left))
+
     print(json.dumps({"kernels": [{
         "name": "rollout_byte",
         "route": "cuda",
+        "launches_phase7": phase7["rollout_byte"],
         "source": rollout_byte.KERNEL_SOURCE,
         "replaces": rollout_byte.REPLACES,
         "launches": totals["rollout_byte"],
@@ -1870,6 +1961,7 @@ def main():
     }, {
         "name": "rollout_binned",
         "route": "cuda",
+        "launches_phase7": phase7["rollout_binned"],
         "source": rollout_binned.KERNEL_SOURCE,
         "replaces": rollout_binned.REPLACES,
         "launches": totals["rollout_binned"],
@@ -1895,6 +1987,7 @@ def main():
     }, {
         "name": "map_sample",
         "route": "cuda",
+        "launches_phase7": phase7["map_sample"],
         "source": map_sample.KERNEL_SOURCE,
         "replaces": map_sample.REPLACES,
         "launches": totals["map_sample"],
@@ -1926,6 +2019,7 @@ def main():
         "scenarios_b30_M1": scenario_timed["map_sample_M1"],
     }, {
         "name": "roi_window",
+        "launches_phase7": phase7["map_sample_crop"],
         "kernel": "map_sample, crop mode (sample_and_pack_crop): the crop "
                   "is folded into the map draw; no launch of its own",
         "route": "cuda",
@@ -1944,6 +2038,7 @@ def main():
     }, {
         "name": "gather_probe",
         "route": "cuda",
+        "launches_phase7": phase7["gather_probe"],
         "source": gather_probe.KERNEL_SOURCE,
         "replaces": gather_probe.REPLACES,
         "launches": totals["gather_probe"],
@@ -3021,17 +3116,21 @@ class EagerMirror:
                   float(np.abs(u - want_u.cpu().numpy()).max()), differ))
         if p.det_dyn:
             self.u_prev = want_u
+        self.u_solved = want_u
         self.u = torch.cat([want_u[1:], want_u[-1:]])
         self.solves += 1
 
-    def vis(self):
-        """The eager vis rollouts on the planner's present inputs."""
+    def vis(self, u=None):
+        """The eager vis rollouts on the planner's present inputs, of the
+        shifted controls (``u``: of these, e.g. ``u_solved`` before the
+        shift)."""
         from mppi_numba_tpu_torch.solver import get_terrain_vis
 
         maps, task = self._inputs()
         a = self.aux
+        u = self.u if u is None else u
         return self._uncounted(lambda: get_terrain_vis(self.static)(
-            maps, task, self.u, self.u_prev, a.noise_vis, a.lin_grids,
+            maps, task, u, self.u_prev, a.noise_vis, a.lin_grids,
             a.ang_grids, a.roi_offset)).cpu().numpy()
 
 
@@ -4018,6 +4117,8 @@ def sharded_rank(rank, world, store, jobs_path, out_dir):
 DRIVERS = "mppi_numba_tpu_torch.drivers."
 # Each driver's own run: a failure, a hang or a missing line fails phase 6.
 DRIVER_TIMEOUT_S = 300
+PR_SET_CHILD_SUBREAPER = 36     # prctl option, <linux/prctl.h>
+STOP_GRACE_S = 5                # SIGTERM to SIGKILL for a process left running
 MAP_SAMPLE_WRAPPERS = ("sample_traction_window", "sample_and_pack_window",
                        "sample_and_pack_crop")
 ROLLOUT_WRAPPERS = ("terrain_rollout_costs_byte",
@@ -4058,7 +4159,86 @@ def launched_kernels(record):
             and sum(launches.get(w, 0) for w in ROLLOUT_WRAPPERS) > 0)
 
 
-def run_driver(name, argv, card):
+def become_subreaper():
+    """Make this process the reaper of every process it starts: one whose
+    parent ends before it comes back to this process, not to init
+    (Linux's PR_SET_CHILD_SUBREAPER), so ``stop_started_processes`` finds
+    and reaps it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def descendants(pid):
+    """``{pid: command line}`` of the processes below ``pid``, from /proc
+    (an exited one not yet reaped has an empty command line)."""
+    import os
+
+    children = {}
+    for entry in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open("/proc/{}/stat".format(entry)) as f:
+                stat = f.read()
+            with open("/proc/{}/cmdline".format(entry), "rb") as f:
+                cmdline = f.read().replace(b"\0", b" ").decode(
+                    errors="replace").strip()
+        except OSError:
+            continue
+        # "pid (comm) state ppid ...": comm may hold spaces and parentheses.
+        ppid = int(stat[stat.rindex(")") + 2:].split()[1])
+        children.setdefault(ppid, []).append((int(entry), cmdline))
+    out, todo = {}, [pid]
+    while todo:
+        for child, cmdline in children.get(todo.pop(), ()):
+            out[child] = cmdline
+            todo.append(child)
+    return out
+
+
+def reap_children():
+    """Reap every child of this process that has exited."""
+    import os
+
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_started_processes():
+    """Stop and reap every process this run started that is still there.
+    First multiprocessing's resource tracker, which ``mp.spawn`` starts and
+    the interpreter leaves to end after it exits (its pipe closed, then
+    waited for).  Then any other, named on stderr, sent SIGTERM and, if
+    still there after ``STOP_GRACE_S``, SIGKILL.  Returns ``{pid: command
+    line}`` of those others."""
+    import os
+    import signal
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()
+    reap_children()
+    left = descendants(os.getpid())
+    for pid, cmdline in left.items():
+        print("chip_smoke: stopping process {} left running: {}".format(
+            pid, cmdline), file=sys.stderr)
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in descendants(os.getpid()):
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + STOP_GRACE_S
+        while descendants(os.getpid()) and time.monotonic() < deadline:
+            time.sleep(0.05)
+            reap_children()
+    return left
+
+
+def run_driver(name, argv, card, phase=6):
     """Run one driver from the repository's root; echo its output; check
     its exit code, its card line and that every number it printed is
     finite.  Returns ``(records, seconds)``."""
@@ -4068,7 +4248,8 @@ def run_driver(name, argv, card):
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    print("chip_smoke phase 6: {}: {}".format(name, " ".join(argv[1:])),
+    print("chip_smoke phase {}: {}: {}".format(phase, name,
+                                               " ".join(argv[1:])),
           flush=True)
     t0 = time.perf_counter()
     try:
@@ -4158,9 +4339,352 @@ def run_drivers(card, emit):
     emit("drivers_phase_s", sum(seconds.values()), "s", per_driver=seconds)
 
 
+# -- phase 7: the examples and the sweep drivers --------------------------------
+
+EXAMPLES = "mppi_numba_tpu_torch.examples."
+# Where phase 7's runs write (git-ignored): one directory a run.
+PHASE7_OUT = "build/smoke_phase7"
+PAPER_METHODS = ("noisy_dyn", "risk_dyn", "nom_dyn_risk_cost", "baseline")
+# The JAX script's experiment pickle keys (scripts/run_full_benchmark.py).
+EXPERIMENT_KEYS = {
+    "logger", "cfg", "max_speed", "max_steps", "grid_shape", "mud_margin",
+    "res", "num_pmf_bins", "bin_values", "bin_values_bounds",
+    "default_mppi_params", "grass_density_list", "envs_per_density",
+    "trials_per_env", "alpha_list", "method_list", "pmf_bounds",
+    "bush_weights", "bush_means", "bush_std", "dirt_weights", "dirt_means",
+    "dirt_std", "wall_clock_s", "engine"}
+# Solves of each new shape held bit for bit against eager ones, and the
+# animation's frames.
+NEW_SHAPE_SOLVES = 5
+# Wrapper -> the kernels' names in the ``kernels`` line.
+WRAPPER_KERNELS = {
+    "terrain_rollout_costs_byte": ("rollout_byte",),
+    "terrain_rollout_costs_binned": ("rollout_binned",),
+    "sample_traction_window": ("map_sample",),
+    "sample_and_pack_window": ("map_sample",),
+    "sample_and_pack_crop": ("map_sample", "map_sample_crop"),
+}
+
+
+def phase7_commands():
+    """``(name, argv, terrain)`` of every example mode at full width, then
+    ``full_benchmark`` (one environment and realization a density, the
+    four paper methods: 80 trials) and ``engine_ab_check`` (one of each:
+    8 trials an engine); ``terrain``: the run must launch the map-sampling
+    and a rollout kernel."""
+    def mod(name, *args):
+        return [sys.executable, "-m", name, *args]
+
+    ex = [("barebone_mppi", mod(EXAMPLES + "barebone_mppi"), False)]
+    ex += [("terrain_planning_" + m, mod(EXAMPLES + "terrain_planning", m),
+            True) for m in ("tdm", "det", "speed")]
+    ex += [(n, mod(EXAMPLES + n), True) for n in (
+        "external_pmf_planning", "costmap_planning", "confidence_planning")]
+    ex += [("planner_animation_" + m,
+            mod(EXAMPLES + "planner_animation", m), True)
+           for m in ("tdm", "det", "speed", "example")]
+    return ex + [
+        ("full_benchmark", mod(DRIVERS + "full_benchmark", "--envs", "1",
+                               "--trials", "1", "--methods",
+                               ",".join(PAPER_METHODS)), True),
+        ("engine_ab_check", mod(DRIVERS + "engine_ab_check", "--envs", "1",
+                                "--trials", "1"), True)]
+
+
+def own_log_files(root):
+    """The files under ``root`` that this process's standard output and
+    error are written to (a log of this run), relative to ``root``."""
+    import os
+
+    files = set()
+    for fd in (1, 2):
+        try:
+            path = os.readlink("/proc/self/fd/{}".format(fd))
+        except OSError:
+            continue
+        if path.startswith(root + os.sep):
+            files.add(os.path.relpath(path, root))
+    return files
+
+
+def tree_state(root, skip):
+    """``{path: (size, mtime)}`` of the files under ``root``, less the
+    directories of ``skip`` (paths relative to ``root``) and every
+    ``__pycache__``."""
+    import os
+
+    state = {}
+    for d, dirs, files in os.walk(root):
+        rel = os.path.relpath(d, root)
+        dirs[:] = [x for x in dirs if x != "__pycache__"
+                   and os.path.normpath(os.path.join(rel, x)) not in skip]
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            state[os.path.normpath(os.path.join(rel, f))] = (
+                st.st_size, st.st_mtime_ns)
+    return state
+
+
+def check_example(name, records, terrain):
+    """An example's lines: one outcome line; a terrain map's run launched
+    the map-sampling and a rollout kernel; its planner replayed a solve
+    graph (and a vis graph).  Returns the outcome line."""
+    outcome = [r for r in records if "outcome" in r]
+    check(len(outcome) == 1, "example {}: {} outcome lines".format(
+        name, len(outcome)))
+    rec = outcome[0]
+    check(not terrain or launched_kernels(rec),
+          "example {}: launches {}".format(name, rec.get("launches")))
+    check(rec["solve_graphs"] >= 1 and rec["vis_graphs"] >= 1
+          and rec["kernel_nodes"] > 0
+          and rec["solve_ms"]["clock"] == "host clock, CUDA-graph replays",
+          "example {}: no graph replayed: {}".format(name, rec))
+    return rec
+
+
+def check_sweeps(out, dirs):
+    """``full_benchmark``'s tables, trials and captures, its pickle (the
+    JAX script's keys, loaded by ``checkpoint.load_experiment``) and
+    launches; ``engine_ab_check``'s JSON and launches."""
+    import os
+    from mppi_numba_tpu_torch.checkpoint import load_experiment
+
+    tables, saved = out["full_benchmark"]
+    check(tables.get("trials") == 80
+          and list(tables["success_by_method"]) == list(PAPER_METHODS)
+          and all(tables["engine"][m]["captures"] == 1
+                  for m in PAPER_METHODS)
+          and launched_kernels(saved),
+          "full_benchmark: {} / {}".format(tables, saved))
+    check(os.path.dirname(saved["saved"]) == dirs["full_benchmark"],
+          "full_benchmark saved {} outside its --out-dir".format(
+              saved["saved"]))
+    exp = load_experiment(saved["saved"])
+    check(set(exp) == EXPERIMENT_KEYS and exp["engine"] == "device"
+          and len(exp["logger"]["success"]) == 80,
+          "full_benchmark's pickle: keys {}".format(sorted(exp)))
+    ab, times = out["engine_ab_check"]
+    check(ab.get("n_trials_per_engine") == 8
+          and set(ab) == {"n_trials_per_engine", "noisy_dyn", "risk_dyn"}
+          and launched_kernels(times),
+          "engine_ab_check: {} / {}".format(ab, times))
+
+
+def new_shape_planners():
+    """``(name, build, frames)`` of the examples' terrain planners that
+    phase 7 holds in this process: every mode of terrain_planning, the
+    shapes phase 3 does not drive (external PMF at K = 2048 / M = 512,
+    the costmap's M = 1 route, the confidence map with its unknown mask)
+    and every world of planner_animation.  ``build()`` makes the world on
+    the card; ``frames``: each step's ``get_state_rollout()`` is checked,
+    as the example draws one a step."""
+    from mppi_numba_tpu_torch.examples import (confidence_planning,
+                                               costmap_planning,
+                                               external_pmf_planning,
+                                               planner_animation,
+                                               terrain_planning)
+
+    return ([("terrain_planning_" + m,
+              functools.partial(terrain_planning.build, m), False)
+             for m in terrain_planning.MODES]
+            + [("external_pmf_K2048_M512", external_pmf_planning.build,
+                False),
+               ("costmap_M1", costmap_planning.build, False),
+               ("confidence_unknown_mask", confidence_planning.build, False)]
+            + [("planner_animation_" + m,
+                functools.partial(planner_animation.build, m), True)
+               for m in planner_animation.MODES])
+
+
+# The solver's kernel wrappers (names in ``solver``) and their modules.
+SOLVER_KERNELS = {"sample_and_pack_window": "map_sample",
+                  "sample_and_pack_crop": "map_sample",
+                  "terrain_rollout_costs_byte": "rollout_byte",
+                  "terrain_rollout_costs_binned": "rollout_binned"}
+
+
+def flat_tensors(value):
+    """The tensors and Nones of a nested tuple or list, in order."""
+    if isinstance(value, (tuple, list)):
+        return [t for v in value for t in flat_tensors(v)]
+    return [value]
+
+
+@contextlib.contextmanager
+def held_against_plain(held):
+    """While open, each call the solver makes to a kernel wrapper also runs
+    the wrapper's plain version on the same inputs, and the outputs are
+    compared bit for bit: one record a call is appended to ``held``
+    (``differing``: entries differing per output, -1 where the dtype,
+    shape or presence differs)."""
+    import importlib
+
+    import torch
+    from mppi_numba_tpu_torch import solver
+
+    def holding(name, kernel, plain):
+        def call(*args, **kw):
+            got = kernel(*args, **kw)
+            g, w = flat_tensors(got), flat_tensors(plain(*args, **kw))
+            differing = [
+                -1 if (a is None) != (b is None) else 0 if a is None
+                else -1 if (a.dtype, a.shape) != (b.dtype, b.shape)
+                else int((a != b).sum())
+                for a, b in zip(g, w)] + [-1] * abs(len(g) - len(w))
+            held.append(dict(kernel=name, differing=differing, shapes=[
+                list(t.shape) for t in flat_tensors(args)
+                if torch.is_tensor(t) and t.dim()]))
+            return got
+        return call
+
+    saved = {n: getattr(solver, n) for n in SOLVER_KERNELS}
+    for n, mod in SOLVER_KERNELS.items():
+        plain = getattr(importlib.import_module(
+            "mppi_numba_tpu_torch.ops.kernels." + mod), n + "_plain")
+        setattr(solver, n, holding(n, saved[n], plain))
+    try:
+        yield held
+    finally:
+        for n, f in saved.items():
+            setattr(solver, n, f)
+
+
+def check_new_shape(name, w, frames):
+    """``NEW_SHAPE_SOLVES`` closed-loop solves of an example's planner,
+    each (a graph replay) held bit for bit against an eager solve from a
+    generator of the same seed (``EagerMirror``), each kernel call of the
+    eager solve held bit for bit against its plain version on the same
+    inputs (``held_against_plain``); with ``frames`` each step's frame
+    rollouts (``get_state_rollout()`` before the shift), and in any case
+    the last vis, bit for bit with eager ones."""
+    from mppi_numba_tpu_torch.drivers._common import (launch_counts,
+                                                      launched_since)
+    from mppi_numba_tpu_torch.sim import simulate_step
+    from mppi_numba_tpu_torch.solver import resolve_backend
+
+    before = launch_counts()
+    planner = w.planner
+    static = planner._static()
+    mirror = EagerMirror(planner)
+    x = np.asarray(planner.params["x0"], dtype=float).copy()
+    truth = getattr(w, "truth", None)
+    held, checked_frames = [], 0
+    for _ in range(NEW_SHAPE_SOLVES):
+        mirror.before_solve()
+        u = planner.solve()
+        with held_against_plain(held):
+            mirror.after_solve(u, name)
+        if frames:
+            states = planner.get_state_rollout()
+            want = mirror.vis(mirror.u_solved)
+            check(np.array_equal(states, want), "{}: frame {} differs from "
+                  "the eager vis by {}".format(
+                      name, checked_frames,
+                      float(np.abs(states - want).max())))
+            checked_frames += 1
+        if truth is not None:
+            x = simulate_step(x, u[0], *truth.get(x[0], x[1]), planner.dt)
+        planner.shift_and_update(x, u, num_shifts=1)
+    vis_shape = check_state_rollout(name, planner, x, mirror)
+    launches = launched_since(before)
+    check(launched_kernels({"launches": launches}), "{}: launches {}".format(
+        name, launches))
+    bad = [h for h in held if any(h["differing"])]
+    check(not bad, "{}: kernels differ from their plain versions: {}".format(
+        name, bad[:4]))
+    kernels = sorted({h["kernel"] for h in held})
+    check(any("rollout" in k for k in kernels) and any(
+        "sample" in k for k in kernels), "{}: the eager solves called {}"
+        .format(name, kernels))
+    return dict(check="phase7_graph_equals_eager", world=name,
+                solves=mirror.solves, frames=checked_frames,
+                vis_shape=vis_shape, launches=launches,
+                backend=resolve_backend(static, planner.device),
+                K=static.num_control_rollouts,
+                M=static.num_grid_samples, map=list(static.map_shape),
+                roi=static.roi_shape, unknown_cells=int(
+                    planner._map_inputs().unknown.sum()),
+                kernels_held_against_plain={k: dict(
+                    calls=sum(h["kernel"] == k for h in held),
+                    shapes=next(h["shapes"] for h in held
+                                if h["kernel"] == k)) for k in kernels},
+                bitwise=True)
+
+
+def run_phase7(card, emit):
+    """Phase 7: every example mode and the two sweep drivers as
+    subprocesses at full width on the card, each line echoed; fails on a
+    non-zero exit, a first line that is not the card line, a non-finite
+    number, a missing outcome line, a terrain run that did not launch the
+    map-sampling and a rollout kernel, a planner that replayed no graph or
+    a file written outside the run's ``--out-dir``.  Then each new shape's
+    graph-replayed solves against eager ones, in this process.  Returns
+    the launches by kernel of the subprocesses (those of this process are
+    read by the caller)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    skip = {".git", os.path.normpath(PHASE7_OUT)}
+    logs = own_log_files(root)
+    launches = dict.fromkeys(("rollout_byte", "rollout_binned", "map_sample",
+                              "map_sample_crop", "gather_probe"), 0)
+    out, seconds, dirs, outcomes = {}, {}, {}, {}
+    for name, argv, terrain in phase7_commands():
+        if name != "engine_ab_check":
+            dirs[name] = os.path.join(root, PHASE7_OUT, name)
+            argv = argv + ["--out-dir", dirs[name]]
+        before = tree_state(root, skip)
+        records, seconds[name] = run_driver(name, argv, card, phase=7)
+        after = tree_state(root, skip)
+        written = sorted(p for p in set(after) | set(before)
+                         if after.get(p) != before.get(p) and p not in logs)
+        check(not written, "{} wrote outside its --out-dir: {}".format(
+            name, written[:10]))
+        for rec in records:
+            for wrapper, n in (rec.get("launches") or {}).items():
+                for k in WRAPPER_KERNELS.get(wrapper, ()):
+                    launches[k] += n
+        if name in ("full_benchmark", "engine_ab_check"):
+            check(len(records) == 2, "{}: {} lines".format(name,
+                                                           len(records)))
+            out[name] = records
+            continue
+        rec = check_example(name, records, terrain)
+        figures = rec.get("figures", [])
+        check(all(os.path.dirname(f) == dirs[name] for f in figures),
+              "{}: figures {}".format(name, figures))
+        outcomes[name] = dict(
+            {k: rec["outcome"].get(k) for k in ("success", "time_to_goal",
+                                                "steps")},
+            solve_ms=rec["solve_ms"], kernel_nodes=rec["kernel_nodes"],
+            final_state=rec.get("final_state"),
+            final_traction=rec.get("final_traction"))
+        if name == "external_pmf_planning":
+            outcomes[name]["first_controls"] = rec["outcome"][
+                "first_controls"]
+        desc = [r for r in records if "backend" in r]
+        if desc:
+            outcomes[name]["backend"] = desc[0]["backend"]
+    check_sweeps(out, dirs)
+    for name, o in outcomes.items():
+        emit("example_outcome", o.get("success"), "success", example=name,
+             **{k: v for k, v in o.items() if k != "success"})
+    tables, _ = out["full_benchmark"]
+    emit("full_benchmark_80_trials_s", tables["wall_clock_s"], "s",
+         success_by_method=tables["success_by_method"])
+    emit("engine_ab_check_8_trials", out["engine_ab_check"][0], "json")
+    for name, build, frames in new_shape_planners():
+        print(json.dumps(check_new_shape(name, build(), frames)),
+              flush=True)
+    emit("phase7_s", sum(seconds.values()), "s", per_run=seconds)
+    return launches
+
+
 if __name__ == "__main__":
     try:
         sys.exit(main())
     except SmokeFailure as exc:
         print("chip_smoke: FAIL: {}".format(exc), file=sys.stderr)
         sys.exit(1)
+    finally:
+        stop_started_processes()

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .. import _card
+from ..config import rec_min_control_rollouts
 from ..graphs import counted_wrappers
 from ..profiling import chained_solve_time
 from ..solver import get_terrain_solver
@@ -23,6 +24,9 @@ from ..types import MapInputs, TerrainTask
 SMALL_K, SMALL_M, SMALL_T, SMALL_CHAIN = 32, 8, 5, 2
 # ``--small`` of the episode batches: episodes and their steps.
 SMALL_EPISODES, SMALL_STEPS = 2, 2
+# ``--small``'s K where a planner's ``Config`` sets it (the examples, the
+# sweep): the least K a ``Config`` keeps.
+SMALL_CONFIG_K = max(SMALL_K, rec_min_control_rollouts)
 
 
 def add_device_arg(parser):

@@ -2,13 +2,16 @@
 against the JAX package's scripts: each problem builder field by field,
 exactly; each driver's ``main`` on the CPU at a small size, its lines
 parsing with the JAX script's keys; ``scaling_bench`` on two gloo ranks,
-passing its own check."""
+passing its own check; ``full_benchmark``'s experiment pickle with the
+JAX script's keys, and ``engine_ab_check``'s JSON."""
 
 import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
 import os
+import pickle
 import sys
 
 import jax
@@ -16,9 +19,11 @@ import numpy as np
 import pytest
 import torch
 
-from mppi_numba_tpu_torch.drivers import (bench, bigmap_bench, model_bench,
-                                          profile_flagship, scaling_bench,
-                                          serve_bench)
+from mppi_numba_tpu_torch.checkpoint import load_experiment
+from mppi_numba_tpu_torch.drivers import (bench, bigmap_bench,
+                                          engine_ab_check, full_benchmark,
+                                          model_bench, profile_flagship,
+                                          scaling_bench, serve_bench)
 
 from tests import torch_parallel_ranks as ranks
 
@@ -325,3 +330,231 @@ def test_scaling_two_gloo_ranks_episodes(scaling_two_ranks):
     assert check["cum_obj_max_rel_err"] <= check["cum_obj_rtol"] == 1e-5
     assert check["slices_bitwise"]
     assert rec["episodes"] == 4 and rec["steps_run"] == 2
+
+
+# -- full_benchmark and engine_ab_check --------------------------------------
+
+JAX_PICKLE = os.path.join(REPO, "mppi_benchmark",
+                          "envs_10_trials_3_densities_4_device.pickle")
+PAPER = ",".join(full_benchmark.PAPER_METHOD_LIST)
+
+
+def _assert_problem(port, jax_problem):
+    """``(world, cfg, params)`` of the port and of a JAX script: the
+    world's bins and terrain PMFs, every attribute of the JAX ``Config``,
+    and the params, equal."""
+    (pw, pc, pp), (jw, jc, jp) = port, jax_problem
+    assert pw["num_pmf_bins"] == jw["num_pmf_bins"]
+    assert pw["id2name"] == jw["id2name"]
+    np.testing.assert_array_equal(pw["bin_values"], jw["bin_values"])
+    assert tuple(pw["bin_values_bounds"]) == tuple(jw["bin_values_bounds"])
+    for key in ("lin_terrain2pmf", "ang_terrain2pmf"):
+        got = {t.name: v for t, v in pw[key].items()}
+        want = {t.name: v for t, v in jw[key].items()}
+        assert set(got) == set(want)
+        for name in want:
+            np.testing.assert_array_equal(got[name], want[name])
+    for attr, value in vars(jc).items():
+        assert getattr(pc, attr) == value, attr
+    assert set(pp) == set(jp)
+    for key in jp:
+        np.testing.assert_array_equal(pp[key], jp[key], err_msg=key)
+
+
+@pytest.mark.parametrize("u_std_ang,dist_weight,methods", [
+    (3.0, 1.0, None), (2.0, 1.0, PAPER), (2.0, 3.0, "risk_dyn,baseline")])
+def test_full_benchmark_build_and_tag_equal_jax(u_std_ang, dist_weight,
+                                                methods, monkeypatch):
+    """``build_problem`` and the pickle's file tag against the JAX
+    script's, at its defaults and at the paper's settings; the protocol's
+    constants equal."""
+    jfb = _load("scripts/run_full_benchmark.py", "jax_run_full_benchmark")
+    for name in ("GRASS_DENSITY_LIST", "ENVS_PER_DENSITY", "TRIALS_PER_ENV",
+                 "ALPHA_LIST", "METHOD_LIST", "PAPER_METHOD_LIST",
+                 "GRID_SHAPE", "MUD_MARGIN", "RES", "MAX_STEPS", "U_STD_ANG",
+                 "DIST_WEIGHT"):
+        assert getattr(full_benchmark, name) == getattr(jfb, name), name
+    monkeypatch.setattr(jfb, "U_STD_ANG", u_std_ang)
+    monkeypatch.setattr(jfb, "DIST_WEIGHT", dist_weight)
+    method_list = methods.split(",") if methods else jfb.METHOD_LIST
+    monkeypatch.setattr(jfb, "METHOD_LIST", method_list)
+    _assert_problem(full_benchmark.build_problem(u_std_ang, dist_weight),
+                    jfb.build_problem())
+    assert full_benchmark.file_tag(method_list, u_std_ang,
+                                   dist_weight) == jfb._ustd_tag()
+
+
+@pytest.fixture(scope="module")
+def full_benchmark_run(tmp_path_factory):
+    """``full_benchmark`` at ``--small``, one environment and realization
+    a density, the four paper methods: (printed lines, pickle path)."""
+    out = tmp_path_factory.mktemp("full_benchmark")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert full_benchmark.main([
+            "--device", "cpu", "--small", "--envs", "1", "--trials", "1",
+            "--methods", PAPER, "--out-dir", str(out)]) == 0
+    lines = buf.getvalue().splitlines()
+    assert lines[0].startswith("cpu: host run")
+    return [json.loads(line) for line in lines[1:]], out
+
+
+def test_full_benchmark_main_on_cpu(full_benchmark_run):
+    """The tables, the wall clock and the trial count (4 densities x 5
+    alphas x 4 methods), and the pickle with the JAX script's keys (those
+    of its committed pickle), loaded through ``load_experiment``: a
+    DataFrame of the rows, the tables read back from it."""
+    (run, saved), out = full_benchmark_run
+    assert run["trials"] == 80 and run["wall_clock_s"] > 0
+    assert run["max_steps"] == full_benchmark.SMALL_STEPS
+    methods = full_benchmark.PAPER_METHOD_LIST
+    assert list(run["success_by_method"]) == methods
+    assert all(list(run["success_by_method_alpha"][m]) == [
+        str(a) for a in full_benchmark.ALPHA_LIST] for m in methods)
+    assert set(run["time_to_goal_on_success"]) == set(methods)
+    assert set(run["engine"]) == set(methods)
+    assert saved["launches"] == {}
+    path = saved["saved"]
+    assert os.path.dirname(path) == str(out) and os.path.basename(path) == (
+        "envs_1_trials_1_densities_4_device.pickle")
+    exp = load_experiment(path)
+    assert set(exp) == set(load_experiment(JAX_PICKLE))
+    assert exp["engine"] == "device" and exp["method_list"] == methods
+    df = exp["logger"]
+    assert len(df) == 80 and list(df.columns) == list(
+        load_experiment(JAX_PICKLE)["logger"].columns)
+    rows = full_benchmark.logger_rows(df)
+    tables = full_benchmark.tables(rows, methods, full_benchmark.ALPHA_LIST)
+    for name, table in tables.items():
+        assert table == run[name], name
+
+
+def test_full_benchmark_pickle_without_pandas(full_benchmark_run,
+                                              monkeypatch):
+    """Where pandas does not import, the pickle's ``logger`` is a dict of
+    numpy columns, which ``load_experiment`` and the tables read."""
+    (run, saved), _ = full_benchmark_run
+    rows = full_benchmark.logger_rows(load_experiment(saved["saved"])
+                                      ["logger"])
+    monkeypatch.setitem(sys.modules, "pandas", None)
+    logger = full_benchmark.logger_table(rows)
+    assert isinstance(logger, dict) and len(logger["success"]) == 80
+    path = os.path.join(os.path.dirname(saved["saved"]), "columns.pickle")
+    with open(path, "wb") as fh:
+        pickle.dump(dict(logger=logger), fh)
+    back = full_benchmark.logger_rows(load_experiment(path)["logger"])
+    methods = full_benchmark.PAPER_METHOD_LIST
+    assert full_benchmark.tables(back, methods, full_benchmark.ALPHA_LIST)[
+        "success_by_method"] == run["success_by_method"]
+
+
+def test_full_benchmark_tables_of_the_jax_pickle():
+    """``tables`` of the JAX package's committed 1,800-trial pickle, read
+    by ``checkpoint.load_experiment``: its success rates and times to goal
+    as pandas groups them."""
+    exp = load_experiment(JAX_PICKLE)
+    df = exp["logger"]
+    line = full_benchmark.tables(full_benchmark.logger_rows(df),
+                                 exp["method_list"], exp["alpha_list"])
+    assert len(df) == 1800 and exp["engine"] == "device"
+    want = df.groupby("method")["success"].mean()
+    for method, rate in want.items():
+        assert line["success_by_method"][method] == pytest.approx(rate,
+                                                                  abs=1e-12)
+    by_alpha = df.groupby(["method", "alpha"])["success"].mean()
+    for (method, alpha), rate in by_alpha.items():
+        assert line["success_by_method_alpha"][method][str(alpha)] == (
+            pytest.approx(rate, abs=1e-12))
+    ttg = df[df.success].groupby("method")["time_to_goal"].mean()
+    for method, t in ttg.items():
+        assert line["time_to_goal_on_success"][method] == pytest.approx(
+            t, rel=1e-12)
+
+
+def test_engine_ab_build_equals_jax(monkeypatch):
+    """``engine_ab_check.build``'s call of each engine against the JAX
+    script's (engines stubbed to record their arguments): the same world,
+    config, params and sweep, at full and at ``--small`` size."""
+    jab = _load("scripts/engine_ab_check.py", "jax_engine_ab_check")
+    import mppi_numba_tpu.benchmark as jbenchmark
+
+    def recorder(seen, name):
+        def record(*args, **kwargs):
+            seen[name] = (args, kwargs)
+            return []
+        return record
+
+    want, got = {}, {}
+    for name in ("run_trials", "run_trials_device"):
+        monkeypatch.setattr(jbenchmark, name, recorder(want, name))
+    for name in ("run_trials_rows", "run_trials_device_rows"):
+        monkeypatch.setattr(engine_ab_check.benchmark, name,
+                            recorder(got, name))
+    for small in (False, True):
+        for host in (True, False):
+            args = (2, 1, ["noisy_dyn", "risk_dyn"], [1.0, 0.5], 7, host,
+                    small)
+            jab.build(*args)
+            engine_ab_check.build(*args, device="cpu")
+        for jname, pname in (("run_trials", "run_trials_rows"),
+                             ("run_trials_device", "run_trials_device_rows")):
+            (jargs, jkw), (pargs, pkw) = want[jname], got[pname]
+            _assert_problem((pargs[1], pargs[0], pargs[6]),
+                            (jargs[1], jargs[0], jargs[6]))
+            assert pargs[2:6] == jargs[2:6]
+            assert pkw.pop("device") == "cpu"
+            assert pkw == jkw
+
+
+def test_engine_ab_main_on_cpu(capsys):
+    """The JAX script's JSON keys (one dict a method), each engine's
+    seconds and no launch on the CPU."""
+    assert engine_ab_check.main([
+        "--cpu", "--small", "--envs", "1", "--trials", "1",
+        "--max-steps", "2"]) == 0
+    out, times = _lines(capsys)
+    assert out["n_trials_per_engine"] == 8
+    assert set(out) == {"n_trials_per_engine", "noisy_dyn", "risk_dyn"}
+    for meth in ("noisy_dyn", "risk_dyn"):
+        assert set(out[meth]) == {
+            "success_host", "success_dev", "success_delta", "ttg_host_s",
+            "ttg_dev_s", "ttg_delta_s", "paired_outcome_agreement"}
+        assert 0 <= out[meth]["paired_outcome_agreement"] <= 1
+    assert set(times["seconds"]) == {"host", "device"}
+    assert times["launches"] == {}
+
+
+def test_engine_ab_compare_joins_on_the_keys():
+    """The join without pandas: rows paired on the five keys in any order,
+    the statistics as the JAX script's pandas merge gives them."""
+    import pandas as pd
+
+    rng = np.random.RandomState(4)
+    host, dev = [], []
+    for meth in ("noisy_dyn", "risk_dyn"):
+        for alpha in (1.0, 0.5):
+            for e in range(3):
+                for t in range(2):
+                    key = dict(method=meth, alpha=alpha,
+                               grass_density_index=e % 2, sem_map_index=e,
+                               map_sample_index=t)
+                    for rows in (host, dev):
+                        ok = bool(rng.rand() < 0.6)
+                        rows.append(dict(key, success=ok, time_to_goal=(
+                            rng.uniform(5, 15) if ok else np.nan)))
+    dev = dev[::-1]
+    got = engine_ab_check.compare(host, dev, ["noisy_dyn", "risk_dyn"])
+    merged = pd.DataFrame(host).merge(pd.DataFrame(dev),
+                                      on=list(engine_ab_check.KEYS),
+                                      suffixes=("_host", "_dev"))
+    assert got["n_trials_per_engine"] == 24
+    for meth in ("noisy_dyn", "risk_dyn"):
+        sub = merged[merged.method == meth]
+        assert got[meth]["success_host"] == round(sub.success_host.mean(), 4)
+        assert got[meth]["success_dev"] == round(sub.success_dev.mean(), 4)
+        assert got[meth]["ttg_host_s"] == round(
+            sub[sub.success_host].time_to_goal_host.mean(), 3)
+        assert got[meth]["paired_outcome_agreement"] == round(
+            (sub.success_host == sub.success_dev).mean(), 4)
+    with pytest.raises(RuntimeError, match="pair"):
+        engine_ab_check.compare(host, dev[1:], ["noisy_dyn"])

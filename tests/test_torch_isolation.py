@@ -17,7 +17,12 @@ _CPU_SOLVE = textwrap.dedent("""
     import numpy as np
     import mppi_numba_tpu_torch as port
     # Importing the package needs neither pandas nor matplotlib (the card's
-    # machine has neither).
+    # machine has neither), and neither do the examples and drivers.
+    assert "pandas" not in sys.modules and "matplotlib" not in sys.modules
+    from mppi_numba_tpu_torch.examples import (
+        barebone_mppi, confidence_planning, costmap_planning,
+        external_pmf_planning, planner_animation, terrain_planning)
+    from mppi_numba_tpu_torch.drivers import engine_ab_check, full_benchmark
     assert "pandas" not in sys.modules and "matplotlib" not in sys.modules
 
     cfg = port.Config(T=1.0, dt=0.1, num_grid_samples=4,
@@ -128,7 +133,16 @@ _CPU_SOLVE = textwrap.dedent("""
                  "mppi_numba_tpu_torch.drivers.model_bench",
                  "mppi_numba_tpu_torch.drivers.serve_bench",
                  "mppi_numba_tpu_torch.drivers.profile_flagship",
-                 "mppi_numba_tpu_torch.drivers.scaling_bench"):
+                 "mppi_numba_tpu_torch.drivers.scaling_bench",
+                 "mppi_numba_tpu_torch.drivers.full_benchmark",
+                 "mppi_numba_tpu_torch.drivers.engine_ab_check",
+                 "mppi_numba_tpu_torch.examples",
+                 "mppi_numba_tpu_torch.examples.barebone_mppi",
+                 "mppi_numba_tpu_torch.examples.terrain_planning",
+                 "mppi_numba_tpu_torch.examples.external_pmf_planning",
+                 "mppi_numba_tpu_torch.examples.costmap_planning",
+                 "mppi_numba_tpu_torch.examples.confidence_planning",
+                 "mppi_numba_tpu_torch.examples.planner_animation"):
         assert name in names, name
     # The drivers, imported by name, one of them run on the CPU.
     from mppi_numba_tpu_torch.drivers import (bench, bigmap_bench,
@@ -144,16 +158,25 @@ _CPU_SOLVE = textwrap.dedent("""
     assert sharded.get_sharded_terrain_solver and multihost.initialize
     assert mesh.make_mesh
     import chip_smoke
-    # Nothing of JAX, of the JAX package, of the root bench.py, or of
+    # The examples' and the sweep drivers' entry points and builders.
+    assert (barebone_mppi.main and terrain_planning.build
+            and external_pmf_planning.synth_pmf_grid
+            and costmap_planning.make_costmap
+            and confidence_planning.start_and_goal
+            and planner_animation.reference_example_grid
+            and full_benchmark.build_problem and engine_ab_check.compare)
+    # Nothing of JAX, of the JAX package, of the root bench.py, of
     # scripts/ (whose modules import as top-level names: gather_probe,
-    # _bench_common, ...).
+    # _bench_common, ...) or of examples/.
     import os
     scripts = {f[:-3] for f in os.listdir("scripts") if f.endswith(".py")}
+    scripts |= {f[:-3] for f in os.listdir("examples") if f.endswith(".py")}
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "mppi_numba_tpu" or m.startswith("mppi_numba_tpu.")
                     or m == "bench"
                     or m == "scripts" or m.startswith("scripts.")
+                    or m == "examples" or m.startswith("examples.")
                     or m.split(".")[0] in scripts)
     assert not loaded, loaded
     print("isolated ok")
