@@ -8,7 +8,8 @@ version, drive the planner's main paths, and time them.
 Phases (any failure exits non-zero; no error is swallowed):
 
 1. Build ``csrc/rollout_byte.cu``, ``csrc/rollout_binned.cu``,
-   ``csrc/map_sample.cu`` and ``csrc/gather_probe.cu`` with nvcc for
+   ``csrc/map_sample.cu``, ``csrc/gather_probe.cu``,
+   ``csrc/cvar_costs.cu`` and ``csrc/update_useq.cu`` with nvcc for
    sm_90a, all at once, and print
    the build time, each ptxas report (registers, spills), each rollout
    kernel's SASS instructions per lane-step by class (``sass_counts``,
@@ -56,7 +57,18 @@ Phases (any failure exits non-zero; no error is swallowed):
    single launches.
    Then one small whole solve, the kernel path
    against its plain version on the card and against the CPU
-   (``small_solve_witness``).
+   (``small_solve_witness``).  The solve's tail
+   (``drivers.tail_bench.TAIL_CASES``): the
+   CVaR plus coupling kernel (``cvar_costs``) and the update kernel
+   (``update_useq_fused``, on the first one's costs), each bit for bit
+   against its plain version at every path's shape -- world (a) at static
+   numel 205 and at the planner's run-time alpha, the sweep's B = 30 at
+   alphas 1.0 .. 0.2, the det modes' M = 1 at T = 40, 80 and 100,
+   external PMF's K = 2048 / M = 512 / T = 80, the confidence example's M
+   = 64 / T = 60, the barebone engine's K = 1000 / T = 50, model_bench's
+   K = 10240, the m-sharded candidate pools and gathered rows, and M 2048
+   and 4096 (the shared-memory sort) -- and each static count bit for bit
+   against the same count from alpha.
 3. The main paths, each with every kernel's launch count set to 0 just
    before it and read just after: ``MPPIPlanner`` on ``device="cuda"``
    through ``setup``, ``solve``, ``shift_and_update`` and, after the last
@@ -76,15 +88,18 @@ Phases (any failure exits non-zero; no error is swallowed):
    its PMF; every solve samples and packs its maps through the
    map-sampling kernel once (``sample_and_pack_window``, or
    ``sample_and_pack_crop`` when cropped: no torch packer, no launch of
-   its own for the crop), and the big-map world's ``TDM.sample_grids``
+   its own for the crop) and the rollout, CVaR and update kernels once an
+   iteration, and the big-map world's ``TDM.sample_grids``
    draws once more in the kernel's bins mode, bit for bit with the plain
    draw.  Then that big-map world cropped against uncropped,
    the same seed: the same controls bit for bit, the cropped grids the
    window of the uncropped ones, over 20 solves of a moving window; and
    again with the padded origin at -res (a TDM's limits from 0): grids and
    offsets exact, controls within rtol 2e-4 / atol 2e-5;
-   ``BareboneMPPI`` on ``examples/barebone_mppi.py``'s task (no kernel:
-   plain torch ops), 20 closed-loop solves replayed from its CUDA graph
+   ``BareboneMPPI`` on ``examples/barebone_mppi.py``'s task (its
+   rollouts plain torch ops, then the ``cvar_costs`` and
+   ``update_useq_fused`` kernels), 20 closed-loop solves replayed from its
+   CUDA graph
    and the vis from its vis graph, each held bit for bit against eager
    calls from a generator of the same seed (``BareboneMirror``); one
    episode of the big-map world through
@@ -114,12 +129,19 @@ Phases (any failure exits non-zero; no error is swallowed):
    map-sampling kernel at world (b)'s shape, fused in (b)'s layout and in
    its bins mode (and the bins mode followed by the torch packers), and
    fused at (a)'s, (c)'s and (k)'s, and the crop mode at the big-map
-   world's, each against its bound and its plain version; then
+   world's, each against its bound and its plain version; the solve's
+   tail kernels at (a)'s shape (static and the planner's alpha), the
+   sweep's, the det modes' and the barebone engine's, in turns with the
+   torch calls the CVaR kernel replaced (the library call) and an empty
+   kernel (one graph node's floor), against their bounds and plain
+   versions; then
    per timed world, in turns, chained solves replayed from a CUDA graph
    and eager (``profiling.chained_solve_time``) on the device clock
    beside the host's time to enqueue them, and planner ``solve()`` times
    on the host clock, and the device's busy time and kernel launches per
-   solve by kernel; the host time of ``get_state_rollout`` (graph) and
+   solve by kernel (a replay launching the CVaR and update kernels once an
+   iteration, and no solve launching torch's sort or top-k kernels); the
+   host time of ``get_state_rollout`` (graph) and
    of the eager vis in the forest world; the barebone chained solve,
    replayed from a graph and eager in turns (with its kernels a replay); the
    big-map world's chained solves (graph and eager) and planner
@@ -136,7 +158,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    size 1 in this process: world (a)'s solve on a (1, 1, 1) mesh through
    the sharded entry point, bit for bit with the single ``TerrainSolver``
    from the same generator state, both eager and timed in turns (what
-   the sharding code costs at one rank), its launches counted; then the
+   the sharding code costs at one rank), its launches counted (the
+   rollout, CVaR and update kernels once an iteration: one k rank updates
+   with the kernel and makes no collective); then the
    sharded solve of each ``SHARDED_CASES`` problem (world, scenarios,
    run-time alpha) on that mesh captured in a CUDA graph with its NCCL
    collectives (``ShardedTerrainSolver.capture``), 3 replays each bit for
@@ -195,7 +219,8 @@ Phases (any failure exits non-zero; no error is swallowed):
    planner's graphs and held bit for bit against eager solves
    (``EagerMirror``), with the last vis; every kernel call of those eager
    solves held bit for bit against the wrapper's plain version on the
-   same inputs (``held_against_plain``); and for the animation's worlds
+   same inputs (``held_against_plain``: the map sampler, the rollout, the
+   CVaR and the update kernels); and for the animation's worlds
    each step's frame rollouts (``get_state_rollout()`` before the shift)
    bit for bit with the eager vis.  Phase 2's cases hold the kernels at
    these shapes too.  Their launches and the subprocesses' are the
@@ -422,6 +447,176 @@ def map_sample_bound_ms(M, rH, rW, B_lin, B_ang, layout="bins",
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+def tail_bound_ms(B, K, M, T, numel):
+    """Least times of the solve's two tail calls at (B scenarios, K, M,
+    T), each the larger of its bytes over HBM bandwidth and its
+    operations: integer comparisons over the ALU pipe's rate plus float32
+    operations over the float32 peak.  What the functions need, not what
+    the kernels spend: the CVaR selects the worst ``numel`` of M costs in
+    order, M log2 M comparisons a row (a comparison sort's least), folds
+    them and divides once; the coupling is a division, a product and an
+    add a term (2T terms) and lambda's product; the update a subtraction,
+    a negation, a division, an exp (counted as one) and two sums' adds a
+    rollout, a product and an add a rollout and (t, c), and an add and a
+    clamp (2) a (t, c).  Bytes: each input read once, each output written
+    once: the CVaR call the costs, the noise, u, sigma, lambda and alpha
+    in, the (B, K) costs out; the update the costs, noise, u, lambda and
+    both ranges in, u and the weights out.  Returns ``((ms, bound_by) of
+    cvar_costs, (ms, bound_by) of update_useq_fused)``."""
+    rows = B * K
+    a_bytes = 4 * (rows * M + rows * T * 2 + B * T * 2 + 4 * B + rows)
+    a_int = rows * M * max(1.0, math.log2(M))
+    a_flt = rows * (numel + 1 + 3 * 2 * T + 2)
+    b_bytes = 4 * (rows + rows * T * 2 + 2 * B * T * 2 + 5 * B + rows)
+    b_flt = rows * 7 + rows * T * 2 * 2 + B * T * 2 * 3
+    out = []
+    for nbytes, t_ops in ((a_bytes, a_int / ALU_OPS_PER_S
+                           + a_flt / FP32_OPS_PER_S),
+                          (b_bytes, b_flt / FP32_OPS_PER_S)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops *= 1e3
+        out.append((max(t_bytes, t_ops),
+                    "bytes" if t_bytes > t_ops else "operations"))
+    return tuple(out)
+
+
+# Timed in phase 4: world (a) static (the profile's), as the planner runs
+# it, the sweep's batch, the det modes' M = 1 and the barebone engine.
+TAIL_TIMED = ("a_static_205", "a_planner_alpha", "sweep_b30_alphas",
+              "det_M1_T100", "barebone_K1000_T50")
+
+
+def bits_differ(torch, got, want):
+    """Entries whose float32 bits differ (a shape mismatch: all)."""
+    if got.shape != want.shape:
+        return max(got.numel(), want.numel(), 1)
+    return int((got.contiguous().view(torch.int32)
+                != want.contiguous().view(torch.int32)).sum())
+
+
+def check_tail_cases(torch, dev):
+    """Phase 2's solve-tail cases: at every ``drivers.tail_bench.TAIL_CASES``
+    shape (every path's) the CVaR plus coupling kernel against its plain
+    version, the update kernel (from the kernel's costs) against its plain
+    version, bit for bit, and a static count against the same count from
+    alpha (ceil(M * alpha) = numel), bit for bit.  One JSON line a case;
+    returns the records."""
+    from mppi_numba_tpu_torch.drivers.tail_bench import (TAIL_CASES,
+                                                         tail_case_inputs)
+    from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
+    from mppi_numba_tpu_torch.ops.kernels import update_useq as ku
+
+    results = []
+    for case in TAIL_CASES:
+        name, B, K, M, T, count = case
+        a_args, kw, (lam, vr, wr) = tail_case_inputs(case, dev)
+        noise, u = a_args[1], a_args[2]
+        got = kc.cvar_costs(*a_args, **kw)
+        want = kc.cvar_costs_plain(*a_args, **kw)
+        u_got, w_got = ku.update_useq_fused(got, noise, u, lam, vr, wr)
+        u_want, w_want = ku.update_useq_plain(got, noise, u, lam, vr, wr)
+        differ = {"cvar_costs": bits_differ(torch, got, want),
+                  "update_u": bits_differ(torch, u_got, u_want),
+                  "update_weights": bits_differ(torch, w_got, w_want)}
+        if "numel" in kw:
+            alpha = torch.full(lam.shape, (kw["numel"] - 0.5) / M,
+                               device=dev)
+            differ["static_vs_alpha"] = bits_differ(
+                torch, kc.cvar_costs(*a_args, alpha=alpha), got)
+        torch.cuda.synchronize()
+        err = max(float((x - y).abs().max()) for x, y in (
+            (got, want), (u_got, u_want), (w_got, w_want)))
+        rec = dict(case="solve_tail_" + name, scenarios=B, K=K, M=M, T=T,
+                   count=count if isinstance(count, (int, str))
+                   else list(count),
+                   sort="registers" if M <= 1024 else "shared memory",
+                   entries_differing=differ, max_abs_err=err,
+                   finite=bool(torch.isfinite(u_got).all()))
+        print(json.dumps(rec), flush=True)
+        check(not any(differ.values()) and rec["finite"],
+              "solve tail {}: the kernels differ from their plain versions: "
+              "{}".format(name, differ))
+        results.append(rec)
+        del a_args, got, want, noise, u
+    return results
+
+
+def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
+    """Phase 4's solve-tail timings at each ``TAIL_TIMED`` shape, in
+    turns, over launches captured in a CUDA graph and eager: the CVaR
+    plus coupling kernel, the update kernel, the torch calls that the
+    CVaR kernel replaced (``torch.topk(sorted=True)`` and ``mean`` for a
+    static count, ``torch.sort`` and a masked sum for alpha: the library
+    call) and an empty kernel (one graph node's floor); the plain versions
+    eagerly.  Returns ``{case: {...}}``."""
+    from mppi_numba_tpu_torch.drivers.tail_bench import (TAIL_CASES,
+                                                         tail_case_inputs)
+    from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
+    from mppi_numba_tpu_torch.ops.kernels import update_useq as ku
+
+    out = {}
+    for case in TAIL_CASES:
+        name, B, K, M, T, count = case
+        if name not in TAIL_TIMED:
+            continue
+        a_args, kw, (lam, vr, wr) = tail_case_inputs(case, dev)
+        costs, noise, u = a_args[:3]
+        costs_k = kc.cvar_costs(*a_args, **kw)
+        if "numel" in kw:
+            n = min(kw["numel"], M)
+
+            def library():
+                return torch.topk(costs, n, dim=-1,
+                                  sorted=True).values.mean(-1)
+        else:
+            alpha = kw["alpha"]
+
+            def library():
+                srt = torch.sort(costs, dim=-1, descending=True).values
+                n = torch.ceil(M * alpha).to(torch.int32)[..., None]
+                keep = (torch.arange(M, device=dev)
+                        < n[..., None]).to(costs.dtype)
+                return (srt * keep).sum(-1) / n.to(costs.dtype)
+
+        runs = time_kernels({
+            "cvar_costs": lambda: kc.cvar_costs(*a_args, **kw),
+            "update_useq": lambda: ku.update_useq_fused(costs_k, noise, u,
+                                                        lam, vr, wr),
+            "library": library,
+            "empty": lambda: kc.empty_launch(dev)}, 100)
+        plain_a = [time_cuda(lambda: kc.cvar_costs_plain(*a_args, **kw), 3,
+                             1) for _ in range(2)]
+        plain_b = [time_cuda(lambda: ku.update_useq_plain(
+            costs_k, noise, u, lam, vr, wr), 5, 1) for _ in range(2)]
+        # The fold's terms a row, this run's: the mean count.
+        numel = (min(kw["numel"], M) if "numel" in kw else float(
+            torch.ceil(M * kw["alpha"]).clamp(max=M).mean()))
+        bound_a, bound_b = tail_bound_ms(B, K, M, T, numel)
+        rec = dict(
+            shape="B{}_K{}_M{}_T{}".format(B, K, M, T),
+            count=count if isinstance(count, (int, str)) else list(count),
+            cvar_ms=min(runs["cvar_costs"]["graph"]),
+            cvar_eager_ms=min(runs["cvar_costs"]["eager"]),
+            cvar_plain_ms=min(plain_a), cvar_bound=bound_a,
+            library_ms=min(runs["library"]["graph"]),
+            library_eager_ms=min(runs["library"]["eager"]),
+            faster_than_library=(min(runs["cvar_costs"]["graph"])
+                                 < min(runs["library"]["graph"])),
+            library="torch.topk(sorted=True) + mean" if "numel" in kw
+            else "torch.sort + masked sum",
+            update_ms=min(runs["update_useq"]["graph"]),
+            update_eager_ms=min(runs["update_useq"]["eager"]),
+            update_plain_ms=min(plain_b), update_bound=bound_b,
+            empty_node_ms=min(runs["empty"]["graph"]),
+            empty_eager_ms=min(runs["empty"]["eager"]),
+            runs={k: v["graph"] for k, v in runs.items()})
+        emit("solve_tail_kernel_ms", rec["cvar_ms"] + rec["update_ms"], "ms",
+             case=name, **rec)
+        out[name] = rec
+        del a_args, costs, noise, u, costs_k
+    return out
+
+
 def build_kernels(_build, names):
     """Build every source at once (one nvcc each); print the reports."""
     t0 = time.perf_counter()
@@ -574,9 +769,9 @@ def main():
     from mppi_numba_tpu_torch._card import (card_line, time_cuda,
                                             time_cuda_graph)
     from mppi_numba_tpu_torch.models import bicycle_step, make_bicycle_step
-    from mppi_numba_tpu_torch.ops.kernels import (_build, map_sample,
-                                                  rollout_binned,
-                                                  rollout_byte)
+    from mppi_numba_tpu_torch.ops.kernels import (_build, cvar_costs,
+                                                  map_sample, rollout_binned,
+                                                  rollout_byte, update_useq)
     from mppi_numba_tpu_torch.ops import packing
     from mppi_numba_tpu_torch.probes import gather_probe
     from mppi_numba_tpu_torch import device_sim, sim
@@ -600,7 +795,9 @@ def main():
     cropper = map_sample.sample_and_pack_crop
     cplain = map_sample.sample_and_pack_crop_plain
     chains = gather_probe.CHAINS
-    counted = (kernel, bkernel, sampler, fused, cropper,
+    tail_a = cvar_costs.cvar_costs
+    tail_b = update_useq.update_useq_fused
+    counted = (kernel, bkernel, sampler, fused, cropper, tail_a, tail_b,
                *(chain for chain, _ in chains.values()))
 
     def set_counts(value=0):
@@ -615,11 +812,13 @@ def main():
                 "map_sample_pack": fused.launches,
                 "map_sample_crop": cropper.launches,
                 "map_sample_bins": sampler.launches,
+                "cvar_costs": tail_a.launches,
+                "update_useq": tail_b.launches,
                 "gather_probe": sum(c.launches for c, _ in chains.values())}
 
     # -- phase 1: build -------------------------------------------------------
     build_kernels(_build, ("rollout_byte", "rollout_binned", "map_sample",
-                           "gather_probe"))
+                           "gather_probe", "cvar_costs", "update_useq"))
     print_sass_counts([_build.library_path(name)
                        for name in ("rollout_byte", "rollout_binned")])
     card = card_line()
@@ -1254,6 +1453,11 @@ def main():
 
     small_solve_witness(torch, dev, plain)
 
+    # The solve's tail at every path's shape: the CVaR plus coupling
+    # kernel and the update kernel, each against its plain version bit for
+    # bit (and the static count against the same count from alpha).
+    tail_results = check_tail_cases(torch, dev)
+
     # -- phase 3: the main paths ------------------------------------------------
     planner_runs = {}
     set_counts(0)
@@ -1276,6 +1480,8 @@ def main():
               and launches["map_sample_pack"] == run["solves"] - crops
               and launches["map_sample_crop"] == crops
               and launches["map_sample_bins"] == run["sample_grids_calls"]
+              and launches["cvar_costs"] == launches["update_useq"]
+              == launches[used]
               and launches[other] == launches["gather_probe"] == 0,
               "{}: launches {} for {} solves on {}".format(
                   world, launches, run["solves"], backend))
@@ -1310,6 +1516,7 @@ def main():
     roi_check = bigmap_crop_equals_full(torch, CROP_CHECK_SOLVES)
     launches = read_counts()
     check(launches["rollout_binned"] == 2 * CROP_CHECK_SOLVES
+          == launches["cvar_costs"] == launches["update_useq"]
           and launches["map_sample_pack"] == launches["map_sample_crop"]
           == CROP_CHECK_SOLVES and launches["map_sample_bins"] == 0
           and launches["rollout_byte"] == launches["gather_probe"] == 0,
@@ -1326,6 +1533,7 @@ def main():
     roi_check = bigmap_crop_at_default_origin(torch, CROP_CHECK_SOLVES)
     launches = read_counts()
     check(launches["rollout_binned"] == 2 * CROP_CHECK_SOLVES
+          == launches["cvar_costs"] == launches["update_useq"]
           and launches["map_sample_pack"] == launches["map_sample_crop"]
           == CROP_CHECK_SOLVES and launches["map_sample_bins"] == 0
           and launches["rollout_byte"] == launches["gather_probe"] == 0,
@@ -1334,12 +1542,18 @@ def main():
         totals[k] += launches[k]
     print(json.dumps(dict(roi_check, kernel_launches=launches)), flush=True)
 
-    # The barebone planner: no kernel of its own (plain torch ops).
+    # The barebone planner: plain torch ops for its rollouts, then the
+    # solve's tail kernels on its (K, 1) costs, once an iteration.
     set_counts(0)
     barebone = run_barebone()
     launches = read_counts()
-    check(not any(launches.values()),
+    tail = barebone["solves"] * barebone["num_opt"]
+    check(launches["cvar_costs"] == launches["update_useq"] == tail
+          and not any(n for k, n in launches.items()
+                      if k not in ("cvar_costs", "update_useq")),
           "barebone: launched {}".format(launches))
+    for k in totals:
+        totals[k] += launches[k]
     emit("barebone_solve_host_ms_median", barebone["solve_ms_median"], "ms",
          first_solve_ms=barebone["solve_ms_first"], solves=barebone["solves"],
          K=barebone["K"], T=barebone["T"], kernel_launches=launches,
@@ -1359,6 +1573,7 @@ def main():
     launches = read_counts()
     replays = launches["map_sample_crop"]
     check(launches["rollout_binned"] == replays * device_trial["num_opt"]
+          == launches["cvar_costs"] == launches["update_useq"]
           and device_trial["steps"] <= replays
           < device_trial["steps"] + device_trial["chunk_steps"]
           and launches["map_sample_pack"] == launches["map_sample_bins"]
@@ -1378,7 +1593,8 @@ def main():
     launches = read_counts()
     check(launches["gather_probe"] > 0
           and launches["rollout_byte"] == launches["rollout_binned"]
-          == launches["map_sample"] == 0,
+          == launches["map_sample"] == launches["cvar_costs"]
+          == launches["update_useq"] == 0,
           "gather probe: launches {}".format(launches))
     check(all(r["correct"] for r in probe_runs),
           "gather probe: a chain differs from its plain version: {}".format(
@@ -1406,7 +1622,8 @@ def main():
         st = kw["stats"][method]
         replays = sum(st["chunk_steps"])
         check(launches["map_sample_pack"] == launches["rollout_byte"]
-              == replays and st["captures"] == 1
+              == replays == launches["cvar_costs"] == launches["update_useq"]
+              and st["captures"] == 1
               and launches["rollout_binned"] == launches["map_sample_crop"]
               == launches["map_sample_bins"] == launches["gather_probe"]
               == 0, "sweep {}: launches {} for {} replays of {} "
@@ -1446,8 +1663,8 @@ def main():
     solves = sum(int(round(r["time_to_goal"] / 0.1)) if r["success"]
                  else SWEEP_MAX_STEPS for r in seq_rows)
     check(len(seq_rows) == 8 and launches["map_sample_pack"]
-          == launches["rollout_byte"] == solves
-          and launches["rollout_binned"] == 0,
+          == launches["rollout_byte"] == solves == launches["cvar_costs"]
+          == launches["update_useq"] and launches["rollout_binned"] == 0,
           "run_trials: {} rows, launches {} for {} solves".format(
               len(seq_rows), launches, solves))
     for k in totals:
@@ -1648,6 +1865,10 @@ def main():
          runs=crop_plain_ms, shape=crop_shape)
     del key, cmaps, ctask, crop_timed_args
 
+    # The solve's tail kernels at the main path's shapes, in turns with
+    # the torch calls the CVaR kernel replaced and an empty kernel.
+    tail_timed = time_tail_kernels(torch, dev, time_kernels, time_cuda, emit)
+
     # The planner's visualisation rollouts on the host clock, world (c):
     # get_state_rollout() (replayed from its graph) in turns with the same
     # rollouts made eagerly.
@@ -1742,6 +1963,13 @@ def main():
         emit("planner_solve_host_ms_turns", float(np.median(res["solve_ms"])),
              "ms", world=world, solves=n, runs=res["solve_ms"])
         emit("solve_device_time_by_kernel", prof["eager"], "us", world=world)
+        per_replay = res["launches_per_replay"]
+        check(per_replay.get("cvar_costs") == per_replay.get(
+            "update_useq_fused") == run["num_opt"],
+            "{}: a replay launched {}".format(world, per_replay))
+        sorts = [p["sort_kernels"] for p in prof.values() if p]
+        check(not any(sorts), "{}: the solve launched torch's sort kernels "
+              "{}".format(world, sorts))
 
     # The big-map world cropped against uncropped, in turns (cropped,
     # uncropped, uncropped, cropped): chained solves (graph and eager) and
@@ -1899,6 +2127,7 @@ def main():
     del static, maps, task, gt
 
     flag = case_results[0]
+    tail_at = tail_timed["a_static_205"]
     forest = binned_timed["forest_140x84"]
     nib = binned_results[0]
     # The probe's latency bound: a dependent chain cannot take less than
@@ -2058,6 +2287,53 @@ def main():
         "ns_per_step_at": {k: v["ns_per_step"]
                            for k, v in probe_timed.items()},
         "cases": len(probe_runs),
+    }, {
+        "name": "cvar_costs",
+        "route": "cuda",
+        "launches_phase7": phase7["cvar_costs"],
+        "source": cvar_costs.KERNEL_SOURCE,
+        "replaces": cvar_costs.REPLACES,
+        "launches": totals["cvar_costs"],
+        "launches_sharded_world_size_1": ws1_launches.get("cvar_costs", 0),
+        "launches_sharded_graph_replays": ws1_graph_launches.get(
+            "cvar_costs", 0),
+        "max_abs_err": max(r["max_abs_err"] for r in tail_results),
+        "ms": tail_at["cvar_ms"],
+        "plain_ms": tail_at["cvar_plain_ms"],
+        "bound_ms": tail_at["cvar_bound"][0],
+        "bound_by": tail_at["cvar_bound"][1],
+        "library_ms": tail_at["library_ms"],
+        "library": tail_at["library"],
+        "empty_node_ms": tail_at["empty_node_ms"],
+        "timed_at": "a_static_205: " + tail_at["shape"] + ", numel 205",
+        "ms_at": {k: v["cvar_ms"] for k, v in tail_timed.items()},
+        "library_ms_at": {k: v["library_ms"] for k, v in tail_timed.items()},
+        "bound_ms_at": {k: v["cvar_bound"][0]
+                        for k, v in tail_timed.items()},
+        "cases": len(tail_results),
+    }, {
+        "name": "update_useq",
+        "route": "cuda",
+        "launches_phase7": phase7["update_useq"],
+        "source": update_useq.KERNEL_SOURCE,
+        "replaces": update_useq.REPLACES,
+        "launches": totals["update_useq"],
+        "launches_sharded_world_size_1": ws1_launches.get(
+            "update_useq_fused", 0),
+        "launches_sharded_graph_replays": ws1_graph_launches.get(
+            "update_useq_fused", 0),
+        "max_abs_err": max(r["max_abs_err"] for r in tail_results),
+        "ms": tail_at["update_ms"],
+        "plain_ms": tail_at["update_plain_ms"],
+        "bound_ms": tail_at["update_bound"][0],
+        "bound_by": tail_at["update_bound"][1],
+        "library_ms": None,
+        "empty_node_ms": tail_at["empty_node_ms"],
+        "timed_at": "a_static_205: " + tail_at["shape"],
+        "ms_at": {k: v["update_ms"] for k, v in tail_timed.items()},
+        "bound_ms_at": {k: v["update_bound"][0]
+                        for k, v in tail_timed.items()},
+        "cases": len(tail_results),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3446,7 +3722,8 @@ def run_barebone():
     vis_shape = check_state_rollout("barebone", planner, x, mirror)
     (graph,), (vis_graph,) = (planner._solve_graphs.values(),
                               planner._vis_graphs.values())
-    return dict(solves=SOLVES, solve_ms_first=times[0],
+    return dict(solves=SOLVES, num_opt=planner._static().num_opt,
+                solve_ms_first=times[0],
                 solve_ms_median=float(np.median(times[1:])),
                 K=cfg.num_control_rollouts, T=cfg.num_steps, dist0=dist0,
                 dist_end=float(np.hypot(*(goal - x[:2]))),
@@ -3491,7 +3768,16 @@ def profile_solves(chain, torch, n=5, top=8, require=True):
     return dict(device_busy_us_per_solve=sum(r[1] for r in rows) / n,
                 kernels_per_solve=sum(r[2] for r in rows) / n,
                 top_us_per_solve=[[k[:60], us / n, c / n]
-                                  for k, us, c in rows[:top]])
+                                  for k, us, c in rows[:top]],
+                sort_kernels=sorted({k[:60] for k, _, _ in rows
+                                     if any(s in k.lower()
+                                            for s in SORT_KERNELS)}))
+
+
+# Names of torch.topk's and torch.sort's kernels (radixSortKVInPlace,
+# mbtopk::*, gatherTopK, ...), matched without case: the solve's CVaR
+# kernel replaced them, and no solve launches them.
+SORT_KERNELS = ("sort", "topk")
 
 
 def solve_chain(fn, gen, maps, task, u0):
@@ -3743,6 +4029,8 @@ def sharded_world_size_one(torch, emit):
               "solve: max |du| {}".format(float((u_sh - u_one).abs().max())))
         check(launches.get("sample_and_pack_window") == 1
               and launches.get("terrain_rollout_costs_byte")
+              == launches.get("cvar_costs")
+              == launches.get("update_useq_fused")
               == static.num_opt, "world size 1 launches: {}".format(
                   launches))
         graph_launches = sharded_graph_replays(torch, mesh, emit)
@@ -3840,7 +4128,9 @@ def sharded_graph_replays(torch, mesh, emit):
               "differs (u vs eager, costs vs eager, u vs single, costs vs "
               "single, a row a replay): {}".format(case, bitwise))
         check(sampled == GRAPH_REPLAYS
-              and rolled == GRAPH_REPLAYS * static.num_opt,
+              and rolled == GRAPH_REPLAYS * static.num_opt
+              == launches.get("cvar_costs")
+              == launches.get("update_useq_fused"),
               "{}: replays launched {}".format(case, launches))
         emit("sharded_graph_world_size_1", True, "bit for bit",
              case=case, world=world, scenarios=S, run_time_alpha=dynamic,
@@ -3865,9 +4155,11 @@ def expected_collectives(static, mesh):
         key = "{}(group of {})".format(name, size)
         want[key] = want.get(key, 0) + n
 
-    add("all_reduce", n_k, 3 * it)
-    if n_k > 1 and (M // n_m) % n_k == 0:
-        add("all_gather_into_tensor", n_k, 1)
+    if n_k > 1:
+        # One k rank updates with the kernel: no collective over k.
+        add("all_reduce", n_k, 3 * it)
+        if (M // n_m) % n_k == 0:
+            add("all_gather_into_tensor", n_k, 1)
     if n_m > 1:
         add("all_reduce" if static.cvar_numel >= M
             else "all_gather_into_tensor", n_m, it)
@@ -3986,7 +4278,13 @@ def sharded_multi_rank(torch, emit):
                   and "NCCL" in r["capture_refused"],
                   "{} rank {}: capture on gloo did not refuse: {}".format(
                       job["case"], r["rank"], r["capture_refused"]))
-        check(sampled == 1 and rollout == s.num_opt,
+        # Every rank's CVaR plus coupling is the kernel (on the m group's
+        # pool); its update the torch ops around the collectives over k.
+        tail = recs[0]["launches"]
+        check(sampled == 1 and rollout == s.num_opt
+              == tail.get("cvar_costs", 0)
+              and tail.get("update_useq_fused", 0)
+              == (s.num_opt if job["mesh"][1] == 1 else 0),
               "{}: launches {}".format(job["case"], recs[0]["launches"]))
         emit("sharded_solve_ms", min(recs[0]["ms"]), "ms",
              label=SHARDED_LABEL, case=job["case"], world=job["world"],
@@ -4325,6 +4623,9 @@ def run_drivers(card, emit):
           > 0
           and stages["rollout"]["launches"].get(
               "terrain_rollout_costs_byte", 0) > 0
+          and stages["cvar"]["launches"].get("cvar_costs", 0) > 0
+          and stages["update"]["launches"].get("update_useq_fused", 0) > 0
+          and all(stages[k]["library_ms"] > 0 for k in ("cvar", "update"))
           and launched_kernels(stages["solve"]),
           "driver profile_flagship: {}".format(recs))
 
@@ -4363,6 +4664,8 @@ WRAPPER_KERNELS = {
     "sample_traction_window": ("map_sample",),
     "sample_and_pack_window": ("map_sample",),
     "sample_and_pack_crop": ("map_sample", "map_sample_crop"),
+    "cvar_costs": ("cvar_costs",),
+    "update_useq_fused": ("update_useq",),
 }
 
 
@@ -4496,11 +4799,17 @@ def new_shape_planners():
                for m in planner_animation.MODES])
 
 
-# The solver's kernel wrappers (names in ``solver``) and their modules.
-SOLVER_KERNELS = {"sample_and_pack_window": "map_sample",
-                  "sample_and_pack_crop": "map_sample",
-                  "terrain_rollout_costs_byte": "rollout_byte",
-                  "terrain_rollout_costs_binned": "rollout_binned"}
+# The solver's kernel wrappers (names in ``solver``): their modules and
+# plain versions.
+SOLVER_KERNELS = {
+    "sample_and_pack_window": ("map_sample", "sample_and_pack_window_plain"),
+    "sample_and_pack_crop": ("map_sample", "sample_and_pack_crop_plain"),
+    "terrain_rollout_costs_byte": ("rollout_byte",
+                                   "terrain_rollout_costs_byte_plain"),
+    "terrain_rollout_costs_binned": ("rollout_binned",
+                                     "terrain_rollout_costs_binned_plain"),
+    "cvar_costs": ("cvar_costs", "cvar_costs_plain"),
+    "update_useq_fused": ("update_useq", "update_useq_plain")}
 
 
 def flat_tensors(value):
@@ -4538,9 +4847,9 @@ def held_against_plain(held):
         return call
 
     saved = {n: getattr(solver, n) for n in SOLVER_KERNELS}
-    for n, mod in SOLVER_KERNELS.items():
+    for n, (mod, plain_name) in SOLVER_KERNELS.items():
         plain = getattr(importlib.import_module(
-            "mppi_numba_tpu_torch.ops.kernels." + mod), n + "_plain")
+            "mppi_numba_tpu_torch.ops.kernels." + mod), plain_name)
         setattr(solver, n, holding(n, saved[n], plain))
     try:
         yield held
@@ -4594,8 +4903,9 @@ def check_new_shape(name, w, frames):
         name, bad[:4]))
     kernels = sorted({h["kernel"] for h in held})
     check(any("rollout" in k for k in kernels) and any(
-        "sample" in k for k in kernels), "{}: the eager solves called {}"
-        .format(name, kernels))
+        "sample" in k for k in kernels) and "cvar_costs" in kernels
+        and "update_useq_fused" in kernels,
+        "{}: the eager solves called {}".format(name, kernels))
     return dict(check="phase7_graph_equals_eager", world=name,
                 solves=mirror.solves, frames=checked_frames,
                 vis_shape=vis_shape, launches=launches,
@@ -4627,7 +4937,8 @@ def run_phase7(card, emit):
     skip = {".git", os.path.normpath(PHASE7_OUT)}
     logs = own_log_files(root)
     launches = dict.fromkeys(("rollout_byte", "rollout_binned", "map_sample",
-                              "map_sample_crop", "gather_probe"), 0)
+                              "map_sample_crop", "cvar_costs", "update_useq",
+                              "gather_probe"), 0)
     out, seconds, dirs, outcomes = {}, {}, {}, {}
     for name, argv, terrain in phase7_commands():
         if name != "engine_ab_check":

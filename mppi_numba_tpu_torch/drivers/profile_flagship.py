@@ -11,9 +11,16 @@ launches.  Stages:
            uniforms, the ranks, the decode and the packed byte words
   noise    the (K, T, 2) normal draw and the control clipping (torch ops)
   rollout  the byte rollout kernel (``csrc/rollout_byte.cu``)
-  cvar     the sorted top-k CVaR over M (torch ops)
-  update   the control coupling and the softmax update (torch ops)
-  solve    the whole solve (one map-sampling and one rollout launch)
+  cvar     the CVaR over M plus the control coupling, one launch of
+           ``csrc/cvar_costs.cu``
+  update   the softmax update, one launch of ``csrc/update_useq.cu``
+  solve    the whole solve (one map-sampling launch, then a rollout, a
+           CVaR and an update launch an iteration)
+
+Beside the cvar and update stages, ``library_ms`` times the torch ops
+that computed them before the kernels, on the same inputs
+(``tail_bench.torch_cvar_costs`` and ``torch_update``).  They are timed
+here only; no path of the port runs them.
 
 The fixed maps come from ``ops.sample_traction_grids`` (lin and ang, one
 key) and ``pack_map_words``, as the JAX script builds them; on a card the
@@ -37,18 +44,19 @@ import time
 import torch
 
 from .. import _card
-from ..ops.cvar import cvar_from_costs
+from ..ops.kernels.cvar_costs import cvar_costs
 from ..ops.kernels.map_sample import sample_and_pack_window
 from ..ops.kernels.rollout_byte import (build_task_vec,
                                         terrain_rollout_costs_byte)
 from ..ops.packing import pack_map_words
-from ..ops.rollout import _clipped_controls_tk, control_coupling
+from ..ops.kernels.update_useq import update_useq_fused
+from ..ops.rollout import _clipped_controls_tk
 from ..ops.sampling import draw_map_key, sample_noise, sample_traction_grids
-from ..ops.update import update_useq
 from ..solver import get_terrain_solver, resolve_backend
 from ._common import (SMALL_CHAIN, add_device_arg, add_small_arg, clock,
                       emit, launch_counts, launched_since, resized, start)
 from .bench import build_flagship
+from .tail_bench import torch_cvar_costs, torch_update
 
 N = 50
 
@@ -66,8 +74,9 @@ def time_stage(fn, generator, n, device):
 
 
 def stages(static, maps, task, device, seed=0):
-    """``(checks, [(name, fn, generator)])``: the stage functions on fixed
-    inputs drawn from generators of ``seed``, and the checks of the
+    """``(checks, [(name, fn, generator, library)])``: the stage functions
+    on fixed inputs drawn from generators of ``seed`` (``library``: the
+    torch ops a kernel stage replaced, or None), and the checks of the
     fixed maps (``sample_traction_grids`` on the device against the CPU,
     bit for bit, and its packed words against the fused launch's)."""
     K, M, T = (static.num_control_rollouts, static.num_grid_samples,
@@ -102,7 +111,13 @@ def stages(static, maps, task, device, seed=0):
                                           fast_trig=static.fast_trig)
 
     costs_km = rollout()
-    costs_k = cvar_from_costs(costs_km, static.cvar_numel)
+    numel = static.cvar_numel
+
+    def cvar():
+        return cvar_costs(costs_km, noise, u0, task.u_std,
+                          task.lambda_weight, numel=numel)
+
+    costs_k = cvar()
     solver = get_terrain_solver(static, device)
     g = {name: torch.Generator(device=device).manual_seed(seed + 1)
          for name in ("sample", "noise", "solve")}
@@ -116,18 +131,21 @@ def stages(static, maps, task, device, seed=0):
         return _clipped_controls_tk(u0, n, task.vrange, task.wrange)
 
     def update():
-        c = costs_k + control_coupling(u0, noise, task.u_std,
-                                       task.lambda_weight)
-        return update_useq(c, noise, u0, task.lambda_weight, task.vrange,
-                           task.wrange)
+        return update_useq_fused(costs_k, noise, u0, task.lambda_weight,
+                                 task.vrange, task.wrange)
 
     return checks, [
-        ("sample", sample, g["sample"]),
-        ("noise", noise_stage, g["noise"]),
-        ("rollout", rollout, None),
-        ("cvar", lambda: cvar_from_costs(costs_km, static.cvar_numel), None),
-        ("update", update, None),
-        ("solve", lambda: solver(g["solve"], maps, task, u0), g["solve"]),
+        ("sample", sample, g["sample"], None),
+        ("noise", noise_stage, g["noise"], None),
+        ("rollout", rollout, None, None),
+        ("cvar", cvar, None,
+         lambda: torch_cvar_costs(costs_km, noise, u0, task.u_std,
+                                  task.lambda_weight, numel=numel)),
+        ("update", update, None,
+         lambda: torch_update(costs_k, noise, u0, task.lambda_weight,
+                              task.vrange, task.wrange)),
+        ("solve", lambda: solver(g["solve"], maps, task, u0), g["solve"],
+         None),
     ]
 
 
@@ -152,13 +170,17 @@ def main(argv=None):
     if not all(checks.values()):
         raise RuntimeError("profile_flagship: the fixed maps' checks "
                            "failed: {}".format(checks))
-    for name, fn, gen in fns:
+    for name, fn, gen, library in fns:
         before = launch_counts()
         ms = time_stage(fn, gen, n, device)
-        emit({"stage": name, "ms": ms, "card": card,
-              "clock": clock(device).replace(
-                  "CUDA-graph replays", "{} calls in one CUDA graph".format(n)),
-              "launches": launched_since(before)})
+        line = {"stage": name, "ms": ms, "card": card,
+                "clock": clock(device).replace(
+                    "CUDA-graph replays",
+                    "{} calls in one CUDA graph".format(n)),
+                "launches": launched_since(before)}
+        if library is not None:
+            line["library_ms"] = time_stage(library, None, n, device)
+        emit(line)
     return 0
 
 

@@ -30,7 +30,8 @@ _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
 
 def counted_wrappers():
     """The kernel wrappers that count their launches in ``.launches``."""
-    from .ops.kernels import map_sample, rollout_binned, rollout_byte
+    from .ops.kernels import (cvar_costs, map_sample, rollout_binned,
+                              rollout_byte, update_useq)
     from .probes import gather_probe
 
     return (map_sample.sample_traction_window,
@@ -38,6 +39,7 @@ def counted_wrappers():
             map_sample.sample_and_pack_crop,
             rollout_byte.terrain_rollout_costs_byte,
             rollout_binned.terrain_rollout_costs_binned,
+            cvar_costs.cvar_costs, update_useq.update_useq_fused,
             *(chain for chain, _ in gather_probe.CHAINS.values()))
 
 

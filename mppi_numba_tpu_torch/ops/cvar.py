@@ -1,5 +1,11 @@
 """CVaR over the map samples: mean of the worst alpha-fraction of M costs.
 
+The worst costs are summed in descending order (``torch.topk`` /
+``torch.sort``, NaN largest), left to right (``tree.fold_sum``), the order
+of the solve's kernel (``kernels/cvar_costs.py``): the static count, the
+run-time alpha and the m-sharded candidate pool give the same bits for the
+same count.
+
 With the M axis split over the ranks of a process group (the map-sharded
 solve), ``cvar_from_costs_distributed`` and
 ``cvar_from_costs_dynamic_distributed`` reduce across the group
@@ -12,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.collectives import all_gather_cat
+from .tree import fold_sum
 
 
 def cvar_from_costs(costs_km, cvar_numel):
@@ -22,42 +29,49 @@ def cvar_from_costs(costs_km, cvar_numel):
       cvar_numel: ``ceil(M * cvar_alpha)``; ``M`` yields the plain mean.
 
     Returns:
-      float32 ``(K,)`` — mean of the ``cvar_numel`` largest costs per row.
+      float32 ``(K,)`` — mean of the ``cvar_numel`` largest costs per row,
+      summed largest first.
     """
-    M = costs_km.shape[-1]
-    if cvar_numel >= M:
-        return torch.mean(costs_km, dim=-1)
-    # Sorted (descending), as ``lax.top_k`` returns them: the mean then sums
-    # in the JAX package's order.  The solve's softmax turns cost ulps into
-    # control differences, so the order is kept, not left to chance.
-    worst = torch.topk(costs_km, cvar_numel, dim=-1, sorted=True).values
-    return torch.mean(worst, dim=-1)
+    n = min(cvar_numel, costs_km.shape[-1])
+    worst = torch.topk(costs_km, n, dim=-1, sorted=True).values
+    # A device tensor, not a Python number: torch divides a CUDA tensor by
+    # a host scalar as a product with its reciprocal.
+    return fold_sum(worst) / costs_km.new_full((), float(n))
 
 
 def cvar_from_costs_dynamic(costs_km, cvar_alpha):
-    """CVaR with alpha as a float32 tensor: sort descending + masked mean.
-    With a leading scenario axis, costs ``(B, K, M)`` and one alpha a
-    scenario ``(B,)``; returns ``(B, K)``."""
+    """CVaR with alpha as a float32 tensor: sort descending, the costs
+    past ``ceil(M * alpha)`` replaced by -0.0, summed largest first over
+    the count.  With a leading scenario axis, costs ``(B, K, M)`` and one alpha
+    a scenario ``(B,)``; returns ``(B, K)``."""
     M = costs_km.shape[-1]
     srt = torch.sort(costs_km, dim=-1, descending=True).values
     numel = torch.ceil(M * cvar_alpha).to(torch.int32)[..., None]  # (.., 1)
-    mask = (torch.arange(M, device=costs_km.device)
-            < numel[..., None]).to(costs_km.dtype)                  # (.., 1, M)
-    return (srt * mask).sum(-1) / numel.to(costs_km.dtype)
+    keep = (torch.arange(M, device=costs_km.device)
+            < numel[..., None])                                     # (.., 1, M)
+    return (fold_sum(torch.where(keep, srt, -0.0))
+            / numel.to(costs_km.dtype))
+
+
+def cvar_pool(costs_km, cvar_numel, group):
+    """The candidates of the two-phase top-k over the ranks of ``group``:
+    each rank's ``min(cvar_numel, M_local)`` worst costs, all-gathered
+    (at most ``cvar_numel`` of the global worst lie on any one rank).
+    ``(K_local, S * keep)``, a leading scenario axis allowed."""
+    keep = min(cvar_numel, costs_km.shape[-1])
+    local_top = torch.topk(costs_km, keep, dim=-1, sorted=True).values
+    return all_gather_cat(local_top, -1, group)
 
 
 def cvar_from_costs_distributed(costs_km, cvar_numel, m_total, group):
     """CVaR when the M axis is split over the ranks of ``group``.
 
-    Two-phase top-k: each rank keeps its ``min(cvar_numel, M_local)``
-    worst costs, sorted descending as ``lax.top_k`` returns them; the ranks
-    all-gather those candidates and take the global worst ``cvar_numel``
-    (at most that many of the global worst lie on any one rank).  The
-    global worst come out of the candidates sorted as the single-device
-    ``torch.topk`` sorts them, so the mean sums in its order: the result
+    Two-phase top-k: the ranks gather their candidates (``cvar_pool``)
+    and take the global worst ``cvar_numel`` of the pool, sorted as the
+    single-device CVaR sorts them and summed in the same order: the result
     equals ``cvar_from_costs`` on the whole M axis bit for bit.  At alpha 1
     (``cvar_numel >= m_total``) the ranks all-reduce their sums instead,
-    which sums in another order than the single-device mean.
+    which sums in another order than the single-device CVaR.
 
     Args:
       costs_km: float32 ``(K_local, M_local)`` (a leading scenario axis
@@ -69,16 +83,12 @@ def cvar_from_costs_distributed(costs_km, cvar_numel, m_total, group):
     Returns:
       float32 ``(K_local,)``, the same on every rank of the group.
     """
-    m_local = costs_km.shape[-1]
     if cvar_numel >= m_total:
         total = torch.sum(costs_km, dim=-1)
         dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
         return total / m_total
-    keep = min(cvar_numel, m_local)
-    local_top = torch.topk(costs_km, keep, dim=-1, sorted=True).values
-    cand = all_gather_cat(local_top, -1, group)
-    worst = torch.topk(cand, cvar_numel, dim=-1, sorted=True).values
-    return torch.mean(worst, dim=-1)
+    return cvar_from_costs(cvar_pool(costs_km, cvar_numel, group),
+                           cvar_numel)
 
 
 def cvar_from_costs_dynamic_distributed(costs_km, cvar_alpha, group):

@@ -25,6 +25,7 @@ import torch
 from ..models import unicycle_step
 from .costs import (barebone_stage_cost, barebone_term_cost, stage_cost,
                     term_cost)
+from .tree import tree_sum
 
 
 def _clipped_controls_tk(u_cur, noise, vrange, wrange):
@@ -123,12 +124,15 @@ def terrain_rollout_costs(packed_words, task, u_cur, noise, *, speed_map=False,
 def control_coupling(u_cur, noise, u_std, lambda_weight):
     """MPPI information-theoretic coupling: lambda * sum_t (u/sigma^2) . eps.
 
-    Summed over all T steps regardless of early goal reach.  Returns ``(K,)``
-    (``(B, K)`` with a leading scenario axis on every argument).
+    Summed over all T steps regardless of early goal reach, over the
+    flattened (t, c) index ``2t + c`` in the halving tree's order
+    (``tree.py``), as the solve's kernel sums it
+    (``kernels/cvar_costs.py``).  Returns ``(K,)`` (``(B, K)`` with a
+    leading scenario axis on every argument).
     """
     scaled = u_cur / (u_std * u_std)[..., None, :]                # (T, 2)
-    return lambda_weight[..., None] * torch.sum(noise * scaled[..., None, :, :],
-                                                dim=(-2, -1))
+    terms = noise * scaled[..., None, :, :]                       # (K, T, 2)
+    return lambda_weight[..., None] * tree_sum(terms.flatten(-2))
 
 
 def _start_states(x0, V):

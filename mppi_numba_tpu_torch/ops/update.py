@@ -4,9 +4,10 @@
   w_k   = exp(-(cost_k - beta) / lambda) / sum_j exp(-(cost_j - beta) / lambda)
   u'    = clip(u + sum_k w_k * eps_k)
 
-The weighted noise sum is a product and a sum over k, not a matrix product,
-so it stays in full float32 whatever the caller's TF32 settings
-(``torch.backends.cuda.matmul.allow_tf32``, float32 matmul precision).
+The sums run in the halving tree's order (``tree.py``), as the card's
+kernel (``kernels/update_useq.py``) sums them.  The weighted noise sum is
+a product and a sum over k, not a matrix product, so it stays in full
+float32 whatever the caller's TF32 settings.
 
 Every argument may carry a leading scenario axis B (the JAX update under
 ``jax.vmap``): costs ``(B, K)``, noise ``(B, K, T, 2)``, u ``(B, T, 2)``,
@@ -22,10 +23,7 @@ stays leading, so one all-reduce serves all of a rank's scenarios.
 
 from __future__ import annotations
 
-import torch
-import torch.distributed as dist
-
-from ..models import clip_controls
+from .kernels.update_useq import update_useq_fused, update_useq_plain
 
 
 def update_useq(costs, noise, u_cur, lambda_weight, vrange, wrange,
@@ -44,18 +42,13 @@ def update_useq(costs, noise, u_cur, lambda_weight, vrange, wrange,
     Returns:
       (u_new ``(T, 2)``, weights ``(K,)``), each with the leading scenario
       axis of the arguments; the weights are this rank's rows under a group.
+
+    Without a group this is ``update_useq_fused`` (the kernel on CUDA
+    tensors); with one, the plain version's torch ops around the
+    collectives.
     """
-    beta = torch.min(costs, dim=-1, keepdim=True).values
-    if group is not None:
-        dist.all_reduce(beta, op=dist.ReduceOp.MIN, group=group)
-    w = torch.exp(-(costs - beta) / lambda_weight[..., None])
-    eta = torch.sum(w, dim=-1, keepdim=True)
-    if group is not None:
-        dist.all_reduce(eta, op=dist.ReduceOp.SUM, group=group)
-    w = w / eta
-    du = torch.sum(w[..., None, None] * noise, dim=-3)
-    if group is not None:
-        dist.all_reduce(du, op=dist.ReduceOp.SUM, group=group)
-    u_new = u_cur + du
-    v, om = clip_controls(u_new, vrange[..., None, :], wrange[..., None, :])
-    return torch.stack([v, om], dim=-1), w
+    if group is None:
+        return update_useq_fused(costs, noise, u_cur, lambda_weight, vrange,
+                                 wrange)
+    return update_useq_plain(costs, noise, u_cur, lambda_weight, vrange,
+                             wrange, group=group)

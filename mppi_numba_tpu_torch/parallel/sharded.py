@@ -4,7 +4,7 @@ SPMD on ``torch.distributed``.
 
 Each rank computes what one shard of the JAX ``shard_map`` computes, on
 the port's own solver pieces (``solver.make_rollout_backend``, the
-``map_sample`` kernel, ``control_coupling``, ``update_useq``), with the
+``map_sample`` kernel, the ``cvar_costs`` kernel, ``update_useq``), with the
 scenario axis leading: a rank solves its ``S_local`` scenarios in one
 map-sampling launch and one rollout launch an iteration.  Rank ``(s, k,
 m)`` rolls out rollouts ``[k K_local, (k+1) K_local)`` against map samples
@@ -21,10 +21,13 @@ S_local)``.  The collectives of one solve:
   The JAX package gathers twice (the lin and the ang bins) and packs
   after; the port packs in the sampling launch, so one gather moves the
   packed planes;
-* an optimisation iteration, three all-reduces over k (``update_useq``:
-  beta, the normalizer, the weighted noise sum), and with the m axis
-  sharded one all-gather over m (the CVaR's candidates, or the whole cost
-  slices for a run-time alpha); alpha 1 adds an all-reduce instead.
+* an optimisation iteration, with the k axis split (``n_k > 1``), three
+  all-reduces over k (``update_useq``'s torch ops around them: beta, the
+  normalizer, the weighted noise sum; one k rank runs the update kernel,
+  ``update_useq_fused``, and no collective), and with the m axis sharded
+  one all-gather over m (the CVaR's candidates, or the whole cost slices
+  for a run-time alpha, the ``cvar_costs`` kernel run on them); alpha 1
+  adds an all-reduce instead.
 
 When ``M`` does not divide over the m axis (the det modes' M = 1) the maps
 are replicated over m instead (every m rank rolls out all of them), as the
@@ -53,14 +56,14 @@ import torch
 import torch.distributed as dist
 
 from ..config import SolverStatic
-from ..ops.cvar import (cvar_from_costs, cvar_from_costs_distributed,
-                        cvar_from_costs_dynamic,
-                        cvar_from_costs_dynamic_distributed)
+from ..ops.cvar import cvar_from_costs_distributed, cvar_pool
+from ..ops.kernels.cvar_costs import cvar_costs
 from ..ops.kernels.map_sample import (sample_and_pack_crop,
                                       sample_and_pack_window)
+from ..ops.kernels.update_useq import update_useq_fused
 from ..ops.rollout import control_coupling
 from ..ops.update import update_useq
-from ..solver import (DYNAMIC_CVAR, SolveGraph, check_bins, draw_solve,
+from ..solver import (SolveGraph, check_bins, cvar_count, draw_solve,
                       make_rollout_backend)
 from .collectives import all_gather_cat
 from .mesh import MAP_AXIS, ROLLOUT_AXIS, SCENARIO_AXIS, rank_device
@@ -218,6 +221,28 @@ class ShardedTerrainSolver:
                 packed = all_gather_cat(packed, 1, self.k_group)
         return packed, task
 
+    def _costs(self, costs_km, noise, u, task):
+        """The CVaR over M plus the coupling, ``cvar_costs`` on what this
+        rank holds of M, or on the m group's gathered pool: the candidates
+        of the two-phase top-k (``cvar_pool``) for a static count, the
+        whole cost rows for a run-time alpha.  Bit for bit with the single
+        solve, but at alpha 1 over a split M: the ranks all-reduce their
+        sums."""
+        s = self.static
+        kw = cvar_count(s, task)
+        if self.n_m > 1:
+            if "alpha" in kw:
+                costs_km = all_gather_cat(costs_km, -1, self.m_group)
+            elif s.cvar_numel >= s.num_grid_samples:
+                return (cvar_from_costs_distributed(
+                    costs_km, s.cvar_numel, s.num_grid_samples, self.m_group)
+                    + control_coupling(u, noise, task.u_std,
+                                       task.lambda_weight))
+            else:
+                costs_km = cvar_pool(costs_km, s.cvar_numel, self.m_group)
+        return cvar_costs(costs_km, noise, u, task.u_std, task.lambda_weight,
+                          **kw)
+
     def solve_from_key(self, map_keys, eps_list, maps, task, u0):
         """The solve of this rank's shard after the draws of all S
         scenarios: map keys ``(S, 2)`` and ``num_opt`` noise tensors ``(S,
@@ -245,21 +270,17 @@ class ShardedTerrainSolver:
         for i in range(s.num_opt):
             noise = eps_list[i][rows, ks] * task.u_std[..., None, None, :]
             costs_km = self._rollout(payload, task, u, noise)
-            if s.cvar_numel == DYNAMIC_CVAR:
-                cvar = (cvar_from_costs_dynamic_distributed(
-                    costs_km, task.cvar_alpha, self.m_group) if self.n_m > 1
-                    else cvar_from_costs_dynamic(costs_km, task.cvar_alpha))
-            elif self.n_m > 1:
-                cvar = cvar_from_costs_distributed(
-                    costs_km, s.cvar_numel, s.num_grid_samples, self.m_group)
-            else:
-                cvar = cvar_from_costs(costs_km, s.cvar_numel)
-            costs = cvar + control_coupling(u, noise, task.u_std,
-                                            task.lambda_weight)
+            costs = self._costs(costs_km, noise, u, task)
             # The m ranks of a k shard hold the same CVaR, so they make the
-            # same update.
-            u, _ = update_useq(costs, noise, u, task.lambda_weight,
-                               task.vrange, task.wrange, group=self.k_group)
+            # same update: the kernel on one k rank, else torch ops around
+            # the collectives over k.
+            if self.n_k > 1:
+                u, _ = update_useq(costs, noise, u, task.lambda_weight,
+                                   task.vrange, task.wrange,
+                                   group=self.k_group)
+            else:
+                u, _ = update_useq_fused(costs, noise, u, task.lambda_weight,
+                                         task.vrange, task.wrange)
         return u, costs
 
 

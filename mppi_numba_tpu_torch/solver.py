@@ -6,8 +6,9 @@ PMF bins from one counter-addressed draw of uniforms, decode them and pack
 the backend's map payload, on the reachable window around x0 when
 ``SolverStatic.roi_shape`` is set (one CUDA kernel on the card, the crop
 included), then per optimisation iteration draw the noise, roll out (K, M)
-costs (a CUDA kernel on the card), take the CVaR over M, add the
-control-coupling term and apply the softmax update.  The det_dyn and
+costs (a CUDA kernel on the card), take the CVaR over M plus the
+control-coupling term (``cvar_costs``, a CUDA kernel on the card) and apply
+the softmax update (``update_useq_fused``, one more).  The det_dyn and
 speed_map modes (costmap shares speed_map) solve over M = 1 map with a
 collapsed PMF; speed_map adds the risk plane to the stage time cost.
 
@@ -39,20 +40,20 @@ import torch
 from .config import SolverStatic
 from .graphs import Captured, same_tensors
 from .models import clip_controls, get_step_fn
-from .ops.cvar import cvar_from_costs, cvar_from_costs_dynamic
+from .ops.kernels.cvar_costs import cvar_costs
 from .ops.kernels.map_sample import (sample_and_pack_crop,
                                      sample_and_pack_window)
 from .ops.kernels.rollout_binned import (MAX_BINS, build_bin_luts,
                                          terrain_rollout_costs_binned)
 from .ops.kernels.rollout_byte import build_task_vec, terrain_rollout_costs_byte
+from .ops.kernels.update_useq import update_useq_fused
 from .ops.packing import pack_map_words, pack_payload
 from .ops.roi import crop_maps, crop_window_plain, shift_task_limits
 from .ops.rollout import (_clipped_controls_tk, barebone_rollout_costs,
-                          barebone_vis_states, control_coupling,
-                          terrain_rollout_costs, terrain_vis_states)
+                          barebone_vis_states, terrain_rollout_costs,
+                          terrain_vis_states)
 from .ops.sampling import (decode_bins, draw_map_key,
                            traction_bins_from_uniforms)
-from .ops.update import update_useq
 from .types import SolveAux, per_scenario
 
 # Sentinel for SolverStatic.cvar_numel: alpha read from the task at run time.
@@ -63,6 +64,14 @@ DYNAMIC_CVAR = -1
 CELL_BITS = {"binned2": 2, "binned": 4, "binned8": 8}
 # 'cuda' is kept as an alias of 'byte', its earlier name.
 BACKENDS = ("auto", "eager", "byte", *CELL_BITS, "cuda")
+
+
+def cvar_count(static: SolverStatic, task):
+    """``cvar_costs``'s count: ``numel=static.cvar_numel``, or
+    ``alpha=task.cvar_alpha`` under ``DYNAMIC_CVAR``."""
+    if static.cvar_numel == DYNAMIC_CVAR:
+        return dict(alpha=task.cvar_alpha)
+    return dict(numel=static.cvar_numel)
 
 
 def solver_map_shape(static: SolverStatic):
@@ -292,14 +301,11 @@ class TerrainSolver:
         for i in range(s.num_opt):
             noise = eps_list[i] * task.u_std[..., None, None, :]
             costs_km = self._rollout(payload, task, u, noise)
-            if s.cvar_numel == DYNAMIC_CVAR:
-                cvar = cvar_from_costs_dynamic(costs_km, task.cvar_alpha)
-            else:
-                cvar = cvar_from_costs(costs_km, s.cvar_numel)
-            costs = cvar + control_coupling(u, noise, task.u_std,
-                                            task.lambda_weight)
-            u, weights = update_useq(costs, noise, u, task.lambda_weight,
-                                     task.vrange, task.wrange)
+            costs = cvar_costs(costs_km, noise, u, task.u_std,
+                               task.lambda_weight, **cvar_count(s, task))
+            u, weights = update_useq_fused(costs, noise, u,
+                                           task.lambda_weight, task.vrange,
+                                           task.wrange)
         roi_offset = (torch.zeros(tuple(u0.shape[:-2]) + (2,),
                                   dtype=torch.int32, device=self.device)
                       if offset is None else offset)
@@ -467,11 +473,13 @@ class BareboneSolver:
         noise = costs = weights = None
         for i in range(self.static.num_opt):
             noise = eps_list[i] * task.u_std
-            costs = (barebone_rollout_costs(task, u, noise)
-                     + control_coupling(u, noise, task.u_std,
-                                        task.lambda_weight))
-            u, weights = update_useq(costs, noise, u, task.lambda_weight,
-                                     task.vrange, task.wrange)
+            # One map: the CVaR of a (K, 1) row is its one cost.
+            costs = cvar_costs(barebone_rollout_costs(task, u, noise)[:, None],
+                               noise, u, task.u_std, task.lambda_weight,
+                               numel=1)
+            u, weights = update_useq_fused(costs, noise, u,
+                                           task.lambda_weight, task.vrange,
+                                           task.wrange)
         aux = SolveAux(costs=costs, weights=weights,
                        noise_vis=noise[:self.static.num_vis_state_rollouts],
                        lin_grids=None, ang_grids=None)

@@ -23,7 +23,8 @@ from mppi_numba_tpu_torch.checkpoint import load_experiment
 from mppi_numba_tpu_torch.drivers import (bench, bigmap_bench,
                                           engine_ab_check, full_benchmark,
                                           model_bench, profile_flagship,
-                                          scaling_bench, serve_bench)
+                                          scaling_bench, serve_bench,
+                                          tail_bench)
 
 from tests import torch_parallel_ranks as ranks
 
@@ -272,6 +273,36 @@ def test_profile_main_on_cpu(capsys):
     assert [s["stage"] for s in stages] == ["sample", "noise", "rollout",
                                             "cvar", "update", "solve"]
     assert all(np.isfinite(s["ms"]) for s in stages)
+
+
+def test_tail_bench_main_on_cpu(capsys):
+    """The solve tail's driver at ``--small``: a line a case, each kernel
+    (its plain version on the CPU) bit for bit, every time finite."""
+    tail_bench.main(["--device", "cpu", "--small"])
+    lines = _lines(capsys)
+    assert [r["case"] for r in lines] == [c[0] for c in
+                                          tail_bench.TAIL_CASES[:3]]
+    assert all(r["cvar_bitwise"] and r["update_bitwise"] for r in lines)
+    assert all(np.isfinite(r[k]) for r in lines for k in (
+        "cvar_ms", "cvar_torch_ops_ms", "update_ms", "update_torch_ops_ms"))
+
+
+def test_tail_bench_torch_ops_match_the_kernels_plain_versions():
+    """The torch ops the tail kernels replaced compute the same function
+    as their plain versions, within float32 (another summation order)."""
+    for case in tail_bench.TAIL_CASES[:3]:
+        name, B, K, M, T, count = case
+        small = (name, B, 64, min(M, 16), 7, count)
+        a_args, kw, (lam, vr, wr) = tail_bench.tail_case_inputs(small,
+                                                                 "cpu")
+        want = tail_bench.kc.cvar_costs_plain(*a_args, **kw)
+        torch.testing.assert_close(tail_bench.torch_cvar_costs(*a_args,
+                                                               **kw),
+                                   want, rtol=1e-5, atol=1e-6)
+        b_args = (want, a_args[1], a_args[2], lam, vr, wr)
+        for got, ref in zip(tail_bench.torch_update(*b_args),
+                            tail_bench.ku.update_useq_plain(*b_args)):
+            torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
 
 
 def test_drivers_need_a_card_by_default(monkeypatch):

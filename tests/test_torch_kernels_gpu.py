@@ -1731,3 +1731,144 @@ def test_ops_samplers_on_card_equal_cpu(window):
     assert torch.equal(bins.cpu(), sample_traction_bins(
         cpu[0], cpu[1], cpu[3], M, **kw))
     assert torch.equal(grids.cpu(), sample_traction_grids(*cpu, M, **kw))
+
+
+def _tail_inputs(dev, B, K, M, T, seed=0):
+    """The solve tail's inputs on the card: costs with ties, rows of equal
+    crash penalties and one NaN row, noise, controls and per-scenario
+    task values (``B`` None: no scenario axis)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lead = () if B is None else (B,)
+    n = 1 if B is None else B
+    costs = torch.rand(lead + (K, M), generator=g, device=dev) * 100
+    costs[..., 1, :] = torch.round(costs[..., 1, :] / 10) * 10
+    costs[..., 2, :] = 1e5
+    costs[..., 3, : (M + 1) // 2] = 1e5 + 7.5
+    costs[..., 4, M // 2] = float("nan")
+    noise = torch.randn(lead + (K, T, 2), generator=g, device=dev)
+    u = torch.rand(lead + (T, 2), generator=g, device=dev) * 3 - 1
+    u_std = torch.rand((n, 2), generator=g, device=dev) + 0.5
+    lam = torch.rand((n,), generator=g, device=dev) * 2 + 0.5
+    alpha = torch.rand((n,), generator=g, device=dev) * 0.95 + 0.05
+    rng = torch.tensor([[0.0, 2.0], [-2.5, 2.5]], device=dev)
+    vr, wr = rng[0].expand((n, 2)).clone(), rng[1].expand((n, 2)).clone()
+    if B is None:
+        u_std, lam, alpha, vr, wr = u_std[0], lam[0], alpha[0], vr[0], wr[0]
+    return costs, noise, u, u_std, lam, alpha, vr, wr
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+@pytest.mark.parametrize("B,K,M,T", [
+    (None, 1000, 1, 50), (None, 1024, 1024, 100), (30, 1024, 1024, 100),
+    (None, 2048, 512, 80), (None, 1024, 64, 60), (None, 10240, 16, 100),
+    (30, 1000, 5, 40), (None, 1024, 410, 100), (None, 64, 2048, 7),
+    (3, 37, 4096, 3)])
+def test_cvar_costs_kernel_matches_plain_on_card(B, K, M, T, dynamic):
+    """The CVaR plus coupling kernel against its plain version, bit for
+    bit (NaN rows included), static count and run-time alpha, in
+    registers (M <= 1024) and in shared memory (M 2048 and 4096)."""
+    from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
+
+    dev = _cuda_or_skip()
+    costs, noise, u, u_std, lam, alpha, _, _ = _tail_inputs(dev, B, K, M, T)
+    kw = dict(alpha=alpha) if dynamic else dict(numel=max(1, (M * 2) // 10))
+    before = kc.cvar_costs.launches
+    got = kc.cvar_costs(costs, noise, u, u_std, lam, **kw)
+    torch.cuda.synchronize()
+    assert kc.cvar_costs.launches == before + 1
+    want = kc.cvar_costs_plain(costs, noise, u, u_std, lam, **kw)
+    assert got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want))
+    if not dynamic:
+        numel = kw["numel"]
+        alpha_n = torch.full_like(alpha, (numel - 0.5) / M)
+        same = kc.cvar_costs(costs, noise, u, u_std, lam, alpha=alpha_n)
+        assert torch.equal(_bits(same), _bits(got))
+
+
+def test_cvar_costs_kernel_rejects_bad_inputs_on_card():
+    """An M past the cap, a CPU tensor among CUDA ones, two counts or none:
+    raised before any launch."""
+    from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
+
+    dev = _cuda_or_skip()
+    costs, noise, u, u_std, lam, alpha, _, _ = _tail_inputs(dev, None, 8,
+                                                            16, 5)
+    before = kc.cvar_costs.launches
+    big = torch.zeros((8, kc.MAX_M + 1), device=dev)
+    with pytest.raises(ValueError, match=str(kc.MAX_M)):
+        kc.cvar_costs(big, noise, u, u_std, lam, numel=3)
+    with pytest.raises(ValueError):
+        kc.cvar_costs(costs, noise.cpu(), u, u_std, lam, numel=3)
+    with pytest.raises(ValueError):
+        kc.cvar_costs(costs, noise, u, u_std, lam, numel=3, alpha=alpha)
+    with pytest.raises(ValueError):
+        kc.cvar_costs(costs, noise, u, u_std, lam)
+    assert kc.cvar_costs.launches == before
+
+
+@pytest.mark.parametrize("B,K,T", [
+    (None, 1000, 50), (None, 1024, 100), (30, 1024, 100), (None, 2048, 80),
+    (None, 10240, 100), (30, 1000, 40), (None, 20000, 10), (3, 17, 3)])
+def test_update_useq_kernel_matches_plain_on_card(B, K, T):
+    """The update kernel against its plain version, bit for bit: u and
+    the weights, from the CVaR kernel's costs, and with a NaN cost."""
+    from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
+    from mppi_numba_tpu_torch.ops.kernels import update_useq as ku
+
+    dev = _cuda_or_skip()
+    costs, noise, u, u_std, lam, alpha, vr, wr = _tail_inputs(dev, B, K, 5,
+                                                              T, seed=1)
+    costs_k = kc.cvar_costs(costs[..., 5:, :], noise[..., 5:, :, :], u,
+                            u_std, lam, alpha=alpha)
+    noise = noise[..., 5:, :, :].contiguous()
+    for c in (costs_k, costs_k.clone().index_fill_(-1, torch.tensor(
+            [3], device=dev), float("nan"))):
+        before = ku.update_useq_fused.launches
+        got = ku.update_useq_fused(c, noise, u, lam, vr, wr)
+        torch.cuda.synchronize()
+        assert ku.update_useq_fused.launches == before + 1
+        want = ku.update_useq_plain(c, noise, u, lam, vr, wr)
+        for g_, w_ in zip(got, want):
+            assert g_.shape == w_.shape
+            assert torch.equal(_bits(g_), _bits(w_))
+    with pytest.raises(ValueError, match=str(ku.MAX_K)):
+        ku.update_useq_fused(torch.zeros(ku.MAX_K + 1, device=dev),
+                             torch.zeros((ku.MAX_K + 1, T, 2), device=dev),
+                             u[0] if B else u, lam[0] if B else lam,
+                             vr[0] if B else vr, wr[0] if B else wr)
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_solve_graph_with_the_tail_kernels_equals_eager_on_card(dynamic):
+    """A sweep chunk's batched solve (B = 30, K = M = 1024), static count
+    or run-time alpha, captured in a CUDA graph and replayed, against
+    eager solves from a generator of the same seed, bit for bit; each
+    replay launches the CVaR and update kernels once an iteration."""
+    import dataclasses
+
+    from mppi_numba_tpu_torch.solver import DYNAMIC_CVAR, TerrainSolver
+
+    dev = _cuda_or_skip()
+    static, maps, task, _ = _sweep_chunk(dev, "noisy_dyn", 30)
+    if not dynamic:
+        static = dataclasses.replace(static, cvar_numel=205)
+    else:
+        assert static.cvar_numel == DYNAMIC_CVAR
+    solver = TerrainSolver(static, dev)
+    u0 = torch.zeros((30, static.num_steps, 2), device=dev) + 0.2
+    gens = [torch.Generator(device=dev).manual_seed(2) for _ in range(2)]
+    graph = solver.capture(gens[0], maps, task, u0.clone())
+    assert graph.captured_launches["cvar_costs"] == static.num_opt
+    assert graph.captured_launches["update_useq_fused"] == static.num_opt
+    u_e = u0
+    for _ in range(2):
+        u_g, aux_g = graph(gens[0], maps, task, graph.u0)
+        u_e, aux_e = solver(gens[1], maps, task, u_e)
+        assert torch.equal(u_g, u_e)
+        assert torch.equal(aux_g.costs, aux_e.costs)
+        assert torch.equal(aux_g.weights, aux_e.weights)

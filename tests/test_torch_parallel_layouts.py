@@ -15,8 +15,10 @@ import torch
 from mppi_numba_tpu.ops import cvar as jcvar
 from mppi_numba_tpu_torch.ops.cvar import (cvar_from_costs,
                                            cvar_from_costs_dynamic)
+from mppi_numba_tpu_torch.ops.kernels.cvar_costs import cvar_costs_plain
 from mppi_numba_tpu_torch.ops.kernels.map_sample import (
     sample_and_pack_crop, sample_and_pack_window)
+from mppi_numba_tpu_torch.ops.kernels.update_useq import update_useq_plain
 from mppi_numba_tpu_torch.ops.update import update_useq
 from mppi_numba_tpu_torch.solver import DYNAMIC_CVAR
 
@@ -77,6 +79,7 @@ def _ops_job(mesh):
         task=dict(lambda_weight=np.array([1.0, 10.0], f32),
                   vrange=np.tile(np.array([0.0, 2.0], f32), (S, 1)),
                   wrange=np.tile(np.array([-3.0, 3.0], f32), (S, 1)),
+                  u_std=np.array([[2.0, 3.0], [0.5, 1.5]], f32),
                   cvar_alpha=np.array([0.3, 0.55], f32)))
 
 
@@ -194,6 +197,44 @@ def test_update_over_k_group(groups, mesh):
                                    **U_TOL)
         np.testing.assert_allclose(got["w"], w[:, got["ks"]].numpy(),
                                    rtol=1e-5, atol=1e-7, err_msg=str(r))
+
+
+@pytest.mark.parametrize("mesh", OPS_MESHES, ids=str)
+def test_m_split_solve_tail_is_the_single_one_bitwise(groups, mesh):
+    """The solve's CVaR plus coupling (``cvar_costs``) on the m group's
+    gathered pool, static counts below M and a run-time alpha, equals it
+    on the whole M axis bit for bit: the pool sorts as the single row."""
+    job, out = _ops(groups, mesh)
+    t = {k: torch.as_tensor(v) for k, v in job["task"].items()}
+    args = (torch.as_tensor(job["costs_km"]), torch.as_tensor(job["noise"]),
+            torch.as_tensor(job["u"]), t["u_std"], t["lambda_weight"])
+    for r, res in enumerate(out):
+        got = res["ops{}".format(mesh)]
+        ks = got["ks"]
+        for numel, tail in got["tail"].items():
+            want = cvar_costs_plain(*args, numel=numel).numpy()
+            assert np.array_equal(tail, want[:, ks]), (r, numel)
+        want = cvar_costs_plain(*args, alpha=t["cvar_alpha"]).numpy()
+        assert np.array_equal(got["tail_dynamic"], want[:, ks]), r
+
+
+@pytest.mark.parametrize("mesh", [m for m in OPS_MESHES if m[1] == 1],
+                         ids=str)
+def test_k_split_update_at_one_rank_is_the_kernels_plain_version(groups,
+                                                                 mesh):
+    """The k-split update's torch ops around the collectives, on a k group
+    of one rank: bit for bit the plain version of the update kernel (the
+    same tree sums)."""
+    job, out = _ops(groups, mesh)
+    t = {k: torch.as_tensor(v) for k, v in job["task"].items()}
+    u, w = update_useq_plain(torch.as_tensor(job["costs"]),
+                             torch.as_tensor(job["noise"]),
+                             torch.as_tensor(job["u"]), t["lambda_weight"],
+                             t["vrange"], t["wrange"])
+    for r, res in enumerate(out):
+        got = res["ops{}".format(mesh)]
+        assert np.array_equal(got["u"], u.numpy()), r
+        assert np.array_equal(got["w"], w.numpy()), r
 
 
 def _crop_world(bins, seed=0):

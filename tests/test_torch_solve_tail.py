@@ -1,0 +1,259 @@
+"""The solve's tail: the CVaR over M plus the control coupling
+(``ops/kernels/cvar_costs.py``) and the softmax-weighted update
+(``ops/kernels/update_useq.py``), their plain versions against the JAX
+package's functions, and the summation orders they share with the kernels
+(``ops/tree.py``).
+
+Inputs come from a numpy seed at small sizes.  Tolerances: the CVaR plus
+coupling within rtol 1e-5 / atol 1e-6 of JAX's (float32 sums of the same
+terms in another order); the update's controls within the JAX package's
+whole-solve rtol 2e-4 / atol 2e-5, its weights within rtol 1e-5 / atol
+1e-8.  The kernels themselves run on a card only
+(``tests/test_torch_kernels_gpu.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mppi_numba_tpu import ops as jops
+from mppi_numba_tpu.ops import cvar as jcvar
+from mppi_numba_tpu.ops import rollout as jrollout
+from mppi_numba_tpu.ops import update as jupdate
+from mppi_numba_tpu_torch import ops as tops
+from mppi_numba_tpu_torch.ops.cvar import (cvar_from_costs,
+                                           cvar_from_costs_dynamic)
+from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kcvar
+from mppi_numba_tpu_torch.ops.kernels import update_useq as kupdate
+from mppi_numba_tpu_torch.ops.tree import fold_sum, padded_length, tree_sum
+
+A_TOL = dict(rtol=1e-5, atol=1e-6)
+U_TOL = dict(rtol=2e-4, atol=2e-5)
+W_TOL = dict(rtol=1e-5, atol=1e-8)
+PENALTY = 1e5        # the flagship's obstacle penalty: a crash's cost
+
+
+def _inputs(seed, B, K, M, T):
+    """Costs with ties and rows of equal crash penalties, noise, controls
+    and per-scenario task values; ``B`` None for no scenario axis."""
+    rng = np.random.RandomState(seed)
+    lead = () if B is None else (B,)
+    f32 = np.float32
+    costs = (rng.rand(*lead, K, M) * 100).astype(f32)
+    costs[..., 1, :] = np.round(costs[..., 1, :] / 10) * 10     # ties
+    costs[..., 2, :] = PENALTY                                  # all crash
+    costs[..., 3, : (M + 1) // 2] = PENALTY + 7.5               # half crash
+    noise = rng.randn(*lead, K, T, 2).astype(f32)
+    u = rng.uniform(-1, 2, lead + (T, 2)).astype(f32)
+    n = 1 if B is None else B
+    u_std = np.stack([rng.uniform(0.5, 2.0, n), rng.uniform(0.5, 3.0, n)],
+                     -1).astype(f32)
+    lam = rng.uniform(0.5, 2.0, n).astype(f32)
+    alpha = rng.uniform(0.05, 1.0, n).astype(f32)
+    if B is None:
+        u_std, lam, alpha = u_std[0], lam[0], alpha[0]
+    return costs, noise, u, u_std, lam, alpha
+
+
+def _t(*xs):
+    return [torch.tensor(x) for x in xs]
+
+
+def _jax_a(costs, noise, u, u_std, lam, numel=None, alpha=None):
+    """JAX's cvar_from_costs(_dynamic) + control_coupling, vmapped over a
+    scenario axis."""
+    def one(c, e, uu, s, lm, al):
+        cvar = (jcvar.cvar_from_costs(c, numel) if al is None
+                else jcvar.cvar_from_costs_dynamic(c, al))
+        return cvar + jrollout.control_coupling(uu, e, s, lm)
+
+    args = [jnp.asarray(x) for x in (costs, noise, u, u_std, lam)]
+    al = None if alpha is None else jnp.asarray(alpha)
+    if costs.ndim == 2:
+        return np.asarray(one(*args, al))
+    if al is None:
+        return np.asarray(jax.vmap(lambda *a: one(*a, None))(*args))
+    return np.asarray(jax.vmap(one)(*args, al))
+
+
+SHAPES = [(K, M, T) for K in (37, 64) for M in (1, 5, 64, 100)
+          for T in (3, 7)]
+
+
+@pytest.mark.parametrize("B", [None, 3])
+@pytest.mark.parametrize("K,M,T", SHAPES)
+def test_plain_a_static_matches_jax(K, M, T, B):
+    """The static count at 1, M - 1 and M (M: the plain mean)."""
+    costs, noise, u, u_std, lam, _ = _inputs(K + M + T, B, K, M, T)
+    for numel in sorted({1, max(M - 1, 1), M}):
+        got = kcvar.cvar_costs_plain(*_t(costs, noise, u, u_std, lam),
+                                     numel=numel)
+        want = _jax_a(costs, noise, u, u_std, lam, numel=numel)
+        np.testing.assert_allclose(got.numpy(), want, err_msg=str(numel),
+                                   **A_TOL)
+
+
+@pytest.mark.parametrize("B", [None, 3])
+@pytest.mark.parametrize("K,M,T", SHAPES)
+def test_plain_a_dynamic_matches_jax(K, M, T, B):
+    """A run-time alpha (a different one a scenario)."""
+    costs, noise, u, u_std, lam, alpha = _inputs(K * M + T, B, K, M, T)
+    got = kcvar.cvar_costs_plain(*_t(costs, noise, u, u_std, lam),
+                                 alpha=torch.tensor(alpha))
+    want = _jax_a(costs, noise, u, u_std, lam, alpha=alpha)
+    np.testing.assert_allclose(got.numpy(), want, **A_TOL)
+
+
+@pytest.mark.parametrize("B", [None, 3])
+@pytest.mark.parametrize("M", [1, 5, 64, 100])
+def test_static_and_dynamic_cvar_agree_bitwise(M, B):
+    """The same count, static or from alpha: the same bits (the sort's
+    worst costs, -0.0 past the count, summed largest first)."""
+    costs, noise, u, u_std, lam, _ = _inputs(M, B, 37, M, 3)
+    tc = torch.tensor(costs)
+    lead = () if B is None else (B,)
+    for numel in sorted({1, max(M // 3, 1), max(M - 1, 1), M}):
+        # An alpha whose float32 ceil(M * alpha) is numel.
+        alpha = np.float32((numel - 0.5) / M)
+        assert int(np.ceil(np.float32(M) * alpha)) == numel
+        ta = torch.full(lead, float(alpha))
+        static = cvar_from_costs(tc, numel)
+        dynamic = cvar_from_costs_dynamic(tc, ta)
+        assert torch.equal(static, dynamic), numel
+        args = _t(costs, noise, u, u_std, lam)
+        assert torch.equal(kcvar.cvar_costs_plain(*args, numel=numel),
+                           kcvar.cvar_costs_plain(*args, alpha=ta)), numel
+
+
+@pytest.mark.parametrize("B", [None, 3])
+@pytest.mark.parametrize("K,T", [(37, 3), (64, 7), (1000, 7)])
+def test_plain_b_matches_jax(K, T, B):
+    """The update from plain A's costs at lambda 1."""
+    costs, noise, u, u_std, _, alpha = _inputs(K + T, B, K, 5, T)
+    lead = () if B is None else (B,)
+    lam = np.ones(lead, np.float32)
+    vr = np.broadcast_to(np.array([0.0, 2.0], np.float32), lead + (2,))
+    wr = np.broadcast_to(np.array([-2.5, 2.5], np.float32), lead + (2,))
+    costs_k = kcvar.cvar_costs_plain(*_t(costs, noise, u, u_std, lam),
+                                     alpha=torch.tensor(alpha))
+    got_u, got_w = kupdate.update_useq_plain(
+        costs_k, *_t(noise, u, lam, np.ascontiguousarray(vr),
+                     np.ascontiguousarray(wr)))
+
+    def one(c, e, uu, lm, v, w):
+        return jupdate.update_useq(c, e, uu, lm, v, w)
+
+    args = [jnp.asarray(x) for x in (costs_k.numpy(), noise, u, lam, vr, wr)]
+    want_u, want_w = one(*args) if B is None else jax.vmap(one)(*args)
+    np.testing.assert_allclose(got_u.numpy(), np.asarray(want_u), **U_TOL)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), **W_TOL)
+
+
+def test_fused_wrappers_run_the_plain_versions_on_the_cpu():
+    """On CPU tensors the wrappers are their plain versions, bit for bit,
+    and count no launch; the solve's names route to them."""
+    costs, noise, u, u_std, lam, alpha = _inputs(3, 3, 64, 64, 7)
+    args = _t(costs, noise, u, u_std, lam)
+    before = (kcvar.cvar_costs.launches, kupdate.update_useq_fused.launches)
+    a = kcvar.cvar_costs(*args, alpha=torch.tensor(alpha))
+    assert torch.equal(a, kcvar.cvar_costs_plain(*args,
+                                                 alpha=torch.tensor(alpha)))
+    vr = torch.tensor([[0.0, 2.0]] * 3)
+    wr = torch.tensor([[-2.5, 2.5]] * 3)
+    got = kupdate.update_useq_fused(a, args[1], args[2], args[4], vr, wr)
+    want = kupdate.update_useq_plain(a, args[1], args[2], args[4], vr, wr)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(
+        tops.update_useq(a, args[1], args[2], args[4], vr, wr), want))
+    assert (kcvar.cvar_costs.launches,
+            kupdate.update_useq_fused.launches) == before
+
+
+def test_ops_keep_the_jax_signatures():
+    """``ops.cvar_from_costs`` and ``ops.update_useq`` take JAX's
+    arguments and give its results within the stated tolerances."""
+    costs, noise, u, u_std, lam, _ = _inputs(11, None, 64, 100, 7)
+    got = tops.cvar_from_costs(torch.tensor(costs), 20)
+    want = np.asarray(jops.cvar_from_costs(jnp.asarray(costs), 20))
+    np.testing.assert_allclose(got.numpy(), want, **A_TOL)
+    vr, wr = np.array([0.0, 2.0], np.float32), np.array([-2.5, 2.5],
+                                                        np.float32)
+    c = got.numpy()
+    gu, gw = tops.update_useq(*_t(c, noise, u, np.float32(1.0), vr, wr))
+    ju, jw = jops.update_useq(*(jnp.asarray(x) for x in (c, noise, u)),
+                              jnp.float32(1.0), jnp.asarray(vr),
+                              jnp.asarray(wr))
+    np.testing.assert_allclose(gu.numpy(), np.asarray(ju), **U_TOL)
+    np.testing.assert_allclose(gw.numpy(), np.asarray(jw), **W_TOL)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 32, 33, 100, 205, 1000])
+def test_sums_do_not_change_with_padded_length(n):
+    """Any number of -0.0 terms padded at the end leaves both orders'
+    bits as they were: the tree at every power of two past n, the fold at
+    any length."""
+    rng = np.random.RandomState(n)
+    x = torch.tensor((rng.randn(16, n) * 10.0 ** rng.uniform(-3, 5, (16, n))
+                      ).astype(np.float32))
+    x[0] = -0.0
+    base_tree, base_fold = tree_sum(x), fold_sum(x)
+    for extra in (1, padded_length(n) - n + 1, 3 * padded_length(n)):
+        pad = torch.cat([x, torch.full((16, extra), -0.0)], -1)
+        assert torch.equal(tree_sum(pad).view(torch.int32),
+                           base_tree.view(torch.int32)), extra
+        assert torch.equal(fold_sum(pad).view(torch.int32),
+                           base_fold.view(torch.int32)), extra
+    assert torch.equal(fold_sum(x[:, :1]), x[:, 0])
+
+
+def test_tree_is_the_halving_order():
+    """The tree adds v[i] + v[i + L/2] level by level, not in pairs of
+    neighbours: a row whose two orders round apart."""
+    x = torch.tensor([[1.0, 1e8, -1e8, 1.0]])
+    # Halving: (1 + -1e8) + (1e8 + 1) = -1e8 + 1e8 = 0 in float32.
+    assert tree_sum(x).item() == 0.0
+    # Neighbours would give (1 + 1e8) + (-1e8 + 1) = 0 too; a fold 1.
+    assert fold_sum(x).item() == 1.0
+    y = torch.tensor([[3.0, 1e8, 1.0, -1e8]])
+    # Halving: (3 + 1) + (1e8 - 1e8) = 4; neighbours: 1e8 - 1e8 = 0.
+    assert tree_sum(y).item() == 4.0
+
+
+# Every path's M: the det modes' and the barebone's 1, the confidence
+# example's 64, external PMF's 512, the flagship's and the sweep's 1024,
+# and the m-sharded pools S * min(numel, M / S) of the flagship's numel
+# 205 at S = 2, 4 and 8 ranks (410, 820 and 1024), the run-time alpha's
+# gathered rows (M).
+PATH_M = {"det_barebone": 1, "confidence": 64, "external": 512,
+          "flagship_sweep": 1024,
+          **{"pool_{}".format(S): S * min(205, 1024 // S) for S in (2, 4, 8)}}
+
+
+@pytest.mark.parametrize("path", sorted(PATH_M))
+def test_the_kernel_cap_covers_every_path(path):
+    """The kernel's M cap holds every path's M; past it the argument
+    check raises, naming the cap."""
+    M = PATH_M[path]
+    assert M <= kcvar.MAX_M
+    K, T = 8, 5
+    args = [torch.zeros(K, M), torch.zeros(K, T, 2), torch.zeros(T, 2),
+            torch.ones(2), torch.tensor(1.0)]
+    assert kcvar.check_args(*args, numel=min(205, M), alpha=None) == (
+        1, K, M, T)
+
+
+def test_the_kernel_cap_raises_past_it():
+    M = kcvar.MAX_M + 1
+    args = [torch.zeros(4, M), torch.zeros(4, 3, 2), torch.zeros(3, 2),
+            torch.ones(2), torch.tensor(1.0)]
+    with pytest.raises(ValueError, match=str(kcvar.MAX_M)):
+        kcvar.check_args(*args, numel=5, alpha=None)
+    with pytest.raises(ValueError, match="one of numel and alpha"):
+        kcvar.check_args(*args, numel=None, alpha=None)
+    costs = torch.zeros(kupdate.MAX_K + 1)
+    with pytest.raises(ValueError, match=str(kupdate.MAX_K)):
+        kupdate.check_args(costs, torch.zeros(kupdate.MAX_K + 1, 3, 2),
+                           torch.zeros(3, 2), torch.tensor(1.0),
+                           torch.zeros(2), torch.zeros(2))

@@ -157,8 +157,11 @@ def _ops_job(job, mesh_of):
     """``update_useq`` over the k group and the distributed CVaRs over the
     m group, each rank on its (K, M) block of the same costs."""
     from mppi_numba_tpu_torch.ops.cvar import (
-        cvar_from_costs_distributed, cvar_from_costs_dynamic_distributed)
+        cvar_from_costs_distributed, cvar_from_costs_dynamic_distributed,
+        cvar_pool)
+    from mppi_numba_tpu_torch.ops.kernels.cvar_costs import cvar_costs
     from mppi_numba_tpu_torch.ops.update import update_useq
+    from mppi_numba_tpu_torch.parallel.collectives import all_gather_cat
     from mppi_numba_tpu_torch.parallel.mesh import (MAP_AXIS, ROLLOUT_AXIS)
 
     mesh = mesh_of(job["mesh"])
@@ -178,6 +181,17 @@ def _ops_job(job, mesh_of):
     out["dynamic"] = _numpy(cvar_from_costs_dynamic_distributed(
         block, t["cvar_alpha"], m_group))
     noise = torch.as_tensor(job["noise"])[:, ks]
+    # The solve's CVaR plus coupling (cvar_costs, its plain version on CPU
+    # tensors) on the m group's pool: the candidates of a static count,
+    # the whole rows of a run-time alpha.
+    coupling = (noise, torch.as_tensor(job["u"]), t["u_std"],
+                t["lambda_weight"])
+    out["tail"] = {numel: _numpy(cvar_costs(
+        cvar_pool(block, numel, m_group), *coupling, numel=numel))
+        for numel in job["numels"] if numel < M}
+    out["tail_dynamic"] = _numpy(cvar_costs(
+        all_gather_cat(block, -1, m_group), *coupling,
+        alpha=t["cvar_alpha"]))
     u, w = update_useq(torch.as_tensor(job["costs"])[:, ks], noise,
                        torch.as_tensor(job["u"]), t["lambda_weight"],
                        t["vrange"], t["wrange"], group=k_group)
