@@ -66,8 +66,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    alphas 1.0 .. 0.2, the det modes' M = 1 at T = 40, 80 and 100,
    external PMF's K = 2048 / M = 512 / T = 80, the confidence example's M
    = 64 / T = 60, the barebone engine's K = 1000 / T = 50, model_bench's
-   K = 10240, the m-sharded candidate pools and gathered rows, and M 2048
-   and 4096 (the shared-memory sort) -- and each static count bit for bit
+   K = 10240, the m-sharded candidate pools and gathered rows, M 2048
+   and 4096, and past the kernel's former cap up to the Config's largest
+   M: a ragged 5000, 8192 and 15,000 -- and each static count bit for bit
    against the same count from alpha.
 3. The main paths, each with every kernel's launch count set to 0 just
    before it and read just after: ``MPPIPlanner`` on ``device="cuda"``
@@ -131,10 +132,11 @@ Phases (any failure exits non-zero; no error is swallowed):
    fused at (a)'s, (c)'s and (k)'s, and the crop mode at the big-map
    world's, each against its bound and its plain version; the solve's
    tail kernels at (a)'s shape (static and the planner's alpha), the
-   sweep's, the det modes' and the barebone engine's, in turns with the
-   torch calls the CVaR kernel replaced (the library call) and an empty
-   kernel (one graph node's floor), against their bounds and plain
-   versions; then
+   sweep's, the det modes', the barebone engine's, model_bench's K =
+   10240 and every M past 1024, in turns with the torch calls the CVaR
+   kernel replaced (the library call), ``torch.sort`` and a masked sum,
+   and an empty kernel (one graph node's floor), against their bounds and
+   plain versions; then
    per timed world, in turns, chained solves replayed from a CUDA graph
    and eager (``profiling.chained_solve_time``) on the device clock
    beside the host's time to enqueue them, and planner ``solve()`` times
@@ -452,9 +454,10 @@ def tail_bound_ms(B, K, M, T, numel):
     T), each the larger of its bytes over HBM bandwidth and its
     operations: integer comparisons over the ALU pipe's rate plus float32
     operations over the float32 peak.  What the functions need, not what
-    the kernels spend: the CVaR selects the worst ``numel`` of M costs in
-    order, M log2 M comparisons a row (a comparison sort's least), folds
-    them and divides once; the coupling is a division, a product and an
+    the kernels spend: the CVaR selects the worst ``numel`` of M costs
+    and orders them, M + numel log2 numel comparisons a row (a selection
+    and a comparison sort of what it selected), folds them and divides
+    once; the coupling is a division, a product and an
     add a term (2T terms) and lambda's product; the update a subtraction,
     a negation, a division, an exp (counted as one) and two sums' adds a
     rollout, a product and an add a rollout and (t, c), and an add and a
@@ -465,7 +468,7 @@ def tail_bound_ms(B, K, M, T, numel):
     cvar_costs, (ms, bound_by) of update_useq_fused)``."""
     rows = B * K
     a_bytes = 4 * (rows * M + rows * T * 2 + B * T * 2 + 4 * B + rows)
-    a_int = rows * M * max(1.0, math.log2(M))
+    a_int = rows * (M + numel * max(1.0, math.log2(max(numel, 1))))
     a_flt = rows * (numel + 1 + 3 * 2 * T + 2)
     b_bytes = 4 * (rows + rows * T * 2 + 2 * B * T * 2 + 5 * B + rows)
     b_flt = rows * 7 + rows * T * 2 * 2 + B * T * 2 * 3
@@ -481,9 +484,12 @@ def tail_bound_ms(B, K, M, T, numel):
 
 
 # Timed in phase 4: world (a) static (the profile's), as the planner runs
-# it, the sweep's batch, the det modes' M = 1 and the barebone engine.
+# it, the sweep's batch, the det modes' M = 1, the barebone engine,
+# model_bench's K = 10240, and every M past 1024.
 TAIL_TIMED = ("a_static_205", "a_planner_alpha", "sweep_b30_alphas",
-              "det_M1_T100", "barebone_K1000_T50")
+              "det_M1_T100", "barebone_K1000_T50", "model_bench_K10240_tdm",
+              "shared_memory_sort_M2048", "shared_memory_sort_M4096",
+              "ragged_M5000", "M8192_alpha", "config_max_M15000")
 
 
 def bits_differ(torch, got, want):
@@ -506,6 +512,7 @@ def check_tail_cases(torch, dev):
     from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
     from mppi_numba_tpu_torch.ops.kernels import update_useq as ku
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results = []
     for case in TAIL_CASES:
         name, B, K, M, T, count = case
@@ -529,7 +536,8 @@ def check_tail_cases(torch, dev):
         rec = dict(case="solve_tail_" + name, scenarios=B, K=K, M=M, T=T,
                    count=count if isinstance(count, (int, str))
                    else list(count),
-                   sort="registers" if M <= 1024 else "shared memory",
+                   threads_per_row=kc.threads_per_row(B, K, M, sms),
+                   update_shape=list(ku.launch_shape(B, K, T, sms)),
                    entries_differing=differ, max_abs_err=err,
                    finite=bool(torch.isfinite(u_got).all()))
         print(json.dumps(rec), flush=True)
@@ -547,8 +555,9 @@ def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
     plus coupling kernel, the update kernel, the torch calls that the
     CVaR kernel replaced (``torch.topk(sorted=True)`` and ``mean`` for a
     static count, ``torch.sort`` and a masked sum for alpha: the library
-    call) and an empty kernel (one graph node's floor); the plain versions
-    eagerly.  Returns ``{case: {...}}``."""
+    call), ``torch.sort`` and a masked sum at every case (the yardstick
+    past M = 1024) and an empty kernel (one graph node's floor); the plain
+    versions eagerly.  Returns ``{case: {...}}``."""
     from mppi_numba_tpu_torch.drivers.tail_bench import (TAIL_CASES,
                                                          tail_case_inputs)
     from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
@@ -562,28 +571,32 @@ def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
         a_args, kw, (lam, vr, wr) = tail_case_inputs(case, dev)
         costs, noise, u = a_args[:3]
         costs_k = kc.cvar_costs(*a_args, **kw)
-        if "numel" in kw:
-            n = min(kw["numel"], M)
+        # The count a scenario on the card, static or from alpha.
+        counts = (torch.full(lam.shape, float(min(kw["numel"], M)),
+                             device=dev) if "numel" in kw
+                  else torch.ceil(M * kw["alpha"]))
 
-            def library():
-                return torch.topk(costs, n, dim=-1,
-                                  sorted=True).values.mean(-1)
-        else:
-            alpha = kw["alpha"]
+        def sort_masked():
+            srt = torch.sort(costs, dim=-1, descending=True).values
+            n = counts.to(torch.int32)[..., None]
+            keep = (torch.arange(M, device=dev)
+                    < n[..., None]).to(costs.dtype)
+            return (srt * keep).sum(-1) / n.to(costs.dtype)
 
-            def library():
-                srt = torch.sort(costs, dim=-1, descending=True).values
-                n = torch.ceil(M * alpha).to(torch.int32)[..., None]
-                keep = (torch.arange(M, device=dev)
-                        < n[..., None]).to(costs.dtype)
-                return (srt * keep).sum(-1) / n.to(costs.dtype)
-
-        runs = time_kernels({
+        calls = {
             "cvar_costs": lambda: kc.cvar_costs(*a_args, **kw),
             "update_useq": lambda: ku.update_useq_fused(costs_k, noise, u,
                                                         lam, vr, wr),
-            "library": library,
-            "empty": lambda: kc.empty_launch(dev)}, 100)
+            "library": sort_masked,
+            "empty": lambda: kc.empty_launch(dev)}
+        if "numel" in kw:
+            n = min(kw["numel"], M)
+            calls["sort_masked"] = sort_masked
+            calls["library"] = lambda: torch.topk(
+                costs, n, dim=-1, sorted=True).values.mean(-1)
+        runs = time_kernels(calls, 100)
+        sort_ms = min(runs["sort_masked" if "numel" in kw
+                           else "library"]["graph"])
         plain_a = [time_cuda(lambda: kc.cvar_costs_plain(*a_args, **kw), 3,
                              1) for _ in range(2)]
         plain_b = [time_cuda(lambda: ku.update_useq_plain(
@@ -604,6 +617,8 @@ def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
                                  < min(runs["library"]["graph"])),
             library="torch.topk(sorted=True) + mean" if "numel" in kw
             else "torch.sort + masked sum",
+            sort_masked_ms=sort_ms,
+            faster_than_sort=min(runs["cvar_costs"]["graph"]) < sort_ms,
             update_ms=min(runs["update_useq"]["graph"]),
             update_eager_ms=min(runs["update_useq"]["eager"]),
             update_plain_ms=min(plain_b), update_bound=bound_b,

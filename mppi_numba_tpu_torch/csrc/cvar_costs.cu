@@ -1,6 +1,6 @@
 // The solve's per-rollout cost, for Hopper (sm_90a): CVaR over the M map
-// samples plus the control-coupling term, one warp a (scenario, rollout)
-// row.
+// samples plus the control-coupling term, a team of TPR threads a
+// (scenario, rollout) row.
 //
 // Replaces the JAX package's XLA-fused cvar_from_costs /
 // cvar_from_costs_dynamic (mppi_numba_tpu/ops/cvar.py:17-33,79-91) and
@@ -9,8 +9,8 @@
 // elementwise and reduce launches.  For row (b, k):
 //
 //   n        = numel (static), or (int) ceilf((float) M * alpha[b])
-//   cvar     = fold(the worst min(n, M) of costs[b, k, :], largest
-//              first) / n
+//   take     = min(max(n, 0), M)
+//   cvar     = fold(the worst take of costs[b, k, :], largest first) / n
 //   coupling = tree over i = 2t + c of noise[b, k, t, c] *
 //                (u[b, t, c] / (u_std[b, c] * u_std[b, c]))
 //   out      = cvar + lambda[b] * coupling
@@ -20,34 +20,54 @@
 // ops/kernels/cvar_costs.py), so the kernel equals them bit for bit:
 // descending order as torch.topk / torch.sort give it, NaN largest (every
 // float maps to an unsigned key in the same order; all NaNs to the
-// largest key), positions past n -0.0, IEEE division, and -fmad=false.
-// The run-time n is read on the card: no host read, so the launch
-// captures into a CUDA graph.
+// largest key), IEEE division, and -fmad=false.  Equal keys are the same
+// float, so which of them a step takes cannot change a bit.  The run-time
+// n is read on the card: no host read, so the launch captures into a CUDA
+// graph.
 //
 // Bound: the bytes, 4 * (M + 2T) a row (at K = M = 1024, T = 100: 4.8 MB,
 // some 1.5 us at HBM rate; the rollout has just written the costs, so
-// they come from L2).  The work is a bitonic sort of M keys a row, log2(M)
-// (log2(M) + 1) / 2 compare-exchange stages.  For M <= 1024 each lane
-// holds E = next_pow2(M) / 32 keys in registers (position lane * E + r):
-// stages with a stride below E exchange registers inside a lane, the rest
-// pair lanes with __shfl_xor_sync; no shared memory and no __syncthreads.
-// The fold then runs lane after lane over the lanes that hold the worst
-// n, each adding its registers to the running sum and passing it on.  For
-// 1024 < M <= 4096 the keys sort in the warp's shared memory (__syncwarp
-// between stages) and lane 0 folds them.  The coupling's 2T terms are
-// summed in the warp's shared memory.  One warp a row, four a block: 1024
-// rows fill the card in one wave.
-#include <algorithm>
+// they come from L2).  What a sort spends instead is operations and
+// latency, and they are what this design cuts:
+//
+// - A team of threads a row, chosen by the launcher from the shapes
+//   (ops/kernels/cvar_costs.py::threads_per_row): 128 threads a row where
+//   the rows take at most half the card (world (a)), one warp a row (four
+//   rows a block) where they fill it, a block of 512 (1,024 past M =
+//   8192) past M = 1024.  Thread tid holds E keys at positions tid * E + r
+//   of a bitonic network: stages of stride < E in registers, < 32 E
+//   through shuffles, larger ones through shared memory (two barriers a
+//   stage).
+// - From M = 129 (a padded row of kSelectFrom = 256 keys; shorter rows
+//   sort whole, cheaper than the select's passes), select before
+//   sorting: an MSD radix select of the take-th largest key (8-bit digits, two 256-bin histograms in shared memory used in turns,
+//   warp 0 scanning from the top), stopping at the first digit whose bin
+//   fits the sort the take needs; the keys from that bin up (or above the
+//   threshold, then its copies) are gathered (one shared atomic a warp)
+//   and bitonic-sorted at next_pow2(their count): at numel 205 of M =
+//   1024, 256 keys a row, not 1,024.
+// - The coupling's noise is copied into shared memory (cp.async) while
+//   the row sorts; its terms and the tree's levels above the team's width
+//   run in each thread's own positions while thread 0 folds the worst
+//   take (one serial chain of adds, from shared memory), then one barrier
+//   and warp 0 finishes the tree.
+//
+// Shared memory a team: L words (the gathered keys, the sort's exchanges,
+// the fold's values), Lc (the coupling), two histograms.  Past 48 KB a
+// block (M > 8192, or T > 512 with four warp teams) it needs the opt-in
+// that cvar_costs_prepare sets once a card.
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "tree_sum.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRegisterM = 1024;
-constexpr int kSmemPerBlock = 48 * 1024;
+constexpr int kBins = 256;       // an 8-bit digit's histogram
+constexpr int kMisc = 4;         // bin, keys above it, keys in it, a count
+constexpr int kWarpTeams = 4;    // rows a block when a warp takes a row
+constexpr int kSelectFrom = 256; // the padded rows that select first
 
 // Unsigned order of floats: -inf .. -0, +0 .. +inf, then every NaN.
 // Key 0 is no float's: it pads a row, and sorts last.
@@ -61,171 +81,376 @@ __device__ __forceinline__ float key_value(uint32_t k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-// Bitonic sort of 32 * E keys, descending, position lane * E + r in v[r].
-template <int E>
-__device__ __forceinline__ void sort_registers(uint32_t (&v)[E], int lane) {
-  constexpr int kLog = tree::ilog2(32 * E);
+__host__ __device__ __forceinline__ int pow2_at_least(int n, int floor) {
+  int p = floor;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+template <int TPR>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (TPR == 32) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+// Bitonic sort, descending, of the team's TPR * E keys, position
+// tid * E + r in v[r].  x: TPR * E words of shared memory for the stages
+// that pair threads of two warps.
+template <int TPR, int E>
+__device__ __forceinline__ void team_sort(uint32_t (&v)[E], uint32_t* x,
+                                          int tid) {
+  constexpr int kLog = tree::ilog2(TPR * E);
 #pragma unroll
   for (int lk = 1; lk <= kLog; ++lk) {
     const int k = 1 << lk;
 #pragma unroll
     for (int lj = lk - 1; lj >= 0; --lj) {
       const int j = 1 << lj;
-      if (j >= E) {
-        const int lanes = j / E;
-        const bool upper = (lane & lanes) != 0;
-#pragma unroll
-        for (int r = 0; r < E; ++r) {
-          const bool desc = ((lane * E + r) & k) == 0;
-          const uint32_t o = __shfl_xor_sync(tree::kFull, v[r], lanes);
-          const uint32_t hi = max(v[r], o), lo = min(v[r], o);
-          v[r] = (desc != upper) ? hi : lo;
-        }
-      } else {
+      if (j < E) {
 #pragma unroll
         for (int r = 0; r < E; ++r) {
           if ((r & j) == 0) {
-            const bool desc = ((lane * E + r) & k) == 0;
+            const bool desc = (((tid * E) | r) & k) == 0;
             const uint32_t a = v[r], b = v[r | j];
             const uint32_t hi = max(a, b), lo = min(a, b);
             v[r] = desc ? hi : lo;
             v[r | j] = desc ? lo : hi;
           }
         }
+      } else {
+        // k > j >= E: the direction is the thread's; the lower position
+        // of a descending pair keeps the larger key.
+        const int other = j / E;
+        const bool keep_hi = (((tid * E) & k) == 0) != ((tid & other) != 0);
+        if (j < 32 * E) {
+#pragma unroll
+          for (int r = 0; r < E; ++r) {
+            const uint32_t o = __shfl_xor_sync(tree::kFull, v[r], other);
+            v[r] = keep_hi ? max(v[r], o) : min(v[r], o);
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < E; ++r) x[r * TPR + tid] = v[r];
+          team_sync<TPR>();
+#pragma unroll
+          for (int r = 0; r < E; ++r) {
+            const uint32_t o = x[r * TPR + (tid ^ other)];
+            v[r] = keep_hi ? max(v[r], o) : min(v[r], o);
+          }
+          team_sync<TPR>();
+        }
       }
     }
   }
 }
 
-// Bitonic sort of L keys (a power of two) in the warp's shared memory,
-// descending.
-__device__ void sort_shared(uint32_t* s, int L, int lane) {
-  __syncwarp();
-  for (int k = 2; k <= L; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = lane; p < (L >> 1); p += 32) {
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const uint32_t a = s[i], b = s[i | j];
-        const uint32_t hi = max(a, b), lo = min(a, b);
-        const bool desc = (i & k) == 0;
-        s[i] = desc ? hi : lo;
-        s[i | j] = desc ? lo : hi;
+// Warp 0 of a team: the bin, counted from the top, that holds the need-th
+// largest of the histogram's keys (1 <= need <= their count).  misc[0]
+// the bin, misc[1] the keys in the bins above it, misc[2] the keys in it.
+__device__ __forceinline__ void pick_bin(const int* hist, int need,
+                                         int* misc, int lane) {
+  // Lane l: bins 255 - 8 l - j, j < 8, largest first (two vector loads).
+  const int4 lo = reinterpret_cast<const int4*>(hist)[2 * (31 - lane)];
+  const int4 hi = reinterpret_cast<const int4*>(hist)[2 * (31 - lane) + 1];
+  const int cnt[8] = {hi.w, hi.z, hi.y, hi.x, lo.w, lo.z, lo.y, lo.x};
+  int s = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s += cnt[j];
+  int incl = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(tree::kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  const int excl = incl - s;
+  const unsigned hit =
+      __ballot_sync(tree::kFull, excl < need && need <= incl);
+  if (lane == __ffs(hit) - 1) {
+    int above = excl, bin = -1, inbin = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (bin < 0) {
+        if (above + cnt[j] >= need) {
+          bin = kBins - 1 - 8 * lane - j;
+          inbin = cnt[j];
+        } else {
+          above += cnt[j];
+        }
       }
-      __syncwarp();
     }
+    misc[0] = bin;
+    misc[1] = above;
+    misc[2] = inbin;
   }
 }
 
-// E > 0: the register sort of 32 * E keys; E == 0: the shared-memory sort
-// of L keys.  buf: floats of shared memory a warp.
-template <int E>
-__global__ void __launch_bounds__(32 * kWarps)
+// The gathered keys (got of them, in x) sorted by the team as TPR * E
+// positions, then written as values to fb[0, min(got, take)), and the
+// threshold's copies to fb[got, take).
+template <int TPR, int E>
+__device__ __forceinline__ void sort_gathered(uint32_t* x, int got, int take,
+                                              uint32_t tau, int tid) {
+  uint32_t w[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int i = r * TPR + tid;
+    w[r] = i < got ? x[i] : 0u;
+  }
+  team_sync<TPR>();
+  if (got > 1) team_sort<TPR, E>(w, x, tid);
+  float* fb = reinterpret_cast<float*>(x);
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int p = tid * E + r;
+    if (p < take && p < got) fb[p] = key_value(w[r]);
+  }
+  const float tv = key_value(tau);
+  for (int p = got + tid; p < take; p += TPR) fb[p] = tv;
+}
+
+// The team's keys v (positions any) that the fold takes, gathered into x
+// and sorted: the take-th largest found by an MSD radix select; then
+// either the keys from its bin up (got >= take of them) or those above it
+// and its copies.  Writes the values, largest first, to x[0, take).
+template <int TPR, int EMAX>
+__device__ __forceinline__ void select_then_sort(const uint32_t (&v)[EMAX],
+                                                 uint32_t* x, int* hist,
+                                                 int* misc, int take,
+                                                 int tid) {
+  const int lane = threadIdx.x & 31;
+  uint32_t prefix = 0u;
+  int need = take, shift = 24, buf = 0;
+  bool whole = false;
+  for (int i = tid; i < 2 * kBins; i += TPR) hist[i] = 0;
+  if (tid == 0) misc[3] = 0;
+  team_sync<TPR>();
+  for (;;) {
+    int* h = hist + buf * kBins;
+    const uint32_t high = shift == 24 ? 0u : ~0u << (shift + 8);
+#pragma unroll
+    for (int r = 0; r < EMAX; ++r)
+      if (v[r] != 0u && (v[r] & high) == prefix)
+        atomicAdd(&h[(v[r] >> shift) & 0xffu], 1);
+    team_sync<TPR>();
+    if (tid < 32) pick_bin(h, need, misc, tid);
+    // The other histogram, last read before the previous barrier, is
+    // cleared for the next pass meanwhile.
+    int* other = hist + (buf ^ 1) * kBins;
+    for (int i = tid; i < kBins; i += TPR) other[i] = 0;
+    team_sync<TPR>();
+    need -= misc[1];
+    prefix |= static_cast<uint32_t>(misc[0]) << shift;
+    if (take - need + misc[2] <= pow2_at_least(take, 1)) {
+      whole = true;  // the bin fits the sort the take needs: gather it
+      break;
+    }
+    if (shift == 0) break;  // prefix is the threshold key
+    shift -= 8;
+    buf ^= 1;
+  }
+  // Gather: a warp counts its picks, takes its slots with one atomic,
+  // then writes them.
+  const uint32_t floor_key = whole ? prefix >> shift : prefix;
+  auto picked = [&](uint32_t k) {
+    return k != 0u && (whole ? (k >> shift) >= floor_key : k > floor_key);
+  };
+  int count = 0;
+#pragma unroll
+  for (int r = 0; r < EMAX; ++r)
+    count += __popc(__ballot_sync(tree::kFull, picked(v[r])));
+  int base = 0;
+  if (lane == 0 && count > 0) base = atomicAdd(&misc[3], count);
+  base = __shfl_sync(tree::kFull, base, 0);
+#pragma unroll
+  for (int r = 0; r < EMAX; ++r) {
+    const bool pick = picked(v[r]);
+    const unsigned m = __ballot_sync(tree::kFull, pick);
+    if (pick) x[base + __popc(m & ((1u << lane) - 1u))] = v[r];
+    base += __popc(m);
+  }
+  team_sync<TPR>();
+  const int got = misc[3];
+  const int e = max(1, pow2_at_least(got, 1) / TPR);
+#define CVAR_SORT_GATHERED(E_)                                      \
+  if constexpr (E_ <= EMAX) {                                       \
+    if (e == E_) sort_gathered<TPR, E_>(x, got, take, prefix, tid); \
+  }
+  CVAR_SORT_GATHERED(1)
+  CVAR_SORT_GATHERED(2)
+  CVAR_SORT_GATHERED(4)
+  CVAR_SORT_GATHERED(8)
+  CVAR_SORT_GATHERED(16)
+#undef CVAR_SORT_GATHERED
+}
+
+// One row a team of TPR threads; the row padded to L = TPR * EMAX keys.
+// Lc: the coupling's padded terms.  The launch bounds' blocks an SM (6 of
+// the warp teams' blocks, 2 of 512 threads, else 1): without them ptxas
+// spilled a few long-lived values; with 1 everywhere it gave the warp
+// teams 100 registers, and their full sorts ran slower.
+template <int TPR, int EMAX>
+__global__ void __launch_bounds__(TPR == 32 ? 32 * kWarpTeams : TPR,
+                                  TPR == 32 ? 6 : TPR == 512 ? 2 : 1)
 cvar_costs_kernel(const float* __restrict__ costs,
                   const float* __restrict__ noise,
                   const float* __restrict__ u,
                   const float* __restrict__ u_std,
                   const float* __restrict__ lam,
                   const float* __restrict__ alpha, float* __restrict__ out,
-                  int rows, int K, int M, int T, int numel, int L, int Lc,
-                  int buf) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (row >= rows) return;  // the whole warp
-  float* s = smem + warp * buf;
+                  int rows, int K, int M, int T, int numel, int Lc) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  constexpr int L = TPR * EMAX;
+  const int tid = threadIdx.x & (TPR - 1);
+  const int team = threadIdx.x / TPR;
+  const int row = blockIdx.x * (blockDim.x / TPR) + team;
+  if (row >= rows) return;  // a whole team: one warp, or an empty block
+  uint32_t* x = smem + team * (L + Lc + 2 * kBins + kMisc);
+  float* cs = reinterpret_cast<float*>(x + L);
+  int* hist = reinterpret_cast<int*>(x + L + Lc);
+  int* misc = hist + 2 * kBins;
   const int b = row / K;
   const float* c = costs + static_cast<size_t>(row) * M;
+
+  // Any start order serves a sort: coalesced loads.  Then the coupling's
+  // noise, copied while the row sorts.
+  uint32_t v[EMAX];
+#pragma unroll
+  for (int r = 0; r < EMAX; ++r) {
+    const int i = r * TPR + tid;
+    v[r] = i < M ? order_key(c[i]) : 0u;
+  }
+  const float* nz = noise + static_cast<size_t>(row) * T * 2;
+  for (int i = tid; i < 2 * T; i += TPR)
+    __pipeline_memcpy_async(cs + i, nz + i, 4);
+  __pipeline_commit();
   const int n =
       alpha != nullptr ? static_cast<int>(ceilf(static_cast<float>(M) * alpha[b]))
                        : numel;
-  const int take = min(max(n, 0), M);
+  // The team's count, broadcast from lane 0 (the same on every lane).
+  const int take = __shfl_sync(tree::kFull, min(max(n, 0), M), 0);
 
-  float sum;
-  if constexpr (E > 0) {
-    uint32_t v[E];
+  float* fb = reinterpret_cast<float*>(x);
+  if (M > 1 && take > 0) {
+    if (L >= kSelectFrom && pow2_at_least(take, 1) < L) {
+      select_then_sort<TPR, EMAX>(v, x, hist, misc, take, tid);
+    } else {
+      team_sort<TPR, EMAX>(v, x, tid);
 #pragma unroll
-    for (int r = 0; r < E; ++r) {
-      const int i = lane + 32 * r;  // any start order: coalesced loads
-      v[r] = i < M ? order_key(c[i]) : 0u;
-    }
-    if (M > 1) sort_registers<E>(v, lane);  // one cost: in place at 0
-    // The fold: -0.0 + x == x, and the terms past take are -0.0.
-    sum = -0.0f;
-    for (int l = 0; l * E < take; ++l) {
-      if (lane == l) {
-#pragma unroll
-        for (int r = 0; r < E; ++r)
-          sum = sum + (l * E + r < take ? key_value(v[r]) : -0.0f);
+      for (int r = 0; r < EMAX; ++r) {
+        const int p = tid * EMAX + r;
+        if (p < take) fb[p] = key_value(v[r]);
       }
-      sum = __shfl_sync(tree::kFull, sum, l);
     }
-  } else {
-    uint32_t* keys = reinterpret_cast<uint32_t*>(s);
-    for (int i = lane; i < L; i += 32) keys[i] = i < M ? order_key(c[i]) : 0u;
-    sort_shared(keys, L, lane);
-    sum = -0.0f;
-    if (lane == 0)
-      for (int i = 0; i < take; ++i) sum = sum + key_value(keys[i]);
-    sum = __shfl_sync(tree::kFull, sum, 0);
-    __syncwarp();  // lane 0 has read the keys before s is written again
+    team_sync<TPR>();
   }
-  const float cvar = sum / static_cast<float>(n);
 
-  const float* nz = noise + static_cast<size_t>(row) * T * 2;
+  // The fold (thread 0; -0.0 + x == x) beside the coupling's terms.
+  float sum = -0.0f;
+  if (tid == 0) {
+    if (M == 1) {
+      if (take == 1) sum = sum + key_value(v[0]);  // thread 0 holds it
+    } else {
+      int i = 0;
+      for (; i + 4 <= take; i += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(fb + i);
+        sum = sum + q.x;
+        sum = sum + q.y;
+        sum = sum + q.z;
+        sum = sum + q.w;
+      }
+      for (; i < take; ++i) sum = sum + fb[i];
+    }
+  }
+  // Each thread's terms are its own copies (i = tid mod TPR), and so are
+  // the tree's levels of stride >= TPR: no barrier until they are done.
+  __pipeline_wait_prior(0);
   const float* ub = u + static_cast<size_t>(b) * T * 2;
   const float var0 = u_std[2 * b] * u_std[2 * b];
   const float var1 = u_std[2 * b + 1] * u_std[2 * b + 1];
-  for (int i = lane; i < Lc; i += 32)
-    s[i] = i < 2 * T ? nz[i] * (ub[i] / ((i & 1) ? var1 : var0)) : -0.0f;
-  const float coupling = tree::warp_smem(s, Lc, lane);
-  if (lane == 0) out[row] = cvar + lam[b] * coupling;
+  for (int i = tid; i < Lc; i += TPR)
+    cs[i] = i < 2 * T ? cs[i] * (ub[i] / ((i & 1) ? var1 : var0)) : -0.0f;
+  for (int h = Lc >> 1; h >= TPR; h >>= 1)
+    for (int i = tid; i < h; i += TPR) cs[i] = cs[i] + cs[i + h];
+  if constexpr (TPR > 32) __syncthreads();
+  if (tid < 32) {  // the team's first warp
+    // Positions lane + 32 m (past Lc: -0.0), halved over m, then lanes.
+    constexpr int kM = TPR / 32;
+    const int lane = tid;
+    float y[kM];
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+      y[m] = lane + 32 * m < Lc ? cs[lane + 32 * m] : -0.0f;
+    tree::halve<kM>(y);
+    float coupling = y[0];
+#pragma unroll
+    for (int l = 4; l >= 0; --l)
+      coupling = coupling + __shfl_down_sync(tree::kFull, coupling, 1 << l);
+    if (tid == 0)
+      out[row] = sum / static_cast<float>(n) + lam[b] * coupling;
+  }
 }
 
-int pow2_at_least(int n, int floor) {
-  int p = floor;
-  while (p < n) p <<= 1;
-  return p;
-}
+// The instantiations: (threads a row, keys a thread of the padded row).
+#define CVAR_SHAPES(X_)                                                  \
+  X_(32, 1) X_(32, 2) X_(32, 4) X_(32, 8) X_(32, 16) X_(32, 32)          \
+  X_(128, 1) X_(128, 2) X_(128, 4) X_(128, 8)                            \
+  X_(512, 4) X_(512, 8) X_(512, 16) X_(1024, 16)
 
 }  // namespace
 
+// Lets every instantiation take a block's whole opt-in shared memory on
+// the current device.  Call once a card, before a launch and outside a
+// capture.  Returns the first failing call's cudaError_t.
+extern "C" int cvar_costs_prepare() {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+#define CVAR_PREPARE(TPR_, E_)                                           \
+  if (err == cudaSuccess)                                                \
+    err = cudaFuncSetAttribute(cvar_costs_kernel<TPR_, E_>,              \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                               optin);
+  CVAR_SHAPES(CVAR_PREPARE)
+#undef CVAR_PREPARE
+  return static_cast<int>(err);
+}
+
 // costs (B, K, M), noise (B, K, T, 2), u (B, T, 2), u_std (B, 2), lam (B,)
 // and alpha (B,) or null (then numel, already min(numel, M), is used):
-// float32, contiguous, on the current device.  out: float32 (B, K).
-// Returns the launch's cudaError_t.
+// float32, contiguous, on the current device.  out: float32 (B, K).  tpr:
+// threads a row, 32 or 128 (M <= 1024), 512 (M <= 8192) or 1024 (M <=
+// 16384).  Returns the launch's cudaError_t.
 extern "C" int cvar_costs_launch(const float* costs, const float* noise,
                                  const float* u, const float* u_std,
                                  const float* lam, const float* alpha,
                                  float* out, int B, int K, int M, int T,
-                                 int numel, void* stream) {
+                                 int numel, int tpr, void* stream) {
   const int rows = B * K;
-  const int L = pow2_at_least(M, 32);
+  const int L = pow2_at_least(M, tpr);
   const int Lc = pow2_at_least(2 * T, 32);
-  const bool registers = M <= kRegisterM;
-  const int buf = registers ? Lc : std::max(L, Lc);
-  const size_t warp_bytes = sizeof(float) * static_cast<size_t>(buf);
-  if (warp_bytes > kSmemPerBlock || rows <= 0)
+  if (rows <= 0 || M < 1 || T < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  int warps = kWarps;
-  while (warps > 1 && warps * warp_bytes > kSmemPerBlock) --warps;
-  const dim3 grid((rows + warps - 1) / warps), block(32 * warps);
-  const size_t shm = warps * warp_bytes;
+  const int teams = tpr == 32 ? kWarpTeams : 1;
+  const dim3 grid((rows + teams - 1) / teams), block(tpr * teams);
+  const size_t shm = sizeof(uint32_t) * static_cast<size_t>(teams) *
+                     (L + Lc + 2 * kBins + kMisc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CVAR_LAUNCH(E_)                                                  \
-  cvar_costs_kernel<E_><<<grid, block, shm, st>>>(                       \
-      costs, noise, u, u_std, lam, alpha, out, rows, K, M, T, numel, L, \
-      Lc, buf)
-  switch (registers ? L / 32 : 0) {
-    case 1: CVAR_LAUNCH(1); break;
-    case 2: CVAR_LAUNCH(2); break;
-    case 4: CVAR_LAUNCH(4); break;
-    case 8: CVAR_LAUNCH(8); break;
-    case 16: CVAR_LAUNCH(16); break;
-    case 32: CVAR_LAUNCH(32); break;
-    default: CVAR_LAUNCH(0); break;
+  bool launched = false;
+#define CVAR_LAUNCH(TPR_, E_)                                           \
+  if (!launched && tpr == TPR_ && L == TPR_ * E_) {                     \
+    cvar_costs_kernel<TPR_, E_><<<grid, block, shm, st>>>(              \
+        costs, noise, u, u_std, lam, alpha, out, rows, K, M, T, numel, \
+        Lc);                                                            \
+    launched = true;                                                    \
   }
+  CVAR_SHAPES(CVAR_LAUNCH)
 #undef CVAR_LAUNCH
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

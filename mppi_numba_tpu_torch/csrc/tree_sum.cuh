@@ -20,55 +20,15 @@ __host__ __device__ constexpr int ilog2(int x) {
   return x <= 1 ? 0 : 1 + ilog2(x / 2);
 }
 
-// One warp, a row of L (a power of two) floats in shared memory at s,
-// written before the call by any lane of the warp; every lane returns the
-// sum.  Level h: lanes add s[i + h] into s[i] for i < h.
-__device__ __forceinline__ float warp_smem(float* s, int L, int lane) {
-  __syncwarp();
-  for (int h = L >> 1; h >= 1; h >>= 1) {
-    for (int i = lane; i < h; i += 32) s[i] = s[i] + s[i + h];
-    __syncwarp();
-  }
-  const float total = s[0];
-  __syncwarp();  // every lane has read s[0] before s is written again
-  return total;
-}
-
-// A block of blockDim.x threads (a power of two, 32 to 1024), one float
-// each, position tid in x of thread tid: the tree's levels blockDim.x / 2
-// .. 32 in shared memory (sh: blockDim.x floats), the last five levels
-// shuffles in warp 0.  Every thread returns the sum (through *out, a
-// shared float).  Call from every thread of the block.
-__device__ __forceinline__ float block(float x, float* sh, float* out) {
-  const int tid = threadIdx.x;
-  sh[tid] = x;
-  __syncthreads();
-  for (int h = blockDim.x >> 1; h >= 32; h >>= 1) {
-    if (tid < h) sh[tid] = sh[tid] + sh[tid + h];
-    __syncthreads();
-  }
-  if (tid < 32) {
-    float v = sh[tid];
+// The halving tree over y[0, N) in registers (N a power of two): y[m] +=
+// y[m + N / 2] for m < N / 2, then N / 4, ...; y[0] ends as the sum.
+// Compile-time bounds at every level, so y stays in registers.
+template <int N>
+__device__ __forceinline__ void halve(float* y) {
+  if constexpr (N > 1) {
 #pragma unroll
-    for (int l = 4; l >= 0; --l) v = v + __shfl_down_sync(kFull, v, 1 << l);
-    if (tid == 0) *out = v;
-  }
-  __syncthreads();
-  const float total = *out;
-  __syncthreads();  // every thread has read *out before sh or *out is reused
-  return total;
-}
-
-// A thread's R positions r * blockDim.x + tid held in bit-reversed order,
-// x[i] the position of r = bit_reverse(i): the tree's levels above the
-// block's width pair r with r + R / 2 first, which is i with i + 1, then
-// i with i + 2, ...  Sums them into x[0]; x is overwritten.
-template <int R>
-__device__ __forceinline__ void fold_bit_reversed(float (&x)[R]) {
-#pragma unroll
-  for (int h = 1; h < R; h <<= 1) {
-#pragma unroll
-    for (int i = 0; i < R; i += 2 * h) x[i] = x[i] + x[i + h];
+    for (int m = 0; m < N / 2; ++m) y[m] = y[m] + y[m + N / 2];
+    halve<N / 2>(y);
   }
 }
 

@@ -42,8 +42,9 @@ N = 50
 # the confidence example's M = 64 / T = 60; the barebone engine's K = 1000
 # / T = 50 on its (K, 1) costs; model_bench's K = 10240 under tdm and
 # det_dyn; the m-sharded candidate pools of world (a)'s numel 205 over 2,
-# 4 and 8 map ranks and a run-time alpha's gathered rows; and M past the
-# registers' 1024 (the warp's shared-memory sort).
+# 4 and 8 map ranks and a run-time alpha's gathered rows; and M past 1024
+# (a block a row): 2048, 4096, a ragged 5000, 8192 at the planner's alpha
+# and the Config's largest, 15,000, at the sweep's first and last alphas.
 SWEEP_ALPHAS = (1.0, 0.8, 0.6, 0.4, 0.2)
 TAIL_CASES = (
     ("a_static_205", 1, 1024, 1024, 100, 205),
@@ -64,6 +65,9 @@ TAIL_CASES = (
     ("gathered_rows_alpha", 4, 512, 1024, 100, "alpha"),
     ("shared_memory_sort_M2048", 1, 256, 2048, 20, 410),
     ("shared_memory_sort_M4096", 2, 64, 4096, 10, "alpha"),
+    ("ragged_M5000", 1, 256, 5000, 20, 1000),
+    ("M8192_alpha", 1, 128, 8192, 20, "alpha"),
+    ("config_max_M15000", 2, 64, 15000, 10, (1.0, 0.2)),
 )
 
 

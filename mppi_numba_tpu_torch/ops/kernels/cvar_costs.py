@@ -23,19 +23,40 @@ import functools
 
 import torch
 
+from ...config import rec_max_control_rollouts
 from ..cvar import cvar_from_costs, cvar_from_costs_dynamic
 from ..rollout import control_coupling
+from ..tree import padded_length
 
 KERNEL_SOURCE = "mppi_numba_tpu_torch/csrc/cvar_costs.cu"
 REPLACES = ("mppi_numba_tpu/ops/cvar.py:17-33,79-91 (cvar_from_costs, "
             "cvar_from_costs_dynamic) + mppi_numba_tpu/ops/rollout.py:"
             "123-131 (control_coupling), XLA-fused; no Pallas kernel")
-# The kernel sorts a row of up to MAX_M costs in one warp (in registers up
-# to 1024, in the warp's shared memory past that).
-MAX_M = 4096
-# The coupling's 2T terms are summed in the warp's shared memory, at most
-# 48 KB a block.
+# The Config's largest M: a block of 512 threads sorts a row of up to
+# 16,384 keys, 32 a thread.
+MAX_M = rec_max_control_rollouts
+# The coupling's 2T terms are summed in the team's shared memory.
 MAX_T = 4096
+# A card's resident threads an SM (H100: 2,048 on each of 132 SMs).
+THREADS_PER_SM = 2048
+H100_SMS = 132
+
+
+def threads_per_row(B, K, M, sms=H100_SMS):
+    """The kernel's team a (scenario, rollout) row, from the shapes: a
+    block past M = 1024 (512 threads, 1,024 past M = 8192: at most 16 keys
+    a thread), 128 threads where the B * K rows of 128 take at most half
+    the card's ``sms`` SMs' threads (world (a): a warp a row would leave
+    most of the card idle), else a warp (the rows fill the card, and a
+    warp needs no block barrier)."""
+    L = padded_length(M)
+    if L > 8192:
+        return 1024
+    if L > 1024:
+        return 512
+    if L >= 128 and B * K * 128 <= sms * THREADS_PER_SM // 2:
+        return 128
+    return 32
 
 
 def cvar_costs_plain(costs_km, noise, u, u_std, lambda_weight, numel=None,
@@ -56,13 +77,27 @@ def _entry_points():
 
     lib = load("cvar_costs")
     fn = lib.cvar_costs_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     empty = lib.empty_launch
     empty.argtypes = [ctypes.c_void_p]
     empty.restype = ctypes.c_int
-    return fn, empty
+    lib.cvar_costs_prepare.restype = ctypes.c_int
+    return fn, empty, lib.cvar_costs_prepare
+
+
+@functools.lru_cache(maxsize=None)
+def _prepared(index):
+    """Sets the kernels' shared-memory opt-in on card ``index`` once
+    (outside any capture: the first call on a card is an eager one);
+    returns the card's SM count."""
+    with torch.cuda.device(index):
+        err = _entry_points()[2]()
+    if err != 0:
+        raise RuntimeError("cvar_costs: setting the kernels' shared memory "
+                           "failed: CUDA error {}".format(err))
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _describe(t):
@@ -158,13 +193,15 @@ def cvar_costs(costs_km, noise, u, u_std, lambda_weight, numel=None,
     alpha = None if alpha is None else alpha.contiguous()
     out = torch.empty(tuple(costs_km.shape[:-1]), dtype=torch.float32,
                       device=dev)
+    tpr = threads_per_row(B, K, M, _prepared(dev.index))
     # The runtime launches on its current device: make it the tensors'.
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _entry_points()[0](
             *(t.data_ptr() for t in ins),
             None if alpha is None else alpha.data_ptr(), out.data_ptr(),
-            B, K, M, T, 0 if numel is None else min(numel, M), stream)
+            B, K, M, T, 0 if numel is None else min(numel, M), tpr,
+            stream)
     if err != 0:
         raise RuntimeError("cvar_costs kernel launch failed: CUDA error "
                            "{}".format(err))

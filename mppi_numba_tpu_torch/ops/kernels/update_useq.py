@@ -25,8 +25,8 @@ import torch
 import torch.distributed as dist
 
 from ...models import clip_controls
-from ..tree import tree_sum
-from .cvar_costs import check_tensor
+from ..tree import padded_length, tree_sum
+from .cvar_costs import H100_SMS, check_tensor
 
 KERNEL_SOURCE = "mppi_numba_tpu_torch/csrc/update_useq.cu"
 REPLACES = ("mppi_numba_tpu/ops/update.py:23-55 (update_useq), XLA-fused; "
@@ -34,6 +34,25 @@ REPLACES = ("mppi_numba_tpu/ops/update.py:23-55 (update_useq), XLA-fused; "
 # Rollouts a scenario: a block of up to 512 threads holds at most 64
 # tree positions a thread.
 MAX_K = 32768
+STEPS_PER_BLOCK = 4   # the kernel's kSteps
+
+
+def launch_shape(B, K, T, sms=H100_SMS):
+    """The kernel's ``(threads a block, blocks a cluster)`` from the
+    shapes: blocks of a quarter of the padded K (32 to 512 threads), and
+    clusters that split each chunk of steps' K rows (at most 8 rows a
+    thread, 8 blocks a cluster) until the blocks number three quarters of
+    the card's ``sms`` SMs, or each thread holds one row: a cluster's
+    barriers cost more than they save once the chunks alone come near a
+    block an SM (the sweep's B = 30, the pools' B = 4)."""
+    L = max(padded_length(K), 32)
+    width = min(512, max(32, L // 4))
+    positions = L // width
+    cluster = max(1, positions // 8)
+    blocks = -(-T // STEPS_PER_BLOCK) * B
+    while cluster < min(positions, 8) and blocks * cluster < sms * 3 // 4:
+        cluster *= 2
+    return width, cluster
 
 
 def update_useq_plain(costs, noise, u_cur, lambda_weight, vrange, wrange,
@@ -66,11 +85,25 @@ def _entry_point():
     ctypes signature set once."""
     from ._build import load
 
-    fn = load("update_useq").update_useq_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+    lib = load("update_useq")
+    fn = lib.update_useq_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    lib.update_useq_prepare.restype = ctypes.c_int
+    return fn, lib.update_useq_prepare
+
+
+@functools.lru_cache(maxsize=None)
+def _prepared(index):
+    """Sets the kernel's shared-memory opt-in on card ``index`` once;
+    returns the card's SM count."""
+    with torch.cuda.device(index):
+        err = _entry_point()[1]()
+    if err != 0:
+        raise RuntimeError("update_useq: setting the kernel's shared memory "
+                           "failed: CUDA error {}".format(err))
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_args(costs, noise, u_cur, lambda_weight, vrange, wrange):
@@ -124,14 +157,18 @@ def update_useq_fused(costs, noise, u_cur, lambda_weight, vrange, wrange):
     dev = costs.device
     ins = [t.contiguous() for t in (costs, noise, u_cur, lambda_weight,
                                     vrange, wrange)]
+    if ins[1].data_ptr() % 8:   # the kernel copies the noise 8 bytes a time
+        ins[1] = ins[1].clone()
     u_new = torch.empty(tuple(u_cur.shape), dtype=torch.float32, device=dev)
     weights = torch.empty(tuple(costs.shape), dtype=torch.float32,
                           device=dev)
+    width, cluster = launch_shape(B, K, T, _prepared(dev.index))
     # The runtime launches on its current device: make it the tensors'.
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry_point()(*(t.data_ptr() for t in ins), u_new.data_ptr(),
-                             weights.data_ptr(), B, K, T, stream)
+        err = _entry_point()[0](*(t.data_ptr() for t in ins),
+                                u_new.data_ptr(), weights.data_ptr(), B, K,
+                                T, width, cluster, stream)
     if err != 0:
         raise RuntimeError("update_useq kernel launch failed: CUDA error "
                            "{}".format(err))

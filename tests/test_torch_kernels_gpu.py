@@ -1872,3 +1872,147 @@ def test_solve_graph_with_the_tail_kernels_equals_eager_on_card(dynamic):
         assert torch.equal(u_g, u_e)
         assert torch.equal(aux_g.costs, aux_e.costs)
         assert torch.equal(aux_g.weights, aux_e.weights)
+
+
+def _edge_costs(dev, kind, B, K, M, seed=0):
+    """Rows that stress the CVaR's select and sort: ``equal`` (every cost
+    of a row the same, one value a row), ``ties`` (most costs the crash
+    penalty 1e5 and the rest spread around it, so the count's threshold
+    lands among equal costs), ``specials`` (NaN, +-inf, +0.0 beside -0.0
+    among ordinary costs)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    costs = torch.rand((B, K, M), generator=g, device=dev) * 300
+    if kind == "equal":
+        costs = costs[..., :1].expand(B, K, M).contiguous()
+    elif kind == "ties":
+        pick = torch.rand((B, K, M), generator=g, device=dev)
+        costs = torch.where(pick < 0.7, torch.full_like(costs, 1e5),
+                            torch.where(pick < 0.85, costs + 1e5, costs))
+    else:
+        pick = torch.randint(0, 8, (B, K, M), generator=g, device=dev)
+        for code, value in ((0, float("nan")), (1, float("inf")),
+                            (2, -float("inf")), (3, 0.0), (4, -0.0)):
+            costs = torch.where(pick == code,
+                                torch.full_like(costs, value), costs)
+    return costs
+
+
+# Every CVaR instantiation (threads a row, keys a thread of the padded
+# row), as (an M of that padded row, the team): the warp teams and the
+# 128-thread teams at each padded row up to 1,024 (from 256 they select
+# first), the 512- and 1,024-thread blocks past it.
+CVAR_EDGE_TEAMS = [(7, 32), (50, 32), (100, 32), (100, 128), (200, 32),
+                   (200, 128), (300, 32), (300, 128), (1024, 32),
+                   (1024, 128), (2000, 512), (3000, 512), (5000, 512),
+                   (9000, 1024)]
+
+
+def cvar_edge_rows(M, tpr, sms):
+    """``(B, K)`` for which ``threads_per_row`` gives a row of M the team
+    ``tpr`` on a card of ``sms`` SMs: 3 x 37 rows (128 threads a row from
+    a padded row of 128, else what M dictates), or for a warp team on rows
+    of 128 to 1,024 keys, 3 x K rows with K odd, just past the half of the
+    card that 128-thread teams fill.  Neither is a multiple of the four
+    rows a warp-team block takes."""
+    from mppi_numba_tpu_torch.ops.tree import padded_length
+
+    if tpr == 32 and 128 <= padded_length(M) <= 1024:
+        return 3, (8 * sms // 3 + 1) | 1
+    return 3, 37
+
+
+@pytest.mark.parametrize("kind", ["equal", "ties", "specials"])
+@pytest.mark.parametrize("M,tpr", CVAR_EDGE_TEAMS)
+def test_cvar_costs_select_then_sort_edges_on_card(kind, M, tpr):
+    """The CVaR at each instantiation, through the team the launcher
+    picks for the rows' shapes, against its plain version, bit for bit, on
+    rows of equal costs, of ties at the threshold and of NaN / +-inf /
+    +-0.0, at counts 1 and M (static), past M (alpha 1.3) and <= 0 (alpha
+    0 and -0.5) and the planner's 0.2: from a padded row of 256 the short
+    counts select first and the long ones sort whole."""
+    from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
+
+    dev = _cuda_or_skip()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B, K = cvar_edge_rows(M, tpr, sms)
+    assert kc.threads_per_row(B, K, M, sms) == tpr
+    T = 9
+    costs = _edge_costs(dev, kind, B, K, M)
+    _, noise, u, u_std, lam, _, _, _ = _tail_inputs(dev, B, K, M, T)
+    counts = [dict(numel=1), dict(numel=M), dict(numel=M + 5)] + [
+        dict(alpha=torch.full((B,), a, device=dev))
+        for a in (1.3, 0.0, -0.5, 0.2)]
+    before = kc.cvar_costs.launches
+    for kw in counts:
+        want = kc.cvar_costs_plain(costs, noise, u, u_std, lam, **kw)
+        got = kc.cvar_costs(costs, noise, u, u_std, lam, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want)), kw
+    assert kc.cvar_costs.launches == before + len(counts)
+
+
+# Every update instantiation (positions a thread, blocks a cluster) on an
+# H100's 132 SMs, as the (B, K, T) that gets it from ``launch_shape``: K =
+# 1, Ks that are no power of two, 15,000 and 20,000 (64 positions a
+# thread), Ts that are no multiple of the four steps a block sums.
+UPDATE_EDGE_SHAPES = [
+    (None, 1, 5), (3, 50, 130), (None, 50, 7), (3, 100, 150), (2, 100, 99),
+    (3, 333, 9), (2, 1000, 7), (3, 3000, 130), (2, 3000, 101),
+    (None, 3000, 99), (None, 3000, 9), (2, 5000, 130), (None, 5000, 101),
+    (None, 5000, 10), (None, 15000, 101), (None, 15000, 10),
+    (None, 20000, 5)]
+
+
+@pytest.mark.parametrize("B,K,T", UPDATE_EDGE_SHAPES)
+def test_update_useq_every_launch_shape_on_card(B, K, T):
+    """The update kernel in the launch shape ``launch_shape`` gives
+    (B, K, T), against its plain version, bit for bit, with and without a
+    NaN cost."""
+    from mppi_numba_tpu_torch.ops.kernels import update_useq as ku
+
+    dev = _cuda_or_skip()
+    costs, noise, u, _, lam, _, vr, wr = _tail_inputs(dev, B, max(K, 8), 1,
+                                                      T, seed=3)
+    costs = costs[..., :K, 0].contiguous()
+    noise = noise[..., :K, :, :].contiguous()
+    before = ku.update_useq_fused.launches
+    for c in (costs, costs.clone().index_fill_(-1, torch.tensor(
+            [K // 2], device=dev), float("nan"))):
+        want = ku.update_useq_plain(c, noise, u, lam, vr, wr)
+        got = ku.update_useq_fused(c, noise, u, lam, vr, wr)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            assert torch.equal(_bits(g_), _bits(w_))
+    assert ku.update_useq_fused.launches == before + 2
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_solve_past_the_old_cvar_cap_graph_equals_eager_on_card(dynamic):
+    """A solve at ``Config(num_grid_samples=8192)``, past the CVaR kernel's
+    former cap of M = 4096, static count or run-time alpha: captured in a
+    CUDA graph and replayed, against eager solves from a generator of the
+    same seed, bit for bit; each replay launches the CVaR and update
+    kernels once an iteration."""
+    import dataclasses
+
+    from mppi_numba_tpu_torch.solver import TerrainSolver
+
+    dev = _cuda_or_skip()
+    static, maps, task, _ = _sweep_chunk(dev, "noisy_dyn", 2, M=8192)
+    assert static.num_grid_samples == 8192
+    if not dynamic:
+        static = dataclasses.replace(static, cvar_numel=1639)
+    solver = TerrainSolver(static, dev)
+    u0 = torch.zeros((2, static.num_steps, 2), device=dev) + 0.2
+    gens = [torch.Generator(device=dev).manual_seed(4) for _ in range(2)]
+    graph = solver.capture(gens[0], maps, task, u0.clone())
+    assert graph.captured_launches["cvar_costs"] == static.num_opt
+    assert graph.captured_launches["update_useq_fused"] == static.num_opt
+    u_e = u0
+    for _ in range(2):
+        u_g, aux_g = graph(gens[0], maps, task, graph.u0)
+        u_e, aux_e = solver(gens[1], maps, task, u_e)
+        assert torch.equal(u_g, u_e)
+        assert torch.equal(aux_g.costs, aux_e.costs)
+        assert torch.equal(aux_g.weights, aux_e.weights)
+        assert bool(torch.isfinite(u_g).all())

@@ -12,6 +12,10 @@ whole-solve rtol 2e-4 / atol 2e-5, its weights within rtol 1e-5 / atol
 (``tests/test_torch_kernels_gpu.py``).
 """
 
+import importlib.util
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +27,8 @@ from mppi_numba_tpu.ops import cvar as jcvar
 from mppi_numba_tpu.ops import rollout as jrollout
 from mppi_numba_tpu.ops import update as jupdate
 from mppi_numba_tpu_torch import ops as tops
+from mppi_numba_tpu_torch.config import rec_max_control_rollouts
+from mppi_numba_tpu_torch.drivers import tail_bench
 from mppi_numba_tpu_torch.ops.cvar import (cvar_from_costs,
                                            cvar_from_costs_dynamic)
 from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kcvar
@@ -223,12 +229,13 @@ def test_tree_is_the_halving_order():
 
 # Every path's M: the det modes' and the barebone's 1, the confidence
 # example's 64, external PMF's 512, the flagship's and the sweep's 1024,
-# and the m-sharded pools S * min(numel, M / S) of the flagship's numel
-# 205 at S = 2, 4 and 8 ranks (410, 820 and 1024), the run-time alpha's
-# gathered rows (M).
+# the m-sharded pools S * min(numel, M / S) of the flagship's numel 205 at
+# S = 2, 4 and 8 ranks (410, 820 and 1024), the run-time alpha's gathered
+# rows (M), and the Config's largest M (a solve at any Config's M).
 PATH_M = {"det_barebone": 1, "confidence": 64, "external": 512,
           "flagship_sweep": 1024,
-          **{"pool_{}".format(S): S * min(205, 1024 // S) for S in (2, 4, 8)}}
+          **{"pool_{}".format(S): S * min(205, 1024 // S) for S in (2, 4, 8)},
+          "config_max": rec_max_control_rollouts}
 
 
 @pytest.mark.parametrize("path", sorted(PATH_M))
@@ -257,3 +264,121 @@ def test_the_kernel_cap_raises_past_it():
         kupdate.check_args(costs, torch.zeros(kupdate.MAX_K + 1, 3, 2),
                            torch.zeros(3, 2), torch.tensor(1.0),
                            torch.zeros(2), torch.zeros(2))
+
+
+CSRC = Path(kcvar.__file__).resolve().parents[2] / "csrc"
+
+
+def _compiled(source, macro):
+    """The (first, second) template arguments a csrc source instantiates,
+    read from its shape list ``#define <macro>(X_) X_(a, b) ...``."""
+    text = (CSRC / source).read_text()
+    body = re.search(r"#define {}\(X_\)(.*?)\n\n".format(macro), text,
+                     re.S).group(1)
+    return {(int(a), int(b))
+            for a, b in re.findall(r"X_\((\d+), (\d+)\)", body)}
+
+
+def _cvar_instance(tpr, M):
+    """The (threads a row, keys a thread) instantiation a launch takes."""
+    return tpr, max(padded_length(M), tpr) // tpr
+
+
+def _update_instance(K, shape):
+    """The (positions a thread, blocks a cluster) instantiation."""
+    width, cluster = shape
+    return max(padded_length(K), 32) // width, cluster
+
+
+@pytest.mark.parametrize("B", [1, 3, 30])
+@pytest.mark.parametrize("K", [1, 17, 512, 1000, 1024, 2048, 10240, 15000,
+                               kupdate.MAX_K])
+def test_every_launch_shape_the_launchers_pick_is_compiled(B, K):
+    """Whatever the launchers pick (host arithmetic on the shapes) is an
+    instantiation the kernels' sources compile, with at most 8 own rows a
+    thread for the update: a shape past them would return
+    cudaErrorInvalidValue."""
+    cvar_shapes = _compiled("cvar_costs.cu", "CVAR_SHAPES")
+    update_shapes = _compiled("update_useq.cu", "UPDATE_SHAPES")
+    assert all(a // c <= 8 for a, c in update_shapes)
+    for M in (1, 2, 64, 65, 512, 1000, 1024, 1025, 4096, 5000, 8192,
+              kcvar.MAX_M):
+        for sms in (132, 114, 8):
+            tpr = kcvar.threads_per_row(B, K, M, sms)
+            assert _cvar_instance(tpr, M) in cvar_shapes, (M, sms, tpr)
+    for T in (1, 7, 40, 100, 4096):
+        for sms in (132, 114, 8):
+            shape = kupdate.launch_shape(B, K, T, sms)
+            assert _update_instance(K, shape) in update_shapes, (T, shape)
+
+
+def _card_tests():
+    """``tests/test_torch_kernels_gpu.py`` as a module (it imports no JAX):
+    its case lists, held here without a card."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernels_gpu_cases",
+        Path(__file__).with_name("test_torch_kernels_gpu.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_card_edge_tests_reach_every_cvar_instantiation(sms):
+    """The card-only CVaR edge test's rows get, through the launcher, the
+    team each case names, and the cases cover every instantiation the
+    source compiles."""
+    card = _card_tests()
+    reached = set()
+    for M, tpr in card.CVAR_EDGE_TEAMS:
+        B, K = card.cvar_edge_rows(M, tpr, sms)
+        assert kcvar.threads_per_row(B, K, M, sms) == tpr, (M, tpr)
+        assert (B * K) % 4, (M, tpr)   # no multiple of a block's 4 teams
+        reached.add(_cvar_instance(tpr, M))
+    assert reached == _compiled("cvar_costs.cu", "CVAR_SHAPES")
+
+
+def test_card_edge_tests_reach_every_update_instantiation():
+    """The card-only update test's shapes cover, through ``launch_shape``
+    on an H100's 132 SMs, every instantiation the source compiles."""
+    reached = {_update_instance(K, kupdate.launch_shape(B or 1, K, T))
+               for B, K, T in _card_tests().UPDATE_EDGE_SHAPES}
+    assert reached == _compiled("update_useq.cu", "UPDATE_SHAPES")
+
+
+# The launchers' choices on an H100 (132 SMs) at every TAIL_CASES shape:
+# the CVaR's threads a row, the update's (threads a block, blocks a
+# cluster).
+LAUNCHES = {
+    "a_static_205": (128, (256, 4)),
+    "a_planner_alpha": (128, (256, 4)),
+    "sweep_b30_alphas": (32, (256, 1)),
+    "det_M1_T40": (32, (256, 4)),
+    "det_M1_T80": (32, (256, 4)),
+    "det_M1_T100": (32, (256, 4)),
+    "sweep_det_b30_M1": (32, (256, 1)),
+    "external_K2048_M512_T80": (32, (512, 4)),
+    "confidence_M64_T60": (32, (256, 4)),
+    "barebone_K1000_T50": (32, (256, 4)),
+    "model_bench_K10240_tdm": (32, (512, 4)),
+    "model_bench_K10240_det": (32, (512, 4)),
+    "pool_2_ranks_410": (32, (256, 1)),
+    "pool_4_ranks_820": (32, (256, 1)),
+    "pool_8_ranks_1024": (128, (256, 4)),
+    "gathered_rows_alpha": (32, (128, 1)),
+    "shared_memory_sort_M2048": (512, (64, 4)),
+    "shared_memory_sort_M4096": (512, (32, 2)),
+    "ragged_M5000": (512, (64, 4)),
+    "M8192_alpha": (512, (32, 4)),
+    "config_max_M15000": (1024, (32, 2)),
+}
+
+
+@pytest.mark.parametrize("case", tail_bench.TAIL_CASES,
+                         ids=[c[0] for c in tail_bench.TAIL_CASES])
+def test_launchers_choose_each_path_shapes_team(case):
+    """The launch shapes each path's shape gets on an H100, held here on
+    the CPU: a change to the rules shows as a change of this table."""
+    name, B, K, M, T, _ = case
+    assert (kcvar.threads_per_row(B, K, M),
+            kupdate.launch_shape(B, K, T)) == LAUNCHES[name]
