@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; no error is swallowed):
 
 1. Build ``csrc/rollout_byte.cu``, ``csrc/rollout_binned.cu``,
    ``csrc/map_sample.cu``, ``csrc/gather_probe.cu``,
-   ``csrc/cvar_costs.cu`` and ``csrc/update_useq.cu`` with nvcc for
+   ``csrc/cvar_costs.cu``, ``csrc/cvar_wide.cu``,
+   ``csrc/update_useq.cu`` and ``csrc/update_wide.cu`` with nvcc for
    sm_90a, all at once, and print
    the build time, each ptxas report (registers, spills), each rollout
    kernel's SASS instructions per lane-step by class (``sass_counts``,
@@ -68,8 +69,20 @@ Phases (any failure exits non-zero; no error is swallowed):
    = 64 / T = 60, the barebone engine's K = 1000 / T = 50, model_bench's
    K = 10240, the m-sharded candidate pools and gathered rows, M 2048
    and 4096, and past the kernel's former cap up to the Config's largest
-   M: a ragged 5000, 8192 and 15,000 -- and each static count bit for bit
-   against the same count from alpha.
+   M: a ragged 5000, 8192 and 15,000; then the shapes the kernels once
+   refused: T = 4,097 and 20,000 (the coupling streamed), the barebone
+   engine's K = 40,000, 100,000 and 1e6 (the wide update's four
+   launches), M = 16,384, 32,768 and 70,000 (the wide CVaR past 16,384)
+   at numel ceil(0.2 M) and alpha 1 -- and each static count bit for bit
+   against the same count from alpha.  Launches past one grid
+   (``check_launch_chunks``): 65,539 scenarios through the map sampler
+   (byte and 8-bit cells), both rollout kernels and the update, each two
+   launches bit for bit with the calls on their slices and the plain
+   versions, and both rollout kernels at M = 70,000 (two launches a
+   scenario) against their plain versions.  PARITY.md's rollout shapes
+   among the cases: large-map 52x52, bin-roi and bin-smooth-ft 85x85,
+   crumb-250, crumb-speed-250, bin-speed-250 and the 13x15 small maps on
+   2-, 4- and 8-bit cells.
 3. The main paths, each with every kernel's launch count set to 0 just
    before it and read just after: ``MPPIPlanner`` on ``device="cuda"``
    through ``setup``, ``solve``, ``shift_and_update`` and, after the last
@@ -118,8 +131,14 @@ Phases (any failure exits non-zero; no error is swallowed):
    episode); one batched solve step of a chunk against its 30 solves made
    one at a time from the same draws (the kernels' outputs bit for bit, u
    within rtol 2e-4 / atol 2e-5); ``benchmark.run_trials_rows`` (the
-   sequential engine) on 2 realizations a method; and a graphed planner's
-   checkpoint round trip (``checkpoint``), its next solve bit for bit.
+   sequential engine) on 2 realizations a method; a graphed planner's
+   checkpoint round trip (``checkpoint``), its next solve bit for bit;
+   and the shapes the kernels once refused, through the planners' entry
+   points, 3 solves each, every replay bit for bit with an eager solve:
+   the flagship planner at ``Config(T=409.7)`` (4,097 steps) and at
+   ``num_grid_samples`` 20,000 and 70,000 (the wide CVaR), the barebone
+   planner at K = 100,000 and 1e6 (the wide update), their launches
+   counted (the ``kernels`` line's ``launches_lifted_solves``).
 4. Timing with CUDA events: each rollout kernel over launches captured in
    a CUDA graph and over eager launches, in turns, against its plain
    version; the binned kernel in turns with the byte kernel on the same
@@ -133,7 +152,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    world's, each against its bound and its plain version; the solve's
    tail kernels at (a)'s shape (static and the planner's alpha), the
    sweep's, the det modes', the barebone engine's, model_bench's K =
-   10240 and every M past 1024, in turns with the torch calls the CVaR
+   10240, every M past 1024 and the shapes past the former caps (T =
+   4,097 and 20,000, K = 40,000 and 1e6, M = 16,384, 32,768 and 70,000),
+   in turns with the torch calls the CVaR
    kernel replaced (the library call), ``torch.sort`` and a masked sum,
    and an empty kernel (one graph node's floor), against their bounds and
    plain versions; then
@@ -212,8 +233,10 @@ Phases (any failure exits non-zero; no error is swallowed):
    the map-sampling and a rollout kernel, a planner that replayed no CUDA
    graph, or a file written outside the run's ``--out-dir`` (under
    ``build/smoke_phase7/``) fails the run; so does a sweep pickle without
-   the JAX script's keys.  Each example's success, time to goal and steps
-   are printed; a miss does not fail the run.  Then, in this process,
+   the JAX script's keys, or a ``drivers.summarize_benchmark`` rendering
+   of it without its three tables and this card's name.  Each example's
+   success, time to goal and steps are printed; a miss does not fail the
+   run.  Then, in this process,
    every terrain world of the examples, built by its example (every mode
    of terrain_planning and planner_animation; external PMF at K = 2048 /
    M = 512, the costmap's M = 1 route, the confidence map with its
@@ -300,6 +323,13 @@ ALU_OPS_PER_S = 132 * 64 * 1.98e9
 ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
 CELLS_PER_WORD = {2: 8, 4: 4, 8: 2}
 SOLVES = 20
+# Phase 3's solves at the shapes the kernels once refused: the flagship
+# planner's overrides of setup_world's T and M, the barebone planner's K.
+LIFTED_PLANNERS = (("flagship_T4097", dict(T=409.7)),
+                   ("flagship_M20000", dict(M=20000)),
+                   ("flagship_M70000", dict(M=70000)))
+LIFTED_BAREBONE_K = (100000, 1000000)
+LIFTED_SOLVES = 3
 # World -> (planning mode, the layout 'auto' must route it to); None: 2-
 # or 4-bit cells, as the support-compacted bin count falls (printed).
 WORLDS = {
@@ -485,11 +515,15 @@ def tail_bound_ms(B, K, M, T, numel):
 
 # Timed in phase 4: world (a) static (the profile's), as the planner runs
 # it, the sweep's batch, the det modes' M = 1, the barebone engine,
-# model_bench's K = 10240, and every M past 1024.
+# model_bench's K = 10240, every M past 1024, and the shapes past the
+# former caps (the streamed coupling, the wide update and the wide CVaR).
 TAIL_TIMED = ("a_static_205", "a_planner_alpha", "sweep_b30_alphas",
               "det_M1_T100", "barebone_K1000_T50", "model_bench_K10240_tdm",
               "shared_memory_sort_M2048", "shared_memory_sort_M4096",
-              "ragged_M5000", "M8192_alpha", "config_max_M15000")
+              "ragged_M5000", "M8192_alpha", "config_max_M15000",
+              "streamed_T4097", "streamed_T20000", "wide_update_K40000",
+              "wide_update_K1000000", "M16384_numel", "wide_M32768_numel",
+              "wide_M70000_numel", "wide_M70000_alpha1")
 
 
 def bits_differ(torch, got, want):
@@ -537,7 +571,10 @@ def check_tail_cases(torch, dev):
                    count=count if isinstance(count, (int, str))
                    else list(count),
                    threads_per_row=kc.threads_per_row(B, K, M, sms),
-                   update_shape=list(ku.launch_shape(B, K, T, sms)),
+                   cvar_path=list(kc.kernel_path(B, K, M, T, sms)),
+                   update_shape=(list(ku.launch_shape(B, K, T, sms))
+                                 if K <= ku.FUSED_K
+                                 else ["wide", ku.wide_blocks(K)]),
                    entries_differing=differ, max_abs_err=err,
                    finite=bool(torch.isfinite(u_got).all()))
         print(json.dumps(rec), flush=True)
@@ -547,6 +584,135 @@ def check_tail_cases(torch, dev):
         results.append(rec)
         del a_args, got, want, noise, u
     return results
+
+
+CHUNK_SCENARIOS = 65535 + 4       # past one launch's 65,535 scenarios
+CHUNK_SAMPLES = 70000             # past one launch's 65,535 map samples
+
+
+def check_launch_chunks(torch, dev, make_task, make_case, make_binned_case):
+    """Phase 2's launches past one grid: ``CHUNK_SCENARIOS`` scenarios (K =
+    32, M = 1, 11x11; their own keys, tasks and controls, one random PMF)
+    through the map sampler (byte and 8-bit-cell payloads), both rollout
+    kernels and the update kernel, each launching twice (65,535 and 4
+    scenarios) and bit for bit the calls on those two slices, its last
+    scenarios bit for bit the plain versions'; and both rollout kernels at
+    ``CHUNK_SAMPLES`` map samples (two launches a scenario) against their
+    plain versions.  One JSON line a check; returns the records."""
+    from mppi_numba_tpu_torch.ops.kernels import (map_sample, rollout_binned,
+                                                  rollout_byte, update_useq)
+    from mppi_numba_tpu_torch.types import MapInputs
+
+    B, K, M, T, H, W = CHUNK_SCENARIOS, 32, 1, 5, 11, 11
+    parts = (slice(0, 65535), slice(65535, B))
+    g = torch.Generator(device=dev).manual_seed(65)
+    records = []
+
+    def held(name, counted, call, cut, plain=None):
+        """``call(slice)`` on all B scenarios (two launches) against the
+        calls on the two slices and, on the last three, ``plain``."""
+        before = counted.launches
+        whole = call(slice(0, B))
+        launches = counted.launches - before
+        differ = sum(bits_differing(torch, a, b)
+                     for p in parts
+                     for a, b in zip(cut(whole, p), cut(call(p), slice(None))))
+        if plain is not None:
+            differ += sum(bits_differing(torch, a, b) for a, b in zip(
+                cut(whole, slice(B - 3, B)), cut(plain(slice(B - 3, B)),
+                                                 slice(None))))
+        rec = dict(check="launch_chunks", case=name, scenarios=B,
+                   launches=launches, entries_differing=differ)
+        print(json.dumps(rec), flush=True)
+        check(launches == 2 and differ == 0,
+              "launch chunks {}: {}".format(name, rec))
+        records.append(rec)
+        return whole
+
+    def flat(out):
+        if isinstance(out, torch.Tensor):
+            return [out]
+        return [t for o in out for t in flat(o) if t is not None] \
+            if isinstance(out, tuple) else []
+
+    def cut(out, p):
+        return [t[p] for t in flat(out)]
+
+    pmf = torch.randint(0, 101, (12, H, W), generator=g, device=dev,
+                        dtype=torch.int8)
+    qbins = torch.arange(0, 120, 10, device=dev).to(torch.int8)
+    plane = torch.zeros((H, W), dtype=torch.int8, device=dev)
+    one = MapInputs(pmf, pmf, qbins, qbins, plane, plane, plane)
+    maps = MapInputs(*(t.expand((B,) + tuple(t.shape)).contiguous()
+                       for t in one))
+    key = torch.randint(0, 2 ** 31, (B, 2), generator=g, device=dev)
+    alpha = torch.ones(B, device=dev)
+    fused = map_sample.sample_and_pack_window
+    payload = {}
+    for layout in ("byte", "binned8"):
+        out = held("map_sample_" + layout, fused, lambda p: fused(
+            key[p], MapInputs(*(t[p] for t in maps)), alpha[p], M, layout),
+            cut, lambda p: map_sample.sample_and_pack_window_plain(
+                key[p], MapInputs(*(t[p] for t in maps)), alpha[p], M,
+                layout))
+        payload[layout] = out[0]
+    tv = rollout_byte.build_task_vec(make_task(H, W, 1.0))
+    tv = tv.expand(B, tv.shape[-1]).contiguous()
+    v = torch.rand((B, T, K), generator=g, device=dev) * 2
+    w = torch.rand((B, T, K), generator=g, device=dev) * 2 - 1
+    words = payload["byte"]
+    byte = rollout_byte.terrain_rollout_costs_byte
+    costs = held("rollout_byte", byte, lambda p: byte(
+        words[p], tv[p], v[p], w[p], H=H, W=W, T=T), cut,
+        lambda p: rollout_byte.terrain_rollout_costs_byte_plain(
+            words[p], tv[p], v[p], w[p], H=H, W=W, T=T))
+    cells, mask, _ = payload["binned8"]
+    binned = rollout_binned.terrain_rollout_costs_binned
+    held("rollout_binned", binned, lambda p: binned(
+        cells[p], mask[p], None, tv[p], v[p], w[p], H=H, W=W, T=T,
+        cell_bits=8), cut,
+        lambda p: rollout_binned.terrain_rollout_costs_binned_plain(
+            cells[p], mask[p], None, tv[p], v[p], w[p], H=H, W=W, T=T,
+            cell_bits=8))
+    noise = torch.randn((B, K, T, 2), generator=g, device=dev)
+    u = torch.rand((B, T, 2), generator=g, device=dev)
+    lam = torch.ones(B, device=dev)
+    vr = torch.tensor([0.0, 2.0], device=dev).expand(B, 2).contiguous()
+    wr = torch.tensor([-2.5, 2.5], device=dev).expand(B, 2).contiguous()
+    c = costs[..., 0].contiguous()
+    upd = update_useq.update_useq_fused
+    held("update_useq", upd, lambda p: upd(c[p], noise[p], u[p], lam[p],
+                                            vr[p], wr[p]), cut,
+         lambda p: update_useq.update_useq_plain(c[p], noise[p], u[p], lam[p],
+                                                 vr[p], wr[p]))
+    del maps, key, words, cells, mask, noise, costs, c
+
+    # M past 65,535: two launches a scenario, the second's costs copied
+    # into their columns.
+    Km, Tm = 32, 7
+    for name, kern, args, kw in (
+            ("rollout_byte_M70000", byte,
+             make_case(Km, CHUNK_SAMPLES, Tm, 13, 15, 1.0, True, False, 650),
+             dict(H=13, W=15, T=Tm, fast_trig=True)),
+            ("rollout_binned_M70000", binned,
+             make_binned_case(Km, CHUNK_SAMPLES, Tm, 13, 15, 1.0, 4, 12, True,
+                              False, 651, past_last=True)[0],
+             dict(H=13, W=15, T=Tm, cell_bits=4, fast_trig=True))):
+        plain = (rollout_byte.terrain_rollout_costs_byte_plain
+                 if kern is byte
+                 else rollout_binned.terrain_rollout_costs_binned_plain)
+        before = kern.launches
+        got = kern(*args, **kw)
+        launches = kern.launches - before
+        differ = bits_differ(torch, got, plain(*args, **kw))
+        rec = dict(check="launch_chunks", case=name, M=CHUNK_SAMPLES, K=Km,
+                   T=Tm, launches=launches, entries_differing=differ)
+        print(json.dumps(rec), flush=True)
+        check(launches == 2 and differ == 0,
+              "launch chunks {}: {}".format(name, rec))
+        records.append(rec)
+        del args, got
+    return records
 
 
 def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
@@ -812,8 +978,10 @@ def main():
     chains = gather_probe.CHAINS
     tail_a = cvar_costs.cvar_costs
     tail_b = update_useq.update_useq_fused
+    wide_a = cvar_costs.cvar_costs_wide
+    wide_b = update_useq.update_useq_wide
     counted = (kernel, bkernel, sampler, fused, cropper, tail_a, tail_b,
-               *(chain for chain, _ in chains.values()))
+               wide_a, wide_b, *(chain for chain, _ in chains.values()))
 
     def set_counts(value=0):
         for wrapper in counted:
@@ -829,11 +997,14 @@ def main():
                 "map_sample_bins": sampler.launches,
                 "cvar_costs": tail_a.launches,
                 "update_useq": tail_b.launches,
+                "cvar_costs_wide": wide_a.launches,
+                "update_useq_wide": wide_b.launches,
                 "gather_probe": sum(c.launches for c, _ in chains.values())}
 
     # -- phase 1: build -------------------------------------------------------
     build_kernels(_build, ("rollout_byte", "rollout_binned", "map_sample",
-                           "gather_probe", "cvar_costs", "update_useq"))
+                           "gather_probe", "cvar_costs", "cvar_wide",
+                           "update_useq", "update_wide"))
     print_sass_counts([_build.library_path(name)
                        for name in ("rollout_byte", "rollout_binned")])
     card = card_line()
@@ -955,6 +1126,9 @@ def main():
          True),
         ("animation_example_14x8", 1024, 1024, 100, 14, 8, 1.0, True, True,
          False),
+        # PARITY.md's large-map row: 52x52, fast trig.
+        ("parity_large_map_52x52", 256, 32, 30, 52, 52, 0.5, True, False,
+         False),
     ]
     case_results = []
     flagship_args = None
@@ -1009,6 +1183,28 @@ def main():
          True, True, True),
         ("crumb_62x42_confidence", 1024, 64, 60, 62, 42, 0.5, 2, 4, True,
          True, False),
+        # PARITY.md's rows this list lacked: bin-roi (85x85, 4-bit, 12
+        # bins), bin-smooth-ft (one bin, fast trig), crumb-250 (2-bit, M
+        # = 256), crumb-speed-250 and bin-speed-250 (M = 1 on 250x250),
+        # and the ragged 13x15 small maps on 2-, 4- and 8-bit cells.
+        ("parity_bin_roi_85x85", 1024, 256, 50, 85, 85, 0.5, 4, 12, False,
+         True, False),
+        ("parity_bin_smooth_ft_85x85", 512, 64, 50, 85, 85, 0.5, 4, 1, True,
+         False, False),
+        ("parity_crumb_250x250", 512, 256, 50, 250, 250, 0.25, 2, 4, False,
+         True, False),
+        ("parity_crumb_speed_250x250", 1024, 1, 60, 250, 250, 0.25, 2, 4,
+         False, True, True),
+        ("parity_bin_speed_250x250", 1024, 1, 60, 250, 250, 0.25, 4, 12,
+         False, True, True),
+        ("parity_crumb_small_13x15", 256, 64, 40, 13, 15, 1.0, 2, 4, False,
+         True, False),
+        ("parity_bin_small_13x15", 256, 64, 40, 13, 15, 1.0, 4, 12, False,
+         True, False),
+        ("parity_byte2_small_13x15", 256, 64, 40, 13, 15, 1.0, 8, 22, False,
+         True, False),
+        ("parity_bin_speed_small_13x15", 512, 1, 40, 13, 15, 1.0, 4, 12,
+         False, True, True),
     ]
     binned_results = []
     for seed, (name, K, M, T, H, W, res, cb, B, ft, pen, sm) in enumerate(
@@ -1473,6 +1669,12 @@ def main():
     # bit (and the static count against the same count from alpha).
     tail_results = check_tail_cases(torch, dev)
 
+    # Launches past what one grid holds: 65,539 scenarios and 70,000 map
+    # samples, each in chunks, bit for bit with the chunks' own calls and
+    # the plain versions.
+    chunk_results = check_launch_chunks(torch, dev, make_task,
+                                        make_case, make_binned_case)
+
     # -- phase 3: the main paths ------------------------------------------------
     planner_runs = {}
     set_counts(0)
@@ -1696,6 +1898,62 @@ def main():
     for k in totals:
         totals[k] += launches[k]
     print(json.dumps(dict(ckpt, kernel_launches=launches)), flush=True)
+
+    # The shapes the kernels once refused, through the entry points a user
+    # calls, each solve a graph replay held bit for bit against an eager
+    # solve: the flagship planner at Config(T=409.7) (4,097 steps: the
+    # coupling streamed) and at num_grid_samples 20,000 and 70,000 (set
+    # after the Config, as its message invites: the wide CVaR), and the
+    # barebone planner at K = 100,000 and its Config's 1e6 (the wide
+    # update).
+    lifted = {}
+    set_counts(0)
+    for name, shape in LIFTED_PLANNERS:
+        set_counts(0)
+        run = run_planner("flagship_11x11", solves=LIFTED_SOLVES, **shape)
+        launches = read_counts()
+        M = run["static"].num_grid_samples
+        wide = M > cvar_costs.SORTED_M
+        tail = run["solves"] * run["num_opt"]
+        # A rollout launch takes at most MAX_SAMPLES map samples.
+        runs = -(-M // rollout_byte.MAX_SAMPLES)
+        check(launches["rollout_byte"] == tail * runs
+              and launches["cvar_costs_wide" if wide else "cvar_costs"]
+              == launches["update_useq"] == tail
+              and launches["cvar_costs" if wide else "cvar_costs_wide"]
+              == launches["update_useq_wide"] == 0,
+              "lifted {}: launches {}".format(name, launches))
+        for k in totals:
+            totals[k] += launches[k]
+        lifted[name] = dict(
+            T=run["T"], M=run["static"].num_grid_samples, K=run["K"],
+            solves=run["solves"], graph_equals_eager=True,
+            solve_ms_median=run["solve_ms_median"], kernel_launches=launches)
+        print(json.dumps(dict(check="lifted_solve", world=name,
+                              **lifted[name])), flush=True)
+        del run
+    for K in LIFTED_BAREBONE_K:
+        set_counts(0)
+        run = run_barebone(K=K, solves=LIFTED_SOLVES)
+        launches = read_counts()
+        tail = run["solves"] * run["num_opt"]
+        check(launches["cvar_costs"] == launches["update_useq_wide"] == tail
+              and not any(n for k, n in launches.items()
+                          if k not in ("cvar_costs", "update_useq_wide")),
+              "lifted barebone K {}: launches {}".format(K, launches))
+        for k in totals:
+            totals[k] += launches[k]
+        name = "barebone_K{}".format(K)
+        lifted[name] = dict(
+            K=K, T=run["T"], solves=run["solves"], graph_equals_eager=True,
+            solve_ms_median=run["solve_ms_median"],
+            kernels_per_replay=run["kernel_nodes"], kernel_launches=launches)
+        print(json.dumps(dict(check="lifted_solve", world=name,
+                              **lifted[name])), flush=True)
+        del run
+    lifted_launches = {k: sum(r["kernel_launches"][k]
+                              for r in lifted.values())
+                       for k in ("cvar_costs_wide", "update_useq_wide")}
 
     # -- phase 4: timing ------------------------------------------------------------
     def time_kernels(fns, reps):
@@ -2143,6 +2401,8 @@ def main():
 
     flag = case_results[0]
     tail_at = tail_timed["a_static_205"]
+    tail_wide = tail_timed["wide_M70000_numel"]
+    tail_big_k = tail_timed["wide_update_K1000000"]
     forest = binned_timed["forest_140x84"]
     nib = binned_results[0]
     # The probe's latency bound: a dependent chain cannot take less than
@@ -2326,6 +2586,49 @@ def main():
         "bound_ms_at": {k: v["cvar_bound"][0]
                         for k, v in tail_timed.items()},
         "cases": len(tail_results),
+    }, {
+        "name": "cvar_costs_wide",
+        "route": "cuda",
+        "kernel": "cvar_wide_kernel: the CVaR plus coupling past M = "
+                  "16,384 (a block a row, rounds of a select from global "
+                  "memory); cvar_costs routes to it",
+        "launches_phase7": phase7["cvar_costs_wide"],
+        "source": cvar_costs.WIDE_KERNEL_SOURCE,
+        "replaces": cvar_costs.REPLACES,
+        "launches": totals["cvar_costs_wide"],
+        "launches_lifted_solves": lifted_launches["cvar_costs_wide"],
+        "max_abs_err": max(r["max_abs_err"] for r in tail_results
+                           if r["cvar_path"][0] == "cvar_wide_kernel"),
+        "ms": tail_wide["cvar_ms"],
+        "plain_ms": tail_wide["cvar_plain_ms"],
+        "bound_ms": tail_wide["cvar_bound"][0],
+        "bound_by": tail_wide["cvar_bound"][1],
+        "library_ms": tail_wide["library_ms"],
+        "library": tail_wide["library"],
+        "timed_at": "wide_M70000_numel: " + tail_wide["shape"]
+                    + ", numel 14000",
+        "cases": sum(r["cvar_path"][0] == "cvar_wide_kernel"
+                     for r in tail_results),
+    }, {
+        "name": "update_useq_wide",
+        "route": "cuda",
+        "kernel": "update_wide_min, _eta, _noise, _finish: the update past "
+                  "K = 32,768, four launches a call; update_useq_fused "
+                  "routes to it",
+        "launches_phase7": phase7["update_useq_wide"],
+        "source": update_useq.WIDE_KERNEL_SOURCE,
+        "replaces": update_useq.REPLACES,
+        "launches": totals["update_useq_wide"],
+        "launches_lifted_solves": lifted_launches["update_useq_wide"],
+        "max_abs_err": max(r["max_abs_err"] for r in tail_results
+                           if r["K"] > update_useq.FUSED_K),
+        "ms": tail_big_k["update_ms"],
+        "plain_ms": tail_big_k["update_plain_ms"],
+        "bound_ms": tail_big_k["update_bound"][0],
+        "bound_by": tail_big_k["update_bound"][1],
+        "library_ms": None,
+        "timed_at": "wide_update_K1000000: " + tail_big_k["shape"],
+        "cases": sum(r["K"] > update_useq.FUSED_K for r in tail_results),
     }, {
         "name": "update_useq",
         "route": "cuda",
@@ -3131,13 +3434,16 @@ def forest_costmap(seed=0):
     return cm
 
 
-def setup_world(world, crop=True, padded_origin=0.0):
+def setup_world(world, crop=True, padded_origin=0.0, T=10.0, M=1024):
     """A planner set up on ``world`` through the public entry points, and
     the ground truth its closed loop runs on: ``(planner, truth, goal)``
     where ``truth(x, y) -> (lin, ang)`` tractions (for the big-map world a
     ``TractionGrid``, whose ``get`` is that).  ``crop=False`` turns the
     reachable-window crop off, as ``tests/test_roi.py`` does;
-    ``padded_origin`` places the big map's padded lower limits."""
+    ``padded_origin`` places the big map's padded lower limits.  ``T``
+    (seconds of 0.1 s steps) and ``M`` (map samples, set on the Config
+    after it is made where it passes the Config's 15,000, as its message
+    invites) size the solve."""
     from mppi_numba_tpu_torch import Config, MPPIPlanner, TDM
     from mppi_numba_tpu_torch.terrain import sample_realization_from_pmf_grid
 
@@ -3157,9 +3463,10 @@ def setup_world(world, crop=True, padded_origin=0.0):
     flags = dict(use_tdm=mode == "tdm", use_det_dynamics=mode == "det_dyn",
                  use_nom_dynamics_with_speed_map=mode == "speed_map",
                  use_costmap=mode == "costmap")
-    cfg = Config(T=10.0, dt=0.1, num_grid_samples=1024,
+    cfg = Config(T=T, dt=0.1, num_grid_samples=M,
                  num_control_rollouts=1024, max_speed_padding=5.0,
                  max_map_dim=(250, 250), seed=0, model=model, **flags)
+    cfg.num_grid_samples = M
     lin, ang = TDM(cfg, device="cuda"), TDM(cfg, device="cuda")
 
     def pmf_world(pmf, bin_values, res, obstacle=None, unknown=None):
@@ -3277,10 +3584,11 @@ def setup_world(world, crop=True, padded_origin=0.0):
     return planner, truth, goal
 
 
-def run_planner(world):
-    """``SOLVES`` closed-loop solves of ``world`` through the planner's
-    public entry points (the big-map world's through ``sim.trial``)."""
-    planner, truth, goal = setup_world(world)
+def run_planner(world, solves=SOLVES, **shape):
+    """``solves`` closed-loop solves of ``world`` through the planner's
+    public entry points (the big-map world's through ``sim.trial``);
+    ``shape``: ``setup_world``'s T and M."""
+    planner, truth, goal = setup_world(world, **shape)
     static = planner._static()
     bicycle = static.model == "bicycle"
     check(static.fast_trig != bicycle, "{}: fast_trig {} for the {} model"
@@ -3296,7 +3604,7 @@ def run_planner(world):
         x, trial_info = run_bigmap_trial(planner, truth, times, mirror)
         check_sample_grids(planner.lin_tdm)
         sample_grids_calls = 1
-    for _ in range(SOLVES if world != BIGMAP else 0):
+    for _ in range(solves if world != BIGMAP else 0):
         mirror.before_solve()
         t0 = time.perf_counter()
         u = planner.solve()
@@ -3313,9 +3621,9 @@ def run_planner(world):
                                lin_tr * v * np.sin(x[2]), ang_tr * rate])
         planner.shift_and_update(x, u, num_shifts=1)
     vis_shape = check_state_rollout(world, planner, x, mirror)
-    check(mirror.solves == SOLVES, "{}: {} solves held against eager ones"
+    check(mirror.solves == solves, "{}: {} solves held against eager ones"
           .format(world, mirror.solves))
-    return dict(solves=SOLVES, num_opt=static.num_opt, vis_shape=vis_shape,
+    return dict(solves=solves, num_opt=static.num_opt, vis_shape=vis_shape,
                 solve_ms_first=times[0],
                 solve_ms_median=float(np.median(times[1:])),
                 K=planner.num_control_rollouts, T=planner.num_steps,
@@ -3697,17 +4005,20 @@ class BareboneMirror(EagerMirror):
             task, self.u, self.u_prev, self.aux.noise_vis)).cpu().numpy()
 
 
-def run_barebone():
-    """``SOLVES`` closed-loop solves of ``examples/barebone_mppi.py``'s task
-    (K = 1024, T = 50, two circle obstacles) through ``BareboneMPPI``'s
-    public entry points, then ``get_state_rollout``: each solve (a graph
-    replay) and the vis held bit for bit against eager calls from a
-    generator of the same seed (``BareboneMirror``); one solve graph and
-    one vis graph."""
+def run_barebone(K=1024, solves=SOLVES):
+    """``solves`` closed-loop solves of ``examples/barebone_mppi.py``'s
+    task (K = 1024, T = 50, two circle obstacles) through
+    ``BareboneMPPI``'s public entry points, then ``get_state_rollout``:
+    each solve (a graph replay) and the vis held bit for bit against eager
+    calls from a generator of the same seed (``BareboneMirror``); one
+    solve graph and one vis graph.  ``K``: the rollouts (the Config takes
+    up to 1e6)."""
     from mppi_numba_tpu_torch import BareboneConfig, BareboneMPPI
 
-    cfg = BareboneConfig(T=5.0, dt=0.1, num_control_rollouts=1024,
+    cfg = BareboneConfig(T=5.0, dt=0.1, num_control_rollouts=K,
                          num_vis_state_rollouts=20, seed=1)
+    check(cfg.num_control_rollouts == K, "barebone: K {} clipped to {}"
+          .format(K, cfg.num_control_rollouts))
     x = np.array([0.0, 0.0, np.pi / 4])
     goal = np.array([7.0, 5.0])
     params = dict(dt=cfg.dt, x0=x, xgoal=goal, goal_tolerance=0.5,
@@ -3721,7 +4032,7 @@ def run_barebone():
     mirror = BareboneMirror(planner)
     dist0 = float(np.hypot(*(goal - x[:2])))
     times = []
-    for _ in range(SOLVES):
+    for _ in range(solves):
         mirror.before_solve()
         t0 = time.perf_counter()
         u = planner.solve()
@@ -3737,7 +4048,7 @@ def run_barebone():
     vis_shape = check_state_rollout("barebone", planner, x, mirror)
     (graph,), (vis_graph,) = (planner._solve_graphs.values(),
                               planner._vis_graphs.values())
-    return dict(solves=SOLVES, num_opt=planner._static().num_opt,
+    return dict(solves=solves, num_opt=planner._static().num_opt,
                 solve_ms_first=times[0],
                 solve_ms_median=float(np.median(times[1:])),
                 K=cfg.num_control_rollouts, T=cfg.num_steps, dist0=dist0,
@@ -4681,6 +4992,8 @@ WRAPPER_KERNELS = {
     "sample_and_pack_crop": ("map_sample", "map_sample_crop"),
     "cvar_costs": ("cvar_costs",),
     "update_useq_fused": ("update_useq",),
+    "cvar_costs_wide": ("cvar_costs_wide",),
+    "update_useq_wide": ("update_useq_wide",),
 }
 
 
@@ -4760,6 +5073,13 @@ def check_example(name, records, terrain):
     return rec
 
 
+def torch_card_name():
+    """The card's name, as torch reports it."""
+    import torch
+
+    return torch.cuda.get_device_name(0)
+
+
 def check_sweeps(out, dirs):
     """``full_benchmark``'s tables, trials and captures, its pickle (the
     JAX script's keys, loaded by ``checkpoint.load_experiment``) and
@@ -4781,6 +5101,16 @@ def check_sweeps(out, dirs):
     check(set(exp) == EXPERIMENT_KEYS and exp["engine"] == "device"
           and len(exp["logger"]["success"]) == 80,
           "full_benchmark's pickle: keys {}".format(sorted(exp)))
+    # Its tables as summarize_benchmark renders them, naming this card.
+    from mppi_numba_tpu_torch.drivers import summarize_benchmark
+    summary = os.path.join(dirs["full_benchmark"], "summary.md")
+    summarize_benchmark.main([saved["saved"], "--out", summary])
+    with open(summary) as fh:
+        text = fh.read()
+    card = torch_card_name()
+    check(card in text and "TPU" not in text and text.count("## ") == 3
+          and all(m in text for m in PAPER_METHODS),
+          "summarize_benchmark: {}".format(text[:400]))
     ab, times = out["engine_ab_check"]
     check(ab.get("n_trials_per_engine") == 8
           and set(ab) == {"n_trials_per_engine", "noisy_dyn", "risk_dyn"}
@@ -4953,6 +5283,7 @@ def run_phase7(card, emit):
     logs = own_log_files(root)
     launches = dict.fromkeys(("rollout_byte", "rollout_binned", "map_sample",
                               "map_sample_crop", "cvar_costs", "update_useq",
+                              "cvar_costs_wide", "update_useq_wide",
                               "gather_probe"), 0)
     out, seconds, dirs, outcomes = {}, {}, {}, {}
     for name, argv, terrain in phase7_commands():

@@ -17,7 +17,8 @@ by method, by method x alpha, and the mean time to goal on successes)
 with the trial count, the wall clock of the sweep (host clock, ended by a
 synchronize) and each method's engine figures (captures, chunk steps,
 seconds), then the kernel launches.  Writes the experiment pickle with the
-script's keys (``engine`` 'device') into ``--out-dir`` (default
+script's keys (``engine`` 'device'), and the card line beside it in
+``<pickle>.card``, into ``--out-dir`` (default
 ``build/mppi_benchmark_torch/``; ``mppi_benchmark/`` holds the TPU runs'
 pickles): ``logger`` is a pandas DataFrame where pandas imports, else a
 dict of numpy columns, and ``checkpoint.load_experiment`` reads either;
@@ -175,7 +176,7 @@ def main(argv=None):
         methods = args.methods.split(",")
     max_steps = SMALL_STEPS if args.small else MAX_STEPS
 
-    device, _ = start(args)
+    device, card = start(args)
     world, cfg, params = build_problem(u_std_ang, args.dist_weight,
                                        args.small)
     before = launch_counts()
@@ -217,6 +218,9 @@ def main(argv=None):
     os.makedirs(args.out_dir, exist_ok=True)
     with open(fname, "wb") as fh:
         pickle.dump(out, fh)
+    # The card beside the pickle, whose keys are the JAX script's.
+    with open(fname + ".card", "w") as fh:
+        fh.write(card + "\n")
     emit(dict(saved=fname, launches=launched_since(before)))
     return 0
 

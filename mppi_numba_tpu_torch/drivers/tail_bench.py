@@ -45,6 +45,10 @@ N = 50
 # 4 and 8 map ranks and a run-time alpha's gathered rows; and M past 1024
 # (a block a row): 2048, 4096, a ragged 5000, 8192 at the planner's alpha
 # and the Config's largest, 15,000, at the sweep's first and last alphas.
+# Then the shapes the kernels once refused: T = 4,097 and 20,000 (the
+# coupling streamed), the barebone engine's K = 40,000, 100,000 and its
+# Config's 1e6 (the wide update), and M = 16,384 (the last a team sorts),
+# 32,768 and 70,000 (the wide CVaR) at numel ceil(0.2 M) and at alpha 1.
 SWEEP_ALPHAS = (1.0, 0.8, 0.6, 0.4, 0.2)
 TAIL_CASES = (
     ("a_static_205", 1, 1024, 1024, 100, 205),
@@ -68,6 +72,17 @@ TAIL_CASES = (
     ("ragged_M5000", 1, 256, 5000, 20, 1000),
     ("M8192_alpha", 1, 128, 8192, 20, "alpha"),
     ("config_max_M15000", 2, 64, 15000, 10, (1.0, 0.2)),
+    ("streamed_T4097", 1, 1024, 16, 4097, 4),
+    ("streamed_T20000", 1, 1024, 16, 20000, "alpha"),
+    ("wide_update_K40000", 1, 40000, 1, 50, 1),
+    ("wide_update_K100000", 1, 100000, 1, 50, 1),
+    ("wide_update_K1000000", 1, 1000000, 1, 50, 1),
+    ("M16384_numel", 1, 256, 16384, 20, 3277),
+    ("M16384_alpha1", 1, 256, 16384, 20, (1.0,)),
+    ("wide_M32768_numel", 1, 256, 32768, 20, 6554),
+    ("wide_M32768_alpha1", 1, 256, 32768, 20, (1.0,)),
+    ("wide_M70000_numel", 1, 256, 70000, 20, 14000),
+    ("wide_M70000_alpha1", 1, 256, 70000, 20, (1.0,)),
 )
 
 

@@ -39,7 +39,8 @@ def counted_wrappers():
             map_sample.sample_and_pack_crop,
             rollout_byte.terrain_rollout_costs_byte,
             rollout_binned.terrain_rollout_costs_binned,
-            cvar_costs.cvar_costs, update_useq.update_useq_fused,
+            cvar_costs.cvar_costs, cvar_costs.cvar_costs_wide,
+            update_useq.update_useq_fused, update_useq.update_useq_wide,
             *(chain for chain, _ in gather_probe.CHAINS.values()))
 
 

@@ -14,6 +14,14 @@ the coupling in the halving tree (``ops/tree.py``), so the kernel equals
 the plain version bit for bit.
 The kernel reads the run-time alpha on the card, so a solve with it
 captures into a CUDA graph.
+
+Every shape the JAX package solves launches: past ``SORTED_M`` map
+samples the wide kernel (``cvar_wide_kernel``, a block a row, rounds of a
+select from global memory), past ``STAGED_T`` steps the coupling streamed
+from global memory (the team kernel's streamed twin); both are built from
+``csrc/cvar_wide.cu`` into a library of their own.  The launcher picks
+them from the shapes (``kernel_path``); the shapes below them launch
+``csrc/cvar_costs.cu``'s library as before.
 """
 
 from __future__ import annotations
@@ -23,20 +31,23 @@ import functools
 
 import torch
 
-from ...config import rec_max_control_rollouts
 from ..cvar import cvar_from_costs, cvar_from_costs_dynamic
 from ..rollout import control_coupling
 from ..tree import padded_length
 
 KERNEL_SOURCE = "mppi_numba_tpu_torch/csrc/cvar_costs.cu"
+WIDE_KERNEL_SOURCE = "mppi_numba_tpu_torch/csrc/cvar_wide.cu"
 REPLACES = ("mppi_numba_tpu/ops/cvar.py:17-33,79-91 (cvar_from_costs, "
             "cvar_from_costs_dynamic) + mppi_numba_tpu/ops/rollout.py:"
             "123-131 (control_coupling), XLA-fused; no Pallas kernel")
-# The Config's largest M: a block of 512 threads sorts a row of up to
-# 16,384 keys, 32 a thread.
-MAX_M = rec_max_control_rollouts
-# The coupling's 2T terms are summed in the team's shared memory.
-MAX_T = 4096
+# The longest row a team sorts in registers (1,024 threads x 16 keys);
+# past it the wide kernel (the source's kSortedM).
+SORTED_M = 16384
+# The longest horizon whose coupling terms a team stages in shared memory
+# (2T padded to 8,192 words); past it they stream (kStagedT).
+STAGED_T = 4096
+# Rows a launch: the kernel indexes them with 32-bit ints.
+MAX_ROWS = 2 ** 31 - 1
 # A card's resident threads an SM (H100: 2,048 on each of 132 SMs).
 THREADS_PER_SM = 2048
 H100_SMS = 132
@@ -57,6 +68,18 @@ def threads_per_row(B, K, M, sms=H100_SMS):
     if L >= 128 and B * K * 128 <= sms * THREADS_PER_SM // 2:
         return 128
     return 32
+
+
+def kernel_path(B, K, M, T, sms=H100_SMS):
+    """The kernel and instantiation a launch at these shapes runs:
+    ``("cvar_wide_kernel", 1024, None, True)`` past ``SORTED_M``, else
+    ``("cvar_costs_kernel", threads a row, keys a thread, streamed)``,
+    streamed past ``STAGED_T`` steps."""
+    tpr = threads_per_row(B, K, M, sms)
+    if M > SORTED_M:
+        return "cvar_wide_kernel", tpr, None, True
+    return ("cvar_costs_kernel", tpr, max(padded_length(M), tpr) // tpr,
+            T > STAGED_T)
 
 
 def cvar_costs_plain(costs_km, noise, u, u_std, lambda_weight, numel=None,
@@ -88,12 +111,30 @@ def _entry_points():
 
 
 @functools.lru_cache(maxsize=None)
-def _prepared(index):
-    """Sets the kernels' shared-memory opt-in on card ``index`` once
+def _wide_entry_points():
+    """``csrc/cvar_wide.cu``'s launch and prepare entry points (the
+    streamed twins and the wide kernel, a library of their own), built and
+    loaded on first use."""
+    from ._build import load
+
+    lib = load("cvar_wide")
+    fn = lib.cvar_wide_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.cvar_wide_prepare.restype = ctypes.c_int
+    return fn, lib.cvar_wide_prepare
+
+
+@functools.lru_cache(maxsize=None)
+def _prepared(index, staged=True):
+    """Sets the shared-memory opt-in of the staged kernels' library (or,
+    ``staged=False``, of ``cvar_wide.cu``'s) on card ``index`` once
     (outside any capture: the first call on a card is an eager one);
     returns the card's SM count."""
+    prepare = (_entry_points()[2] if staged else _wide_entry_points()[1])
     with torch.cuda.device(index):
-        err = _entry_points()[2]()
+        err = prepare()
     if err != 0:
         raise RuntimeError("cvar_costs: setting the kernels' shared memory "
                            "failed: CUDA error {}".format(err))
@@ -140,16 +181,11 @@ def check_args(costs_km, noise, u, u_std, lambda_weight, numel, alpha):
             ("alpha", alpha, lead)):
         if t is not None or what != "alpha":
             check_tensor("cvar_costs: " + what, t, shape, dev)
-    if not 1 <= M <= MAX_M:
-        raise ValueError("cvar_costs: M = {} map samples; the kernel sorts "
-                         "at most {} a row".format(M, MAX_M))
-    if not 1 <= T <= MAX_T:
-        raise ValueError("cvar_costs: T = {} steps; the kernel sums the "
-                         "coupling of at most {}".format(T, MAX_T))
     B = lead[0] if lead else 1
-    if K < 1 or B < 1 or B * K >= 2 ** 31:
-        raise ValueError("cvar_costs: {} scenarios x {} rollouts out of "
-                         "range".format(B, K))
+    if M < 1 or T < 1 or K < 1 or B < 1 or K > MAX_ROWS:
+        raise ValueError("cvar_costs: {} scenarios x {} rollouts x {} map "
+                         "samples x {} steps out of range".format(B, K, M,
+                                                                  T))
     if numel is not None and numel < 1:
         raise ValueError("cvar_costs: numel must be >= 1, got {}".format(
             numel))
@@ -162,7 +198,7 @@ def cvar_costs(costs_km, noise, u, u_std, lambda_weight, numel=None,
     control-coupling term, ``cvar + lambda * sum_{t,c} eps * u / sigma^2``.
 
     Args:
-      costs_km: float32 ``(K, M)`` rollout costs, M <= ``MAX_M``.
+      costs_km: float32 ``(K, M)`` rollout costs.
       noise: float32 ``(K, T, 2)`` control perturbations.
       u: float32 ``(T, 2)`` nominal controls.
       u_std: float32 ``(2,)`` noise scales.
@@ -179,37 +215,88 @@ def cvar_costs(costs_km, noise, u, u_std, lambda_weight, numel=None,
     Returns:
       float32 ``(K,)`` (``(B, K)``).
 
-    On CUDA tensors this launches the kernel once and adds one to
-    ``cvar_costs.launches``; on CPU tensors it runs ``cvar_costs_plain``.
+    On CUDA tensors this launches the kernel once (once for every
+    ``MAX_ROWS`` scenario rows) and adds one to ``cvar_costs.launches`` a
+    launch; past ``SORTED_M`` map samples it is ``cvar_costs_wide``.  On
+    CPU tensors it runs ``cvar_costs_plain``.
     """
     if not costs_km.is_cuda:
         return cvar_costs_plain(costs_km, noise, u, u_std, lambda_weight,
                                 numel=numel, alpha=alpha)
-    B, K, M, T = check_args(costs_km, noise, u, u_std, lambda_weight, numel,
-                            alpha)
-    dev = costs_km.device
-    ins = [t.contiguous() for t in (costs_km, noise, u, u_std,
-                                    lambda_weight)]
-    alpha = None if alpha is None else alpha.contiguous()
-    out = torch.empty(tuple(costs_km.shape[:-1]), dtype=torch.float32,
-                      device=dev)
-    tpr = threads_per_row(B, K, M, _prepared(dev.index))
-    # The runtime launches on its current device: make it the tensors'.
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry_points()[0](
-            *(t.data_ptr() for t in ins),
-            None if alpha is None else alpha.data_ptr(), out.data_ptr(),
-            B, K, M, T, 0 if numel is None else min(numel, M), tpr,
-            stream)
-    if err != 0:
-        raise RuntimeError("cvar_costs kernel launch failed: CUDA error "
-                           "{}".format(err))
-    cvar_costs.launches += 1
-    return out
+    if costs_km.shape[-1] > SORTED_M:
+        return cvar_costs_wide(costs_km, noise, u, u_std, lambda_weight,
+                               numel=numel, alpha=alpha)
+    return _launch(cvar_costs, costs_km, noise, u, u_std, lambda_weight,
+                   numel, alpha)
 
 
 cvar_costs.launches = 0
+
+
+def cvar_costs_wide(costs_km, noise, u, u_std, lambda_weight, numel=None,
+                    alpha=None):
+    """``cvar_costs`` past ``SORTED_M`` map samples: the wide kernel
+    (``cvar_wide_kernel``), a block of 1,024 threads a row, the worst
+    costs selected from global memory and sorted in rounds of at most
+    ``SORTED_M``.  Arguments and result as for ``cvar_costs``, M >
+    ``SORTED_M``.
+
+    On CUDA tensors this launches the kernel once (once for every
+    ``MAX_ROWS`` scenario rows) and adds one to
+    ``cvar_costs_wide.launches`` a launch; on CPU tensors it runs
+    ``cvar_costs_plain``.
+    """
+    if not costs_km.is_cuda:
+        return cvar_costs_plain(costs_km, noise, u, u_std, lambda_weight,
+                                numel=numel, alpha=alpha)
+    if costs_km.shape[-1] <= SORTED_M:
+        raise ValueError("cvar_costs_wide: M = {} map samples; the wide "
+                         "kernel takes M > {} (cvar_costs the rest)".format(
+                             costs_km.shape[-1], SORTED_M))
+    return _launch(cvar_costs_wide, costs_km, noise, u, u_std,
+                   lambda_weight, numel, alpha)
+
+
+cvar_costs_wide.launches = 0
+
+
+def _launch(counted, costs_km, noise, u, u_std, lambda_weight, numel,
+            alpha):
+    """Check the inputs and launch the kernel ``kernel_path`` picks, once
+    for every ``MAX_ROWS`` rows of scenarios, adding one to
+    ``counted.launches`` a launch."""
+    B, K, M, T = check_args(costs_km, noise, u, u_std, lambda_weight, numel,
+                            alpha)
+    dev = costs_km.device
+    lead = tuple(costs_km.shape[:-2])
+    ins = [t.contiguous() for t in (costs_km, noise, u, u_std,
+                                    lambda_weight)]
+    alpha = None if alpha is None else alpha.contiguous()
+    out = torch.empty(lead + (K,), dtype=torch.float32, device=dev)
+    _, tpr, _, streamed = kernel_path(B, K, M, T, _prepared(dev.index))
+    if streamed:
+        _prepared(dev.index, staged=False)
+    launch = _wide_entry_points()[0] if streamed else _entry_points()[0]
+    if not lead:
+        ins = [t.reshape((1,) + tuple(t.shape)) for t in ins]
+        alpha = None if alpha is None else alpha.reshape(1)
+    rows = out.view(B, K)
+    step = max(1, MAX_ROWS // K)
+    # The runtime launches on its current device: make it the tensors'.
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for b0 in range(0, B, step):
+            part = slice(b0, min(B, b0 + step))
+            err = launch(
+                *(t[part].data_ptr() for t in ins),
+                None if alpha is None else alpha[part].data_ptr(),
+                rows[part].data_ptr(), part.stop - b0, K, M, T,
+                0 if numel is None else min(numel, M), tpr, stream)
+            if err != 0:
+                raise RuntimeError("{} kernel launch failed: CUDA error "
+                                   "{}".format(counted.__name__, err))
+            counted.launches += 1
+    return out
 
 
 def empty_launch(device):

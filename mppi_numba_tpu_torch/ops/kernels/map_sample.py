@@ -53,6 +53,9 @@ LAYOUTS = {"bins": 0, "byte": 1, "binned2": 2, "binned": 3, "binned8": 4}
 CELLS_PER_WORD = {"binned2": 8, "binned": 4, "binned8": 2}
 # A plane's ranks are bytes in the kernel's tables.
 MAX_PLANE_BINS = 255
+# Scenarios a launch: the grid's z.  Past them the wrappers launch in
+# chunks.
+MAX_SCENARIOS = 65535
 
 
 def sample_traction_window_plain(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins,
@@ -171,9 +174,8 @@ def _check_cuda_args(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, M, H, W,
     checks = [
         (key.dtype == torch.int64 and key.dim() in (1, 2)
          and key.shape[-1] == 2 and key.is_contiguous()
-         and 1 <= (lead[0] if lead else 1) <= 65535,
-         "key must be contiguous int64 (2,), or (B, 2) for B <= 65535 "
-         "scenarios"),
+         and 1 <= (lead[0] if lead else 1),
+         "key must be contiguous int64 (2,), or (B, 2) for B scenarios"),
         (all(p.dtype == torch.int8 and p.dim() == nd
              and tuple(p.shape[:-3]) == lead
              and tuple(p.shape[-2:]) == (rH, rW) and p.is_contiguous()
@@ -203,15 +205,18 @@ def _check_cuda_args(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, M, H, W,
             raise ValueError("map_sample: " + msg)
 
 
-def _launch(layout, key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, alpha_dyn,
-            M, window, m_offset, full_num_samples, masks=None, risk_map=None,
-            crop=None):
+def _launch(counted, layout, key, lin_pmf, ang_pmf, lin_qbins, ang_qbins,
+            alpha_dyn, M, window, m_offset, full_num_samples, masks=None,
+            risk_map=None, crop=None):
     """Check the inputs, allocate the outputs of ``layout`` and launch the
-    kernel once.  ``masks``: the (obstacle, unknown) planes of a payload
-    layout.  ``crop``: ``(task, roi_shape)`` for the crop mode, the planes
-    the map's.  Returns ``{name: tensor or None}``: lin_grid, ang_grid
-    and, by layout, lin_bins / ang_bins, payload, mask_words, risk_words;
-    cropping, offset and lims."""
+    kernel: once, or once a chunk of ``MAX_SCENARIOS`` scenarios (fewer
+    where B * M would pass 2**31), adding one to ``counted.launches`` a
+    launch.  Scenarios are drawn and packed each alone, so the chunks give
+    the same bits as one launch.  ``masks``: the (obstacle, unknown)
+    planes of a payload layout.  ``crop``: ``(task, roi_shape)`` for the
+    crop mode, the planes the map's.  Returns ``{name: tensor or None}``:
+    lin_grid, ang_grid and, by layout, lin_bins / ang_bins, payload,
+    mask_words, risk_words; cropping, offset and lims."""
     dev = lin_pmf.device
     lead = tuple(key.shape[:-1])            # (B,) or () for one scenario
     rH, rW = lin_pmf.shape[-2:] if lin_pmf.dim() >= 3 else (-1, -1)
@@ -234,8 +239,8 @@ def _launch(layout, key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, alpha_dyn,
         raise NotImplementedError(
             "counter-addressed draws support M*H*W < 2**32 (got {})".format(
                 full_m * H * W))
-    if (lead[0] if lead else 1) * M >= 2 ** 31:
-        raise ValueError("map_sample: scenarios x M must stay below 2**31")
+    if M >= 2 ** 31:
+        raise ValueError("map_sample: M must stay below 2**31")
     offsets = [None if o is None else _check_scalar(o, torch.int32, dev,
                                                      lead)
                for o in (oy, ox)]
@@ -276,27 +281,37 @@ def _launch(layout, key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, alpha_dyn,
                                     risk_map is not None))
     obstacle, unknown = masks if masks is not None else (None, None)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    B = lead[0] if lead else 1
+    # The kernel numbers a launch's rows b * M + m in 32 bits.
+    step = min(MAX_SCENARIOS, (2 ** 31 - 1) // M)
+
+    def ptr(t, p):
+        if t is None:
+            return None
+        return (t[p] if lead else t).data_ptr()
 
     # The runtime launches on its current device: make it the tensors'.
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry_point()(
-            LAYOUTS[layout], key.data_ptr(), *(ptr(o) for o in offsets),
-            alpha.data_ptr(),
-            *(ptr(t) for t in (lin_pmf, ang_pmf, lin_qbins, ang_qbins,
-                               obstacle, unknown, risk_map)),
-            *(ptr(out[k]) for k in ("lin_bins", "ang_bins", "lin_grid",
-                                    "ang_grid", "payload", "mask_words",
-                                    "risk_words")),
-            *(ptr(t) for t in crop_in), ptr(out["offset"]),
-            ptr(out["lims"]), M, rH, rW, lin_pmf.shape[-3],
-            ang_pmf.shape[-3] if has_ang else 0, H, W, m_offset,
-            lead[0] if lead else 1, stream)
-    if err != 0:
-        raise RuntimeError("map_sample kernel launch failed: CUDA error "
-                           "{}".format(err))
+        for b0 in range(0, B, step):
+            p = slice(b0, min(B, b0 + step))
+            err = _entry_point()(
+                LAYOUTS[layout], ptr(key, p),
+                *(ptr(o, p) for o in offsets), ptr(alpha, p),
+                *(ptr(t, p) for t in (lin_pmf, ang_pmf, lin_qbins,
+                                      ang_qbins, obstacle, unknown,
+                                      risk_map)),
+                *(ptr(out[k], p) for k in ("lin_bins", "ang_bins",
+                                           "lin_grid", "ang_grid", "payload",
+                                           "mask_words", "risk_words")),
+                *(ptr(t, p) for t in crop_in), ptr(out["offset"], p),
+                ptr(out["lims"], p), M, rH, rW, lin_pmf.shape[-3],
+                ang_pmf.shape[-3] if has_ang else 0, H, W, m_offset,
+                p.stop - b0, stream)
+            if err != 0:
+                raise RuntimeError("map_sample kernel launch failed: CUDA "
+                                   "error {}".format(err))
+            counted.launches += 1
     return out
 
 
@@ -331,8 +346,9 @@ def sample_traction_window(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins,
       ``(M, rH, rW)``; a bin index B (a draw past a column summing below
       100) decodes to -128.
 
-    On CUDA tensors this launches the kernel and adds one to
-    ``sample_traction_window.launches``; on CPU tensors it runs
+    On CUDA tensors this launches the kernel (once a chunk of
+    ``MAX_SCENARIOS`` scenarios) and adds one to
+    ``sample_traction_window.launches`` a launch; on CPU tensors it runs
     ``sample_traction_window_plain``.
     """
     if not lin_pmf.is_cuda:
@@ -340,9 +356,9 @@ def sample_traction_window(key, lin_pmf, ang_pmf, lin_qbins, ang_qbins,
             key, lin_pmf, ang_pmf, lin_qbins, ang_qbins, alpha_dyn,
             num_samples, window=window, m_offset=m_offset,
             full_num_samples=full_num_samples)
-    out = _launch("bins", key, lin_pmf, ang_pmf, lin_qbins, ang_qbins,
-                  alpha_dyn, num_samples, window, m_offset, full_num_samples)
-    sample_traction_window.launches += 1
+    out = _launch(sample_traction_window, "bins", key, lin_pmf, ang_pmf,
+                  lin_qbins, ang_qbins, alpha_dyn, num_samples, window,
+                  m_offset, full_num_samples)
     return out["lin_bins"], out["ang_bins"], out["lin_grid"], out["ang_grid"]
 
 
@@ -376,8 +392,9 @@ def sample_and_pack_window(key, maps, alpha_dyn, num_samples, layout,
       layouts), and the decoded int8 ``(M, rH, rW)`` grids (ang None with
       no ang plane).
 
-    On CUDA tensors this launches the kernel once and adds one to
-    ``sample_and_pack_window.launches``; on CPU tensors it runs
+    On CUDA tensors this launches the kernel once (once a chunk of
+    ``MAX_SCENARIOS`` scenarios) and adds one to
+    ``sample_and_pack_window.launches`` a launch; on CPU tensors it runs
     ``sample_and_pack_window_plain``.
     """
     if layout not in CELLS_PER_WORD and layout != "byte":
@@ -387,11 +404,11 @@ def sample_and_pack_window(key, maps, alpha_dyn, num_samples, layout,
         return sample_and_pack_window_plain(
             key, maps, alpha_dyn, num_samples, layout, window=window,
             risk=risk, m_offset=m_offset, full_num_samples=full_num_samples)
-    out = _launch(layout, key, maps.lin_pmf, maps.ang_pmf, maps.lin_qbins,
-                  maps.ang_qbins, alpha_dyn, num_samples, window, m_offset,
-                  full_num_samples, masks=(maps.obstacle, maps.unknown),
+    out = _launch(sample_and_pack_window, layout, key, maps.lin_pmf,
+                  maps.ang_pmf, maps.lin_qbins, maps.ang_qbins, alpha_dyn,
+                  num_samples, window, m_offset, full_num_samples,
+                  masks=(maps.obstacle, maps.unknown),
                   risk_map=maps.risk if risk else None)
-    sample_and_pack_window.launches += 1
     payload = (out["payload"] if layout == "byte" else
                (out["payload"], out["mask_words"], out["risk_words"]))
     return payload, out["lin_grid"], out["ang_grid"]
@@ -427,8 +444,9 @@ def sample_and_pack_crop(key, maps, task, num_samples, layout, roi_shape,
       window's start ``(oy, ox)`` as an int32 ``(2,)`` tensor.  Nothing is
       read on the host.
 
-    On CUDA tensors this launches the kernel once, in its crop mode, and
-    adds one to ``sample_and_pack_crop.launches``; on CPU tensors it runs
+    On CUDA tensors this launches the kernel once (once a chunk of
+    ``MAX_SCENARIOS`` scenarios), in its crop mode, and adds one to
+    ``sample_and_pack_crop.launches`` a launch; on CPU tensors it runs
     ``sample_and_pack_crop_plain``.
     """
     if layout not in CELLS_PER_WORD and layout != "byte":
@@ -438,13 +456,13 @@ def sample_and_pack_crop(key, maps, task, num_samples, layout, roi_shape,
         return sample_and_pack_crop_plain(
             key, maps, task, num_samples, layout, roi_shape, risk=risk,
             m_offset=m_offset, full_num_samples=full_num_samples)
-    out = _launch(layout, key, maps.lin_pmf, maps.ang_pmf, maps.lin_qbins,
-                  maps.ang_qbins, task.alpha_dyn, num_samples, None,
+    out = _launch(sample_and_pack_crop, layout, key, maps.lin_pmf,
+                  maps.ang_pmf, maps.lin_qbins, maps.ang_qbins,
+                  task.alpha_dyn, num_samples, None,
                   m_offset, full_num_samples,
                   masks=(maps.obstacle, maps.unknown),
                   risk_map=maps.risk if risk else None,
                   crop=(task, tuple(roi_shape)))
-    sample_and_pack_crop.launches += 1
     payload = (out["payload"] if layout == "byte" else
                (out["payload"], out["mask_words"], out["risk_words"]))
     lims = out["lims"]

@@ -27,7 +27,7 @@ import torch
 from ...models import kernel_model
 from ...types import per_scenario
 from .rollout_byte import (bind, check_fast_trig, check_scenario_args,
-                           plain_rollout, read_tiling, scenarios)
+                           chunked_launches, plain_rollout, read_tiling)
 
 KERNEL_SOURCE = "mppi_numba_tpu_torch/csrc/rollout_binned.cu"
 REPLACES = "mppi_numba_tpu/ops/pallas/rollout_kernel.py:387"
@@ -162,20 +162,32 @@ def _launch(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
     K = v_all.shape[-1]
     lead = tuple(cells.shape[:-2])          # (B,) or () for one scenario
     out = torch.empty(lead + (K, M), dtype=torch.float32, device=cells.device)
+
+    def launch(scen, samples, out_part, n, m):
+        mask_p, lut_p, risk_p, tv, v, w = scen
+        err = fn(samples[0].data_ptr(), mask_p.data_ptr(),
+                 0 if lut is None else lut_p.data_ptr(),
+                 0 if risk is None else risk_p.data_ptr(),
+                 tv.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 out_part.data_ptr(), K, m, H, W, T, n_words, n,
+                 task_vec.shape[-1], cell_bits, int(risk is not None),
+                 int(fast_trig), model, wheelbase, stream)
+        if err != 0:
+            raise RuntimeError("rollout_binned kernel launch failed: CUDA "
+                               "error {}".format(err))
+        terrain_rollout_costs_binned.launches += 1
+
+    def one(t):
+        if t is None:   # an absent plane: the mask stands in, never read
+            t = mask
+        return t if lead else t[None]
+
     # The runtime launches on its current device: make it the tensors'.
     with torch.cuda.device(cells.device):
         stream = torch.cuda.current_stream(cells.device).cuda_stream
-        err = fn(cells.data_ptr(), mask.data_ptr(),
-                 0 if lut is None else lut.data_ptr(),
-                 0 if risk is None else risk.data_ptr(),
-                 task_vec.data_ptr(), v_all.data_ptr(), w_all.data_ptr(),
-                 out.data_ptr(), K, M, H, W, T, n_words, scenarios(lead),
-                 task_vec.shape[-1], cell_bits, int(risk is not None),
-                 int(fast_trig), model, wheelbase, stream)
-    if err != 0:
-        raise RuntimeError("rollout_binned kernel launch failed: CUDA error "
-                           "{}".format(err))
-    terrain_rollout_costs_binned.launches += 1
+        chunked_launches(launch, [one(t) for t in (mask, lut, risk, task_vec,
+                                                   v_all, w_all)],
+                         [one(cells)], one(out))
     return out
 
 
@@ -209,8 +221,8 @@ def _check_cuda_args(cells, mask, lut, task_vec, v_all, w_all, risk, H, W,
         *check_scenario_args(lead, task_vec, v_all, w_all, T, K),
         (all(a.device == dev for a in (task_vec, v_all, w_all)),
          "all inputs must be on one device"),
-        (M >= 1 and K >= 1 and hw >= 1 and M < 65536,
-         "need K >= 1, 1 <= M < 65536 and a non-empty map"),
+        (M >= 1 and K >= 1 and hw >= 1,
+         "need K >= 1, M >= 1 and a non-empty map"),
     ]
     for ok, msg in checks:
         if not ok:

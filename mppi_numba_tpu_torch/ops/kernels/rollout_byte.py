@@ -32,6 +32,11 @@ REPLACES = "mppi_numba_tpu/ops/pallas/rollout_kernel.py:99"
 # Scalars the kernel reads, in this order (indices 0-17; 18 is kept for
 # layout parity with the JAX package's task tile).
 TASK_VEC_LEN = 19
+# What one launch's grid holds: scenarios (its z) and map samples (its y,
+# blocks of one or more samples).  Past them the wrappers launch in
+# chunks (``chunked_launches``).
+MAX_SCENARIOS = 65535
+MAX_SAMPLES = 65535
 
 
 def build_task_vec(task):
@@ -238,6 +243,33 @@ def kernel_tiling(*, speed_map=False, fast_trig=False, step_fn=None,
                            int(fast_trig), model)
 
 
+def chunked_launches(launch, per_scenario, per_sample, out):
+    """Launch a rollout kernel over scenario-leading tensors in as many
+    launches as its grid needs: ``launch(scenario_parts, sample_parts,
+    out_part, scenarios, samples)`` launches once.  ``per_scenario``:
+    tensors ``(B, ...)``; ``per_sample``: ``(B, M, ...)``; ``out``: ``(B,
+    K, M)``.  Up to ``MAX_SAMPLES`` samples, chunks of ``MAX_SCENARIOS``
+    scenarios (slices of every tensor); past it, a scenario and a run of
+    ``MAX_SAMPLES`` samples a launch, written to a buffer and copied into
+    ``out``'s columns.  Every (rollout, sample) cost is computed alone, so
+    the chunks give the same bits as one launch."""
+    B, K, M = out.shape
+    if M <= MAX_SAMPLES:
+        for b0 in range(0, B, MAX_SCENARIOS):
+            p = slice(b0, min(B, b0 + MAX_SCENARIOS))
+            launch([t[p] for t in per_scenario], [t[p] for t in per_sample],
+                   out[p], p.stop - b0, M)
+        return
+    for b in range(B):
+        p = slice(b, b + 1)
+        for m0 in range(0, M, MAX_SAMPLES):
+            q = slice(m0, min(M, m0 + MAX_SAMPLES))
+            part = out.new_empty((1, K, q.stop - m0))
+            launch([t[p] for t in per_scenario],
+                   [t[p, q] for t in per_sample], part, 1, q.stop - m0)
+            out[p, :, q].copy_(part)
+
+
 def _launch(words, task_vec, v_all, w_all, H, W, T, speed_map, fast_trig,
             model, wheelbase):
     fn = _entry_points()[0]
@@ -245,17 +277,24 @@ def _launch(words, task_vec, v_all, w_all, H, W, T, speed_map, fast_trig,
     K = v_all.shape[-1]
     lead = tuple(words.shape[:-3])          # (B,) or () for one scenario
     out = torch.empty(lead + (K, M), dtype=torch.float32, device=words.device)
+
+    def launch(scen, samples, out_part, n, m):
+        tv, v, w = scen
+        err = fn(samples[0].data_ptr(), tv.data_ptr(), v.data_ptr(),
+                 w.data_ptr(), out_part.data_ptr(), K, m, H, W, T, n,
+                 task_vec.shape[-1], int(speed_map), int(fast_trig), model,
+                 wheelbase, stream)
+        if err != 0:
+            raise RuntimeError("rollout_byte kernel launch failed: CUDA "
+                               "error {}".format(err))
+        terrain_rollout_costs_byte.launches += 1
+
+    one = (lambda t: t) if lead else (lambda t: t[None])
     # The runtime launches on its current device: make it the tensors'.
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        err = fn(words.data_ptr(), task_vec.data_ptr(), v_all.data_ptr(),
-                 w_all.data_ptr(), out.data_ptr(), K, M, H, W, T,
-                 scenarios(lead), task_vec.shape[-1], int(speed_map),
-                 int(fast_trig), model, wheelbase, stream)
-    if err != 0:
-        raise RuntimeError("rollout_byte kernel launch failed: CUDA error "
-                           "{}".format(err))
-    terrain_rollout_costs_byte.launches += 1
+        chunked_launches(launch, [one(task_vec), one(v_all), one(w_all)],
+                         [one(words)], one(out))
     return out
 
 
@@ -267,10 +306,10 @@ def scenarios(lead):
 def check_scenario_args(lead, task_vec, v_all, w_all, T, K):
     """Checks shared by both rollout kernels: the task vector ``lead +
     (>= 18,)`` and the controls ``lead + (T, K)``, with ``lead`` the
-    map's leading scenario axis (``()`` or ``(B,)``, 1 <= B < 65536)."""
+    map's leading scenario axis (``()`` or ``(B,)``, B >= 1)."""
     return [
-        (len(lead) <= 1 and 1 <= scenarios(lead) < 65536,
-         "need one scenario axis of 1 <= B < 65536"),
+        (len(lead) <= 1 and 1 <= scenarios(lead),
+         "need one scenario axis of B >= 1"),
         (task_vec.dtype == torch.float32
          and tuple(task_vec.shape[:-1]) == lead
          and task_vec.shape[-1] >= 18 and task_vec.is_contiguous(),
@@ -295,8 +334,8 @@ def _check_cuda_args(words, task_vec, v_all, w_all, H, W, T):
         *check_scenario_args(lead, task_vec, v_all, w_all, T, K),
         (all(a.device == dev for a in (task_vec, v_all, w_all)),
          "all inputs must be on one device"),
-        (M >= 1 and K >= 1 and H >= 1 and W >= 1 and M < 65536,
-         "need K >= 1, 1 <= M < 65536 and a non-empty map"),
+        (M >= 1 and K >= 1 and H >= 1 and W >= 1,
+         "need K >= 1, M >= 1 and a non-empty map"),
     ]
     for ok, msg in checks:
         if not ok:

@@ -10,6 +10,13 @@ noise sum, the add and the clamps in one launch.  Both versions sum in the
 halving tree's order (``ops/tree.py``), so the kernel equals the plain
 version bit for bit.
 
+Past ``FUSED_K`` rollouts the update takes the wide path, four launches
+of ``csrc/update_wide.cu`` (``update_wide_min``, ``_eta``, ``_noise``,
+``_finish``), a library of its own: the padded K positions split over
+blocks by their low bits, the halving tree's last levels summed across
+them in order, so it too equals the plain version bit for bit.
+Scenarios past 65,535 launch in chunks (the grid's y).
+
 The plain version also takes the process group a K axis is split over
 (the sharded solve's k-split update): its three reductions then run
 across the group between the all-reduces, in the same tree order, so at
@@ -29,12 +36,23 @@ from ..tree import padded_length, tree_sum
 from .cvar_costs import H100_SMS, check_tensor
 
 KERNEL_SOURCE = "mppi_numba_tpu_torch/csrc/update_useq.cu"
+WIDE_KERNEL_SOURCE = "mppi_numba_tpu_torch/csrc/update_wide.cu"
 REPLACES = ("mppi_numba_tpu/ops/update.py:23-55 (update_useq), XLA-fused; "
             "no Pallas kernel")
-# Rollouts a scenario: a block of up to 512 threads holds at most 64
-# tree positions a thread.
-MAX_K = 32768
+# The one-launch kernel's largest K: a block of up to 512 threads holds
+# at most 64 tree positions a thread (the source's kFusedK); past it the
+# wide path.
+FUSED_K = 32768
 STEPS_PER_BLOCK = 4   # the kernel's kSteps
+WIDE_POSITIONS = 4096  # the wide path's positions a block (kWidePer)
+# Scenarios a launch: the grid's y.
+MAX_SCENARIOS = 65535
+
+
+def wide_blocks(K):
+    """The wide path's G, blocks a scenario (and the tree's last levels):
+    the padded K over ``WIDE_POSITIONS``."""
+    return max(padded_length(K), WIDE_POSITIONS) // WIDE_POSITIONS
 
 
 def launch_shape(B, K, T, sms=H100_SMS):
@@ -81,8 +99,8 @@ def update_useq_plain(costs, noise, u_cur, lambda_weight, vrange, wrange,
 
 @functools.lru_cache(maxsize=None)
 def _entry_point():
-    """The library's launch entry point, built and loaded on first use, its
-    ctypes signature set once."""
+    """The one-launch kernel's library's entry points, built and loaded on
+    first use, their ctypes signatures set once."""
     from ._build import load
 
     lib = load("update_useq")
@@ -92,6 +110,19 @@ def _entry_point():
     fn.restype = ctypes.c_int
     lib.update_useq_prepare.restype = ctypes.c_int
     return fn, lib.update_useq_prepare
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_entry_point():
+    """The wide path's library (``csrc/update_wide.cu``), built and loaded
+    on first use, its launch's ctypes signature set once."""
+    from ._build import load
+
+    fn = load("update_wide").update_useq_wide_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,10 +154,9 @@ def check_args(costs, noise, u_cur, lambda_weight, vrange, wrange):
             ("vrange", vrange, lead + (2,)), ("wrange", wrange, lead + (2,))):
         check_tensor("update_useq: " + what, t, shape, dev)
     B = lead[0] if lead else 1
-    if not (1 <= K <= MAX_K and 1 <= B <= 65535 and T >= 1):
-        raise ValueError("update_useq: K = {} rollouts (at most {}), {} "
-                         "scenarios (at most 65535), T = {}".format(
-                             K, MAX_K, B, T))
+    if not (1 <= K < 2 ** 31 and B >= 1 and T >= 1):
+        raise ValueError("update_useq: K = {} rollouts, {} scenarios, T = "
+                         "{} out of range".format(K, B, T))
     return B, K, T
 
 
@@ -134,7 +164,7 @@ def update_useq_fused(costs, noise, u_cur, lambda_weight, vrange, wrange):
     """One MPPI control update.
 
     Args:
-      costs: float32 ``(K,)`` rollout costs, K <= ``MAX_K``.
+      costs: float32 ``(K,)`` rollout costs.
       noise: float32 ``(K, T, 2)`` control perturbations.
       u_cur: float32 ``(T, 2)`` nominal controls.
       lambda_weight: float32 0-d temperature.
@@ -146,34 +176,91 @@ def update_useq_fused(costs, noise, u_cur, lambda_weight, vrange, wrange):
     Returns:
       ``(u_new (T, 2), weights (K,))``, with the arguments' leading axis.
 
-    On CUDA tensors this launches the kernel once and adds one to
-    ``update_useq_fused.launches``; on CPU tensors it runs
+    On CUDA tensors this launches the kernel once (once for every
+    ``MAX_SCENARIOS`` scenarios) and adds one to
+    ``update_useq_fused.launches`` a launch; past ``FUSED_K`` rollouts it
+    is ``update_useq_wide``.  On CPU tensors it runs ``update_useq_plain``.
+    """
+    if not costs.is_cuda:
+        return update_useq_plain(costs, noise, u_cur, lambda_weight, vrange,
+                                 wrange)
+    if costs.shape[-1] > FUSED_K:
+        return update_useq_wide(costs, noise, u_cur, lambda_weight, vrange,
+                                wrange)
+    return _launch(update_useq_fused, costs, noise, u_cur, lambda_weight,
+                   vrange, wrange)
+
+
+update_useq_fused.launches = 0
+
+
+def update_useq_wide(costs, noise, u_cur, lambda_weight, vrange, wrange):
+    """``update_useq_fused`` past ``FUSED_K`` rollouts: the wide path's
+    four launches (``update_wide_min``, ``_eta``, ``_noise``, ``_finish``),
+    the padded K positions split over ``wide_blocks(K)`` blocks a scenario
+    by their low bits.  Arguments and result as for ``update_useq_fused``,
+    K > ``FUSED_K``.
+
+    On CUDA tensors this makes the four launches (again for every
+    ``MAX_SCENARIOS`` scenarios) and adds one to
+    ``update_useq_wide.launches`` each time; on CPU tensors it runs
     ``update_useq_plain``.
     """
     if not costs.is_cuda:
         return update_useq_plain(costs, noise, u_cur, lambda_weight, vrange,
                                  wrange)
+    if costs.shape[-1] <= FUSED_K:
+        raise ValueError("update_useq_wide: K = {} rollouts; the wide path "
+                         "takes K > {} (update_useq_fused the rest)".format(
+                             costs.shape[-1], FUSED_K))
+    return _launch(update_useq_wide, costs, noise, u_cur, lambda_weight,
+                   vrange, wrange)
+
+
+update_useq_wide.launches = 0
+
+
+def _launch(counted, costs, noise, u_cur, lambda_weight, vrange, wrange):
+    """Check the inputs and launch the one-launch kernel, or past
+    ``FUSED_K`` the wide path, once for every ``MAX_SCENARIOS``
+    scenarios, adding one to ``counted.launches`` each time."""
     B, K, T = check_args(costs, noise, u_cur, lambda_weight, vrange, wrange)
     dev = costs.device
+    lead = tuple(costs.shape[:-1])
     ins = [t.contiguous() for t in (costs, noise, u_cur, lambda_weight,
                                     vrange, wrange)]
     if ins[1].data_ptr() % 8:   # the kernel copies the noise 8 bytes a time
         ins[1] = ins[1].clone()
-    u_new = torch.empty(tuple(u_cur.shape), dtype=torch.float32, device=dev)
-    weights = torch.empty(tuple(costs.shape), dtype=torch.float32,
-                          device=dev)
-    width, cluster = launch_shape(B, K, T, _prepared(dev.index))
+    u_new = torch.empty(lead + (T, 2), dtype=torch.float32, device=dev)
+    weights = torch.empty(lead + (K,), dtype=torch.float32, device=dev)
+    sms = _prepared(dev.index)
+    if not lead:
+        ins = [t.reshape((1,) + tuple(t.shape)) for t in ins]
+    outs = (u_new.view(B, T, 2), weights.view(B, K))
+    wide = K > FUSED_K
+    if wide:
+        G, chunks = wide_blocks(K), -(-T // STEPS_PER_BLOCK)
+        scratch = (torch.empty((B, G), dtype=torch.int32, device=dev),
+                   torch.empty((B, G), dtype=torch.float32, device=dev),
+                   torch.empty((B, chunks, 2 * STEPS_PER_BLOCK, G),
+                               dtype=torch.float32, device=dev))
     # The runtime launches on its current device: make it the tensors'.
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry_point()[0](*(t.data_ptr() for t in ins),
-                                u_new.data_ptr(), weights.data_ptr(), B, K,
-                                T, width, cluster, stream)
-    if err != 0:
-        raise RuntimeError("update_useq kernel launch failed: CUDA error "
-                           "{}".format(err))
-    update_useq_fused.launches += 1
+        for b0 in range(0, B, MAX_SCENARIOS):
+            part = slice(b0, min(B, b0 + MAX_SCENARIOS))
+            n = part.stop - b0
+            ptrs = [t[part].data_ptr() for t in (*ins, *outs)]
+            if wide:
+                err = _wide_entry_point()(
+                    *ptrs, *(t[part].data_ptr() for t in scratch), n, K, T,
+                    stream)
+            else:
+                width, cluster = launch_shape(n, K, T, sms)
+                err = _entry_point()[0](*ptrs, n, K, T, width, cluster,
+                                        stream)
+            if err != 0:
+                raise RuntimeError("{} kernel launch failed: CUDA error "
+                                   "{}".format(counted.__name__, err))
+            counted.launches += 1
     return u_new, weights
-
-
-update_useq_fused.launches = 0

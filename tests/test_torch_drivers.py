@@ -24,7 +24,7 @@ from mppi_numba_tpu_torch.drivers import (bench, bigmap_bench,
                                           engine_ab_check, full_benchmark,
                                           model_bench, profile_flagship,
                                           scaling_bench, serve_bench,
-                                          tail_bench)
+                                          summarize_benchmark, tail_bench)
 
 from tests import torch_parallel_ranks as ranks
 
@@ -477,6 +477,38 @@ def test_full_benchmark_pickle_without_pandas(full_benchmark_run,
     methods = full_benchmark.PAPER_METHOD_LIST
     assert full_benchmark.tables(back, methods, full_benchmark.ALPHA_LIST)[
         "success_by_method"] == run["success_by_method"]
+
+
+def test_summarize_benchmark_renders_the_port_pickle(full_benchmark_run,
+                                                   tmp_path):
+    """``summarize_benchmark`` on ``full_benchmark``'s small pickle, picked
+    as the newest under its directory: the three tables with every method
+    and alpha, the trial count and the card line written beside the pickle
+    (here the host's label), into the file named, never 'TPU'; it refuses
+    to write BENCHMARK_RESULTS.md."""
+    (run, saved), out = full_benchmark_run
+    path = saved["saved"]
+    assert summarize_benchmark.newest_pickle(str(out)) == path
+    with open(summarize_benchmark.card_path(path)) as fh:
+        assert fh.read().startswith("cpu: host run")
+    target = tmp_path / "summary.md"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert summarize_benchmark.main(["--dir", str(out), "--out",
+                                         str(target)]) == 0
+    assert buf.getvalue().strip() == str(target)
+    text = target.read_text()
+    assert "TPU" not in text and "Card: cpu: host run" in text
+    assert text.count("\n## ") == 3 and "80 closed-loop trials" in text
+    for m in full_benchmark.PAPER_METHOD_LIST:
+        assert "| {} | {:.3f} |".format(m, run["success_by_method"][m]) in text
+    header = "| method | " + " | ".join(
+        str(a) for a in full_benchmark.ALPHA_LIST) + " |"
+    assert header in text
+    with pytest.raises(SystemExit):
+        summarize_benchmark.main([path, "--out",
+                                  str(tmp_path / "BENCHMARK_RESULTS.md")])
+    assert not (tmp_path / "BENCHMARK_RESULTS.md").exists()
 
 
 def test_full_benchmark_tables_of_the_jax_pickle():

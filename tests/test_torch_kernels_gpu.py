@@ -10,6 +10,8 @@ Each test decides inside itself whether a card is present and skips where
 none is, so every pytest worker collects the same tests.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1189,15 +1191,16 @@ def test_rollout_scenarios_reject_mismatched_axes_on_card():
     assert kernel.launches == before
 
 
-def _sweep_chunk(dev, method, B, K=1024, M=1024):
+def _sweep_chunk(dev, method, B, K=1024, M=1024, T=10.0):
     """The first B episodes of the reference benchmark sweep at alpha 0.6
     (``benchmark.DeviceSweep``: 9x9 grids padded to 11x11, 22 bins):
-    ``(static, maps, task, gt)`` of ``method``."""
+    ``(static, maps, task, gt)`` of ``method``; ``M`` past the Config's
+    15,000 is set after it (the static's), as its message invites."""
     from mppi_numba_tpu_torch import benchmark
 
     world = benchmark.make_benchmark_world(num_bins=20,
                                            rng=np.random.RandomState(0))
-    cfg = Config(T=10.0, dt=0.1, num_grid_samples=M, num_control_rollouts=K,
+    cfg = Config(T=T, dt=0.1, num_grid_samples=M, num_control_rollouts=K,
                  max_speed_padding=5.0, max_map_dim=(15, 15), seed=1,
                  use_tdm=True)
     sweep = benchmark.DeviceSweep(
@@ -1205,6 +1208,8 @@ def _sweep_chunk(dev, method, B, K=1024, M=1024):
         benchmark.default_benchmark_params(cfg, (9, 9), 1),
         [1.0, 0.7, 0.4, 0.1], 10, 3, device=dev)
     _, static, maps, task = sweep.inputs(method, 0.6)
+    if method == "noisy_dyn" and static.num_grid_samples != M:
+        static = dataclasses.replace(static, num_grid_samples=M)
 
     def first(tree):
         return type(tree)(*(None if x is None else x[:B] for x in tree))
@@ -1791,17 +1796,14 @@ def test_cvar_costs_kernel_matches_plain_on_card(B, K, M, T, dynamic):
 
 
 def test_cvar_costs_kernel_rejects_bad_inputs_on_card():
-    """An M past the cap, a CPU tensor among CUDA ones, two counts or none:
-    raised before any launch."""
+    """A CPU tensor among CUDA ones, two counts or none: raised before any
+    launch."""
     from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
 
     dev = _cuda_or_skip()
     costs, noise, u, u_std, lam, alpha, _, _ = _tail_inputs(dev, None, 8,
                                                             16, 5)
     before = kc.cvar_costs.launches
-    big = torch.zeros((8, kc.MAX_M + 1), device=dev)
-    with pytest.raises(ValueError, match=str(kc.MAX_M)):
-        kc.cvar_costs(big, noise, u, u_std, lam, numel=3)
     with pytest.raises(ValueError):
         kc.cvar_costs(costs, noise.cpu(), u, u_std, lam, numel=3)
     with pytest.raises(ValueError):
@@ -1836,11 +1838,6 @@ def test_update_useq_kernel_matches_plain_on_card(B, K, T):
         for g_, w_ in zip(got, want):
             assert g_.shape == w_.shape
             assert torch.equal(_bits(g_), _bits(w_))
-    with pytest.raises(ValueError, match=str(ku.MAX_K)):
-        ku.update_useq_fused(torch.zeros(ku.MAX_K + 1, device=dev),
-                             torch.zeros((ku.MAX_K + 1, T, 2), device=dev),
-                             u[0] if B else u, lam[0] if B else lam,
-                             vr[0] if B else vr, wr[0] if B else wr)
 
 
 @pytest.mark.parametrize("dynamic", [False, True])
@@ -2014,5 +2011,270 @@ def test_solve_past_the_old_cvar_cap_graph_equals_eager_on_card(dynamic):
         u_e, aux_e = solver(gens[1], maps, task, u_e)
         assert torch.equal(u_g, u_e)
         assert torch.equal(aux_g.costs, aux_e.costs)
+        assert torch.equal(aux_g.weights, aux_e.weights)
+        assert bool(torch.isfinite(u_g).all())
+
+
+# The shapes past the tail kernels' former caps: T past the 4,096 steps a
+# team stages (the coupling streamed) at every team size, M past the
+# 16,384 keys a team sorts (the wide kernel), and at 16,384 itself.
+LIFTED_CVAR = [(None, 64, 16, 4097), (None, 37, 16, 20000),
+               (3, 37, 300, 4100), (None, 37, 2000, 5000),
+               (None, 16, 10000, 4097), (2, 9, 16384, 20),
+               (None, 8, 32768, 20), (2, 7, 70000, 20),
+               (None, 8, 20000, 4097)]
+
+
+@pytest.mark.parametrize("B,K,M,T", LIFTED_CVAR)
+def test_cvar_costs_past_the_former_caps_on_card(B, K, M, T):
+    """The CVaR plus coupling at shapes the kernel refused before, against
+    its plain version, bit for bit, at numel ceil(0.2 M), 1 and M and at
+    alphas 0.2 and 1 (ties, crashes and a NaN among the costs); each
+    static count equals the same count from alpha."""
+    import math
+
+    from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
+
+    dev = _cuda_or_skip()
+    costs, noise, u, u_std, lam, _, _, _ = _tail_inputs(dev, B, K, M, T,
+                                                        seed=M + T)
+    n = 1 if B is None else B
+    wide = M > kc.SORTED_M
+    counted = kc.cvar_costs_wide if wide else kc.cvar_costs
+    before = counted.launches
+    calls = 0
+    for kw in ([dict(numel=v) for v in (math.ceil(0.2 * M), 1, M)]
+               + [dict(alpha=torch.full((n,) if B else (), a, device=dev))
+                  for a in (0.2, 1.0)]):
+        want = kc.cvar_costs_plain(costs, noise, u, u_std, lam, **kw)
+        got = kc.cvar_costs(costs, noise, u, u_std, lam, **kw)
+        calls += 1
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want)), kw
+        if "numel" in kw:
+            alpha = torch.full((n,) if B else (), (kw["numel"] - 0.5) / M,
+                               device=dev)
+            same = kc.cvar_costs(costs, noise, u, u_std, lam, alpha=alpha)
+            calls += 1
+            assert torch.equal(_bits(same), _bits(got)), kw
+    assert counted.launches == before + calls
+
+
+@pytest.mark.parametrize("kind", ["equal", "ties", "specials"])
+def test_cvar_wide_kernel_edges_on_card(kind):
+    """The wide kernel on rows of equal costs, of ties at the threshold
+    and of NaN / +-inf / +-0.0, at counts 1, 16,384 (one round), 16,385
+    and M (rounds that end among equal keys), past M and <= 0."""
+    from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
+
+    dev = _cuda_or_skip()
+    B, K, M, T = 2, 5, 40000, 9
+    costs = _edge_costs(dev, kind, B, K, M)
+    _, noise, u, u_std, lam, _, _, _ = _tail_inputs(dev, B, K, 8, T)
+    counts = [dict(numel=v) for v in (1, 16384, 16385, 33000, M, M + 5)] + [
+        dict(alpha=torch.full((B,), a, device=dev)) for a in (1.3, 0.0, -0.5)]
+    for kw in counts:
+        want = kc.cvar_costs_plain(costs, noise, u, u_std, lam, **kw)
+        got = kc.cvar_costs(costs, noise, u, u_std, lam, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want)), kw
+
+
+@pytest.mark.parametrize("B,K,T", [(None, 32769, 9), (None, 40000, 50),
+                                   (3, 40000, 7), (None, 100000, 50),
+                                   (None, 1000000, 50), (2, 65536, 130)])
+def test_update_useq_past_the_former_cap_on_card(B, K, T):
+    """The update at K past 32,768 (the wide path's four launches) against
+    its plain version, bit for bit, with and without a NaN cost."""
+    from mppi_numba_tpu_torch.ops.kernels import update_useq as ku
+
+    dev = _cuda_or_skip()
+    costs, noise, u, _, lam, _, vr, wr = _tail_inputs(dev, B, K, 1, T,
+                                                      seed=K)
+    costs = costs[..., 0].contiguous()
+    before = (ku.update_useq_fused.launches, ku.update_useq_wide.launches)
+    for c in (costs, costs.clone().index_fill_(-1, torch.tensor(
+            [K // 3], device=dev), float("nan"))):
+        want = ku.update_useq_plain(c, noise, u, lam, vr, wr)
+        got = ku.update_useq_fused(c, noise, u, lam, vr, wr)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            assert g_.shape == w_.shape
+            assert torch.equal(_bits(g_), _bits(w_))
+    assert (ku.update_useq_fused.launches,
+            ku.update_useq_wide.launches) == (before[0], before[1] + 2)
+
+
+def _scenarios_expanded(t, B):
+    """``t`` with a leading axis of B scenarios (a copy a scenario)."""
+    return t.expand((B,) + tuple(t.shape)).contiguous()
+
+
+def test_launches_past_65535_scenarios_equal_per_chunk_launches_on_card():
+    """65,539 scenarios (K = 32, M = 1, 11 x 11; every scenario its own
+    key) in one call of each scenario-axis wrapper: the map sampler (byte
+    and 8-bit-cell payloads), both rollout kernels and the update launch
+    twice (65,535 and 4 scenarios), each result bit for bit the calls on
+    those two slices, and the last scenarios bit for bit their plain
+    versions."""
+    from mppi_numba_tpu_torch.types import MapInputs
+    from mppi_numba_tpu_torch.ops.kernels import update_useq as ku
+
+    dev = _cuda_or_skip()
+    B, K, M, T, H, W = 65539, 32, 1, 5, 11, 11
+    args, _ = _map_sample_args(dev, M, H, W, (0, 0, H, W), 12, 12, 1.0)
+    one = _fused_maps(args, risk_seed=3)
+    maps = MapInputs(*(_scenarios_expanded(t, B) for t in one))
+    g = torch.Generator(device=dev).manual_seed(9)
+    key = torch.randint(0, 2 ** 31, (B, 2), generator=g, device=dev)
+    alpha = torch.ones(B, device=dev)
+    parts = (slice(0, 65535), slice(65535, B))
+
+    def cut(tree, p):
+        return type(tree)(*(None if t is None else t[p] for t in tree))
+
+    fused = map_sample.sample_and_pack_window
+    payloads = {}
+    for layout in ("byte", "binned8"):
+        before = fused.launches
+        whole = fused(key, maps, alpha, M, layout)
+        assert fused.launches == before + 2
+        for p in parts:
+            _assert_same(_stack_free(whole, p),
+                         fused(key[p], cut(maps, p), alpha[p], M, layout),
+                         (layout, p))
+        payloads[layout] = whole[0]
+    task_vec = _scenarios_expanded(rollout_byte.build_task_vec(_task(dev)),
+                                   B)
+    v = torch.rand((B, T, K), generator=g, device=dev) * 2
+    w = torch.rand((B, T, K), generator=g, device=dev) * 2 - 1
+    words = payloads["byte"]
+    kernel = rollout_byte.terrain_rollout_costs_byte
+    before = kernel.launches
+    costs = kernel(words, task_vec, v, w, H=H, W=W, T=T)
+    assert kernel.launches == before + 2
+    for p in parts:
+        assert torch.equal(_bits(costs[p]), _bits(kernel(
+            words[p], task_vec[p], v[p], w[p], H=H, W=W, T=T)))
+    assert torch.equal(_bits(costs[-3:]), _bits(
+        rollout_byte.terrain_rollout_costs_byte_plain(
+            words[-3:], task_vec[-3:], v[-3:], w[-3:], H=H, W=W, T=T)))
+    cells, mask, _ = payloads["binned8"]
+    binned = rollout_binned.terrain_rollout_costs_binned
+    before = binned.launches
+    bcosts = binned(cells, mask, None, task_vec, v, w, H=H, W=W, T=T,
+                    cell_bits=8)
+    assert binned.launches == before + 2
+    for p in parts:
+        assert torch.equal(_bits(bcosts[p]), _bits(binned(
+            cells[p], mask[p], None, task_vec[p], v[p], w[p], H=H, W=W,
+            T=T, cell_bits=8)))
+    assert torch.equal(_bits(bcosts[-3:]), _bits(
+        rollout_binned.terrain_rollout_costs_binned_plain(
+            cells[-3:], mask[-3:], None, task_vec[-3:], v[-3:], w[-3:],
+            H=H, W=W, T=T, cell_bits=8)))
+    noise = torch.randn((B, K, T, 2), generator=g, device=dev)
+    u = torch.rand((B, T, 2), generator=g, device=dev)
+    lam = torch.ones(B, device=dev)
+    vr = _scenarios_expanded(torch.tensor([0.0, 2.0], device=dev), B)
+    wr = _scenarios_expanded(torch.tensor([-2.5, 2.5], device=dev), B)
+    c = costs[..., 0].contiguous()
+    before = ku.update_useq_fused.launches
+    got = ku.update_useq_fused(c, noise, u, lam, vr, wr)
+    assert ku.update_useq_fused.launches == before + 2
+    for p in parts:
+        part = ku.update_useq_fused(c[p], noise[p], u[p], lam[p], vr[p],
+                                    wr[p])
+        for a, b in zip(got, part):
+            assert torch.equal(_bits(a[p]), _bits(b))
+    want = ku.update_useq_plain(c[-3:], noise[-3:], u[-3:], lam[-3:],
+                                vr[-3:], wr[-3:])
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a[-3:]), _bits(b))
+
+
+def _stack_free(out, p):
+    """A sampler's result (tensors, tuples of them, Nones) cut to the
+    scenarios ``p``."""
+    if isinstance(out, tuple):
+        return tuple(_stack_free(o, p) for o in out)
+    return None if out is None else out[p]
+
+
+@pytest.mark.parametrize("M", [65541, 70000])
+def test_rollouts_past_65535_map_samples_on_card(M):
+    """Both rollout kernels at M past 65,535 (runs of 65,535 samples a
+    launch, copied into the costs' columns) against their plain versions,
+    bit for bit, and the byte kernel against the binned one."""
+    dev = _cuda_or_skip()
+    K, T, H, W = 32, 7, 3, 4
+    words, task_vec, v, w = _inputs(dev, K, M, T, H, W, True, False)[:4]
+    kernel = rollout_byte.terrain_rollout_costs_byte
+    before = kernel.launches
+    got = kernel(words, task_vec, v, w, H=H, W=W, T=T)
+    assert kernel.launches == before + 2
+    want = rollout_byte.terrain_rollout_costs_byte_plain(
+        words, task_vec, v, w, H=H, W=W, T=T)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("M,T", [(1024, 409.7), (20000, 10.0),
+                                 (70000, 10.0)])
+def test_lifted_terrain_solves_graph_equals_eager_on_card(M, T):
+    """Terrain solves past the former caps (4,097 steps; 20,000 and
+    70,000 map samples, set after the Config as its message invites), two
+    scenarios at the run-time alpha: captured in a CUDA graph and
+    replayed, against eager solves from a generator of the same seed, bit
+    for bit, each replay launching the CVaR kernel (the wide one past
+    16,384 samples) and the update once an iteration."""
+    from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
+    from mppi_numba_tpu_torch.solver import TerrainSolver
+
+    dev = _cuda_or_skip()
+    static, maps, task, _ = _sweep_chunk(dev, "noisy_dyn", 2, M=M, T=T)
+    assert (static.num_grid_samples, static.num_steps) == (
+        M, int(T / 0.1 + 1e-6))
+    solver = TerrainSolver(static, dev)
+    u0 = torch.zeros((2, static.num_steps, 2), device=dev) + 0.2
+    gens = [torch.Generator(device=dev).manual_seed(4) for _ in range(2)]
+    graph = solver.capture(gens[0], maps, task, u0.clone())
+    cvar = "cvar_costs_wide" if M > kc.SORTED_M else "cvar_costs"
+    assert graph.captured_launches[cvar] == static.num_opt
+    assert graph.captured_launches["update_useq_fused"] == static.num_opt
+    u_e = u0
+    for _ in range(2):
+        u_g, aux_g = graph(gens[0], maps, task, graph.u0)
+        u_e, aux_e = solver(gens[1], maps, task, u_e)
+        assert torch.equal(u_g, u_e)
+        assert torch.equal(aux_g.costs, aux_e.costs)
+        assert torch.equal(aux_g.weights, aux_e.weights)
+        assert bool(torch.isfinite(u_g).all())
+
+
+@pytest.mark.parametrize("K", [100000, 1000000])
+def test_lifted_barebone_solves_graph_equals_eager_on_card(K):
+    """The barebone engine at K = 100,000 and 1,000,000 (its Config's
+    ceiling): ``BareboneSolver.capture`` replayed twice against eager
+    solves from a generator of the same seed, bit for bit, each replay
+    launching the wide update."""
+    from mppi_numba_tpu_torch import BareboneConfig, BareboneMPPI
+    from mppi_numba_tpu_torch.solver import get_barebone_solver
+
+    dev = _cuda_or_skip()
+    planner = _barebone_planner(dev)
+    cfg = BareboneConfig(T=5.0, dt=0.1, num_control_rollouts=K, seed=1)
+    assert cfg.num_control_rollouts == K
+    big = BareboneMPPI(cfg, device=dev)
+    big.setup(planner.params)
+    static, task = big._static(), big._task_device
+    solver = get_barebone_solver(static, dev)
+    g, g2 = (torch.Generator(device=dev).manual_seed(6) for _ in range(2))
+    graph = solver.capture(g, task, torch.zeros((50, 2), device=dev))
+    assert graph.captured_launches["update_useq_wide"] == static.num_opt
+    u_e = torch.zeros((50, 2), device=dev)
+    for _ in range(2):
+        u_g, aux_g = graph(g, task, graph.u0)
+        u_e, aux_e = solver(g2, task, u_e)
+        assert torch.equal(u_g, u_e)
         assert torch.equal(aux_g.weights, aux_e.weights)
         assert bool(torch.isfinite(u_g).all())

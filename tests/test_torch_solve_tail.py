@@ -240,10 +240,10 @@ PATH_M = {"det_barebone": 1, "confidence": 64, "external": 512,
 
 @pytest.mark.parametrize("path", sorted(PATH_M))
 def test_the_kernel_cap_covers_every_path(path):
-    """The kernel's M cap holds every path's M; past it the argument
-    check raises, naming the cap."""
+    """Every path's M takes the team kernel (a row sorted by one team),
+    and the argument check accepts it."""
     M = PATH_M[path]
-    assert M <= kcvar.MAX_M
+    assert kcvar.kernel_path(1, 8, M, 5)[0] == "cvar_costs_kernel"
     K, T = 8, 5
     args = [torch.zeros(K, M), torch.zeros(K, T, 2), torch.zeros(T, 2),
             torch.ones(2), torch.tensor(1.0)]
@@ -252,18 +252,40 @@ def test_the_kernel_cap_covers_every_path(path):
 
 
 def test_the_kernel_cap_raises_past_it():
-    M = kcvar.MAX_M + 1
+    """Of the argument checks' refusals only the count's remains: the M
+    and K caps are gone (``test_check_args_accept_the_lifted_shapes``)."""
+    M = 70000
     args = [torch.zeros(4, M), torch.zeros(4, 3, 2), torch.zeros(3, 2),
             torch.ones(2), torch.tensor(1.0)]
-    with pytest.raises(ValueError, match=str(kcvar.MAX_M)):
-        kcvar.check_args(*args, numel=5, alpha=None)
     with pytest.raises(ValueError, match="one of numel and alpha"):
         kcvar.check_args(*args, numel=None, alpha=None)
-    costs = torch.zeros(kupdate.MAX_K + 1)
-    with pytest.raises(ValueError, match=str(kupdate.MAX_K)):
-        kupdate.check_args(costs, torch.zeros(kupdate.MAX_K + 1, 3, 2),
-                           torch.zeros(3, 2), torch.tensor(1.0),
-                           torch.zeros(2), torch.zeros(2))
+
+
+# Shapes the kernels' argument checks once refused: T past 4,096 steps,
+# M past 15,000 map samples (70,000: past the rollouts' former 65,535 too)
+# and K up to the barebone Config's 1e6 rollouts, with and without a
+# scenario axis.
+LIFTED = {"T4097": (None, 8, 4, 4097), "T20000": (2, 8, 4, 20000),
+          "M70000": (None, 4, 70000, 3), "M70000_B2": (2, 4, 70000, 3),
+          "K1000000": (None, 1000000, 1, 3)}
+
+
+@pytest.mark.parametrize("name", sorted(LIFTED))
+def test_check_args_accept_the_lifted_shapes(name):
+    """Both tail kernels' argument checks accept T = 4,097 and 20,000,
+    M = 70,000 and K = 1e6 on CPU tensors, naming the shapes back."""
+    B, K, M, T = LIFTED[name]
+    lead = () if B is None else (B,)
+    n = () if B is None else (B,)
+    costs = torch.zeros(lead + (K, M))
+    noise = torch.zeros(lead + (K, T, 2))
+    u = torch.zeros(lead + (T, 2))
+    assert kcvar.check_args(
+        costs, noise, u, torch.ones(n + (2,)), torch.ones(n), numel=None,
+        alpha=torch.full(n, 0.2)) == (B or 1, K, M, T)
+    assert kupdate.check_args(
+        costs[..., 0], noise, u, torch.ones(n), torch.zeros(n + (2,)),
+        torch.zeros(n + (2,))) == (B or 1, K, T)
 
 
 CSRC = Path(kcvar.__file__).resolve().parents[2] / "csrc"
@@ -290,23 +312,55 @@ def _update_instance(K, shape):
     return max(padded_length(K), 32) // width, cluster
 
 
+def _source_has(source, *patterns):
+    text = (CSRC / source).read_text()
+    return all(re.search(p, text) for p in patterns)
+
+
 @pytest.mark.parametrize("B", [1, 3, 30])
 @pytest.mark.parametrize("K", [1, 17, 512, 1000, 1024, 2048, 10240, 15000,
-                               kupdate.MAX_K])
+                               kupdate.FUSED_K, kupdate.FUSED_K + 1, 40000,
+                               100000, 1000000])
 def test_every_launch_shape_the_launchers_pick_is_compiled(B, K):
     """Whatever the launchers pick (host arithmetic on the shapes) is an
     instantiation the kernels' sources compile, with at most 8 own rows a
     thread for the update: a shape past them would return
-    cudaErrorInvalidValue."""
-    cvar_shapes = _compiled("cvar_costs.cu", "CVAR_SHAPES")
+    cudaErrorInvalidValue.  Past T = 4,096 every CVaR instantiation's
+    streamed twin, past M = 16,384 the wide CVaR kernel (1,024 threads),
+    past K = 32,768 the wide update (at least 16 blocks a scenario, each
+    4,096 positions)."""
+    cvar_shapes = _compiled("cvar_common.cuh", "CVAR_SHAPES")
     update_shapes = _compiled("update_useq.cu", "UPDATE_SHAPES")
     assert all(a // c <= 8 for a, c in update_shapes)
+    # Each (threads, keys) shape's launch instantiates both twins, the
+    # staged one in cvar_costs.cu's library, the streamed in cvar_wide.cu's.
+    assert _source_has("cvar_costs.cu",
+                       r"cvar_costs_kernel<TPR_, E_, false><<<")
+    assert _source_has("cvar_wide.cu", r"cvar_costs_kernel<TPR_, E_, true><<<",
+                       r"cvar_wide_kernel<<<")
+    assert _source_has("cvar_common.cuh", r"kSortedM = kWideTPR \* 16",
+                       r"kStagedT = 4096")
     for M in (1, 2, 64, 65, 512, 1000, 1024, 1025, 4096, 5000, 8192,
-              kcvar.MAX_M):
-        for sms in (132, 114, 8):
-            tpr = kcvar.threads_per_row(B, K, M, sms)
-            assert _cvar_instance(tpr, M) in cvar_shapes, (M, sms, tpr)
-    for T in (1, 7, 40, 100, 4096):
+              15000, 16384, 16385, 32768, 70000):
+        for T in (1, 100, 4096, 4097, 20000):
+            for sms in (132, 114, 8):
+                path, tpr, E, streamed = kcvar.kernel_path(B, K, M, T, sms)
+                assert streamed == (T > kcvar.STAGED_T or M > kcvar.SORTED_M)
+                if M > kcvar.SORTED_M:
+                    assert (path, tpr) == ("cvar_wide_kernel", 1024), M
+                else:
+                    assert path == "cvar_costs_kernel"
+                    assert (tpr, E) == _cvar_instance(tpr, M)
+                    assert (tpr, E) in cvar_shapes, (M, sms, tpr)
+    assert _source_has("update_wide.cu", r"kFusedK = kMaxBlock \* 64",
+                       r"kWidePer = kWideW \* kWideA",
+                       r"extern \"C\" int update_useq_wide_launch")
+    for T in (1, 7, 40, 100, 4096, 4097):
+        if K > kupdate.FUSED_K:
+            G = kupdate.wide_blocks(K)
+            assert G >= 16 and G * kupdate.WIDE_POSITIONS >= K
+            assert G * kupdate.WIDE_POSITIONS == padded_length(K)
+            continue
         for sms in (132, 114, 8):
             shape = kupdate.launch_shape(B, K, T, sms)
             assert _update_instance(K, shape) in update_shapes, (T, shape)
@@ -335,7 +389,7 @@ def test_card_edge_tests_reach_every_cvar_instantiation(sms):
         assert kcvar.threads_per_row(B, K, M, sms) == tpr, (M, tpr)
         assert (B * K) % 4, (M, tpr)   # no multiple of a block's 4 teams
         reached.add(_cvar_instance(tpr, M))
-    assert reached == _compiled("cvar_costs.cu", "CVAR_SHAPES")
+    assert reached == _compiled("cvar_common.cuh", "CVAR_SHAPES")
 
 
 def test_card_edge_tests_reach_every_update_instantiation():
@@ -348,7 +402,7 @@ def test_card_edge_tests_reach_every_update_instantiation():
 
 # The launchers' choices on an H100 (132 SMs) at every TAIL_CASES shape:
 # the CVaR's threads a row, the update's (threads a block, blocks a
-# cluster).
+# cluster), or past K = 32,768 the wide path's blocks a scenario.
 LAUNCHES = {
     "a_static_205": (128, (256, 4)),
     "a_planner_alpha": (128, (256, 4)),
@@ -371,6 +425,17 @@ LAUNCHES = {
     "ragged_M5000": (512, (64, 4)),
     "M8192_alpha": (512, (32, 4)),
     "config_max_M15000": (1024, (32, 2)),
+    "streamed_T4097": (32, (256, 1)),
+    "streamed_T20000": (32, (256, 1)),
+    "wide_update_K40000": (32, ("wide", 16)),
+    "wide_update_K100000": (32, ("wide", 32)),
+    "wide_update_K1000000": (32, ("wide", 256)),
+    "M16384_numel": (1024, (64, 4)),
+    "M16384_alpha1": (1024, (64, 4)),
+    "wide_M32768_numel": (1024, (64, 4)),
+    "wide_M32768_alpha1": (1024, (64, 4)),
+    "wide_M70000_numel": (1024, (64, 4)),
+    "wide_M70000_alpha1": (1024, (64, 4)),
 }
 
 
@@ -380,5 +445,6 @@ def test_launchers_choose_each_path_shapes_team(case):
     """The launch shapes each path's shape gets on an H100, held here on
     the CPU: a change to the rules shows as a change of this table."""
     name, B, K, M, T, _ = case
-    assert (kcvar.threads_per_row(B, K, M),
-            kupdate.launch_shape(B, K, T)) == LAUNCHES[name]
+    update = (kupdate.launch_shape(B, K, T) if K <= kupdate.FUSED_K
+              else ("wide", kupdate.wide_blocks(K)))
+    assert (kcvar.threads_per_row(B, K, M), update) == LAUNCHES[name]
