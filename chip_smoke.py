@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; no error is swallowed):
 1. Build ``csrc/rollout_byte.cu``, ``csrc/rollout_binned.cu``,
    ``csrc/map_sample.cu``, ``csrc/gather_probe.cu``,
    ``csrc/cvar_costs.cu``, ``csrc/cvar_wide.cu``,
-   ``csrc/update_useq.cu`` and ``csrc/update_wide.cu`` with nvcc for
-   sm_90a, all at once, and print
+   ``csrc/update_useq.cu``, ``csrc/update_wide.cu`` and
+   ``csrc/barebone_rollout.cu`` with nvcc for sm_90a, all at once, and
+   print
    the build time, each ptxas report (registers, spills), each rollout
    kernel's SASS instructions per lane-step by class (``sass_counts``,
    where the toolkit has ``cuobjdump``) and the card's name and power
@@ -73,8 +74,13 @@ Phases (any failure exits non-zero; no error is swallowed):
    refused: T = 4,097 and 20,000 (the coupling streamed), the barebone
    engine's K = 40,000, 100,000 and 1e6 (the wide update's four
    launches), M = 16,384, 32,768 and 70,000 (the wide CVaR past 16,384)
-   at numel ceil(0.2 M) and alpha 1 -- and each static count bit for bit
-   against the same count from alpha.  Launches past one grid
+   at numel ceil(0.2 M) and alpha 1, and the windowed sum's counts (XLA's
+   CPU order): numel 33 and a static count of M (the row as stored) at
+   world (a), a static count of M at M = 16,384 and 70,000 -- and each
+   static count's alpha against its plain version, bit for bit.  The
+   barebone rollout kernel (``barebone_rollout_fused``) against the plain
+   loop, bit for bit, at K = 1, 1,000, 1,024, 40,000 and 1e6, T = 1, 50
+   and 100, N = 1, 2 and 5 obstacles.  Launches past one grid
    (``check_launch_chunks``): 65,539 scenarios through the map sampler
    (byte and 8-bit cells), both rollout kernels and the update, each two
    launches bit for bit with the calls on their slices and the plain
@@ -110,10 +116,10 @@ Phases (any failure exits non-zero; no error is swallowed):
    window of the uncropped ones, over 20 solves of a moving window; and
    again with the padded origin at -res (a TDM's limits from 0): grids and
    offsets exact, controls within rtol 2e-4 / atol 2e-5;
-   ``BareboneMPPI`` on ``examples/barebone_mppi.py``'s task (its
-   rollouts plain torch ops, then the ``cvar_costs`` and
-   ``update_useq_fused`` kernels), 20 closed-loop solves replayed from its
-   CUDA graph
+   ``BareboneMPPI`` on ``examples/barebone_mppi.py``'s task (the
+   ``barebone_rollout``, ``cvar_costs`` and ``update_useq_fused`` kernels
+   once an iteration, at most ``BAREBONE_MAX_NODES`` kernels a replay),
+   20 closed-loop solves replayed from its CUDA graph
    and the vis from its vis graph, each held bit for bit against eager
    calls from a generator of the same seed (``BareboneMirror``); one
    episode of the big-map world through
@@ -157,7 +163,11 @@ Phases (any failure exits non-zero; no error is swallowed):
    in turns with the torch calls the CVaR
    kernel replaced (the library call), ``torch.sort`` and a masked sum,
    and an empty kernel (one graph node's floor), against their bounds and
-   plain versions; then
+   plain versions; the barebone rollout kernel at K = 1,000 and 1e6
+   (graph and eager, in turns) against its bound and the plain loop; the
+   visualisation rollouts of worlds (a) and (c) and of the barebone
+   planner, one vis graph replay on the device clock and
+   ``get_state_rollout()`` on the host's, with the graph's kernels; then
    per timed world, in turns, chained solves replayed from a CUDA graph
    and eager (``profiling.chained_solve_time``) on the device clock
    beside the host's time to enqueue them, and planner ``solve()`` times
@@ -330,6 +340,17 @@ LIFTED_PLANNERS = (("flagship_T4097", dict(T=409.7)),
                    ("flagship_M70000", dict(M=70000)))
 LIFTED_BAREBONE_K = (100000, 1000000)
 LIFTED_SOLVES = 3
+# The barebone solve graph's kernels a replay at most: the draw, its
+# scaling, the rollout, CVaR and update kernels and a few copies' kernels
+# (the plain loop's replay had some 1,700).
+BAREBONE_MAX_NODES = 10
+# Phase 2's barebone rollout cases (K x T x N obstacles) and phase 4's
+# timed shapes (the example's K = 1,000 and the Config's 1e6, T = 50, its
+# two obstacles).
+BAREBONE_KS = (1, 1000, 1024, 40000, 1000000)
+BAREBONE_TS = (1, 50, 100)
+BAREBONE_NS = (1, 2, 5)
+BAREBONE_TIMED = ((1000, 50, 2), (1000000, 50, 2))
 # World -> (planning mode, the layout 'auto' must route it to); None: 2-
 # or 4-bit cells, as the support-compacted bin count falls (printed).
 WORLDS = {
@@ -479,7 +500,7 @@ def map_sample_bound_ms(M, rH, rW, B_lin, B_ang, layout="bins",
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
-def tail_bound_ms(B, K, M, T, numel):
+def tail_bound_ms(B, K, M, T, numel, unsorted=False):
     """Least times of the solve's two tail calls at (B scenarios, K, M,
     T), each the larger of its bytes over HBM bandwidth and its
     operations: integer comparisons over the ALU pipe's rate plus float32
@@ -494,11 +515,14 @@ def tail_bound_ms(B, K, M, T, numel):
     clamp (2) a (t, c).  Bytes: each input read once, each output written
     once: the CVaR call the costs, the noise, u, sigma, lambda and alpha
     in, the (B, K) costs out; the update the costs, noise, u, lambda and
-    both ranges in, u and the weights out.  Returns ``((ms, bound_by) of
-    cvar_costs, (ms, bound_by) of update_useq_fused)``."""
+    both ranges in, u and the weights out.  ``unsorted``: a static count
+    of M, whose sum takes the row as it is (no comparison).  Returns
+    ``((ms, bound_by) of cvar_costs, (ms, bound_by) of
+    update_useq_fused)``."""
     rows = B * K
     a_bytes = 4 * (rows * M + rows * T * 2 + B * T * 2 + 4 * B + rows)
-    a_int = rows * (M + numel * max(1.0, math.log2(max(numel, 1))))
+    a_int = 0 if unsorted else rows * (
+        M + numel * max(1.0, math.log2(max(numel, 1))))
     a_flt = rows * (numel + 1 + 3 * 2 * T + 2)
     b_bytes = 4 * (rows + rows * T * 2 + 2 * B * T * 2 + 5 * B + rows)
     b_flt = rows * 7 + rows * T * 2 * 2 + B * T * 2 * 3
@@ -523,7 +547,8 @@ TAIL_TIMED = ("a_static_205", "a_planner_alpha", "sweep_b30_alphas",
               "ragged_M5000", "M8192_alpha", "config_max_M15000",
               "streamed_T4097", "streamed_T20000", "wide_update_K40000",
               "wide_update_K1000000", "M16384_numel", "wide_M32768_numel",
-              "wide_M70000_numel", "wide_M70000_alpha1")
+              "wide_M70000_numel", "wide_M70000_alpha1", "a_static_all_1024",
+              "wide_M70000_static_all")
 
 
 def bits_differ(torch, got, want):
@@ -538,9 +563,9 @@ def check_tail_cases(torch, dev):
     """Phase 2's solve-tail cases: at every ``drivers.tail_bench.TAIL_CASES``
     shape (every path's) the CVaR plus coupling kernel against its plain
     version, the update kernel (from the kernel's costs) against its plain
-    version, bit for bit, and a static count against the same count from
-    alpha (ceil(M * alpha) = numel), bit for bit.  One JSON line a case;
-    returns the records."""
+    version, bit for bit, and a static count's alpha (ceil(M * alpha) =
+    numel, its own order: windows over M) against its plain version, bit
+    for bit.  One JSON line a case; returns the records."""
     from mppi_numba_tpu_torch.drivers.tail_bench import (TAIL_CASES,
                                                          tail_case_inputs)
     from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
@@ -562,8 +587,9 @@ def check_tail_cases(torch, dev):
         if "numel" in kw:
             alpha = torch.full(lam.shape, (kw["numel"] - 0.5) / M,
                                device=dev)
-            differ["static_vs_alpha"] = bits_differ(
-                torch, kc.cvar_costs(*a_args, alpha=alpha), got)
+            differ["alpha_of_count"] = bits_differ(
+                torch, kc.cvar_costs(*a_args, alpha=alpha),
+                kc.cvar_costs_plain(*a_args, alpha=alpha))
         torch.cuda.synchronize()
         err = max(float((x - y).abs().max()) for x, y in (
             (got, want), (u_got, u_want), (w_got, w_want)))
@@ -584,6 +610,135 @@ def check_tail_cases(torch, dev):
         results.append(rec)
         del a_args, got, want, noise, u
     return results
+
+
+def barebone_case(torch, dev, K, T, N, seed=0):
+    """A barebone rollout's inputs on the card: the example's task with N
+    obstacles past a goal at (2, 1.5), controls and noise (sigma 1.5) that
+    reach the goal, hit obstacles and clip.  Returns ``(task, u,
+    noise)``."""
+    from mppi_numba_tpu_torch.types import BareboneTask
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def f(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    obs = torch.rand((N, 2), generator=g, device=dev) * 2.5 + f([2.5, 2.0])
+    task = BareboneTask(
+        x0=f([0.0, 0.0, math.pi / 4]), xgoal=f([2.0, 1.5]),
+        goal_tolerance=f(0.5), lambda_weight=f(1.0), u_std=f([1.0, 1.0]),
+        vrange=f([0.0, 2.0]), wrange=f([-math.pi, math.pi]), dt=f(0.1),
+        dist_weight=f(10.0), obs_penalty=f(1e6), obs_pos=obs,
+        obs_r=torch.rand((N,), generator=g, device=dev) * 0.5 + 0.5)
+    u = torch.stack([torch.rand((T,), generator=g, device=dev) * 2 + 0.5,
+                     torch.rand((T,), generator=g, device=dev) - 0.5], -1)
+    noise = torch.randn((K, T, 2), generator=g, device=dev) * 1.5
+    return task, u, noise
+
+
+def check_barebone_cases(torch, dev):
+    """Phase 2's barebone rollout cases: the kernel
+    (``barebone_rollout_fused``) against the plain loop
+    (``ops/rollout.py::barebone_rollout_costs``) on the same CUDA tensors,
+    bit for bit, at every K x T x N of ``BAREBONE_KS`` x ``BAREBONE_TS`` x
+    ``BAREBONE_NS``.  One JSON line a case; returns the records."""
+    from mppi_numba_tpu_torch.ops.kernels.barebone_rollout import (
+        barebone_rollout_fused)
+    from mppi_numba_tpu_torch.ops.rollout import barebone_rollout_costs
+
+    results = []
+    for K in BAREBONE_KS:
+        for T in BAREBONE_TS:
+            for N in BAREBONE_NS:
+                task, u, noise = barebone_case(torch, dev, K, T, N,
+                                               seed=K + T + N)
+                got = barebone_rollout_fused(task, u, noise)
+                want = barebone_rollout_costs(task, u, noise)
+                torch.cuda.synchronize()
+                differ = bits_differ(torch, got, want)
+                hit = float((want >= 1e6).float().mean())
+                rec = dict(case="barebone_rollout", K=K, T=T, N=N,
+                           entries_differing=differ,
+                           max_abs_err=float((got - want).abs().max()),
+                           hit_share=hit)
+                print(json.dumps(rec), flush=True)
+                check(differ == 0, "barebone rollout K {} T {} N {}: {} "
+                      "entries differ from the plain loop".format(
+                          K, T, N, differ))
+                results.append(rec)
+                del task, u, noise, got, want
+    return results
+
+
+def barebone_bound_ms(K, T, N):
+    """Least time of the barebone rollout at (K, T, N obstacles), the
+    larger of its bytes over HBM bandwidth and its float32 operations over
+    the float32 peak.  Bytes: the noise (K, T, 2), u (T, 2), the task's
+    values and obstacles read once, the (K,) costs written once.
+    Operations a rollout-step: the two noisy controls' adds and clamps
+    (2 + 4), cos and sin (counted as one each), the state update (3
+    products, 3 adds), the goal distance (2 subtractions, 2 products, an
+    add), each obstacle's 2 subtractions, 2 products, an add, r^2 and a
+    comparison, the step cost (2 products, an add), the goal comparison
+    and the masked add (2); the terminal cost once a rollout (3)."""
+    nbytes = 4 * (K * T * 2 + T * 2 + 13 + 3 * N + K)
+    ops = K * T * (6 + 2 + 6 + 5 + 7 * N + 3 + 2) + 3 * K
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def time_barebone_kernel(torch, dev, time_kernels, time_cuda, emit):
+    """Phase 4's barebone rollout timings at each ``BAREBONE_TIMED``
+    shape: the kernel over launches captured in a CUDA graph and eager, in
+    turns, the plain loop eagerly, and the bound.  Returns ``{shape:
+    {...}}``."""
+    from mppi_numba_tpu_torch.ops.kernels.barebone_rollout import (
+        barebone_rollout_fused)
+    from mppi_numba_tpu_torch.ops.rollout import barebone_rollout_costs
+
+    out = {}
+    for K, T, N in BAREBONE_TIMED:
+        task, u, noise = barebone_case(torch, dev, K, T, N, seed=7)
+        runs = time_kernels({"kernel": lambda: barebone_rollout_fused(
+            task, u, noise)}, 50)["kernel"]
+        plain = [time_cuda(lambda: barebone_rollout_costs(task, u, noise),
+                           3, 1) for _ in range(2)]
+        bound = barebone_bound_ms(K, T, N)
+        shape = "K{}_T{}_N{}".format(K, T, N)
+        rec = dict(shape=shape, ms=min(runs["graph"]),
+                   eager_ms=min(runs["eager"]), runs=runs["graph"],
+                   eager_runs=runs["eager"], plain_ms=min(plain),
+                   bound_ms=bound[0], bound_by=bound[1],
+                   bound_share=bound[0] / min(runs["graph"]))
+        emit("barebone_rollout_kernel_ms", rec["ms"], "ms", **rec)
+        out[shape] = rec
+        del task, u, noise
+    return out
+
+
+def time_vis_rollouts(torch, time_cuda, planners, emit):
+    """The planners' visualisation rollouts (``get_state_rollout()``,
+    replayed from the planner's vis graph; their torch loops): each on the
+    host clock (the call, its copy to the host included) and its graph's
+    replay on the device clock, with the graph's kernels a replay.
+    ``planners``: ``{world: planner}``, each solved at least once."""
+    for world, planner in planners.items():
+        planner.get_state_rollout()
+        graph = list(planner._vis_graphs.values())[-1]._call
+        host = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            states = planner.get_state_rollout()
+            host.append((time.perf_counter() - t0) * 1e3)
+        device = [time_cuda(graph.replay, 20, 2) for _ in range(3)]
+        emit("vis_rollout_graph_ms", min(device), "ms", world=world,
+             device_runs=device, host_ms_median=float(np.median(host[1:])),
+             host_runs=host, kernels_per_replay=graph.kernel_nodes,
+             states_shape=list(states.shape),
+             timing="device clock: one vis graph replay; host clock: "
+                    "get_state_rollout()")
 
 
 CHUNK_SCENARIOS = 65535 + 4       # past one launch's 65,535 scenarios
@@ -770,7 +925,8 @@ def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
         # The fold's terms a row, this run's: the mean count.
         numel = (min(kw["numel"], M) if "numel" in kw else float(
             torch.ceil(M * kw["alpha"]).clamp(max=M).mean()))
-        bound_a, bound_b = tail_bound_ms(B, K, M, T, numel)
+        bound_a, bound_b = tail_bound_ms(
+            B, K, M, T, numel, unsorted="numel" in kw and kw["numel"] >= M)
         rec = dict(
             shape="B{}_K{}_M{}_T{}".format(B, K, M, T),
             count=count if isinstance(count, (int, str)) else list(count),
@@ -950,8 +1106,9 @@ def main():
     from mppi_numba_tpu_torch._card import (card_line, time_cuda,
                                             time_cuda_graph)
     from mppi_numba_tpu_torch.models import bicycle_step, make_bicycle_step
-    from mppi_numba_tpu_torch.ops.kernels import (_build, cvar_costs,
-                                                  map_sample, rollout_binned,
+    from mppi_numba_tpu_torch.ops.kernels import (_build, barebone_rollout,
+                                                  cvar_costs, map_sample,
+                                                  rollout_binned,
                                                   rollout_byte, update_useq)
     from mppi_numba_tpu_torch.ops import packing
     from mppi_numba_tpu_torch.probes import gather_probe
@@ -980,8 +1137,10 @@ def main():
     tail_b = update_useq.update_useq_fused
     wide_a = cvar_costs.cvar_costs_wide
     wide_b = update_useq.update_useq_wide
+    bb_kernel = barebone_rollout.barebone_rollout_fused
     counted = (kernel, bkernel, sampler, fused, cropper, tail_a, tail_b,
-               wide_a, wide_b, *(chain for chain, _ in chains.values()))
+               wide_a, wide_b, bb_kernel,
+               *(chain for chain, _ in chains.values()))
 
     def set_counts(value=0):
         for wrapper in counted:
@@ -999,12 +1158,14 @@ def main():
                 "update_useq": tail_b.launches,
                 "cvar_costs_wide": wide_a.launches,
                 "update_useq_wide": wide_b.launches,
+                "barebone_rollout": bb_kernel.launches,
                 "gather_probe": sum(c.launches for c, _ in chains.values())}
 
     # -- phase 1: build -------------------------------------------------------
     build_kernels(_build, ("rollout_byte", "rollout_binned", "map_sample",
                            "gather_probe", "cvar_costs", "cvar_wide",
-                           "update_useq", "update_wide"))
+                           "update_useq", "update_wide",
+                           "barebone_rollout"))
     print_sass_counts([_build.library_path(name)
                        for name in ("rollout_byte", "rollout_binned")])
     card = card_line()
@@ -1669,6 +1830,9 @@ def main():
     # bit (and the static count against the same count from alpha).
     tail_results = check_tail_cases(torch, dev)
 
+    # The barebone rollout kernel against the plain loop, bit for bit.
+    barebone_results = check_barebone_cases(torch, dev)
+
     # Launches past what one grid holds: 65,539 scenarios and 70,000 map
     # samples, each in chunks, bit for bit with the chunks' own calls and
     # the plain versions.
@@ -1759,16 +1923,21 @@ def main():
         totals[k] += launches[k]
     print(json.dumps(dict(roi_check, kernel_launches=launches)), flush=True)
 
-    # The barebone planner: plain torch ops for its rollouts, then the
-    # solve's tail kernels on its (K, 1) costs, once an iteration.
+    # The barebone planner: its rollout kernel, then the solve's tail
+    # kernels on its (K, 1) costs, once an iteration; a replay is a few
+    # kernels (the draw, its scaling and the three kernels).
     set_counts(0)
     barebone = run_barebone()
     launches = read_counts()
     tail = barebone["solves"] * barebone["num_opt"]
-    check(launches["cvar_costs"] == launches["update_useq"] == tail
+    check(launches["cvar_costs"] == launches["update_useq"]
+          == launches["barebone_rollout"] == tail
           and not any(n for k, n in launches.items()
-                      if k not in ("cvar_costs", "update_useq")),
+                      if k not in ("cvar_costs", "update_useq",
+                                   "barebone_rollout")),
           "barebone: launched {}".format(launches))
+    check(barebone["kernel_nodes"] <= BAREBONE_MAX_NODES,
+          "barebone: {} kernels a replay".format(barebone["kernel_nodes"]))
     for k in totals:
         totals[k] += launches[k]
     emit("barebone_solve_host_ms_median", barebone["solve_ms_median"], "ms",
@@ -1937,9 +2106,11 @@ def main():
         run = run_barebone(K=K, solves=LIFTED_SOLVES)
         launches = read_counts()
         tail = run["solves"] * run["num_opt"]
-        check(launches["cvar_costs"] == launches["update_useq_wide"] == tail
+        check(launches["cvar_costs"] == launches["barebone_rollout"] == tail
+              and launches["update_useq_wide"] == tail
               and not any(n for k, n in launches.items()
-                          if k not in ("cvar_costs", "update_useq_wide")),
+                          if k not in ("cvar_costs", "update_useq_wide",
+                                       "barebone_rollout")),
               "lifted barebone K {}: launches {}".format(K, launches))
         for k in totals:
             totals[k] += launches[k]
@@ -2141,6 +2312,18 @@ def main():
     # The solve's tail kernels at the main path's shapes, in turns with
     # the torch calls the CVaR kernel replaced and an empty kernel.
     tail_timed = time_tail_kernels(torch, dev, time_kernels, time_cuda, emit)
+
+    # The barebone rollout kernel against its bound and the plain loop.
+    barebone_timed = time_barebone_kernel(torch, dev, time_kernels,
+                                          time_cuda, emit)
+
+    # The visualisation rollouts (torch loops in a vis graph) of worlds
+    # (a) and (c) and of the barebone planner: their device time and
+    # kernels a replay.
+    time_vis_rollouts(torch, time_cuda, {
+        "flagship_11x11": planner_runs["flagship_11x11"]["planner"],
+        "forest_140x84": planner_runs["forest_140x84"]["planner"],
+        "barebone": barebone["planner"]}, emit)
 
     # The planner's visualisation rollouts on the host clock, world (c):
     # get_state_rollout() (replayed from its graph) in turns with the same
@@ -2400,6 +2583,7 @@ def main():
     del static, maps, task, gt
 
     flag = case_results[0]
+    bb_at = barebone_timed["K1000000_T50_N2"]
     tail_at = tail_timed["a_static_205"]
     tail_wide = tail_timed["wide_M70000_numel"]
     tail_big_k = tail_timed["wide_update_K1000000"]
@@ -2629,6 +2813,28 @@ def main():
         "library_ms": None,
         "timed_at": "wide_update_K1000000: " + tail_big_k["shape"],
         "cases": sum(r["K"] > update_useq.FUSED_K for r in tail_results),
+    }, {
+        "name": "barebone_rollout",
+        "route": "cuda",
+        "launches_phase7": phase7["barebone_rollout"],
+        "source": barebone_rollout.KERNEL_SOURCE,
+        "replaces": barebone_rollout.REPLACES,
+        "launches": totals["barebone_rollout"],
+        "launches_lifted_solves": sum(
+            r["kernel_launches"]["barebone_rollout"]
+            for name, r in lifted.items() if name.startswith("barebone")),
+        "max_abs_err": max(r["max_abs_err"] for r in barebone_results),
+        "ms": bb_at["ms"],
+        "plain_ms": bb_at["plain_ms"],
+        "bound_ms": bb_at["bound_ms"],
+        "bound_by": bb_at["bound_by"],
+        "library_ms": None,
+        "timed_at": bb_at["shape"],
+        "ms_at": {k: v["ms"] for k, v in barebone_timed.items()},
+        "plain_ms_at": {k: v["plain_ms"] for k, v in barebone_timed.items()},
+        "bound_ms_at": {k: v["bound_ms"] for k, v in barebone_timed.items()},
+        "barebone_kernels_per_replay": barebone["kernel_nodes"],
+        "cases": len(barebone_results),
     }, {
         "name": "update_useq",
         "route": "cuda",
@@ -4487,8 +4693,8 @@ def expected_collectives(static, mesh):
         if (M // n_m) % n_k == 0:
             add("all_gather_into_tensor", n_k, 1)
     if n_m > 1:
-        add("all_reduce" if static.cvar_numel >= M
-            else "all_gather_into_tensor", n_m, it)
+        # The candidates, or at alpha 1 the ranks' sums (rank order).
+        add("all_gather_into_tensor", n_m, it)
     return want
 
 
@@ -4994,6 +5200,7 @@ WRAPPER_KERNELS = {
     "update_useq_fused": ("update_useq",),
     "cvar_costs_wide": ("cvar_costs_wide",),
     "update_useq_wide": ("update_useq_wide",),
+    "barebone_rollout_fused": ("barebone_rollout",),
 }
 
 
@@ -5284,7 +5491,7 @@ def run_phase7(card, emit):
     launches = dict.fromkeys(("rollout_byte", "rollout_binned", "map_sample",
                               "map_sample_crop", "cvar_costs", "update_useq",
                               "cvar_costs_wide", "update_useq_wide",
-                              "gather_probe"), 0)
+                              "barebone_rollout", "gather_probe"), 0)
     out, seconds, dirs, outcomes = {}, {}, {}, {}
     for name, argv, terrain in phase7_commands():
         if name != "engine_ab_check":

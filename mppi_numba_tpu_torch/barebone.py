@@ -2,8 +2,10 @@
 
 Same lifecycle, params keys and defaults as ``mppi_numba_tpu.barebone``:
 information-theoretic MPPI with nominal unicycle dynamics, squared-distance
-costs and circular obstacles, as plain PyTorch ops on one device (the JAX
-package has no kernel for it either).  Randomness comes from a
+costs and circular obstacles on one device: on a card the rollouts in a
+kernel of their own (``ops/kernels/barebone_rollout.py``; the JAX package
+compiles them from a ``lax.scan``), then the solve's CVaR and update
+kernels; on the CPU their plain versions.  Randomness comes from a
 ``torch.Generator`` on the planner's device, seeded from ``cfg.seed``.
 
 The planner keeps its solve's inputs in buffers that it updates in place,

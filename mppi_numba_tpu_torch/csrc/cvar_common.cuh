@@ -1,8 +1,9 @@
 // What the CVaR plus coupling kernels share (csrc/cvar_costs.cu, the
 // teams whose coupling is staged in shared memory; csrc/cvar_wide.cu,
 // their streamed twins and the wide kernel): the float order keys, the
-// team's bitonic sort, the MSD radix select, the coupling's halving tree
-// and the team kernel itself.  See csrc/cvar_costs.cu for the design.
+// team's bitonic sort, the MSD radix select, the CVaR's windowed sum (XLA's
+// CPU order), the coupling's halving tree and the team kernel itself.  See
+// csrc/cvar_costs.cu for the design.
 #pragma once
 
 #include <cstdint>
@@ -14,7 +15,11 @@
 namespace {
 
 constexpr int kBins = 256;       // an 8-bit digit's histogram
-constexpr int kMisc = 4;         // bin, keys above it, keys in it, a count
+constexpr int kMisc = 8;         // bin, keys above it, keys in it, the
+                                 // gathered count; the row's non-finite
+                                 // keys (NaN and +inf, -inf); the wide
+                                 // kernel's keys >= its threshold; spare
+constexpr int kMiscHigh = 4, kMiscLow = 5, kMiscGe = 6;
 constexpr int kWarpTeams = 4;    // rows a block when a warp takes a row
 constexpr int kSelectFrom = 256; // the padded rows that select first
 constexpr int kStagedT = 4096;   // the longest horizon staged in shared
@@ -47,6 +52,111 @@ __device__ __forceinline__ void team_sync() {
   } else {
     __syncthreads();
   }
+}
+
+// The CVaR's sum in XLA's CPU order (ops/tree.py::window_sum): a level
+// of n terms is padded with +0.0 to m = ceil(n / 32) windows of 32, lo =
+// (32 m - n) / 2 zeros in front; each window folds left to right from
+// +0.0; the m partial sums are the next level's terms, up to the level of
+// at most 32 terms, whose one window is the sum (one term alone: itself).
+//
+// A team holds a level's terms in shared memory one word of padding
+// after every 32 (term q of the round's first window at win_slot(q)), so
+// that the 32 lanes folding 32 windows read 32 different banks at each
+// step.  A team's terms come in one round (window_sum_team); the wide
+// kernel's in rounds (its window_round).
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+__host__ __device__ __forceinline__ int win_slot(int q) { return q + (q >> 5); }
+
+// The most windows a round of c terms at an offset < 32 touches (and so
+// the most terms it gives the level above), and the padded words they
+// take: 33 a window, every position of each readable.
+__host__ __device__ constexpr int win_count(int c) { return (c + 30) / 32 + 1; }
+__host__ __device__ constexpr int win_words(int c) {
+  return round4(33 * win_count(c));
+}
+
+// A team's shared memory: the row's keys, sorted values and terms (L keys,
+// padded), the coupling's words Ls, two histograms, kMisc counts, the
+// windows' two level buffers (levels 1, 3, .. and 2, 4, ..).
+__host__ __device__ constexpr int team_words(int L, int Ls) {
+  return win_words(L) + Ls + 2 * kBins + kMisc + win_words(win_count(L)) +
+         win_words(win_count(win_count(L)));
+}
+
+// The padding in front of a level of n terms.
+__device__ __forceinline__ int win_lo(int n) {
+  return ((32 * ((n + 31) >> 5)) - n) >> 1;
+}
+
+// Window t of a level's round: its 32 padded positions at in[33 t + j],
+// the terms those of j in [jlo, jhi), folded onto acc in order.  The
+// other positions add +0.0, which changes no sum that started from +0.0
+// (it is never -0.0), so every lane runs the same adds, 8 loads ahead,
+// and a group of 8 with no term is skipped.
+__device__ __forceinline__ float win_fold(const float* in, int t, int jlo,
+                                          int jhi, float acc) {
+  const float* w = in + 33 * t;
+#pragma unroll
+  for (int g = 0; g < 32; g += 8) {
+    if (g >= jhi || g + 8 <= jlo) continue;
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = g + j >= jlo && g + j < jhi ? w[g + j] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc = acc + v[j];
+  }
+  return acc;
+}
+
+// The windowed sum of a row whose terms come in one round (a team's): the
+// first c of its n0 terms at x[win_slot(p + win_lo(n0))], p < c, the rest
+// zeros.  window_round's first and last round at once, with no carry and
+// no state: every level starts at its term 0 (cvar_wide.cu's
+// window_round is the general case).  Every thread of the team
+// calls it; returns the sum in thread 0 (+0.0 when c = 0).
+template <int TPR>
+__device__ __forceinline__ float window_sum_team(int n0, const float* x,
+                                                 float* wa, float* wb, int c,
+                                                 int tid) {
+  float result = 0.0f;
+  const float* in = x;
+  int n = n0;
+  for (int k = 0; c > 0; ++k) {
+    const int lo = win_lo(n);
+    const int m = (n + 31) >> 5;
+    const int nwin = ((c - 1 + lo) >> 5) + 1;
+    const bool top = n <= 32;
+    const int off1 = top ? 0 : win_lo(m);
+    float* out = (k & 1) ? wb : wa;
+    for (int t = tid; t < nwin; t += TPR) {
+      const float acc = win_fold(in, t, lo - 32 * t, lo + c - 32 * t, 0.0f);
+      if (top) {
+        result = acc;
+      } else {
+        out[win_slot(t + off1)] = acc;
+      }
+    }
+    if (top) break;
+    team_sync<TPR>();
+    c = nwin;
+    in = out;
+    n = m;
+  }
+  return result;
+}
+
+// Non-finite keys: NaN and +inf (the largest keys), -inf (the least).
+constexpr uint32_t kKeyPosInf = 0xff800000u, kKeyNegInf = 0x007fffffu;
+
+// Whether a run-time alpha's mask multiplies a non-finite cost by 0 (a NaN
+// term, as srt * mask makes it): hi of the row's keys are NaN or +inf (the
+// first of the descending row), lo are -inf (the last); take of M kept.
+__device__ __forceinline__ bool masked_nonfinite(int hi, int lo, int take,
+                                                 int M) {
+  return max(0, hi - take) + min(lo, M - take) > 0;
 }
 
 // Bitonic sort, descending, of the team's TPR * E keys, position
@@ -141,11 +251,13 @@ __device__ __forceinline__ void pick_bin(const int* hist, int need,
 }
 
 // The gathered keys (got of them, in x) sorted by the team as TPR * E
-// positions, then written as values to fb[0, min(got, take)), and the
-// threshold's copies to fb[got, take).
+// positions, then written as values to the terms p < min(got, take), and
+// the threshold's copies to got <= p < take, term p at
+// x[win_slot(p + off)].
 template <int TPR, int E>
 __device__ __forceinline__ void sort_gathered(uint32_t* x, int got, int take,
-                                              uint32_t tau, int tid) {
+                                              uint32_t tau, int off,
+                                              int tid) {
   uint32_t w[E];
 #pragma unroll
   for (int r = 0; r < E; ++r) {
@@ -158,21 +270,22 @@ __device__ __forceinline__ void sort_gathered(uint32_t* x, int got, int take,
 #pragma unroll
   for (int r = 0; r < E; ++r) {
     const int p = tid * E + r;
-    if (p < take && p < got) fb[p] = key_value(w[r]);
+    if (p < take && p < got) fb[win_slot(p + off)] = key_value(w[r]);
   }
   const float tv = key_value(tau);
-  for (int p = got + tid; p < take; p += TPR) fb[p] = tv;
+  for (int p = got + tid; p < take; p += TPR) fb[win_slot(p + off)] = tv;
 }
 
 // The team's keys v (positions any) that the fold takes, gathered into x
 // and sorted: the take-th largest found by an MSD radix select; then
 // either the keys from its bin up (got >= take of them) or those above it
-// and its copies.  Writes the values, largest first, to x[0, take).
+// and its copies.  Writes the values, largest first, as the terms p <
+// take at x[win_slot(p + off)].
 template <int TPR, int EMAX>
 __device__ __forceinline__ void select_then_sort(const uint32_t (&v)[EMAX],
                                                  uint32_t* x, int* hist,
                                                  int* misc, int take,
-                                                 int tid) {
+                                                 int off, int tid) {
   const int lane = threadIdx.x & 31;
   uint32_t prefix = 0u;
   int need = take, shift = 24, buf = 0;
@@ -229,7 +342,7 @@ __device__ __forceinline__ void select_then_sort(const uint32_t (&v)[EMAX],
   const int e = max(1, pow2_at_least(got, 1) / TPR);
 #define CVAR_SORT_GATHERED(E_)                                      \
   if constexpr (E_ <= EMAX) {                                       \
-    if (e == E_) sort_gathered<TPR, E_>(x, got, take, prefix, tid); \
+    if (e == E_) sort_gathered<TPR, E_>(x, got, take, prefix, off, tid); \
   }
   CVAR_SORT_GATHERED(1)
   CVAR_SORT_GATHERED(2)
@@ -280,13 +393,22 @@ __device__ __forceinline__ float streamed_coupling(const float* nz,
 // One row a team of TPR threads; the row padded to L = TPR * EMAX keys.
 // Lc: the coupling's padded terms, staged in Lc words of shared memory,
 // or (STREAM) streamed, TPR words a team holding the threads' partial
-// sums.  The launch bounds' blocks an SM (6 of
-// the warp teams' blocks, 2 of 512 threads, else 1): without them ptxas
-// spilled a few long-lived values; with 1 everywhere it gave the warp
-// teams 100 registers, and their full sorts ran slower.
+// sums.  The launch bounds' blocks an SM: without them ptxas spilled a
+// few long-lived values; with 1 everywhere it gave the warp teams 100
+// registers, and their full sorts ran slower.  The windowed sum's code
+// raised the short rows' warp teams (M <= 128) from 32-34 registers to
+// 48, 10 blocks an SM where they had 12-16, and the 128-thread teams to
+// 71, 7 blocks an SM and world (a)'s 1,024 rows a second wave: the
+// bounds hold them to what they had.
+template <int TPR, int EMAX>
+constexpr int team_blocks_per_sm() {
+  if constexpr (TPR == 32) return EMAX <= 2 ? 16 : EMAX == 4 ? 12 : 6;
+  return TPR == 128 ? 8 : TPR == 512 ? 2 : 1;
+}
+
 template <int TPR, int EMAX, bool STREAM>
 __global__ void __launch_bounds__(TPR == 32 ? 32 * kWarpTeams : TPR,
-                                  TPR == 32 ? 6 : TPR == 512 ? 2 : 1)
+                                  (team_blocks_per_sm<TPR, EMAX>()))
 cvar_costs_kernel(const float* __restrict__ costs,
                   const float* __restrict__ noise,
                   const float* __restrict__ u,
@@ -301,10 +423,12 @@ cvar_costs_kernel(const float* __restrict__ costs,
   const int row = blockIdx.x * (blockDim.x / TPR) + team;
   if (row >= rows) return;  // a whole team: one warp, or an empty block
   const int Ls = STREAM ? TPR : Lc;
-  uint32_t* x = smem + team * (L + Ls + 2 * kBins + kMisc);
-  float* cs = reinterpret_cast<float*>(x + L);
-  int* hist = reinterpret_cast<int*>(x + L + Ls);
+  uint32_t* x = smem + team * team_words(L, Ls);
+  float* cs = reinterpret_cast<float*>(x + win_words(L));
+  int* hist = reinterpret_cast<int*>(cs + Ls);
   int* misc = hist + 2 * kBins;
+  float* wa = reinterpret_cast<float*>(misc + kMisc);
+  float* wb = wa + win_words(win_count(L));
   const int b = row / K;
   const float* c = costs + static_cast<size_t>(row) * M;
 
@@ -322,46 +446,78 @@ cvar_costs_kernel(const float* __restrict__ costs,
       __pipeline_memcpy_async(cs + i, nz + i, 4);
     __pipeline_commit();
   }
+  const bool dyn = alpha != nullptr;
   const int n =
-      alpha != nullptr ? static_cast<int>(ceilf(static_cast<float>(M) * alpha[b]))
-                       : numel;
+      dyn ? static_cast<int>(ceilf(static_cast<float>(M) * alpha[b])) : numel;
   // The team's count, broadcast from lane 0 (the same on every lane).
   const int take = __shfl_sync(tree::kFull, min(max(n, 0), M), 0);
+  // The windowed sum's terms: a static count's worst take (all M, as
+  // stored, when it is M: no sort), or a run-time alpha's sorted row of M
+  // whose terms past the take are zeros.
+  const bool unsorted = !dyn && take == M;
+  const int Lw = dyn ? M : take;
+  const int off = win_lo(Lw);
 
   float* fb = reinterpret_cast<float*>(x);
   if (M > 1 && take > 0) {
-    if (L >= kSelectFrom && pow2_at_least(take, 1) < L) {
-      select_then_sort<TPR, EMAX>(v, x, hist, misc, take, tid);
+    if (unsorted) {
+      // The row as stored, read again (from L2): reading the keys v here
+      // cost the warp teams' sort its register allocation (B = 30 and K =
+      // 10240 ran 1.3-1.6x slower).
+      for (int i = tid; i < M; i += TPR) fb[win_slot(i + off)] = c[i];
+    } else if (L >= kSelectFrom && pow2_at_least(take, 1) < L) {
+      select_then_sort<TPR, EMAX>(v, x, hist, misc, take, off, tid);
     } else {
       team_sort<TPR, EMAX>(v, x, tid);
 #pragma unroll
       for (int r = 0; r < EMAX; ++r) {
         const int p = tid * EMAX + r;
-        if (p < take) fb[p] = key_value(v[r]);
+        if (p < take) fb[win_slot(p + off)] = key_value(v[r]);
       }
     }
-    team_sync<TPR>();
+  }
+  team_sync<TPR>();
+
+  // A run-time alpha's mask times an infinite or NaN cost is NaN (0 *
+  // inf), and so is the sum: count the row's non-finite keys (the team's
+  // registers hold every key still, the sort having only moved them), a
+  // warp's counts in the histograms' words, which are free now; thread 0
+  // adds them after the coupling's barrier.  (M = 1: the product below.)
+  const bool count_nf = dyn && take < M && M > 1;
+  int nf_hi = 0, nf_lo = 0;
+  if (count_nf) {
+#pragma unroll
+    for (int r = 0; r < EMAX; ++r) {
+      nf_hi += v[r] >= kKeyPosInf;
+      nf_lo += v[r] == kKeyNegInf;
+    }
+    nf_hi = __reduce_add_sync(tree::kFull, nf_hi);
+    nf_lo = __reduce_add_sync(tree::kFull, nf_lo);
+    if constexpr (TPR > 32) {
+      if ((tid & 31) == 0) {
+        hist[tid >> 5] = nf_hi;
+        hist[32 + (tid >> 5)] = nf_lo;
+      }
+    }
   }
 
-  // The fold (thread 0; -0.0 + x == x) beside the coupling's terms.
-  float sum = -0.0f;
-  if (tid == 0) {
+  // The sum: one term alone is itself (M = 1: thread 0 holds it; the
+  // worst 1: the sort's first); else the windows, every thread folding.
+  float sum = 0.0f;
+  if (Lw == 1) {
     if (M == 1) {
-      if (take == 1) sum = sum + key_value(v[0]);  // thread 0 holds it
+      sum = key_value(v[0]);
+      if (dyn) sum = sum * (take >= 1 ? 1.0f : 0.0f);
     } else {
-      int i = 0;
-      for (; i + 4 <= take; i += 4) {
-        const float4 q = *reinterpret_cast<const float4*>(fb + i);
-        sum = sum + q.x;
-        sum = sum + q.y;
-        sum = sum + q.z;
-        sum = sum + q.w;
-      }
-      for (; i < take; ++i) sum = sum + fb[i];
+      sum = fb[win_slot(off)];
     }
+  } else {
+    sum = window_sum_team<TPR>(Lw, fb, wa, wb, take, tid);
   }
-  // Each thread's terms are its own copies (i = tid mod TPR), and so are
-  // the tree's levels of stride >= TPR: no barrier until they are done.
+
+  // The coupling: each thread's terms are its own copies (i = tid mod
+  // TPR), and so are the tree's levels of stride >= TPR: no barrier until
+  // they are done.
   if constexpr (!STREAM) __pipeline_wait_prior(0);
   const float* ub = u + static_cast<size_t>(b) * T * 2;
   const float var0 = u_std[2 * b] * u_std[2 * b];
@@ -388,8 +544,24 @@ cvar_costs_kernel(const float* __restrict__ costs,
 #pragma unroll
     for (int l = 4; l >= 0; --l)
       coupling = coupling + __shfl_down_sync(tree::kFull, coupling, 1 << l);
-    if (tid == 0)
-      out[row] = sum / static_cast<float>(n) + lam[b] * coupling;
+    // The mean as JAX's: a static count times float32(1 / n) (XLA's
+    // reciprocal of a constant), a run-time one divided.
+    if (tid == 0) {
+      if (count_nf) {
+        if constexpr (TPR > 32) {
+          nf_hi = nf_lo = 0;
+          for (int w = 0; w < TPR / 32; ++w) {
+            nf_hi += hist[w];
+            nf_lo += hist[32 + w];
+          }
+        }
+        if (masked_nonfinite(nf_hi, nf_lo, take, M))
+          sum = __int_as_float(0x7fffffff);
+      }
+      out[row] = (dyn ? sum / static_cast<float>(n)
+                      : sum * (1.0f / static_cast<float>(n))) +
+                 lam[b] * coupling;
+    }
   }
 }
 

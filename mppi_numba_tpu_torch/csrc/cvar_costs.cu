@@ -10,19 +10,24 @@
 //
 //   n        = numel (static), or (int) ceilf((float) M * alpha[b])
 //   take     = min(max(n, 0), M)
-//   cvar     = fold(the worst take of costs[b, k, :], largest first) / n
+//   cvar     = static, n < M: wsum(the worst n of costs[b, k, :], largest
+//                first) * (1.0f / n)
+//              static, n = M: wsum(costs[b, k, :] as stored) * (1.0f / M)
+//              alpha: wsum(sorted row * (position < take), over M) / n
 //   coupling = tree over i = 2t + c of noise[b, k, t, c] *
 //                (u[b, t, c] / (u_std[b, c] * u_std[b, c]))
 //   out      = cvar + lambda[b] * coupling
 //
-// "fold" sums left to right, "tree" is the halving tree of tree_sum.cuh:
-// the orders of the plain versions (ops/tree.py,
-// ops/kernels/cvar_costs.py), so the kernel equals them bit for bit:
-// descending order as torch.topk / torch.sort give it, NaN largest (every
-// float maps to an unsigned key in the same order; all NaNs to the
-// largest key), IEEE division, and -fmad=false.  Equal keys are the same
-// float, so which of them a step takes cannot change a bit.  The run-time
-// n is read on the card: no host read, so the launch captures into a CUDA
+// "wsum" is XLA's CPU order of a row sum (windows of 32 terms, see
+// window_sum_team in cvar_common.cuh), "tree" the halving tree of
+// tree_sum.cuh: the orders of the plain versions (ops/tree.py,
+// ops/cvar.py), which are the JAX package's on the CPU, so the kernel
+// equals them bit for bit: descending order as torch.topk / torch.sort
+// give it, NaN largest (every float maps to an unsigned key in the same
+// order; all NaNs to the largest key), a masked infinite cost NaN (0 *
+// inf), IEEE division, and -fmad=false.  Equal keys are the same float,
+// so which of them a step takes cannot change a bit.  The run-time n is
+// read on the card: no host read, so the launch captures into a CUDA
 // graph.
 //
 // Bound: the bytes, 4 * (M + 2T) a row (at K = M = 1024, T = 100: 4.8 MB,
@@ -46,14 +51,21 @@
 //   threshold, then its copies) are gathered (one shared atomic a warp)
 //   and bitonic-sorted at next_pow2(their count): at numel 205 of M =
 //   1024, 256 keys a row, not 1,024.
+// - The sorted worst costs (or, for a static count of M, the row as
+//   stored: no select and no sort) are written to shared memory as the
+//   windowed sum's terms, one word of padding after every 32, so that
+//   lane j folds window j from +0.0 (32 dependent adds) without a bank
+//   conflict; the partial sums fold the same way a level up: at (a)'s
+//   205 terms, 7 lanes of at most 32 adds and one fold of 7, not one
+//   thread's chain of 205.
 // - The coupling's noise is copied into shared memory (cp.async) while
 //   the row sorts; its terms and the tree's levels above the team's width
-//   run in each thread's own positions while thread 0 folds the worst
-//   take (one serial chain of adds, from shared memory), then one barrier
-//   and warp 0 finishes the tree.
+//   run in each thread's own positions, then one barrier and warp 0
+//   finishes the tree.
 //
-// Shared memory a team: L words (the gathered keys, the sort's exchanges,
-// the fold's values), Lc (the coupling), two histograms.  Past 48 KB a
+// Shared memory a team (team_words): L words and their padding (the
+// gathered keys, the sort's exchanges, the windows' terms), Lc (the
+// coupling), two histograms, the windows' level buffers.  Past 48 KB a
 // block (M > 8192, or T > 512 with four warp teams) it needs the opt-in
 // that cvar_costs_prepare sets once a card.
 //
@@ -101,8 +113,8 @@ extern "C" int cvar_costs_launch(const float* costs, const float* noise,
     return static_cast<int>(cudaErrorInvalidValue);
   const int teams = tpr == 32 ? kWarpTeams : 1;
   const dim3 grid((rows + teams - 1) / teams), block(tpr * teams);
-  const size_t shm = sizeof(uint32_t) * static_cast<size_t>(teams) *
-                     (L + Lc + 2 * kBins + kMisc);
+  const size_t shm =
+      sizeof(uint32_t) * static_cast<size_t>(teams) * team_words(L, Lc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   bool launched = false;
 #define CVAR_LAUNCH(TPR_, E_)                                           \

@@ -49,6 +49,10 @@ N = 50
 # coupling streamed), the barebone engine's K = 40,000, 100,000 and its
 # Config's 1e6 (the wide update), and M = 16,384 (the last a team sorts),
 # 32,768 and 70,000 (the wide CVaR) at numel ceil(0.2 M) and at alpha 1.
+# Then the windowed sum's counts (XLA's CPU order, windows of 32): world
+# (a) at numel 33 (a window and one term) and at a static count of M (the
+# row summed as stored, no sort), and a static count of M at M = 16,384
+# and 70,000 (the wide kernel's rounds of the row).
 SWEEP_ALPHAS = (1.0, 0.8, 0.6, 0.4, 0.2)
 TAIL_CASES = (
     ("a_static_205", 1, 1024, 1024, 100, 205),
@@ -83,6 +87,10 @@ TAIL_CASES = (
     ("wide_M32768_alpha1", 1, 256, 32768, 20, (1.0,)),
     ("wide_M70000_numel", 1, 256, 70000, 20, 14000),
     ("wide_M70000_alpha1", 1, 256, 70000, 20, (1.0,)),
+    ("a_static_33", 1, 1024, 1024, 100, 33),
+    ("a_static_all_1024", 1, 1024, 1024, 100, 1024),
+    ("M16384_static_all", 1, 256, 16384, 20, 16384),
+    ("wide_M70000_static_all", 1, 256, 70000, 20, 70000),
 )
 
 

@@ -30,11 +30,12 @@ _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
 
 def counted_wrappers():
     """The kernel wrappers that count their launches in ``.launches``."""
-    from .ops.kernels import (cvar_costs, map_sample, rollout_binned,
-                              rollout_byte, update_useq)
+    from .ops.kernels import (barebone_rollout, cvar_costs, map_sample,
+                              rollout_binned, rollout_byte, update_useq)
     from .probes import gather_probe
 
-    return (map_sample.sample_traction_window,
+    return (barebone_rollout.barebone_rollout_fused,
+            map_sample.sample_traction_window,
             map_sample.sample_and_pack_window,
             map_sample.sample_and_pack_crop,
             rollout_byte.terrain_rollout_costs_byte,

@@ -1,10 +1,22 @@
 """CVaR over the map samples: mean of the worst alpha-fraction of M costs.
 
-The worst costs are summed in descending order (``torch.topk`` /
-``torch.sort``, NaN largest), left to right (``tree.fold_sum``), the order
-of the solve's kernel (``kernels/cvar_costs.py``): the static count, the
-run-time alpha and the m-sharded candidate pool give the same bits for the
-same count.
+Each path computes as its JAX counterpart (``mppi_numba_tpu/ops/cvar.py``)
+does on the CPU, bit for bit given the same costs: the worst costs in
+descending order (``torch.topk`` / ``torch.sort``, NaN largest), summed in
+XLA's CPU order (``tree.window_sum``), and
+
+* a static count below M (``cvar_from_costs``): the worst ``numel``
+  summed in windows over ``numel``, times ``float32(1 / numel)`` (XLA
+  folds the mean's division by a constant into that product);
+* a static count of M or more: the row as stored (no sort) summed in
+  windows over M, times ``float32(1 / M)``;
+* a run-time alpha (``cvar_from_costs_dynamic``): the sorted row times
+  the 0/1 mask of the count, summed in windows over M, divided by the
+  count.
+
+So the static count and the run-time alpha of the same count differ in
+the last bits, as JAX's do.  The solve's kernel
+(``kernels/cvar_costs.py``) sums in the same order.
 
 With the M axis split over the ranks of a process group (the map-sharded
 solve), ``cvar_from_costs_distributed`` and
@@ -14,43 +26,49 @@ solve), ``cvar_from_costs_distributed`` and
 
 from __future__ import annotations
 
+import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..parallel.collectives import all_gather_cat
-from .tree import fold_sum
+from .tree import window_sum
+
+
+def reciprocal(like, n):
+    """``float32(1 / n)`` (the float32 quotient, which is what XLA folds
+    into a mean) as a 0-d tensor of ``like``'s dtype and device."""
+    return like.new_full((), float(np.float32(1.0) / np.float32(n)))
 
 
 def cvar_from_costs(costs_km, cvar_numel):
     """Reduce per-(rollout, map-sample) costs to per-rollout CVaR.
 
     Args:
-      costs_km: float32 ``(K, M)``.
-      cvar_numel: ``ceil(M * cvar_alpha)``; ``M`` yields the plain mean.
+      costs_km: float32 ``(K, M)`` (a leading scenario axis allowed).
+      cvar_numel: ``ceil(M * cvar_alpha)``; ``M`` or more yields the plain
+        mean of the row as stored.
 
     Returns:
-      float32 ``(K,)`` — mean of the ``cvar_numel`` largest costs per row,
-      summed largest first.
+      float32 ``(K,)`` — mean of the ``cvar_numel`` largest costs per row.
     """
-    n = min(cvar_numel, costs_km.shape[-1])
-    worst = torch.topk(costs_km, n, dim=-1, sorted=True).values
-    # A device tensor, not a Python number: torch divides a CUDA tensor by
-    # a host scalar as a product with its reciprocal.
-    return fold_sum(worst) / costs_km.new_full((), float(n))
+    M = costs_km.shape[-1]
+    if cvar_numel >= M:
+        return window_sum(costs_km) * reciprocal(costs_km, M)
+    worst = torch.topk(costs_km, cvar_numel, dim=-1, sorted=True).values
+    return window_sum(worst) * reciprocal(costs_km, cvar_numel)
 
 
 def cvar_from_costs_dynamic(costs_km, cvar_alpha):
-    """CVaR with alpha as a float32 tensor: sort descending, the costs
-    past ``ceil(M * alpha)`` replaced by -0.0, summed largest first over
-    the count.  With a leading scenario axis, costs ``(B, K, M)`` and one alpha
+    """CVaR with alpha as a float32 tensor: sort descending, multiply by
+    the mask of the first ``ceil(M * alpha)`` (a masked cost is +-0.0 by
+    its sign, an infinite one NaN, as in JAX), sum over M, divide by the
+    count.  With a leading scenario axis, costs ``(B, K, M)`` and one alpha
     a scenario ``(B,)``; returns ``(B, K)``."""
     M = costs_km.shape[-1]
     srt = torch.sort(costs_km, dim=-1, descending=True).values
     numel = torch.ceil(M * cvar_alpha).to(torch.int32)[..., None]  # (.., 1)
-    keep = (torch.arange(M, device=costs_km.device)
-            < numel[..., None])                                     # (.., 1, M)
-    return (fold_sum(torch.where(keep, srt, -0.0))
-            / numel.to(costs_km.dtype))
+    mask = (torch.arange(M, device=costs_km.device)
+            < numel[..., None]).to(costs_km.dtype)                  # (.., 1, M)
+    return window_sum(srt * mask) / numel.to(costs_km.dtype)
 
 
 def cvar_pool(costs_km, cvar_numel, group):
@@ -70,8 +88,10 @@ def cvar_from_costs_distributed(costs_km, cvar_numel, m_total, group):
     and take the global worst ``cvar_numel`` of the pool, sorted as the
     single-device CVaR sorts them and summed in the same order: the result
     equals ``cvar_from_costs`` on the whole M axis bit for bit.  At alpha 1
-    (``cvar_numel >= m_total``) the ranks all-reduce their sums instead,
-    which sums in another order than the single-device CVaR.
+    (``cvar_numel >= m_total``) each rank sums its slice in windows, the
+    ranks gather the sums and add them in rank order, times ``float32(1 /
+    m_total)``: JAX's ``psum`` of the slices' sums on the CPU, bit for
+    bit, which is not the single-device order.
 
     Args:
       costs_km: float32 ``(K_local, M_local)`` (a leading scenario axis
@@ -84,9 +104,11 @@ def cvar_from_costs_distributed(costs_km, cvar_numel, m_total, group):
       float32 ``(K_local,)``, the same on every rank of the group.
     """
     if cvar_numel >= m_total:
-        total = torch.sum(costs_km, dim=-1)
-        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
-        return total / m_total
+        sums = all_gather_cat(window_sum(costs_km)[..., None], -1, group)
+        total = sums[..., 0]
+        for r in range(1, sums.shape[-1]):
+            total = total + sums[..., r]
+        return total * reciprocal(costs_km, m_total)
     return cvar_from_costs(cvar_pool(costs_km, cvar_numel, group),
                            cvar_numel)
 

@@ -9,9 +9,12 @@ package's XLA-fused ``cvar_from_costs`` / ``cvar_from_costs_dynamic``
 (``mppi_numba_tpu/ops/rollout.py:123-131``), none of which has a Pallas
 kernel: in torch ops they were a top-k (or a full sort) and some five
 elementwise and reduce launches an iteration.  Both versions sort each
-row descending (NaN largest), fold the worst costs largest first and sum
-the coupling in the halving tree (``ops/tree.py``), so the kernel equals
-the plain version bit for bit.
+row descending (NaN largest), sum the worst costs in XLA's CPU order
+(``ops/tree.py::window_sum``, windows of 32 over the static count, or
+over M for a run-time alpha's masked row and a static count of M, whose
+row is summed as stored) and the coupling in the halving tree, so the
+kernel equals the plain version bit for bit, and the CVaR equals the
+JAX package's on the CPU given the same costs.
 The kernel reads the run-time alpha on the card, so a solve with it
 captures into a CUDA graph.
 

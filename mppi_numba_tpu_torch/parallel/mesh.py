@@ -5,7 +5,8 @@ of the process group.
 * ``k``: the control rollouts of one solve, with three all-reduces an
   optimisation iteration for the softmax update (``ops/update.py``);
 * ``m``: the map samples of one solve, with a two-phase distributed top-k
-  (or an all-reduce) for the CVaR (``ops/cvar.py``).
+  (or, at alpha 1, a gather of the ranks' sums) for the CVaR
+  (``ops/cvar.py``).
 
 The JAX package's ``mppi_numba_tpu/parallel/mesh.py``, on
 ``torch.distributed.device_mesh``: one process a device, rank ``r`` at the

@@ -26,8 +26,8 @@ S_local)``.  The collectives of one solve:
   normalizer, the weighted noise sum; one k rank runs the update kernel,
   ``update_useq_fused``, and no collective), and with the m axis sharded
   one all-gather over m (the CVaR's candidates, or the whole cost slices
-  for a run-time alpha, the ``cvar_costs`` kernel run on them); alpha 1
-  adds an all-reduce instead.
+  for a run-time alpha, the ``cvar_costs`` kernel run on them; at alpha 1
+  the ranks' sums, added in rank order as JAX's ``psum`` adds them).
 
 When ``M`` does not divide over the m axis (the det modes' M = 1) the maps
 are replicated over m instead (every m rank rolls out all of them), as the
@@ -226,8 +226,9 @@ class ShardedTerrainSolver:
         rank holds of M, or on the m group's gathered pool: the candidates
         of the two-phase top-k (``cvar_pool``) for a static count, the
         whole cost rows for a run-time alpha.  Bit for bit with the single
-        solve, but at alpha 1 over a split M: the ranks all-reduce their
-        sums."""
+        solve, but at alpha 1 over a split M: the ranks gather their
+        windowed sums and add them in rank order, as JAX's sharded solve
+        does."""
         s = self.static
         kw = cvar_count(s, task)
         if self.n_m > 1:

@@ -40,6 +40,7 @@ import torch
 from .config import SolverStatic
 from .graphs import Captured, same_tensors
 from .models import clip_controls, get_step_fn
+from .ops.kernels.barebone_rollout import barebone_rollout_fused
 from .ops.kernels.cvar_costs import cvar_costs
 from .ops.kernels.map_sample import (sample_and_pack_crop,
                                      sample_and_pack_window)
@@ -49,9 +50,8 @@ from .ops.kernels.rollout_byte import build_task_vec, terrain_rollout_costs_byte
 from .ops.kernels.update_useq import update_useq_fused
 from .ops.packing import pack_map_words, pack_payload
 from .ops.roi import crop_maps, crop_window_plain, shift_task_limits
-from .ops.rollout import (_clipped_controls_tk, barebone_rollout_costs,
-                          barebone_vis_states, terrain_rollout_costs,
-                          terrain_vis_states)
+from .ops.rollout import (_clipped_controls_tk, barebone_vis_states,
+                          terrain_rollout_costs, terrain_vis_states)
 from .ops.sampling import (decode_bins, draw_map_key,
                            traction_bins_from_uniforms)
 from .types import SolveAux, per_scenario
@@ -439,8 +439,9 @@ def get_terrain_vis(static: SolverStatic):
 
 class BareboneSolver:
     """The barebone solve for one ``SolverStatic`` (mode 'barebone'):
-    terrain-free unicycle rollouts against circle obstacles, plain PyTorch
-    ops on the device."""
+    terrain-free unicycle rollouts against circle obstacles, an iteration
+    the rollout, CVaR and update kernels (their plain versions on the
+    CPU)."""
 
     def __init__(self, static: SolverStatic, device):
         if static.mode != "barebone":
@@ -474,7 +475,7 @@ class BareboneSolver:
         for i in range(self.static.num_opt):
             noise = eps_list[i] * task.u_std
             # One map: the CVaR of a (K, 1) row is its one cost.
-            costs = cvar_costs(barebone_rollout_costs(task, u, noise)[:, None],
+            costs = cvar_costs(barebone_rollout_fused(task, u, noise)[:, None],
                                noise, u, task.u_std, task.lambda_weight,
                                numel=1)
             u, weights = update_useq_fused(costs, noise, u,

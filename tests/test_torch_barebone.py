@@ -22,6 +22,7 @@ from mppi_numba_tpu.solver import get_barebone_vis as j_get_vis
 from mppi_numba_tpu.types import BareboneTask as JTask
 from mppi_numba_tpu_torch.config import SolverStatic
 from mppi_numba_tpu_torch.convert import barebone_task_to_port
+from mppi_numba_tpu_torch.ops.kernels import barebone_rollout as kbare
 from mppi_numba_tpu_torch.ops.rollout import barebone_rollout_costs
 from mppi_numba_tpu_torch.solver import get_barebone_solver, get_barebone_vis
 
@@ -67,6 +68,52 @@ def test_rollout_costs_match_jax(seed):
     # Some rollouts hit the obstacles (1e6 each), and some reach the goal.
     assert (want > 1e6).any() and (want < 1e6).any()
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n_obs", [0, 2, 5])
+def test_rollout_wrapper_runs_the_plain_version_on_the_cpu(n_obs):
+    """On CPU tensors the kernel's wrapper is the plain loop, bit for bit,
+    and counts no launch; with 0, 2 and 5 obstacles, within rtol 1e-4 of
+    JAX's rollout."""
+    rng = np.random.RandomState(10 + n_obs)
+    u = np.stack([rng.uniform(0.5, 2.0, T), rng.uniform(-1.0, 1.0, T)],
+                 axis=-1).astype(np.float32)
+    noise = rng.randn(K, T, 2).astype(np.float32)
+    task = _task()._replace(
+        obs_pos=rng.uniform(0.0, 6.0, (n_obs, 2)).astype(np.float32),
+        obs_r=rng.uniform(0.5, 1.5, n_obs).astype(np.float32))
+    t_task = barebone_task_to_port(task, "cpu")
+    before = kbare.barebone_rollout_fused.launches
+    got = kbare.barebone_rollout_fused(t_task, torch.tensor(u),
+                                       torch.tensor(noise))
+    want = barebone_rollout_costs(t_task, torch.tensor(u),
+                                  torch.tensor(noise))
+    assert kbare.barebone_rollout_fused.launches == before
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert kbare.check_args(t_task, torch.tensor(u),
+                            torch.tensor(noise)) == (K, T, n_obs)
+    j = np.asarray(j_barebone_rollout_costs(_jt(task), jnp.asarray(u),
+                                            jnp.asarray(noise)))
+    np.testing.assert_allclose(got.numpy(), j, rtol=1e-4)
+
+
+def test_rollout_wrapper_checks_the_kernels_inputs():
+    """The kernel's argument check refuses what the kernel cannot read:
+    noise of another shape or dtype, controls of another horizon, a
+    task field of another shape or on another device."""
+    task = barebone_task_to_port(_task(), "cpu")
+    u, noise = torch.zeros(T, 2), torch.zeros(K, T, 2)
+    assert kbare.check_args(task, u, noise) == (K, T, 2)
+    for bad in (dict(noise=torch.zeros(K, T, 3)),
+                dict(noise=torch.zeros(K, T, 2, dtype=torch.float64)),
+                dict(u=torch.zeros(T + 1, 2)),
+                dict(task=task._replace(obs_r=torch.ones(3))),
+                dict(task=task._replace(vrange=torch.zeros(3))),
+                dict(task=task._replace(dt=torch.tensor(0.1,
+                                                        dtype=torch.float64)))):
+        args = {**dict(task=task, u=u, noise=noise), **bad}
+        with pytest.raises(ValueError):
+            kbare.check_args(args["task"], args["u"], args["noise"])
 
 
 @pytest.mark.parametrize("num_opt", [1, 2])

@@ -11,6 +11,7 @@ none is, so every pytest worker collects the same tests.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -1540,7 +1541,8 @@ def test_barebone_solve_and_vis_graphs_equal_eager_on_card():
     """``BareboneSolver.capture`` replayed three times, each fed the last
     one's controls, and ``get_barebone_vis`` in a ``graphs.VisGraph``,
     against eager calls from a generator of the same seed, bit for bit
-    (u, every ``SolveAux`` field, the states)."""
+    (u, every ``SolveAux`` field, the states); the captured solve is a few
+    kernels, the rollout kernel once."""
     from mppi_numba_tpu_torch.graphs import VisGraph
     from mppi_numba_tpu_torch.solver import (get_barebone_solver,
                                              get_barebone_vis)
@@ -1551,7 +1553,10 @@ def test_barebone_solve_and_vis_graphs_equal_eager_on_card():
     solver = get_barebone_solver(static, dev)
     g, g2 = (torch.Generator(device=dev).manual_seed(6) for _ in range(2))
     graph = solver.capture(g, task, torch.zeros((50, 2), device=dev))
-    assert graph.kernel_nodes > 100
+    # The draw, its scaling and the rollout, CVaR and update kernels: no
+    # longer the plain loop's ~1,700 nodes.
+    assert graph.captured_launches["barebone_rollout_fused"] == 1
+    assert graph.kernel_nodes <= 10, graph.kernel_nodes
     u_e = torch.zeros((50, 2), device=dev)
     for _ in range(3):
         u_g, aux_g = graph(g, task, graph.u0)
@@ -1774,8 +1779,9 @@ def _bits(t):
     (3, 37, 4096, 3)])
 def test_cvar_costs_kernel_matches_plain_on_card(B, K, M, T, dynamic):
     """The CVaR plus coupling kernel against its plain version, bit for
-    bit (NaN rows included), static count and run-time alpha, in
-    registers (M <= 1024) and in shared memory (M 2048 and 4096)."""
+    bit (NaN rows included), static count and run-time alpha (and the
+    static count's alpha), in registers (M <= 1024) and in shared memory
+    (M 2048 and 4096)."""
     from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
 
     dev = _cuda_or_skip()
@@ -1789,10 +1795,12 @@ def test_cvar_costs_kernel_matches_plain_on_card(B, K, M, T, dynamic):
     assert got.shape == want.shape
     assert torch.equal(_bits(got), _bits(want))
     if not dynamic:
+        # The same count from alpha: its own order (windows over M).
         numel = kw["numel"]
         alpha_n = torch.full_like(alpha, (numel - 0.5) / M)
         same = kc.cvar_costs(costs, noise, u, u_std, lam, alpha=alpha_n)
-        assert torch.equal(_bits(same), _bits(got))
+        assert torch.equal(_bits(same), _bits(kc.cvar_costs_plain(
+            costs, noise, u, u_std, lam, alpha=alpha_n)))
 
 
 def test_cvar_costs_kernel_rejects_bad_inputs_on_card():
@@ -1948,6 +1956,114 @@ def test_cvar_costs_select_then_sort_edges_on_card(kind, M, tpr):
     assert kc.cvar_costs.launches == before + len(counts)
 
 
+# The windowed sum's cases (XLA's CPU order, windows of 32 terms): counts
+# 1, 33 (a window and one term), 205 (the flagship's 7 windows) and alpha
+# 1 (static: the row as stored; run-time: sorted) at M = 1,024, 16,384
+# (the last a team sorts: three levels) and 70,000 (the wide kernel's
+# windows across its rounds), and the sweep's B = 30.
+CVAR_WINDOW_SHAPES = [(None, 64, 1024, 20), (30, 64, 1024, 20),
+                      (None, 16, 16384, 20), (2, 5, 70000, 9)]
+
+
+@pytest.mark.parametrize("B,K,M,T", CVAR_WINDOW_SHAPES)
+def test_cvar_windows_on_card(B, K, M, T):
+    """The CVaR kernels' windowed sums against the plain version, bit for
+    bit: static counts 1, 33, 205, ceil(0.2 M), 16,385 where M is wider
+    (a round and one term) and M (alpha 1, unsorted), and the run-time
+    alpha of each (alpha 1: the sorted row), on costs spread over eight
+    decades (the order shows in the last bits)."""
+    import math
+
+    from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
+
+    dev = _cuda_or_skip()
+    costs, noise, u, u_std, lam, _, _, _ = _tail_inputs(dev, B, K, M, T,
+                                                        seed=M + 1)
+    g = torch.Generator(device=dev).manual_seed(M)
+    costs = costs * 10.0 ** (torch.rand(costs.shape, generator=g,
+                                        device=dev) * 8 - 3)
+    n = 1 if B is None else B
+    counts = sorted({c for c in (1, 33, 205, math.ceil(0.2 * M), 16385, M)
+                     if c <= M})
+    for numel in counts:
+        a = 1.0 if numel == M else (numel - 0.5) / M
+        alpha = torch.full((n,) if B else (), a, device=dev)
+        assert int(torch.ceil(M * alpha).max()) == numel
+        for kw in (dict(numel=numel), dict(alpha=alpha)):
+            want = kc.cvar_costs_plain(costs, noise, u, u_std, lam, **kw)
+            got = kc.cvar_costs(costs, noise, u, u_std, lam, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), _bits(want)), (numel, list(kw))
+
+
+# The barebone rollout kernel's shapes: K of one rollout, the example's
+# 1,000, a power of two, the lifted 40,000 and the Config's 1e6; horizons
+# of 1, 50 and 100 steps; 1, 2 and 5 obstacles.
+BAREBONE_KS = (1, 1000, 1024, 40000, 1000000)
+
+
+def _barebone_case(dev, K, T, N, seed=0):
+    """The example's task with N obstacles past the goal, controls and
+    noise that reach the goal, hit obstacles and clip."""
+    from mppi_numba_tpu_torch.types import BareboneTask
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    obs = torch.rand((N, 2), generator=g, device=dev) * 2.5 + torch.tensor(
+        [2.5, 2.0], device=dev)
+    task = BareboneTask(
+        x0=f([0.0, 0.0, math.pi / 4]), xgoal=f([2.0, 1.5]),
+        goal_tolerance=f(0.5), lambda_weight=f(1.0), u_std=f([1.0, 1.0]),
+        vrange=f([0.0, 2.0]), wrange=f([-math.pi, math.pi]), dt=f(0.1),
+        dist_weight=f(10.0), obs_penalty=f(1e6), obs_pos=obs,
+        obs_r=torch.rand((N,), generator=g, device=dev) * 0.5 + 0.5)
+    u = torch.stack([torch.rand((T,), generator=g, device=dev) * 2 + 0.5,
+                     torch.rand((T,), generator=g, device=dev) - 0.5], -1)
+    noise = torch.randn((K, T, 2), generator=g, device=dev) * 1.5
+    return task, u, noise
+
+
+@pytest.mark.parametrize("N", [1, 2, 5])
+@pytest.mark.parametrize("T", [1, 50, 100])
+@pytest.mark.parametrize("K", BAREBONE_KS)
+def test_barebone_rollout_kernel_matches_plain_on_card(K, T, N):
+    """The barebone rollout kernel against the plain loop
+    (``ops/rollout.py::barebone_rollout_costs``) on the same CUDA tensors,
+    bit for bit, one launch counted."""
+    from mppi_numba_tpu_torch.ops.kernels import barebone_rollout as kb
+    from mppi_numba_tpu_torch.ops.rollout import barebone_rollout_costs
+
+    dev = _cuda_or_skip()
+    task, u, noise = _barebone_case(dev, K, T, N, seed=K + T + N)
+    before = kb.barebone_rollout_fused.launches
+    got = kb.barebone_rollout_fused(task, u, noise)
+    torch.cuda.synchronize()
+    assert kb.barebone_rollout_fused.launches == before + 1
+    want = barebone_rollout_costs(task, u, noise)
+    assert got.shape == (K,)
+    assert torch.equal(_bits(got), _bits(want))
+    if K >= 1000 and T >= 50:
+        # Some rollouts hit an obstacle and some reach the goal.
+        assert bool((want >= 1e6).any()) and bool((want < 1e6).any())
+
+
+def test_barebone_rollout_kernel_rejects_bad_inputs_on_card():
+    """A CPU tensor among CUDA ones, or noise of another shape: raised
+    before any launch."""
+    from mppi_numba_tpu_torch.ops.kernels import barebone_rollout as kb
+
+    dev = _cuda_or_skip()
+    task, u, noise = _barebone_case(dev, 8, 5, 2)
+    before = kb.barebone_rollout_fused.launches
+    with pytest.raises(ValueError):
+        kb.barebone_rollout_fused(task, u.cpu(), noise)
+    with pytest.raises(ValueError):
+        kb.barebone_rollout_fused(task._replace(dt=task.dt.cpu()), u, noise)
+    with pytest.raises(ValueError):
+        kb.barebone_rollout_fused(task, u, noise[..., :1].contiguous())
+    assert kb.barebone_rollout_fused.launches == before
+
+
 # Every update instantiation (positions a thread, blocks a cluster) on an
 # H100's 132 SMs, as the (B, K, T) that gets it from ``launch_shape``: K =
 # 1, Ks that are no power of two, 15,000 and 20,000 (64 positions a
@@ -2029,8 +2145,8 @@ LIFTED_CVAR = [(None, 64, 16, 4097), (None, 37, 16, 20000),
 def test_cvar_costs_past_the_former_caps_on_card(B, K, M, T):
     """The CVaR plus coupling at shapes the kernel refused before, against
     its plain version, bit for bit, at numel ceil(0.2 M), 1 and M and at
-    alphas 0.2 and 1 (ties, crashes and a NaN among the costs); each
-    static count equals the same count from alpha."""
+    alphas 0.2 and 1 (ties, crashes and a NaN among the costs), and at
+    each static count's alpha."""
     import math
 
     from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
@@ -2056,7 +2172,8 @@ def test_cvar_costs_past_the_former_caps_on_card(B, K, M, T):
                                device=dev)
             same = kc.cvar_costs(costs, noise, u, u_std, lam, alpha=alpha)
             calls += 1
-            assert torch.equal(_bits(same), _bits(got)), kw
+            assert torch.equal(_bits(same), _bits(kc.cvar_costs_plain(
+                costs, noise, u, u_std, lam, alpha=alpha))), kw
     assert counted.launches == before + calls
 
 

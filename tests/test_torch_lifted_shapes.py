@@ -2,7 +2,8 @@
 the JAX package (its XLA route), fed JAX's own draws: a tdm solve of
 4,097 steps (past the 4,096 whose coupling a team stages), a barebone
 solve of 40,000 rollouts (past the 32,768 of the one-launch update) and a
-terrain solve of 16,384 map samples (past the Config's 15,000).  On the
+terrain solve of 16,384 map samples (past the Config's 15,000) at 32 and
+3,277 CVaR terms.  On the
 CPU the kernel wrappers run their plain versions; the card-only tests
 (``tests/test_torch_kernels_gpu.py``) hold the kernels to those at these
 shapes.  Tolerance: the JAX package's whole-solve rtol 2e-4 / atol 2e-5."""
@@ -91,17 +92,20 @@ def test_tdm_solve_of_4097_steps_matches_jax():
 def test_terrain_solve_of_16384_map_samples_matches_jax():
     """``num_grid_samples`` 16,384 (past the Config's 15,000, as its
     message invites), K = 128, T = 5 steps, 11 x 11: the worst 32 of
-    16,384 costs a rollout.
-
-    32 terms is the longest CVaR that XLA on the CPU sums left to right,
-    the port's order (``ops/tree.py``); past it XLA sums in another
-    order.  At alpha 0.2 (3,277 terms) the two orders' rounding put the
-    costs 3.9e-5 apart (relative) and u 1.2e-3 (absolute) at lambda 10,
-    past the tolerance; ROADMAP.md keeps that open.  The bin values run
-    from 40 to 100, so the worst 32 of 16,384 samples are no all-zero
+    16,384 costs a rollout, one window of XLA's CPU sum.  The bin values
+    run from 40 to 100, so the worst 32 of 16,384 samples are no all-zero
     traction, which would give every rollout the same cost."""
     _terrain_solve_matches_jax(K=128, M=16384, T=5, seed=6,
                                cvar_alpha=32 / 16384,
+                               qbins=np.linspace(40, 100, 22))
+
+
+def test_terrain_solve_of_16384_map_samples_at_alpha_02_matches_jax():
+    """The same solve at alpha 0.2: the worst 3,277 of 16,384 costs, summed
+    as XLA sums them on the CPU (windows of 32 over the count, three
+    levels; ``ops/tree.py::window_sum``)."""
+    _terrain_solve_matches_jax(K=128, M=16384, T=5, seed=6,
+                               cvar_alpha=0.2,
                                qbins=np.linspace(40, 100, 22))
 
 

@@ -7,10 +7,13 @@ map draw's M slices in crop mode.
 Sizes and tolerances as ``tests/test_torch_parallel_solve.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax import shard_map
+from jax.sharding import Mesh, PartitionSpec as P
 
 from mppi_numba_tpu.ops import cvar as jcvar
 from mppi_numba_tpu_torch.ops.cvar import (cvar_from_costs,
@@ -28,6 +31,10 @@ from tests.test_torch_parallel_solve import (U_TOL, _check_against,
 
 OPS_MESHES = [(1, 2, 2), (1, 1, 4), (1, 4, 1)]
 OPS_NUMELS = (3, 8, 16)       # M = 16: keep < M_local, keep = M_local, alpha 1
+# The flagship's M = 1,024 on the meshes that split m: 33 and 205 worst
+# costs and alpha 1, each past XLA's 32-term window.
+WIDE_OPS_MESHES = [(1, 2, 2), (1, 1, 4)]
+WIDE_OPS_NUMELS = (33, 205, 1024)
 LAYOUTS = ("byte", "binned2", "binned", "binned8")
 
 
@@ -66,13 +73,18 @@ def _case(name):
                 u0=u0, map_keys=map_keys, eps=eps, jax_keys=np.asarray(keys))
 
 
-def _ops_job(mesh):
+def _ops_job(mesh, M=16, numels=OPS_NUMELS, alphas=(0.3, 0.55)):
+    """The distributed reductions' inputs; past M = 16 the costs spread
+    over three decades, so that the order of their sums shows."""
     rng = np.random.RandomState(7)
-    S, K, M, T = 2, 8, 16, 10
+    S, K, T = 2, 8, 10
     f32 = np.float32
+    costs_km = rng.rand(S, K, M) * 100
+    if M > 16:
+        costs_km = costs_km * 10.0 ** rng.uniform(0, 3, (S, K, M))
     return dict(
-        kind="ops", mesh=mesh, numels=OPS_NUMELS,
-        costs_km=(rng.rand(S, K, M) * 100).astype(f32),
+        kind="ops", mesh=mesh, numels=numels,
+        costs_km=costs_km.astype(f32),
         costs=(rng.rand(S, K) * 50).astype(f32),
         noise=rng.randn(S, K, T, 2).astype(f32),
         u=rng.rand(S, T, 2).astype(f32),
@@ -80,7 +92,7 @@ def _ops_job(mesh):
                   vrange=np.tile(np.array([0.0, 2.0], f32), (S, 1)),
                   wrange=np.tile(np.array([-3.0, 3.0], f32), (S, 1)),
                   u_std=np.array([[2.0, 3.0], [0.5, 1.5]], f32),
-                  cvar_alpha=np.array([0.3, 0.55], f32)))
+                  cvar_alpha=np.array(alphas, f32)))
 
 
 @pytest.fixture(scope="module")
@@ -93,6 +105,9 @@ def groups(tmp_path_factory):
                 if c[0] == world}
         if world == 4:
             jobs.update({"ops{}".format(m): _ops_job(m) for m in OPS_MESHES})
+            jobs.update({"ops_wide{}".format(m): _ops_job(
+                m, 1024, WIDE_OPS_NUMELS, (205 / 1024, 33 / 1024))
+                for m in WIDE_OPS_MESHES})
         sent = {name: {k: v for k, v in job.items() if k != "jax_keys"}
                 for name, job in jobs.items()}
         out[world] = (jobs, ranks.run_group(
@@ -180,6 +195,50 @@ def test_distributed_dynamic_cvar(groups, mesh):
         assert np.array_equal(got["dynamic"], want[:, got["ks"]]), r
         np.testing.assert_allclose(got["dynamic"], want_jax[:, got["ks"]],
                                    rtol=1e-6, err_msg=str(r))
+
+
+def _jax_distributed_cvar(costs_km, numel, n_m):
+    """JAX's ``cvar_from_costs_distributed`` with the M axis split over
+    ``n_m`` CPU devices (``shard_map``), jitted: what each rank returns."""
+    M = costs_km.shape[-1]
+    mesh = Mesh(np.array(jax.devices()[:n_m]), ("m",))
+    fn = shard_map(
+        lambda c: jcvar.cvar_from_costs_distributed(c, numel, M, "m"),
+        mesh=mesh, in_specs=P(None, None, "m"), out_specs=P(),
+        check_vma=False)
+    return np.asarray(jax.jit(fn)(jnp.asarray(costs_km)))
+
+
+def _bits(a):
+    return np.asarray(a).view(np.int32)
+
+
+@pytest.mark.parametrize("numel", WIDE_OPS_NUMELS)
+@pytest.mark.parametrize("mesh", WIDE_OPS_MESHES, ids=str)
+def test_distributed_cvar_equals_jax_bitwise(groups, mesh, numel):
+    """At the flagship's M = 1,024 split over the m ranks: the two-phase
+    top-k of 33 and 205 worst costs and alpha 1's gathered sums each equal
+    JAX's ``cvar_from_costs_distributed`` over the same split bit for bit;
+    the pool's (a static count) equal the single-device CVaR too, and
+    the run-time alpha's gathered rows JAX's ``cvar_from_costs_dynamic``
+    (205 and 33 of 1,024, one a scenario)."""
+    jobs, out = groups[4]
+    job = jobs["ops_wide{}".format(mesh)]
+    costs = job["costs_km"]
+    want = _jax_distributed_cvar(costs, numel, mesh[2])
+    single = np.asarray(jcvar.cvar_from_costs(jnp.asarray(costs), numel))
+    alpha = job["task"]["cvar_alpha"]
+    dynamic = np.stack([np.asarray(jax.jit(jcvar.cvar_from_costs_dynamic)(
+        jnp.asarray(costs[s]), alpha[s])) for s in range(2)])
+    for r, res in enumerate(out):
+        got = res["ops_wide{}".format(mesh)]
+        ks = got["ks"]
+        assert np.array_equal(_bits(got["cvar"][numel]),
+                              _bits(want[:, ks])), r
+        if numel < costs.shape[-1]:
+            assert np.array_equal(_bits(want), _bits(single))
+        assert np.array_equal(_bits(got["dynamic"]),
+                              _bits(dynamic[:, ks])), r
 
 
 @pytest.mark.parametrize("mesh", OPS_MESHES, ids=str)

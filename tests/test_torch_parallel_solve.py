@@ -200,10 +200,9 @@ def _expected_calls(job, rank):
         if (M // n_m) % k_ == 0:
             want[("all_gather_into_tensor", k_group)] = 1
     if n_m > 1:
-        if static["cvar_numel"] >= M:
-            want[("all_reduce", m_group)] = it
-        else:
-            want[("all_gather_into_tensor", m_group)] = it
+        # The candidates, or at alpha 1 each rank's sums (added in rank
+        # order, as JAX's psum adds them on the CPU).
+        want[("all_gather_into_tensor", m_group)] = it
     return want
 
 
@@ -214,8 +213,8 @@ def test_collective_counts(group, name):
     """Per solve, with k sharded: three all-reduces an iteration over k,
     one payload gather over k when the k ranks split the draw (one k rank
     updates with the kernel and makes neither); with m sharded, one
-    candidate gather (or, at alpha 1, one all-reduce) an iteration over m;
-    nothing else."""
+    gather an iteration over m (the candidates, or at alpha 1 the ranks'
+    sums); nothing else."""
     jobs, out = group
     for r, res in enumerate(out):
         got = {}

@@ -33,7 +33,8 @@ from mppi_numba_tpu_torch.ops.cvar import (cvar_from_costs,
                                            cvar_from_costs_dynamic)
 from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kcvar
 from mppi_numba_tpu_torch.ops.kernels import update_useq as kupdate
-from mppi_numba_tpu_torch.ops.tree import fold_sum, padded_length, tree_sum
+from mppi_numba_tpu_torch.ops.tree import (padded_length, tree_sum,
+                                           window_levels, window_sum)
 
 A_TOL = dict(rtol=1e-5, atol=1e-6)
 U_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -112,25 +113,97 @@ def test_plain_a_dynamic_matches_jax(K, M, T, B):
     np.testing.assert_allclose(got.numpy(), want, **A_TOL)
 
 
+def _bits_equal(got, want):
+    """Whether two float32 arrays have the same shape and bits."""
+    got, want = np.asarray(got), np.asarray(want)
+    return (got.shape == want.shape
+            and np.array_equal(got.view(np.int32), want.view(np.int32)))
+
+
+def _jax_cvar(costs, numel=None, alpha=None):
+    """JAX's ``cvar_from_costs`` (static ``numel``) or
+    ``cvar_from_costs_dynamic`` (``alpha``, one a scenario), jitted as the
+    solve runs them, vmapped over a scenario axis."""
+    if alpha is None:
+        fn = jax.jit(lambda c: jcvar.cvar_from_costs(c, numel))
+        return np.asarray(fn(jnp.asarray(costs)))
+    fn = jax.jit(jcvar.cvar_from_costs_dynamic)
+    if costs.ndim == 3:
+        fn = jax.jit(jax.vmap(jcvar.cvar_from_costs_dynamic))
+    return np.asarray(fn(jnp.asarray(costs), jnp.asarray(alpha)))
+
+
 @pytest.mark.parametrize("B", [None, 3])
 @pytest.mark.parametrize("M", [1, 5, 64, 100])
 def test_static_and_dynamic_cvar_agree_bitwise(M, B):
-    """The same count, static or from alpha: the same bits (the sort's
-    worst costs, -0.0 past the count, summed largest first)."""
+    """The static count and the run-time alpha of the same count each
+    agree bit for bit with their JAX counterparts (not with each other:
+    the static count sums its worst costs in windows over the count, the
+    run-time alpha its masked row in windows over M), through the ops and
+    through the kernel's plain version with lambda 0 (its coupling then
+    adds +0.0)."""
     costs, noise, u, u_std, lam, _ = _inputs(M, B, 37, M, 3)
     tc = torch.tensor(costs)
     lead = () if B is None else (B,)
+    zero = np.zeros_like(lam)
     for numel in sorted({1, max(M // 3, 1), max(M - 1, 1), M}):
         # An alpha whose float32 ceil(M * alpha) is numel.
         alpha = np.float32((numel - 0.5) / M)
         assert int(np.ceil(np.float32(M) * alpha)) == numel
-        ta = torch.full(lead, float(alpha))
-        static = cvar_from_costs(tc, numel)
-        dynamic = cvar_from_costs_dynamic(tc, ta)
-        assert torch.equal(static, dynamic), numel
-        args = _t(costs, noise, u, u_std, lam)
-        assert torch.equal(kcvar.cvar_costs_plain(*args, numel=numel),
-                           kcvar.cvar_costs_plain(*args, alpha=ta)), numel
+        alphas = np.full(lead, alpha, np.float32)
+        static = _jax_cvar(costs, numel=numel)
+        dynamic = _jax_cvar(costs, alpha=alphas)
+        assert _bits_equal(cvar_from_costs(tc, numel), static), numel
+        assert _bits_equal(cvar_from_costs_dynamic(tc, torch.tensor(alphas)),
+                           dynamic), numel
+        args = _t(costs, noise, u, u_std, zero)
+        assert _bits_equal(kcvar.cvar_costs_plain(*args, numel=numel),
+                           static), numel
+        assert _bits_equal(kcvar.cvar_costs_plain(
+            *args, alpha=torch.tensor(alphas)), dynamic), numel
+
+
+# (K, M, count) of the CVaR's rows against JAX's: the flagship's worst 205
+# of 1,024, 33 of 1,024 (one term past a window), 3,277 of 16,384 (three
+# levels of windows) and alpha 1 (the static count sums the row unsorted).
+JAX_ORDER_CASES = {"flagship_205_of_1024": (64, 1024, 205),
+                   "33_of_1024": (64, 1024, 33),
+                   "3277_of_16384": (8, 16384, 3277),
+                   "alpha1_1024": (64, 1024, 1024),
+                   "alpha1_16384": (8, 16384, 16384)}
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "alpha"])
+@pytest.mark.parametrize("case", sorted(JAX_ORDER_CASES))
+def test_cvar_paths_equal_jax_bitwise(case, dynamic):
+    """Each CVaR path equals its JAX function bit for bit given the same
+    costs, past 32 terms: the static count (``cvar_from_costs``, sorted
+    below M, unsorted at M) and the run-time alpha of the same count
+    (``cvar_from_costs_dynamic``, one alpha a scenario), without and with
+    a scenario axis; and the kernel's plain version, its CVaR (lambda 0)
+    bit for bit and its CVaR plus coupling within ``A_TOL``."""
+    K, M, numel = JAX_ORDER_CASES[case]
+    for B in (None, 2):
+        costs, noise, u, u_std, lam, _ = _inputs(M + numel, B, K, M, 3)
+        costs[..., 4:, :] = costs[..., 4:, :] * np.float32(97.0)
+        lead = () if B is None else (B,)
+        if dynamic:
+            alpha = np.full(lead, np.float32(numel / M), np.float32)
+            assert int(np.ceil(np.float32(M) * alpha.flat[0])) == numel
+            kw, jkw = dict(alpha=torch.tensor(alpha)), dict(alpha=alpha)
+            got = cvar_from_costs_dynamic(torch.tensor(costs), kw["alpha"])
+        else:
+            kw = jkw = dict(numel=numel)
+            got = cvar_from_costs(torch.tensor(costs), numel)
+        want = _jax_cvar(costs, **jkw)
+        assert _bits_equal(got, want), B
+        zero = np.zeros_like(lam)
+        assert _bits_equal(kcvar.cvar_costs_plain(
+            *_t(costs, noise, u, u_std, zero), **kw), want), B
+        np.testing.assert_allclose(
+            kcvar.cvar_costs_plain(*_t(costs, noise, u, u_std, lam),
+                                   **kw).numpy(),
+            _jax_a(costs, noise, u, u_std, lam, **jkw), **A_TOL)
 
 
 @pytest.mark.parametrize("B", [None, 3])
@@ -197,21 +270,45 @@ def test_ops_keep_the_jax_signatures():
 
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 32, 33, 100, 205, 1000])
 def test_sums_do_not_change_with_padded_length(n):
-    """Any number of -0.0 terms padded at the end leaves both orders'
-    bits as they were: the tree at every power of two past n, the fold at
-    any length."""
+    """Any number of -0.0 terms padded at the end leaves the halving
+    tree's bits as they were, at every power of two past n."""
     rng = np.random.RandomState(n)
     x = torch.tensor((rng.randn(16, n) * 10.0 ** rng.uniform(-3, 5, (16, n))
                       ).astype(np.float32))
     x[0] = -0.0
-    base_tree, base_fold = tree_sum(x), fold_sum(x)
+    base_tree = tree_sum(x)
     for extra in (1, padded_length(n) - n + 1, 3 * padded_length(n)):
         pad = torch.cat([x, torch.full((16, extra), -0.0)], -1)
         assert torch.equal(tree_sum(pad).view(torch.int32),
                            base_tree.view(torch.int32)), extra
-        assert torch.equal(fold_sum(pad).view(torch.int32),
-                           base_fold.view(torch.int32)), extra
-    assert torch.equal(fold_sum(x[:, :1]), x[:, 0])
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 40, 205, 1000, 1024, 3277,
+                               14000, 40000])
+def test_window_sum_equals_jnp_sum_bitwise(n):
+    """``window_sum`` is XLA's CPU order: bit for bit ``jnp.sum`` over
+    rows of n terms spread over eight decades (a row of -0.0, whose sum is
+    +0.0 past one term, and one of a single huge term among small ones
+    included)."""
+    rng = np.random.RandomState(n)
+    x = (rng.randn(16, n) * 10.0 ** rng.uniform(-3, 5, (16, n))
+         ).astype(np.float32)
+    x[0] = -0.0
+    x[1, n // 2] = 3e7
+    want = np.asarray(jax.jit(lambda a: jnp.sum(a, -1))(x))
+    got = window_sum(torch.tensor(x))
+    assert _bits_equal(got, want)
+    assert _bits_equal(window_sum(torch.tensor(x.T), dim=0), want)
+
+
+def test_window_levels_follow_xla_reduce_window():
+    """The windows' padding at each level, as XLA's optimised HLO has it:
+    ``jnp.sum`` over 205 terms is ``reduce-window(size=32, pad=9_10)``
+    then a reduce of 7; 70,000 terms take three levels of windows."""
+    assert window_levels(205) == [(205, 9), (7, 12)]
+    assert window_levels(70000) == [(70000, 8), (2188, 10), (69, 13),
+                                    (3, 14)]
+    assert window_levels(32) == [(32, 0)]
 
 
 def test_tree_is_the_halving_order():
@@ -221,7 +318,7 @@ def test_tree_is_the_halving_order():
     # Halving: (1 + -1e8) + (1e8 + 1) = -1e8 + 1e8 = 0 in float32.
     assert tree_sum(x).item() == 0.0
     # Neighbours would give (1 + 1e8) + (-1e8 + 1) = 0 too; a fold 1.
-    assert fold_sum(x).item() == 1.0
+    assert window_sum(x).item() == 1.0
     y = torch.tensor([[3.0, 1e8, 1.0, -1e8]])
     # Halving: (3 + 1) + (1e8 - 1e8) = 4; neighbours: 1e8 - 1e8 = 0.
     assert tree_sum(y).item() == 4.0
@@ -436,6 +533,10 @@ LAUNCHES = {
     "wide_M32768_alpha1": (1024, (64, 4)),
     "wide_M70000_numel": (1024, (64, 4)),
     "wide_M70000_alpha1": (1024, (64, 4)),
+    "a_static_33": (128, (256, 4)),
+    "a_static_all_1024": (128, (256, 4)),
+    "M16384_static_all": (1024, (64, 4)),
+    "wide_M70000_static_all": (1024, (64, 4)),
 }
 
 
