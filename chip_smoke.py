@@ -13,10 +13,11 @@ Phases (any failure exits non-zero; no error is swallowed):
    ``csrc/update_useq.cu``, ``csrc/update_wide.cu`` and
    ``csrc/barebone_rollout.cu`` with nvcc for sm_90a, all at once, and
    print
-   the build time, each ptxas report (registers, spills), each rollout
-   kernel's SASS instructions per lane-step by class (``sass_counts``,
-   where the toolkit has ``cuobjdump``) and the card's name and power
-   limit.
+   the build time, each ptxas report (registers, spills: none allowed
+   in the barebone rollout's and the wide update's instantiations), each
+   rollout kernel's SASS instructions per lane-step by class
+   (``sass_counts``, where the toolkit has ``cuobjdump``) and the card's
+   name and power limit.
 2. Each kernel against its plain version, bit for bit (the 2.7 m bicycle
    within rtol 1e-4), each row with its instantiation's tiling: the byte
    layout cases of the JAX package's on-chip parity record; the binned
@@ -72,15 +73,22 @@ Phases (any failure exits non-zero; no error is swallowed):
    and 4096, and past the kernel's former cap up to the Config's largest
    M: a ragged 5000, 8192 and 15,000; then the shapes the kernels once
    refused: T = 4,097 and 20,000 (the coupling streamed), the barebone
-   engine's K = 40,000, 100,000 and 1e6 (the wide update's four
+   engine's K = 40,000, 100,000 and 1e6 (the wide update's three
    launches), M = 16,384, 32,768 and 70,000 (the wide CVaR past 16,384)
    at numel ceil(0.2 M) and alpha 1, and the windowed sum's counts (XLA's
    CPU order): numel 33 and a static count of M (the row as stored) at
    world (a), a static count of M at M = 16,384 and 70,000 -- and each
    static count's alpha against its plain version, bit for bit.  The
    barebone rollout kernel (``barebone_rollout_fused``) against the plain
-   loop, bit for bit, at K = 1, 1,000, 1,024, 40,000 and 1e6, T = 1, 50
-   and 100, N = 1, 2 and 5 obstacles.  Launches past one grid
+   loop, bit for bit, at K = 1, 255, 256, 257, 1,000, 40,000 and 1e6, T
+   = 1, 7, 50, 100 and 257 (the staged tiles' edges), N = 0, 1, 2, 5
+   and 9 obstacles (1 and 2 held in registers, the rest in the generic
+   instantiation).  The wide update (``update_useq_wide``) against its
+   plain version, bit for bit, at K = 32,769, 40,000, 65,537, 1e6,
+   1,048,577 and 2,097,153, B = 1 and 3, T = 1, 3, 50 and 4,097 (its
+   chunks' edges and the eta kernel's streamed groups; K from 1e6 at T =
+   4,097 left out: the plain version's temporaries pass the card's 80 GB),
+   a NaN cost among them.  Launches past one grid
    (``check_launch_chunks``): 65,539 scenarios through the map sampler
    (byte and 8-bit cells), both rollout kernels and the update, each two
    launches bit for bit with the calls on their slices and the plain
@@ -159,12 +167,15 @@ Phases (any failure exits non-zero; no error is swallowed):
    tail kernels at (a)'s shape (static and the planner's alpha), the
    sweep's, the det modes', the barebone engine's, model_bench's K =
    10240, every M past 1024 and the shapes past the former caps (T =
-   4,097 and 20,000, K = 40,000 and 1e6, M = 16,384, 32,768 and 70,000),
+   4,097 and 20,000, K = 40,000, 1e5 and 1e6, M = 16,384, 32,768 and
+   70,000),
    in turns with the torch calls the CVaR
    kernel replaced (the library call), ``torch.sort`` and a masked sum,
    and an empty kernel (one graph node's floor), against their bounds and
-   plain versions; the barebone rollout kernel at K = 1,000 and 1e6
-   (graph and eager, in turns) against its bound and the plain loop; the
+   plain versions, and the wide update's three launches each on its own
+   (``torch.profiler``) at K = 40,000, 1e5 and 1e6; the barebone rollout
+   kernel at K = 1,000 and 1e6 (graph and eager, in turns) against its
+   bound and the plain loop; the
    visualisation rollouts of worlds (a) and (c) and of the barebone
    planner, one vis graph replay on the device clock and
    ``get_state_rollout()`` on the host's, with the graph's kernels; then
@@ -278,6 +289,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import sys
 import time
 
@@ -342,15 +354,33 @@ LIFTED_BAREBONE_K = (100000, 1000000)
 LIFTED_SOLVES = 3
 # The barebone solve graph's kernels a replay at most: the draw, its
 # scaling, the rollout, CVaR and update kernels and a few copies' kernels
-# (the plain loop's replay had some 1,700).
+# (the plain loop's replay had some 1,700); at the lifted K, where the
+# update takes the wide path's three launches, at most
+# LIFTED_BAREBONE_MAX_NODES.
 BAREBONE_MAX_NODES = 10
-# Phase 2's barebone rollout cases (K x T x N obstacles) and phase 4's
-# timed shapes (the example's K = 1,000 and the Config's 1e6, T = 50, its
-# two obstacles).
-BAREBONE_KS = (1, 1000, 1024, 40000, 1000000)
-BAREBONE_TS = (1, 50, 100)
-BAREBONE_NS = (1, 2, 5)
+LIFTED_BAREBONE_MAX_NODES = 8
+# Phase 2's barebone rollout cases (K x T x N obstacles: a block's 256
+# rollouts and one either side, whole and partial tiles of 8 steps, 1 and
+# 2 obstacles in registers, none, 5 and 9 in the generic instantiation)
+# and phase 4's timed shapes (the example's K = 1,000 and the Config's
+# 1e6, T = 50, its two obstacles).
+BAREBONE_KS = (1, 255, 256, 257, 1000, 40000, 1000000)
+BAREBONE_TS = (1, 7, 50, 100, 257)
+BAREBONE_NS = (0, 1, 2, 5, 9)
 BAREBONE_TIMED = ((1000, 50, 2), (1000000, 50, 2))
+# Phase 2's wide update cases (K x B x T): just past the fused path's
+# 32,768, the lifted 40,000, just past a power of two, the Config's 1e6,
+# and just past 2^20 and 2^21 (update_wide_eta's 32 and 64 positions a
+# thread: its streamed groups of 16); one scenario and three; T of one
+# step, three, the engine's 50 and 4,097 (33 chunks of columns).  K past
+# 1e6 at T = 4,097 is left out: its noise is 33 GB or more and the plain
+# version's tree needs three times that.
+WIDE_UPDATE_KS = (32769, 40000, 65537, 1000000, 1048577, 2097153)
+WIDE_UPDATE_BS = (1, 3)
+WIDE_UPDATE_TS = (1, 3, 50, 4097)
+WIDE_UPDATE_SKIP = ((1000000, 4097), (1048577, 4097), (2097153, 4097))
+# Phase 4's wide update launches, each timed on its own (torch.profiler).
+WIDE_UPDATE_TIMED = (40000, 100000, 1000000)
 # World -> (planning mode, the layout 'auto' must route it to); None: 2-
 # or 4-bit cells, as the support-compacted bin count falls (printed).
 WORLDS = {
@@ -546,7 +576,7 @@ TAIL_TIMED = ("a_static_205", "a_planner_alpha", "sweep_b30_alphas",
               "shared_memory_sort_M2048", "shared_memory_sort_M4096",
               "ragged_M5000", "M8192_alpha", "config_max_M15000",
               "streamed_T4097", "streamed_T20000", "wide_update_K40000",
-              "wide_update_K1000000", "M16384_numel", "wide_M32768_numel",
+              "wide_update_K100000", "wide_update_K1000000", "M16384_numel", "wide_M32768_numel",
               "wide_M70000_numel", "wide_M70000_alpha1", "a_static_all_1024",
               "wide_M70000_static_all")
 
@@ -600,7 +630,7 @@ def check_tail_cases(torch, dev):
                    cvar_path=list(kc.kernel_path(B, K, M, T, sms)),
                    update_shape=(list(ku.launch_shape(B, K, T, sms))
                                  if K <= ku.FUSED_K
-                                 else ["wide", ku.wide_blocks(K)]),
+                                 else ku.wide_launch_shape(B, K, T)),
                    entries_differing=differ, max_abs_err=err,
                    finite=bool(torch.isfinite(u_got).all()))
         print(json.dumps(rec), flush=True)
@@ -644,9 +674,10 @@ def check_barebone_cases(torch, dev):
     bit for bit, at every K x T x N of ``BAREBONE_KS`` x ``BAREBONE_TS`` x
     ``BAREBONE_NS``.  One JSON line a case; returns the records."""
     from mppi_numba_tpu_torch.ops.kernels.barebone_rollout import (
-        barebone_rollout_fused)
+        barebone_rollout_fused, launch_shape)
     from mppi_numba_tpu_torch.ops.rollout import barebone_rollout_costs
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results = []
     for K in BAREBONE_KS:
         for T in BAREBONE_TS:
@@ -658,8 +689,10 @@ def check_barebone_cases(torch, dev):
                 torch.cuda.synchronize()
                 differ = bits_differ(torch, got, want)
                 hit = float((want >= 1e6).float().mean())
+                threads, blocks, tiles, smem = launch_shape(K, T, N, sms)
                 rec = dict(case="barebone_rollout", K=K, T=T, N=N,
-                           entries_differing=differ,
+                           threads=threads, blocks=blocks, tiles=tiles,
+                           shared_bytes=smem, entries_differing=differ,
                            max_abs_err=float((got - want).abs().max()),
                            hit_share=hit)
                 print(json.dumps(rec), flush=True)
@@ -669,6 +702,101 @@ def check_barebone_cases(torch, dev):
                 results.append(rec)
                 del task, u, noise, got, want
     return results
+
+
+def wide_update_case(torch, dev, B, K, T, seed):
+    """A wide update's inputs on the card: ``drivers.tail_bench``'s
+    rollout-like costs (a tenth crashed), noise scaled by sigma (2, 3),
+    controls, lambda 1 and the flagship's ranges, with a leading axis of
+    B scenarios where B > 1.  Returns ``(costs, noise, u, lam, vrange,
+    wrange)``."""
+    from mppi_numba_tpu_torch.drivers.tail_bench import tail_case_inputs
+
+    (costs, noise, u, _, lam), _, (_, vr, wr) = tail_case_inputs(
+        ("wide_update", B, K, 1, T, 1), dev, seed=seed)
+    return costs[..., 0].contiguous(), noise, u, lam, vr, wr
+
+
+def check_wide_update_cases(torch, dev):
+    """Phase 2's wide update cases: ``update_useq_wide`` against
+    ``update_useq_plain`` on the same CUDA tensors, bit for bit (u and
+    the weights), at every K x B x T of ``WIDE_UPDATE_KS`` x
+    ``WIDE_UPDATE_BS`` x ``WIDE_UPDATE_TS`` but ``WIDE_UPDATE_SKIP``, and
+    at B = 1, T = 3 again with a NaN cost.  One JSON line a case; returns
+    the records."""
+    from mppi_numba_tpu_torch.ops.kernels import update_useq as ku
+
+    results = []
+    for K in WIDE_UPDATE_KS:
+        for B in WIDE_UPDATE_BS:
+            for T in WIDE_UPDATE_TS:
+                if (K, T) in WIDE_UPDATE_SKIP:
+                    continue
+                args = wide_update_case(torch, dev, B, K, T, seed=K + B + T)
+                variants = [("", args[0])]
+                if B == 1 and T == 3:
+                    variants.append(("_nan_cost", args[0].clone().index_fill_(
+                        -1, torch.tensor([K // 3], device=dev),
+                        float("nan"))))
+                for tag, costs in variants:
+                    got = ku.update_useq_wide(costs, *args[1:])
+                    want = ku.update_useq_plain(costs, *args[1:])
+                    torch.cuda.synchronize()
+                    differ = {"u": bits_differ(torch, got[0], want[0]),
+                              "weights": bits_differ(torch, got[1], want[1])}
+                    rec = dict(case="wide_update" + tag, K=K, scenarios=B,
+                               T=T, shape=ku.wide_launch_shape(B, K, T),
+                               entries_differing=differ,
+                               max_abs_err=float((got[0] - want[0]).abs()
+                                                 .max()))
+                    print(json.dumps(rec), flush=True)
+                    check(not any(differ.values()),
+                          "wide update K {} B {} T {}{}: {} differ from the "
+                          "plain version".format(K, B, T, tag, differ))
+                    results.append(rec)
+                    del got, want
+                del args, variants
+    return results
+
+
+def time_wide_update_launches(torch, dev, emit):
+    """Phase 4's wide update at each ``WIDE_UPDATE_TIMED`` K (B = 1, T =
+    50): each of its three launches' own device time, from
+    ``torch.profiler`` over 20 eager calls, beside the call's bound.
+    Returns ``{K: {kernel: us a call}}``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mppi_numba_tpu_torch.ops.kernels import update_useq as ku
+
+    out = {}
+    for K in WIDE_UPDATE_TIMED:
+        args = wide_update_case(torch, dev, 1, K, 50, seed=K)
+        for _ in range(3):
+            ku.update_useq_wide(*args)
+        torch.cuda.synchronize()
+        calls = 20
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                ku.update_useq_wide(*args)
+            torch.cuda.synchronize()
+        us = {}
+        for e in prof.key_averages():
+            name = re.search(r"update_wide_[a-z]+", e.key)
+            if e.device_type == DeviceType.CUDA and name:
+                us[name.group(0)] = (us.get(name.group(0), 0.0)
+                                     + float(e.device_time_total) / calls)
+        check(len(us) == 3, "wide update K {}: the profiler saw {}".format(
+            K, sorted(us)))
+        bound = tail_bound_ms(1, K, 1, 50, 1)[1]
+        emit("wide_update_launch_us", sum(us.values()), "us", K=K, T=50,
+             launch_us=us, bound_ms=bound[0], bound_by=bound[1],
+             bound_share=bound[0] / (sum(us.values()) / 1e3),
+             shape=ku.wide_launch_shape(1, K, 50))
+        out[K] = us
+        del args
+    return out
 
 
 def barebone_bound_ms(K, T, N):
@@ -694,6 +822,7 @@ def time_barebone_kernel(torch, dev, time_kernels, time_cuda, emit):
     shape: the kernel over launches captured in a CUDA graph and eager, in
     turns, the plain loop eagerly, and the bound.  Returns ``{shape:
     {...}}``."""
+    from mppi_numba_tpu_torch.ops.kernels import barebone_rollout
     from mppi_numba_tpu_torch.ops.kernels.barebone_rollout import (
         barebone_rollout_fused)
     from mppi_numba_tpu_torch.ops.rollout import barebone_rollout_costs
@@ -708,6 +837,9 @@ def time_barebone_kernel(torch, dev, time_kernels, time_cuda, emit):
         bound = barebone_bound_ms(K, T, N)
         shape = "K{}_T{}_N{}".format(K, T, N)
         rec = dict(shape=shape, ms=min(runs["graph"]),
+                   launch_shape=list(barebone_rollout.launch_shape(
+                       K, T, N, torch.cuda.get_device_properties(
+                           dev).multi_processor_count)),
                    eager_ms=min(runs["eager"]), runs=runs["graph"],
                    eager_runs=runs["eager"], plain_ms=min(plain),
                    bound_ms=bound[0], bound_by=bound[1],
@@ -954,8 +1086,14 @@ def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
     return out
 
 
+# Libraries whose every instantiation must build without a ptxas spill.
+NO_SPILL_LIBRARIES = ("barebone_rollout", "update_wide")
+_SPILL = re.compile(r"(\d+) bytes spill (?:stores|loads)")
+
+
 def build_kernels(_build, names):
-    """Build every source at once (one nvcc each); print the reports."""
+    """Build every source at once (one nvcc each); print the reports, and
+    fail on a spill in ``NO_SPILL_LIBRARIES``."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         reports = dict(zip(names, pool.map(_build.build, names)))
@@ -966,6 +1104,9 @@ def build_kernels(_build, names):
         for line in (reports[name] or "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("ptxas[{}]: {}".format(name, line.strip()))
+            if name in NO_SPILL_LIBRARIES:
+                check(not any(int(n) for n in _SPILL.findall(line)),
+                      "ptxas[{}] spilled: {}".format(name, line.strip()))
     print("build: {:.1f} s".format(time.perf_counter() - t0))
 
 
@@ -1830,8 +1971,10 @@ def main():
     # bit (and the static count against the same count from alpha).
     tail_results = check_tail_cases(torch, dev)
 
-    # The barebone rollout kernel against the plain loop, bit for bit.
+    # The barebone rollout kernel against the plain loop, and the wide
+    # update against its plain version, bit for bit, at their edges.
     barebone_results = check_barebone_cases(torch, dev)
+    wide_update_results = check_wide_update_cases(torch, dev)
 
     # Launches past what one grid holds: 65,539 scenarios and 70,000 map
     # samples, each in chunks, bit for bit with the chunks' own calls and
@@ -2112,6 +2255,9 @@ def main():
                           if k not in ("cvar_costs", "update_useq_wide",
                                        "barebone_rollout")),
               "lifted barebone K {}: launches {}".format(K, launches))
+        check(run["kernel_nodes"] <= LIFTED_BAREBONE_MAX_NODES,
+              "lifted barebone K {}: {} kernels a replay".format(
+                  K, run["kernel_nodes"]))
         for k in totals:
             totals[k] += launches[k]
         name = "barebone_K{}".format(K)
@@ -2313,9 +2459,11 @@ def main():
     # the torch calls the CVaR kernel replaced and an empty kernel.
     tail_timed = time_tail_kernels(torch, dev, time_kernels, time_cuda, emit)
 
-    # The barebone rollout kernel against its bound and the plain loop.
+    # The barebone rollout kernel against its bound and the plain loop,
+    # and the wide update's three launches, each on its own.
     barebone_timed = time_barebone_kernel(torch, dev, time_kernels,
                                           time_cuda, emit)
+    wide_launch_us = time_wide_update_launches(torch, dev, emit)
 
     # The visualisation rollouts (torch loops in a vis graph) of worlds
     # (a) and (c) and of the barebone planner: their device time and
@@ -2796,23 +2944,31 @@ def main():
     }, {
         "name": "update_useq_wide",
         "route": "cuda",
-        "kernel": "update_wide_min, _eta, _noise, _finish: the update past "
-                  "K = 32,768, four launches a call; update_useq_fused "
+        "kernel": "update_wide_min, _eta, _noise: the update past K = "
+                  "32,768, three launches a call; update_useq_fused "
                   "routes to it",
         "launches_phase7": phase7["update_useq_wide"],
         "source": update_useq.WIDE_KERNEL_SOURCE,
         "replaces": update_useq.REPLACES,
         "launches": totals["update_useq_wide"],
         "launches_lifted_solves": lifted_launches["update_useq_wide"],
-        "max_abs_err": max(r["max_abs_err"] for r in tail_results
-                           if r["K"] > update_useq.FUSED_K),
+        "max_abs_err": max([r["max_abs_err"] for r in tail_results
+                            if r["K"] > update_useq.FUSED_K]
+                           + [r["max_abs_err"] for r in wide_update_results]),
         "ms": tail_big_k["update_ms"],
         "plain_ms": tail_big_k["update_plain_ms"],
         "bound_ms": tail_big_k["update_bound"][0],
         "bound_by": tail_big_k["update_bound"][1],
+        "bound_share": tail_big_k["update_bound"][0] / tail_big_k["update_ms"],
         "library_ms": None,
         "timed_at": "wide_update_K1000000: " + tail_big_k["shape"],
-        "cases": sum(r["K"] > update_useq.FUSED_K for r in tail_results),
+        "ms_at": {k: tail_timed[k]["update_ms"] for k in tail_timed
+                  if k.startswith("wide_update")},
+        "bound_ms_at": {k: tail_timed[k]["update_bound"][0]
+                        for k in tail_timed if k.startswith("wide_update")},
+        "launch_us_at": {str(k): v for k, v in wide_launch_us.items()},
+        "cases": sum(r["K"] > update_useq.FUSED_K for r in tail_results)
+                 + len(wide_update_results),
     }, {
         "name": "barebone_rollout",
         "route": "cuda",
@@ -2833,6 +2989,8 @@ def main():
         "ms_at": {k: v["ms"] for k, v in barebone_timed.items()},
         "plain_ms_at": {k: v["plain_ms"] for k, v in barebone_timed.items()},
         "bound_ms_at": {k: v["bound_ms"] for k, v in barebone_timed.items()},
+        "bound_share_at": {k: v["bound_share"]
+                           for k, v in barebone_timed.items()},
         "barebone_kernels_per_replay": barebone["kernel_nodes"],
         "cases": len(barebone_results),
     }, {

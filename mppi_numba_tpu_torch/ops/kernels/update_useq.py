@@ -10,12 +10,15 @@ noise sum, the add and the clamps in one launch.  Both versions sum in the
 halving tree's order (``ops/tree.py``), so the kernel equals the plain
 version bit for bit.
 
-Past ``FUSED_K`` rollouts the update takes the wide path, four launches
-of ``csrc/update_wide.cu`` (``update_wide_min``, ``_eta``, ``_noise``,
-``_finish``), a library of its own: the padded K positions split over
-blocks by their low bits, the halving tree's last levels summed across
-them in order, so it too equals the plain version bit for bit.
-Scenarios past 65,535 launch in chunks (the grid's y).
+Past ``FUSED_K`` rollouts the update takes the wide path, three launches
+of ``csrc/update_wide.cu`` (``update_wide_min``, ``_eta``, ``_noise``), a
+library of its own: the padded K positions split into ``WIDE_GROUPS``
+groups by their low bits, the noise streamed through shared memory as
+whole row segments, each weight computed once, the halving tree's last
+levels summed across the groups in order by the last block to finish, so
+it too equals the plain version bit for bit (``wide_launch_shape`` picks
+the columns a block and the threads a column).  Scenarios past 65,535
+launch in chunks (the grid's y).
 
 The plain version also takes the process group a K axis is split over
 (the sharded solve's k-split update): its three reductions then run
@@ -44,15 +47,49 @@ REPLACES = ("mppi_numba_tpu/ops/update.py:23-55 (update_useq), XLA-fused; "
 # wide path.
 FUSED_K = 32768
 STEPS_PER_BLOCK = 4   # the kernel's kSteps
-WIDE_POSITIONS = 4096  # the wide path's positions a block (kWidePer)
+# The wide path's kWideG (position groups a scenario: the tree's last
+# levels, summed by the last block to finish), kStage (leaves a thread a
+# stage), kRing (stages in shared memory), kNoiseMax (threads a block),
+# kMaxCols (columns a chunk) and kMaxQ (position classes a column).
+WIDE_GROUPS = 256
+WIDE_STAGE = 32
+WIDE_RING = 2
+WIDE_MAX_THREADS = 512
+WIDE_MAX_COLS = 256
+WIDE_MAX_Q = 8
 # Scenarios a launch: the grid's y.
 MAX_SCENARIOS = 65535
 
 
-def wide_blocks(K):
-    """The wide path's G, blocks a scenario (and the tree's last levels):
-    the padded K over ``WIDE_POSITIONS``."""
-    return max(padded_length(K), WIDE_POSITIONS) // WIDE_POSITIONS
+def wide_launch_shape(B, K, T):
+    """The wide path's launch from the shapes, as a dict: ``positions``
+    (P, each group's: the padded K over ``WIDE_GROUPS``), ``columns`` (CJ,
+    a chunk's: the 2T columns split evenly into chunks of at most
+    ``WIDE_MAX_COLS``, a multiple of 4 where T is even, so that a row's
+    segment is one bulk copy of a multiple of 16 bytes, else of 2),
+    ``chunks``, ``classes``
+    (Q, threads a column: the largest power of two up to ``WIDE_MAX_Q``
+    with CJ Q threads at most ``WIDE_MAX_THREADS`` and a stage's
+    ``WIDE_STAGE`` Q rows at most P), ``threads`` (CJ Q up to a warp),
+    ``blocks`` (``WIDE_GROUPS`` a chunk and scenario), ``bulk`` (whether
+    the rows come by bulk copies of the Tensor Memory Accelerator, else
+    in 8-byte pieces) and ``shared_bytes`` (``WIDE_RING`` stages of ``WIDE_STAGE`` Q
+    rows of CJ floats and their costs, and a stage's weights)."""
+    P = max(padded_length(K) // WIDE_GROUPS, 1)
+    quantum = 4 if T % 2 == 0 else 2
+    even = -(-2 * T // -(-2 * T // WIDE_MAX_COLS))
+    CJ = -(-even // quantum) * quantum
+    chunks = -(-2 * T // CJ)
+    Q = 1
+    while (Q < WIDE_MAX_Q and 2 * Q * CJ <= WIDE_MAX_THREADS
+           and 2 * Q * WIDE_STAGE <= P):
+        Q *= 2
+    R = WIDE_STAGE * Q
+    return dict(positions=P, columns=CJ, chunks=chunks, classes=Q,
+                threads=-(-CJ * Q // 32) * 32,
+                blocks=chunks * WIDE_GROUPS * B,
+                bulk=T % 2 == 0 and CJ % 4 == 0,
+                shared_bytes=4 * (WIDE_RING * R * CJ + (WIDE_RING + 1) * R))
 
 
 def launch_shape(B, K, T, sms=H100_SMS):
@@ -118,11 +155,23 @@ def _wide_entry_point():
     on first use, its launch's ctypes signature set once."""
     from ._build import load
 
-    fn = load("update_wide").update_useq_wide_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
+    lib = load("update_wide")
+    fn = lib.update_useq_wide_launch
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    lib.update_wide_prepare.restype = ctypes.c_int
+    return fn, lib.update_wide_prepare
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_prepared(index):
+    """Sets the wide path's shared-memory opt-in on card ``index`` once."""
+    with torch.cuda.device(index):
+        err = _wide_entry_point()[1]()
+    if err != 0:
+        raise RuntimeError("update_useq_wide: setting the kernel's shared "
+                           "memory failed: CUDA error {}".format(err))
 
 
 @functools.lru_cache(maxsize=None)
@@ -196,12 +245,12 @@ update_useq_fused.launches = 0
 
 def update_useq_wide(costs, noise, u_cur, lambda_weight, vrange, wrange):
     """``update_useq_fused`` past ``FUSED_K`` rollouts: the wide path's
-    four launches (``update_wide_min``, ``_eta``, ``_noise``, ``_finish``),
-    the padded K positions split over ``wide_blocks(K)`` blocks a scenario
-    by their low bits.  Arguments and result as for ``update_useq_fused``,
-    K > ``FUSED_K``.
+    three launches (``update_wide_min``, ``_eta``, ``_noise``), the padded
+    K positions split into ``WIDE_GROUPS`` groups a scenario by their low
+    bits, launched as ``wide_launch_shape`` says.  Arguments and result as
+    for ``update_useq_fused``, K > ``FUSED_K``.
 
-    On CUDA tensors this makes the four launches (again for every
+    On CUDA tensors this makes the three launches (again for every
     ``MAX_SCENARIOS`` scenarios) and adds one to
     ``update_useq_wide.launches`` each time; on CPU tensors it runs
     ``update_useq_plain``.
@@ -229,7 +278,10 @@ def _launch(counted, costs, noise, u_cur, lambda_weight, vrange, wrange):
     lead = tuple(costs.shape[:-1])
     ins = [t.contiguous() for t in (costs, noise, u_cur, lambda_weight,
                                     vrange, wrange)]
-    if ins[1].data_ptr() % 8:   # the kernel copies the noise 8 bytes a time
+    # The one-launch kernel copies the noise 8 bytes a time, the wide
+    # path 16.
+    wide = K > FUSED_K
+    if ins[1].data_ptr() % (16 if wide else 8):
         ins[1] = ins[1].clone()
     u_new = torch.empty(lead + (T, 2), dtype=torch.float32, device=dev)
     weights = torch.empty(lead + (K,), dtype=torch.float32, device=dev)
@@ -237,13 +289,15 @@ def _launch(counted, costs, noise, u_cur, lambda_weight, vrange, wrange):
     if not lead:
         ins = [t.reshape((1,) + tuple(t.shape)) for t in ins]
     outs = (u_new.view(B, T, 2), weights.view(B, K))
-    wide = K > FUSED_K
     if wide:
-        G, chunks = wide_blocks(K), -(-T // STEPS_PER_BLOCK)
+        shape = wide_launch_shape(B, K, T)
+        G, chunks, CJ = WIDE_GROUPS, shape["chunks"], shape["columns"]
         scratch = (torch.empty((B, G), dtype=torch.int32, device=dev),
                    torch.empty((B, G), dtype=torch.float32, device=dev),
-                   torch.empty((B, chunks, 2 * STEPS_PER_BLOCK, G),
-                               dtype=torch.float32, device=dev))
+                   torch.empty((B, chunks, CJ, G), dtype=torch.float32,
+                               device=dev),
+                   torch.empty((B, chunks), dtype=torch.int32, device=dev))
+        _wide_prepared(dev.index)
     # The runtime launches on its current device: make it the tensors'.
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -252,9 +306,9 @@ def _launch(counted, costs, noise, u_cur, lambda_weight, vrange, wrange):
             n = part.stop - b0
             ptrs = [t[part].data_ptr() for t in (*ins, *outs)]
             if wide:
-                err = _wide_entry_point()(
+                err = _wide_entry_point()[0](
                     *ptrs, *(t[part].data_ptr() for t in scratch), n, K, T,
-                    stream)
+                    CJ, shape["classes"], stream)
             else:
                 width, cluster = launch_shape(n, K, T, sms)
                 err = _entry_point()[0](*ptrs, n, K, T, width, cluster,

@@ -1996,10 +1996,12 @@ def test_cvar_windows_on_card(B, K, M, T):
             assert torch.equal(_bits(got), _bits(want)), (numel, list(kw))
 
 
-# The barebone rollout kernel's shapes: K of one rollout, the example's
-# 1,000, a power of two, the lifted 40,000 and the Config's 1e6; horizons
-# of 1, 50 and 100 steps; 1, 2 and 5 obstacles.
-BAREBONE_KS = (1, 1000, 1024, 40000, 1000000)
+# The barebone rollout kernel's shapes: K of one rollout, a block's 256
+# and one either side, the example's 1,000, the lifted 40,000 and the
+# Config's 1e6; horizons of 1, 7, 50, 100 and 257 steps (whole and partial
+# tiles of 8); 1 and 2 obstacles (held in registers), none, 5 and 9 (the
+# generic instantiation, read from global memory).
+BAREBONE_KS = (1, 255, 256, 257, 1000, 40000, 1000000)
 
 
 def _barebone_case(dev, K, T, N, seed=0):
@@ -2023,8 +2025,8 @@ def _barebone_case(dev, K, T, N, seed=0):
     return task, u, noise
 
 
-@pytest.mark.parametrize("N", [1, 2, 5])
-@pytest.mark.parametrize("T", [1, 50, 100])
+@pytest.mark.parametrize("N", [0, 1, 2, 5, 9])
+@pytest.mark.parametrize("T", [1, 7, 50, 100, 257])
 @pytest.mark.parametrize("K", BAREBONE_KS)
 def test_barebone_rollout_kernel_matches_plain_on_card(K, T, N):
     """The barebone rollout kernel against the plain loop
@@ -2042,7 +2044,7 @@ def test_barebone_rollout_kernel_matches_plain_on_card(K, T, N):
     want = barebone_rollout_costs(task, u, noise)
     assert got.shape == (K,)
     assert torch.equal(_bits(got), _bits(want))
-    if K >= 1000 and T >= 50:
+    if K >= 1000 and T >= 50 and N:
         # Some rollouts hit an obstacle and some reach the goal.
         assert bool((want >= 1e6).any()) and bool((want < 1e6).any())
 
@@ -2201,7 +2203,7 @@ def test_cvar_wide_kernel_edges_on_card(kind):
                                    (3, 40000, 7), (None, 100000, 50),
                                    (None, 1000000, 50), (2, 65536, 130)])
 def test_update_useq_past_the_former_cap_on_card(B, K, T):
-    """The update at K past 32,768 (the wide path's four launches) against
+    """The update at K past 32,768 (the wide path's three launches) against
     its plain version, bit for bit, with and without a NaN cost."""
     from mppi_numba_tpu_torch.ops.kernels import update_useq as ku
 
@@ -2220,6 +2222,40 @@ def test_update_useq_past_the_former_cap_on_card(B, K, T):
             assert torch.equal(_bits(g_), _bits(w_))
     assert (ku.update_useq_fused.launches,
             ku.update_useq_wide.launches) == (before[0], before[1] + 2)
+
+
+# The wide update's edges: K just past 32,768, the lifted 40,000, just
+# past a power of two, the Config's 1e6, and just past 2^20 and 2^21
+# (update_wide_eta's streamed groups of 16 positions a thread); one
+# scenario and three; T of one step, three, 50 and 4,097 (33 chunks of
+# columns), but not K from 1e6 at T = 4,097 (33 GB of noise or more, three
+# times that for the plain version).
+WIDE_EDGES = [(K, B, T)
+              for K in (32769, 40000, 65537, 1000000, 1048577, 2097153)
+              for B in (1, 3) for T in (1, 3, 50, 4097)
+              if not (K >= 1000000 and T == 4097)]
+
+
+@pytest.mark.parametrize("K,B,T", WIDE_EDGES)
+def test_update_useq_wide_edges_on_card(K, B, T):
+    """The wide update (three launches, one count) against its plain
+    version, bit for bit: u and the weights (the NaN cost is
+    ``test_update_useq_past_the_former_cap_on_card``'s)."""
+    from mppi_numba_tpu_torch.ops.kernels import update_useq as ku
+
+    dev = _cuda_or_skip()
+    costs, noise, u, _, lam, _, vr, wr = _tail_inputs(
+        dev, None if B == 1 else B, K, 1, T, seed=K + B + T)
+    costs = costs[..., 0].contiguous()
+    costs[..., 4] = 7.0   # no NaN row here: the weights stay finite
+    before = ku.update_useq_wide.launches
+    got = ku.update_useq_wide(costs, noise, u, lam, vr, wr)
+    torch.cuda.synchronize()
+    assert ku.update_useq_wide.launches == before + 1
+    want = ku.update_useq_plain(costs, noise, u, lam, vr, wr)
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape
+        assert torch.equal(_bits(g_), _bits(w_))
 
 
 def _scenarios_expanded(t, B):

@@ -424,8 +424,8 @@ def test_every_launch_shape_the_launchers_pick_is_compiled(B, K):
     thread for the update: a shape past them would return
     cudaErrorInvalidValue.  Past T = 4,096 every CVaR instantiation's
     streamed twin, past M = 16,384 the wide CVaR kernel (1,024 threads),
-    past K = 32,768 the wide update (at least 16 blocks a scenario, each
-    4,096 positions)."""
+    past K = 32,768 the wide update (256 position groups a scenario, each
+    at least 256 positions, whole stages of 32 leaves a thread)."""
     cvar_shapes = _compiled("cvar_common.cuh", "CVAR_SHAPES")
     update_shapes = _compiled("update_useq.cu", "UPDATE_SHAPES")
     assert all(a // c <= 8 for a, c in update_shapes)
@@ -449,14 +449,23 @@ def test_every_launch_shape_the_launchers_pick_is_compiled(B, K):
                     assert path == "cvar_costs_kernel"
                     assert (tpr, E) == _cvar_instance(tpr, M)
                     assert (tpr, E) in cvar_shapes, (M, sms, tpr)
-    assert _source_has("update_wide.cu", r"kFusedK = kMaxBlock \* 64",
-                       r"kWidePer = kWideW \* kWideA",
-                       r"extern \"C\" int update_useq_wide_launch")
+    assert _source_has(
+        "update_wide.cu", r"kFusedK = kMaxBlock \* 64",
+        r"kWideG = {};".format(kupdate.WIDE_GROUPS),
+        r"kStage = {};".format(kupdate.WIDE_STAGE),
+        r"kRing = {};".format(kupdate.WIDE_RING),
+        r"kNoiseMax = {};".format(kupdate.WIDE_MAX_THREADS),
+        r"kMaxCols = {};".format(kupdate.WIDE_MAX_COLS),
+        r"kMaxQ = {};".format(kupdate.WIDE_MAX_Q),
+        r"extern \"C\" int update_useq_wide_launch")
     for T in (1, 7, 40, 100, 4096, 4097):
         if K > kupdate.FUSED_K:
-            G = kupdate.wide_blocks(K)
-            assert G >= 16 and G * kupdate.WIDE_POSITIONS >= K
-            assert G * kupdate.WIDE_POSITIONS == padded_length(K)
+            shape = kupdate.wide_launch_shape(B, K, T)
+            P, Q = shape["positions"], shape["classes"]
+            assert P * kupdate.WIDE_GROUPS == padded_length(K) >= K
+            assert P >= 256 and P % (kupdate.WIDE_STAGE * Q) == 0
+            assert shape["threads"] <= kupdate.WIDE_MAX_THREADS
+            assert shape["columns"] <= kupdate.WIDE_MAX_COLS
             continue
         for sms in (132, 114, 8):
             shape = kupdate.launch_shape(B, K, T, sms)
@@ -499,7 +508,8 @@ def test_card_edge_tests_reach_every_update_instantiation():
 
 # The launchers' choices on an H100 (132 SMs) at every TAIL_CASES shape:
 # the CVaR's threads a row, the update's (threads a block, blocks a
-# cluster), or past K = 32,768 the wide path's blocks a scenario.
+# cluster), or past K = 32,768 the wide path's positions a group, columns
+# a chunk and threads a column.
 LAUNCHES = {
     "a_static_205": (128, (256, 4)),
     "a_planner_alpha": (128, (256, 4)),
@@ -524,9 +534,9 @@ LAUNCHES = {
     "config_max_M15000": (1024, (32, 2)),
     "streamed_T4097": (32, (256, 1)),
     "streamed_T20000": (32, (256, 1)),
-    "wide_update_K40000": (32, ("wide", 16)),
-    "wide_update_K100000": (32, ("wide", 32)),
-    "wide_update_K1000000": (32, ("wide", 256)),
+    "wide_update_K40000": (32, ("wide", 256, 100, 4)),
+    "wide_update_K100000": (32, ("wide", 512, 100, 4)),
+    "wide_update_K1000000": (32, ("wide", 4096, 100, 4)),
     "M16384_numel": (1024, (64, 4)),
     "M16384_alpha1": (1024, (64, 4)),
     "wide_M32768_numel": (1024, (64, 4)),
@@ -546,6 +556,8 @@ def test_launchers_choose_each_path_shapes_team(case):
     """The launch shapes each path's shape gets on an H100, held here on
     the CPU: a change to the rules shows as a change of this table."""
     name, B, K, M, T, _ = case
+    wide = kupdate.wide_launch_shape(B, K, T)
     update = (kupdate.launch_shape(B, K, T) if K <= kupdate.FUSED_K
-              else ("wide", kupdate.wide_blocks(K)))
+              else ("wide", wide["positions"], wide["columns"],
+                    wide["classes"]))
     assert (kcvar.threads_per_row(B, K, M), update) == LAUNCHES[name]
