@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; no error is swallowed):
    ``csrc/barebone_rollout.cu`` with nvcc for sm_90a, all at once, and
    print
    the build time, each ptxas report (registers, spills: none allowed
-   in the barebone rollout's and the wide update's instantiations), each
+   in the barebone rollout's, the wide update's and ``cvar_wide.cu``'s
+   instantiations), each
    rollout kernel's SASS instructions per lane-step by class
    (``sass_counts``, where the toolkit has ``cuobjdump``) and the card's
    name and power limit.
@@ -72,13 +73,19 @@ Phases (any failure exits non-zero; no error is swallowed):
    K = 10240, the m-sharded candidate pools and gathered rows, M 2048
    and 4096, and past the kernel's former cap up to the Config's largest
    M: a ragged 5000, 8192 and 15,000; then the shapes the kernels once
-   refused: T = 4,097 and 20,000 (the coupling streamed), the barebone
+   refused: T = 4,097 and 20,000 (the coupling its own launch), the barebone
    engine's K = 40,000, 100,000 and 1e6 (the wide update's three
    launches), M = 16,384, 32,768 and 70,000 (the wide CVaR past 16,384)
    at numel ceil(0.2 M) and alpha 1, and the windowed sum's counts (XLA's
    CPU order): numel 33 and a static count of M (the row as stored) at
    world (a), a static count of M at M = 16,384 and 70,000 -- and each
-   static count's alpha against its plain version, bit for bit.  The
+   static count's alpha against its plain version, bit for bit.  Past
+   the caps also ``check_lifted_tail_edges``: three scenarios (an alpha
+   each) at T = 4,097, 8,193 and 20,000 x M = 16, 1,024 and 20,000;
+   the wide CVaR on clustered, equal, tied and non-finite costs at M =
+   16,385 and 40,000, with its coupling in the block and launched before
+   it; the coupling kernel alone (``coupling_sums``) at one row, an odd
+   K, 20,000 and 40,000 steps.  The
    barebone rollout kernel (``barebone_rollout_fused``) against the plain
    loop, bit for bit, at K = 1, 255, 256, 257, 1,000, 40,000 and 1e6, T
    = 1, 7, 50, 100 and 257 (the staged tiles' edges), N = 0, 1, 2, 5
@@ -171,7 +178,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    70,000),
    in turns with the torch calls the CVaR
    kernel replaced (the library call), ``torch.sort`` and a masked sum,
-   and an empty kernel (one graph node's floor), against their bounds and
+   all the torch ops it replaced (the coupling's too), past T = 4,096 the
+   coupling kernel alone and its torch ops, and an empty kernel (one
+   graph node's floor), against their bounds (and bound shares) and
    plain versions, and the wide update's three launches each on its own
    (``torch.profiler``) at K = 40,000, 1e5 and 1e6; the barebone rollout
    kernel at K = 1,000 and 1e6 (graph and eager, in turns) against its
@@ -530,47 +539,11 @@ def map_sample_bound_ms(M, rH, rW, B_lin, B_ang, layout="bins",
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
-def tail_bound_ms(B, K, M, T, numel, unsorted=False):
-    """Least times of the solve's two tail calls at (B scenarios, K, M,
-    T), each the larger of its bytes over HBM bandwidth and its
-    operations: integer comparisons over the ALU pipe's rate plus float32
-    operations over the float32 peak.  What the functions need, not what
-    the kernels spend: the CVaR selects the worst ``numel`` of M costs
-    and orders them, M + numel log2 numel comparisons a row (a selection
-    and a comparison sort of what it selected), folds them and divides
-    once; the coupling is a division, a product and an
-    add a term (2T terms) and lambda's product; the update a subtraction,
-    a negation, a division, an exp (counted as one) and two sums' adds a
-    rollout, a product and an add a rollout and (t, c), and an add and a
-    clamp (2) a (t, c).  Bytes: each input read once, each output written
-    once: the CVaR call the costs, the noise, u, sigma, lambda and alpha
-    in, the (B, K) costs out; the update the costs, noise, u, lambda and
-    both ranges in, u and the weights out.  ``unsorted``: a static count
-    of M, whose sum takes the row as it is (no comparison).  Returns
-    ``((ms, bound_by) of cvar_costs, (ms, bound_by) of
-    update_useq_fused)``."""
-    rows = B * K
-    a_bytes = 4 * (rows * M + rows * T * 2 + B * T * 2 + 4 * B + rows)
-    a_int = 0 if unsorted else rows * (
-        M + numel * max(1.0, math.log2(max(numel, 1))))
-    a_flt = rows * (numel + 1 + 3 * 2 * T + 2)
-    b_bytes = 4 * (rows + rows * T * 2 + 2 * B * T * 2 + 5 * B + rows)
-    b_flt = rows * 7 + rows * T * 2 * 2 + B * T * 2 * 3
-    out = []
-    for nbytes, t_ops in ((a_bytes, a_int / ALU_OPS_PER_S
-                           + a_flt / FP32_OPS_PER_S),
-                          (b_bytes, b_flt / FP32_OPS_PER_S)):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops *= 1e3
-        out.append((max(t_bytes, t_ops),
-                    "bytes" if t_bytes > t_ops else "operations"))
-    return tuple(out)
-
-
 # Timed in phase 4: world (a) static (the profile's), as the planner runs
 # it, the sweep's batch, the det modes' M = 1, the barebone engine,
 # model_bench's K = 10240, every M past 1024, and the shapes past the
-# former caps (the streamed coupling, the wide update and the wide CVaR).
+# former caps (the coupling's own launch, the wide update and the wide
+# CVaR).
 TAIL_TIMED = ("a_static_205", "a_planner_alpha", "sweep_b30_alphas",
               "det_M1_T100", "barebone_K1000_T50", "model_bench_K10240_tdm",
               "shared_memory_sort_M2048", "shared_memory_sort_M4096",
@@ -639,6 +612,118 @@ def check_tail_cases(torch, dev):
               "{}".format(name, differ))
         results.append(rec)
         del a_args, got, want, noise, u
+    return results
+
+
+# Phase 2's edges of the two kernels past the tail's caps (as the card-only
+# tests' ``test_cvar_costs_past_the_former_caps_on_card``,
+# ``test_cvar_wide_kernel_edges_on_card`` and ``test_coupling_sums_on_card``):
+# three scenarios (each its own alpha) at T = 4,097, 8,193 and 20,000 (the
+# coupling kernel's one to four groups a thread) and M = 16 (a warp team),
+# 1,024 and 20,000 (the wide kernel after the coupling); rows of clustered
+# (one bin of the first histogram), equal, tied and non-finite costs for
+# the wide kernel at M = 16,385 and 40,000, its coupling summed in the
+# block (T = 9) and launched before it (T = 4,097); the coupling kernel
+# alone at one row, an odd K, 20,000 and 40,000 steps (super-groups past
+# its register stack).
+LIFTED_TAIL_SHAPES = [(3, 37, M, T) for M in (16, 1024, 20000)
+                      for T in (4097, 8193, 20000)]
+WIDE_EDGE_KINDS = ("equal", "ties", "specials", "one_bin")
+WIDE_EDGE_SHAPES = ((40000, 9), (16385, 9), (40000, 4097))
+COUPLING_EDGES = ((None, 1, 4097), (None, 37, 8193), (3, 1024, 20000),
+                  (2, 5, 40000), (None, 3, 100))
+
+
+def wide_edge_costs(torch, dev, kind, B, K, M, seed=0):
+    """Rows that stress the wide CVaR's walk: ``equal`` (one value a row),
+    ``ties`` (most costs 1e5, the rest around it), ``specials`` (NaN,
+    +-inf, +0.0 beside -0.0 among ordinary costs), ``one_bin`` (costs in
+    [256, 288): every key's top 12 bits alike, one bin of the first
+    histogram)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    costs = torch.rand((B, K, M), generator=g, device=dev) * 300
+    if kind == "one_bin":
+        return costs * (31.9 / 300.0) + 256.0
+    if kind == "equal":
+        return costs[..., :1].expand(B, K, M).contiguous()
+    if kind == "ties":
+        pick = torch.rand((B, K, M), generator=g, device=dev)
+        return torch.where(pick < 0.7, torch.full_like(costs, 1e5),
+                           torch.where(pick < 0.85, costs + 1e5, costs))
+    pick = torch.randint(0, 8, (B, K, M), generator=g, device=dev)
+    for code, value in ((0, float("nan")), (1, float("inf")),
+                        (2, -float("inf")), (3, 0.0), (4, -0.0)):
+        costs = torch.where(pick == code, torch.full_like(costs, value),
+                            costs)
+    return costs
+
+
+def check_lifted_tail_edges(torch, dev):
+    """Phase 2's edges past the tail's caps (``LIFTED_TAIL_SHAPES``,
+    ``WIDE_EDGE_KINDS`` x ``WIDE_EDGE_SHAPES``, ``COUPLING_EDGES``): the
+    CVaR plus coupling kernel (and the coupling kernel alone) against the
+    plain versions, bit for bit, at static counts and run-time alphas.
+    One JSON line a shape; returns the records."""
+    from mppi_numba_tpu_torch.drivers.tail_bench import tail_case_inputs
+    from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
+
+    results = []
+
+    def held(name, calls, **shape):
+        differ = {}
+        err = 0.0
+        for tag, got_fn, want_fn in calls:
+            got, want = got_fn(), want_fn()
+            torch.cuda.synchronize()
+            differ[tag] = bits_differ(torch, got, want)
+            both = torch.isfinite(got) & torch.isfinite(want)
+            if bool(both.any()):
+                err = max(err, float((got - want)[both].abs().max()))
+        rec = dict(case=name, entries_differing=differ, max_abs_err=err,
+                   **shape)
+        print(json.dumps(rec), flush=True)
+        check(not any(differ.values()), "{} {}: the kernels differ from "
+              "their plain versions: {}".format(name, shape, differ))
+        results.append(rec)
+
+    def cvar_calls(args, counts):
+        return [(json.dumps({k: v if isinstance(v, int) else v.tolist()
+                             for k, v in kw.items()}),
+                 lambda kw=kw: kc.cvar_costs(*args, **kw),
+                 lambda kw=kw: kc.cvar_costs_plain(*args, **kw))
+                for kw in counts]
+
+    for B, K, M, T in LIFTED_TAIL_SHAPES:
+        args, _, _ = tail_case_inputs(("lifted_edge", B, K, M, T, 1), dev,
+                                      seed=M + T)
+        counts = [dict(numel=v) for v in (math.ceil(0.2 * M), 1, M)]
+        counts += [dict(alpha=torch.tensor(a, device=dev))
+                   for a in ([0.2] * B, [1.0] * B, [0.2, 0.6, 1.0])]
+        held("solve_tail_lifted_edge", cvar_calls(args, counts), scenarios=B,
+             K=K, M=M, T=T, cvar_path=list(kc.kernel_path(B, K, M, T)))
+        del args
+    for kind in WIDE_EDGE_KINDS:
+        for M, T in WIDE_EDGE_SHAPES:
+            B, K = 2, 5
+            (_, noise, u, u_std, lam), _, _ = tail_case_inputs(
+                ("wide_edge", B, K, 8, T, 1), dev, seed=T)
+            args = (wide_edge_costs(torch, dev, kind, B, K, M), noise, u,
+                    u_std, lam)
+            counts = [dict(numel=v) for v in (1, 16384, 16385, 33000, M,
+                                              M + 5) if v <= M + 5]
+            counts += [dict(alpha=torch.tensor(a, device=dev))
+                       for a in ([1.3, 1.3], [0.0, 0.0], [-0.5, -0.5],
+                                 [0.2, 1.0])]
+            held("solve_tail_wide_edge", cvar_calls(args, counts),
+                 kind=kind, scenarios=B, K=K, M=M, T=T)
+            del args
+    for B, K, T in COUPLING_EDGES:
+        (_, noise, u, u_std, _), _, _ = tail_case_inputs(
+            ("coupling_edge", B or 1, K, 1, T, 1), dev, seed=T)
+        held("coupling_sums", [("coupling", lambda: kc.coupling_sums(
+            noise, u, u_std), lambda: kc.coupling_sums_plain(
+                noise, u, u_std))], scenarios=B, K=K, T=T,
+             launch=list(kc.coupling_launch_shape(B or 1, K, T)))
     return results
 
 
@@ -767,6 +852,7 @@ def time_wide_update_launches(torch, dev, emit):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from mppi_numba_tpu_torch.drivers.tail_bench import tail_bound_ms
     from mppi_numba_tpu_torch.ops.kernels import update_useq as ku
 
     out = {}
@@ -1009,10 +1095,16 @@ def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
     CVaR kernel replaced (``torch.topk(sorted=True)`` and ``mean`` for a
     static count, ``torch.sort`` and a masked sum for alpha: the library
     call), ``torch.sort`` and a masked sum at every case (the yardstick
-    past M = 1024) and an empty kernel (one graph node's floor); the plain
-    versions eagerly.  Returns ``{case: {...}}``."""
-    from mppi_numba_tpu_torch.drivers.tail_bench import (TAIL_CASES,
-                                                         tail_case_inputs)
+    past M = 1024), the torch ops that the CVaR plus coupling kernel
+    replaced (``drivers.tail_bench.torch_cvar_costs``: the library call
+    and the coupling's product and sum) and an empty kernel (one graph
+    node's floor); past ``STAGED_T`` steps also the coupling kernel alone
+    (``coupling_sums``) and the torch ops it replaced; the plain versions
+    eagerly.  Each kernel's bound and bound share beside it.  Returns
+    ``{case: {...}}``."""
+    from mppi_numba_tpu_torch.drivers.tail_bench import (
+        TAIL_CASES, case_count, coupling_bound_ms, tail_bound_ms,
+        tail_case_inputs, torch_coupling, torch_cvar_costs)
     from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
     from mppi_numba_tpu_torch.ops.kernels import update_useq as ku
 
@@ -1041,7 +1133,13 @@ def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
             "update_useq": lambda: ku.update_useq_fused(costs_k, noise, u,
                                                         lam, vr, wr),
             "library": sort_masked,
+            "torch_ops": lambda: torch_cvar_costs(*a_args, **kw),
             "empty": lambda: kc.empty_launch(dev)}
+        coupled = kc.kernel_path(B, K, M, T)[3]
+        if coupled:
+            calls["coupling"] = lambda: kc.coupling_sums(noise, u, a_args[3])
+            calls["coupling_torch_ops"] = lambda: torch_coupling(
+                noise, u, a_args[3])
         if "numel" in kw:
             n = min(kw["numel"], M)
             calls["sort_masked"] = sort_masked
@@ -1055,10 +1153,9 @@ def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
         plain_b = [time_cuda(lambda: ku.update_useq_plain(
             costs_k, noise, u, lam, vr, wr), 5, 1) for _ in range(2)]
         # The fold's terms a row, this run's: the mean count.
-        numel = (min(kw["numel"], M) if "numel" in kw else float(
-            torch.ceil(M * kw["alpha"]).clamp(max=M).mean()))
-        bound_a, bound_b = tail_bound_ms(
-            B, K, M, T, numel, unsorted="numel" in kw and kw["numel"] >= M)
+        numel, unsorted = case_count(case, kw)
+        bound_a, bound_b = tail_bound_ms(B, K, M, T, numel, unsorted)
+        cvar_ms = min(runs["cvar_costs"]["graph"])
         rec = dict(
             shape="B{}_K{}_M{}_T{}".format(B, K, M, T),
             count=count if isinstance(count, (int, str)) else list(count),
@@ -1071,6 +1168,10 @@ def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
                                  < min(runs["library"]["graph"])),
             library="torch.topk(sorted=True) + mean" if "numel" in kw
             else "torch.sort + masked sum",
+            cvar_bound_share=bound_a[0] / cvar_ms,
+            torch_ops_ms=min(runs["torch_ops"]["graph"]),
+            no_slower_than_torch_ops=(
+                cvar_ms <= min(runs["torch_ops"]["graph"])),
             sort_masked_ms=sort_ms,
             faster_than_sort=min(runs["cvar_costs"]["graph"]) < sort_ms,
             update_ms=min(runs["update_useq"]["graph"]),
@@ -1079,6 +1180,18 @@ def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
             empty_node_ms=min(runs["empty"]["graph"]),
             empty_eager_ms=min(runs["empty"]["eager"]),
             runs={k: v["graph"] for k, v in runs.items()})
+        rec["update_bound_share"] = bound_b[0] / rec["update_ms"]
+        if coupled:
+            c_bound = coupling_bound_ms(B, K, T)
+            rec.update(coupling_plain_ms=min(time_cuda(
+                lambda: kc.coupling_sums_plain(noise, u, a_args[3]), 3, 1)
+                for _ in range(2)),
+                       coupling_ms=min(runs["coupling"]["graph"]),
+                       coupling_torch_ops_ms=min(
+                           runs["coupling_torch_ops"]["graph"]),
+                       coupling_bound=c_bound,
+                       coupling_bound_share=c_bound[0] / min(
+                           runs["coupling"]["graph"]))
         emit("solve_tail_kernel_ms", rec["cvar_ms"] + rec["update_ms"], "ms",
              case=name, **rec)
         out[name] = rec
@@ -1087,7 +1200,7 @@ def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
 
 
 # Libraries whose every instantiation must build without a ptxas spill.
-NO_SPILL_LIBRARIES = ("barebone_rollout", "update_wide")
+NO_SPILL_LIBRARIES = ("barebone_rollout", "update_wide", "cvar_wide")
 _SPILL = re.compile(r"(\d+) bytes spill (?:stores|loads)")
 
 
@@ -1278,9 +1391,10 @@ def main():
     tail_b = update_useq.update_useq_fused
     wide_a = cvar_costs.cvar_costs_wide
     wide_b = update_useq.update_useq_wide
+    coupling = cvar_costs.coupling_sums
     bb_kernel = barebone_rollout.barebone_rollout_fused
     counted = (kernel, bkernel, sampler, fused, cropper, tail_a, tail_b,
-               wide_a, wide_b, bb_kernel,
+               wide_a, wide_b, coupling, bb_kernel,
                *(chain for chain, _ in chains.values()))
 
     def set_counts(value=0):
@@ -1299,6 +1413,7 @@ def main():
                 "update_useq": tail_b.launches,
                 "cvar_costs_wide": wide_a.launches,
                 "update_useq_wide": wide_b.launches,
+                "cvar_coupling": coupling.launches,
                 "barebone_rollout": bb_kernel.launches,
                 "gather_probe": sum(c.launches for c, _ in chains.values())}
 
@@ -1970,6 +2085,7 @@ def main():
     # kernel and the update kernel, each against its plain version bit for
     # bit (and the static count against the same count from alpha).
     tail_results = check_tail_cases(torch, dev)
+    lifted_edge_results = check_lifted_tail_edges(torch, dev)
 
     # The barebone rollout kernel against the plain loop, and the wide
     # update against its plain version, bit for bit, at their edges.
@@ -2214,10 +2330,10 @@ def main():
     # The shapes the kernels once refused, through the entry points a user
     # calls, each solve a graph replay held bit for bit against an eager
     # solve: the flagship planner at Config(T=409.7) (4,097 steps: the
-    # coupling streamed) and at num_grid_samples 20,000 and 70,000 (set
-    # after the Config, as its message invites: the wide CVaR), and the
-    # barebone planner at K = 100,000 and its Config's 1e6 (the wide
-    # update).
+    # coupling a launch of its own) and at num_grid_samples 20,000 and
+    # 70,000 (set after the Config, as its message invites: the wide
+    # CVaR), and the barebone planner at K = 100,000 and its Config's 1e6
+    # (the wide update).
     lifted = {}
     set_counts(0)
     for name, shape in LIFTED_PLANNERS:
@@ -2226,12 +2342,14 @@ def main():
         launches = read_counts()
         M = run["static"].num_grid_samples
         wide = M > cvar_costs.SORTED_M
+        coupled = run["T"] > cvar_costs.STAGED_T
         tail = run["solves"] * run["num_opt"]
         # A rollout launch takes at most MAX_SAMPLES map samples.
         runs = -(-M // rollout_byte.MAX_SAMPLES)
         check(launches["rollout_byte"] == tail * runs
               and launches["cvar_costs_wide" if wide else "cvar_costs"]
               == launches["update_useq"] == tail
+              and launches["cvar_coupling"] == (tail if coupled else 0)
               and launches["cvar_costs" if wide else "cvar_costs_wide"]
               == launches["update_useq_wide"] == 0,
               "lifted {}: launches {}".format(name, launches))
@@ -2270,7 +2388,11 @@ def main():
         del run
     lifted_launches = {k: sum(r["kernel_launches"][k]
                               for r in lifted.values())
-                       for k in ("cvar_costs_wide", "update_useq_wide")}
+                       for k in ("cvar_costs_wide", "update_useq_wide",
+                                 "cvar_coupling")}
+    check(lifted_launches["cvar_coupling"] > 0,
+          "the coupling kernel was not launched on the main path: "
+          "{}".format(lifted_launches))
 
     # -- phase 4: timing ------------------------------------------------------------
     def time_kernels(fns, reps):
@@ -2734,6 +2856,10 @@ def main():
     bb_at = barebone_timed["K1000000_T50_N2"]
     tail_at = tail_timed["a_static_205"]
     tail_wide = tail_timed["wide_M70000_numel"]
+    tail_wide_timed = {
+        k: v for k, v in tail_timed.items()
+        if int(v["shape"].split("_M")[1].split("_")[0]) > cvar_costs.SORTED_M}
+    tail_coupled = tail_timed["streamed_T20000"]
     tail_big_k = tail_timed["wide_update_K1000000"]
     forest = binned_timed["forest_140x84"]
     nib = binned_results[0]
@@ -2911,19 +3037,26 @@ def main():
         "bound_by": tail_at["cvar_bound"][1],
         "library_ms": tail_at["library_ms"],
         "library": tail_at["library"],
+        "bound_share": tail_at["cvar_bound_share"],
+        "torch_ops_ms": tail_at["torch_ops_ms"],
         "empty_node_ms": tail_at["empty_node_ms"],
         "timed_at": "a_static_205: " + tail_at["shape"] + ", numel 205",
         "ms_at": {k: v["cvar_ms"] for k, v in tail_timed.items()},
         "library_ms_at": {k: v["library_ms"] for k, v in tail_timed.items()},
+        "torch_ops_ms_at": {k: v["torch_ops_ms"]
+                            for k, v in tail_timed.items()},
         "bound_ms_at": {k: v["cvar_bound"][0]
                         for k, v in tail_timed.items()},
+        "bound_share_at": {k: v["cvar_bound_share"]
+                           for k, v in tail_timed.items()},
         "cases": len(tail_results),
     }, {
         "name": "cvar_costs_wide",
         "route": "cuda",
         "kernel": "cvar_wide_kernel: the CVaR plus coupling past M = "
-                  "16,384 (a block a row, rounds of a select from global "
-                  "memory); cvar_costs routes to it",
+                  "16,384 (a block a row, one histogram of the row, rounds "
+                  "of whole bins gathered and sorted in shared memory); "
+                  "cvar_costs routes to it",
         "launches_phase7": phase7["cvar_costs_wide"],
         "source": cvar_costs.WIDE_KERNEL_SOURCE,
         "replaces": cvar_costs.REPLACES,
@@ -2937,10 +3070,55 @@ def main():
         "bound_by": tail_wide["cvar_bound"][1],
         "library_ms": tail_wide["library_ms"],
         "library": tail_wide["library"],
+        "bound_share": tail_wide["cvar_bound_share"],
+        "torch_ops_ms": tail_wide["torch_ops_ms"],
         "timed_at": "wide_M70000_numel: " + tail_wide["shape"]
                     + ", numel 14000",
+        "ms_at": {k: v["cvar_ms"] for k, v in tail_wide_timed.items()},
+        "bound_ms_at": {k: v["cvar_bound"][0]
+                        for k, v in tail_wide_timed.items()},
+        "torch_ops_ms_at": {k: v["torch_ops_ms"]
+                            for k, v in tail_wide_timed.items()},
         "cases": sum(r["cvar_path"][0] == "cvar_wide_kernel"
-                     for r in tail_results),
+                     for r in tail_results)
+                 + sum(r["case"] == "solve_tail_wide_edge"
+                       or r.get("M", 0) > cvar_costs.SORTED_M
+                       for r in lifted_edge_results),
+    }, {
+        "name": "cvar_coupling",
+        "route": "cuda",
+        "kernel": "cvar_coupling_kernel: each row's coupling past T = "
+                  "4,096 steps, a launch of its own before the CVaR's "
+                  "(512 position classes a row, two rows a block); "
+                  "cvar_costs launches it",
+        "launches_phase7": phase7["cvar_coupling"],
+        "source": cvar_costs.WIDE_KERNEL_SOURCE,
+        "replaces": cvar_costs.REPLACES,
+        "launches": totals["cvar_coupling"],
+        "launches_lifted_solves": lifted_launches["cvar_coupling"],
+        "max_abs_err": max(r["max_abs_err"] for r in lifted_edge_results
+                           if r["case"] == "coupling_sums"),
+        "ms": tail_coupled["coupling_ms"],
+        "plain_ms": tail_coupled["coupling_plain_ms"],
+        "bound_ms": tail_coupled["coupling_bound"][0],
+        "bound_by": tail_coupled["coupling_bound"][1],
+        "bound_share": tail_coupled["coupling_bound_share"],
+        "library_ms": None,
+        "torch_ops_ms": tail_coupled["coupling_torch_ops_ms"],
+        "timed_at": "streamed_T20000: " + tail_coupled["shape"],
+        "ms_at": {k: v["coupling_ms"] for k, v in tail_timed.items()
+                  if "coupling_ms" in v},
+        "cvar_call_ms_at": {k: v["cvar_ms"] for k, v in tail_timed.items()
+                            if "coupling_ms" in v},
+        "cvar_call_torch_ops_ms_at": {
+            k: v["torch_ops_ms"] for k, v in tail_timed.items()
+            if "coupling_ms" in v},
+        "bound_ms_at": {k: v["coupling_bound"][0]
+                        for k, v in tail_timed.items()
+                        if "coupling_ms" in v},
+        "cases": sum(r["case"] == "coupling_sums"
+                     or r.get("T", 0) > cvar_costs.STAGED_T
+                     for r in lifted_edge_results),
     }, {
         "name": "update_useq_wide",
         "route": "cuda",
@@ -5358,6 +5536,7 @@ WRAPPER_KERNELS = {
     "update_useq_fused": ("update_useq",),
     "cvar_costs_wide": ("cvar_costs_wide",),
     "update_useq_wide": ("update_useq_wide",),
+    "coupling_sums": ("cvar_coupling",),
     "barebone_rollout_fused": ("barebone_rollout",),
 }
 
@@ -5649,7 +5828,8 @@ def run_phase7(card, emit):
     launches = dict.fromkeys(("rollout_byte", "rollout_binned", "map_sample",
                               "map_sample_crop", "cvar_costs", "update_useq",
                               "cvar_costs_wide", "update_useq_wide",
-                              "barebone_rollout", "gather_probe"), 0)
+                              "cvar_coupling", "barebone_rollout",
+                              "gather_probe"), 0)
     out, seconds, dirs, outcomes = {}, {}, {}, {}
     for name, argv, terrain in phase7_commands():
         if name != "engine_ab_check":

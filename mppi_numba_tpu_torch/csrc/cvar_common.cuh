@@ -1,9 +1,9 @@
 // What the CVaR plus coupling kernels share (csrc/cvar_costs.cu, the
 // teams whose coupling is staged in shared memory; csrc/cvar_wide.cu,
-// their streamed twins and the wide kernel): the float order keys, the
-// team's bitonic sort, the MSD radix select, the CVaR's windowed sum (XLA's
-// CPU order), the coupling's halving tree and the team kernel itself.  See
-// csrc/cvar_costs.cu for the design.
+// their twins that read a coupling launched before them, and the wide
+// kernel): the float order keys, the team's bitonic sort, the MSD radix
+// select, the CVaR's windowed sum (XLA's CPU order) and the team kernel
+// itself.  See csrc/cvar_costs.cu for the design.
 #pragma once
 
 #include <cstdint>
@@ -12,20 +12,22 @@
 
 #include "tree_sum.cuh"
 
-namespace {
+// A named namespace (not an anonymous one, whose mangled names carry a
+// hash of the source's path): the kernels' names, and so ptxas's input and
+// its register allocation, do not depend on where the repository is.
+namespace cvar {
 
 constexpr int kBins = 256;       // an 8-bit digit's histogram
 constexpr int kMisc = 8;         // bin, keys above it, keys in it, the
-                                 // gathered count; the row's non-finite
-                                 // keys (NaN and +inf, -inf); the wide
-                                 // kernel's keys >= its threshold; spare
-constexpr int kMiscHigh = 4, kMiscLow = 5, kMiscGe = 6;
+                                 // gathered count; spare
 constexpr int kWarpTeams = 4;    // rows a block when a warp takes a row
 constexpr int kSelectFrom = 256; // the padded rows that select first
 constexpr int kStagedT = 4096;   // the longest horizon staged in shared
                                  // memory (Lc = 8192 words)
+constexpr int kSortedM = 1024 * 16;  // the longest row a team sorts
+                                     // (1,024 x 16), and a wide round's
+                                     // most keys
 constexpr int kWideTPR = 1024;   // cvar_wide_kernel's threads, a row
-constexpr int kSortedM = kWideTPR * 16;  // the longest row a team sorts
 
 // Unsigned order of floats: -inf .. -0, +0 .. +inf, then every NaN.
 // Key 0 is no float's: it pads a row, and sorts last.
@@ -352,50 +354,13 @@ __device__ __forceinline__ void select_then_sort(const uint32_t (&v)[EMAX],
 #undef CVAR_SORT_GATHERED
 }
 
-// Thread tid's share of the coupling, its positions tid + r * TPR of the
-// Lc padded terms (r < max(1, Lc / TPR)) summed in the halving tree over
-// r, read from global memory in bit-reversed order of r.  Positions past
-// 2T are -0.0, past Lc too.
-constexpr int kGroup = 16;  // the streamed coupling's leaves in registers
-
-template <int TPR>
-__device__ __forceinline__ float streamed_coupling(const float* nz,
-                                                   const float* ub,
-                                                   float var0, float var1,
-                                                   int T, int Lc, int tid) {
-  const int R = Lc > TPR ? Lc / TPR : 1;
-  const int log_r = tree::ilog2_run(R);
-  auto term = [&](int i) {
-    const int p = tid + TPR * tree::bit_reverse_bits(i, log_r);
-    return p < 2 * T ? nz[p] * (ub[p] / ((p & 1) ? var1 : var0)) : -0.0f;
-  };
-  tree::Streamed st;
-  if (R < kGroup) {
-    for (int i = 0; i < R; ++i) st.push(i, term(i));
-    return st.sum(log_r);
-  }
-  // Groups of kGroup leaves, their loads in flight together, each group a
-  // whole subtree of the pairwise tree summed in registers (adjacent
-  // pairs, then pairs of pairs), then pushed as one leaf of the stack.
-  for (int i = 0; i < R; i += kGroup) {
-    float leaf[kGroup];
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) leaf[j] = term(i + j);
-#pragma unroll
-    for (int w = 1; w < kGroup; w *= 2)
-#pragma unroll
-      for (int j = 0; j < kGroup; j += 2 * w) leaf[j] = leaf[j] + leaf[j + w];
-    st.push(i / kGroup, leaf[0]);
-  }
-  return st.sum(log_r - tree::ilog2(kGroup));
-}
-
 // One row a team of TPR threads; the row padded to L = TPR * EMAX keys.
 // Lc: the coupling's padded terms, staged in Lc words of shared memory,
-// or (STREAM) streamed, TPR words a team holding the threads' partial
-// sums.  The launch bounds' blocks an SM: without them ptxas spilled a
-// few long-lived values; with 1 everywhere it gave the warp teams 100
-// registers, and their full sorts ran slower.  The windowed sum's code
+// or (STREAM, past kStagedT) none: out[row] holds the row's coupling,
+// written by cvar_coupling_kernel (csrc/cvar_wide.cu) before this
+// launch, and the team reads it back.  The launch bounds' blocks an SM:
+// without them ptxas spilled a few long-lived values; with 1 everywhere it
+// gave the warp teams 100 registers, and their full sorts ran slower.  The windowed sum's code
 // raised the short rows' warp teams (M <= 128) from 32-34 registers to
 // 48, 10 blocks an SM where they had 12-16, and the 128-thread teams to
 // 71, 7 blocks an SM and world (a)'s 1,024 rows a second wave: the
@@ -422,7 +387,7 @@ cvar_costs_kernel(const float* __restrict__ costs,
   const int team = threadIdx.x / TPR;
   const int row = blockIdx.x * (blockDim.x / TPR) + team;
   if (row >= rows) return;  // a whole team: one warp, or an empty block
-  const int Ls = STREAM ? TPR : Lc;
+  const int Ls = STREAM ? 0 : Lc;
   uint32_t* x = smem + team * team_words(L, Ls);
   float* cs = reinterpret_cast<float*>(x + win_words(L));
   int* hist = reinterpret_cast<int*>(cs + Ls);
@@ -440,8 +405,8 @@ cvar_costs_kernel(const float* __restrict__ costs,
     const int i = r * TPR + tid;
     v[r] = i < M ? order_key(c[i]) : 0u;
   }
-  const float* nz = noise + static_cast<size_t>(row) * T * 2;
   if constexpr (!STREAM) {
+    const float* nz = noise + static_cast<size_t>(row) * T * 2;
     for (int i = tid; i < 2 * T; i += TPR)
       __pipeline_memcpy_async(cs + i, nz + i, 4);
     __pipeline_commit();
@@ -518,13 +483,11 @@ cvar_costs_kernel(const float* __restrict__ costs,
   // The coupling: each thread's terms are its own copies (i = tid mod
   // TPR), and so are the tree's levels of stride >= TPR: no barrier until
   // they are done.
-  if constexpr (!STREAM) __pipeline_wait_prior(0);
-  const float* ub = u + static_cast<size_t>(b) * T * 2;
-  const float var0 = u_std[2 * b] * u_std[2 * b];
-  const float var1 = u_std[2 * b + 1] * u_std[2 * b + 1];
-  if constexpr (STREAM) {
-    cs[tid] = streamed_coupling<TPR>(nz, ub, var0, var1, T, Lc, tid);
-  } else {
+  if constexpr (!STREAM) {
+    __pipeline_wait_prior(0);
+    const float* ub = u + static_cast<size_t>(b) * T * 2;
+    const float var0 = u_std[2 * b] * u_std[2 * b];
+    const float var1 = u_std[2 * b + 1] * u_std[2 * b + 1];
     for (int i = tid; i < Lc; i += TPR)
       cs[i] = i < 2 * T ? cs[i] * (ub[i] / ((i & 1) ? var1 : var0)) : -0.0f;
     for (int h = Lc >> 1; h >= TPR; h >>= 1)
@@ -532,18 +495,23 @@ cvar_costs_kernel(const float* __restrict__ costs,
   }
   if constexpr (TPR > 32) __syncthreads();
   if (tid < 32) {  // the team's first warp
-    // Positions lane + 32 m (past Lc: -0.0), halved over m, then lanes.
-    constexpr int kM = TPR / 32;
-    const int lane = tid;
-    float y[kM];
+    float coupling;
+    if constexpr (STREAM) {
+      coupling = out[row];
+    } else {
+      // Positions lane + 32 m (past Lc: -0.0), halved over m, then lanes.
+      constexpr int kM = TPR / 32;
+      const int lane = tid;
+      float y[kM];
 #pragma unroll
-    for (int m = 0; m < kM; ++m)
-      y[m] = lane + 32 * m < Lc ? cs[lane + 32 * m] : -0.0f;
-    tree::halve<kM>(y);
-    float coupling = y[0];
+      for (int m = 0; m < kM; ++m)
+        y[m] = lane + 32 * m < Lc ? cs[lane + 32 * m] : -0.0f;
+      tree::halve<kM>(y);
+      coupling = y[0];
 #pragma unroll
-    for (int l = 4; l >= 0; --l)
-      coupling = coupling + __shfl_down_sync(tree::kFull, coupling, 1 << l);
+      for (int l = 4; l >= 0; --l)
+        coupling = coupling + __shfl_down_sync(tree::kFull, coupling, 1 << l);
+    }
     // The mean as JAX's: a static count times float32(1 / n) (XLA's
     // reciprocal of a constant), a run-time one divided.
     if (tid == 0) {
@@ -571,4 +539,4 @@ cvar_costs_kernel(const float* __restrict__ costs,
   X_(128, 1) X_(128, 2) X_(128, 4) X_(128, 8)                            \
   X_(512, 4) X_(512, 8) X_(512, 16) X_(1024, 16)
 
-}  // namespace
+}  // namespace cvar

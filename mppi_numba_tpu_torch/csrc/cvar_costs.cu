@@ -70,11 +70,14 @@
 // that cvar_costs_prepare sets once a card.
 //
 // Past T = kStagedT and M = kSortedM the launches go to csrc/cvar_wide.cu,
-// a library of its own (the streamed twins and the wide kernel).
+// a library of its own (the coupling kernel, the twins that read its sums,
+// and the wide kernel).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "cvar_common.cuh"
+
+using namespace cvar;
 
 // Lets every instantiation take a block's whole opt-in shared memory on
 // the current device.  Call once a card, before a launch and outside a

@@ -72,6 +72,37 @@ struct Streamed {
   __device__ __forceinline__ float sum(int log_r) const { return acc[log_r]; }
 };
 
+// Leaves pushed in order i = 0 .. N - 1 (N a power of two; i a constant
+// after unrolling, or a run-time value) summed pairwise: i with i ^ 1,
+// then pairs of pairs, ...; acc[log2 N] ends as the sum.  Held in
+// bit-reversed order (leaf i the position bit_reverse(i)), that is the
+// halving tree's order over them.  Every index into acc is a constant
+// after unrolling, so the stack stays in registers.
+template <int N, int COLS>
+struct Pairwise {
+  static constexpr int kLog = ilog2(N);
+  float acc[kLog + 1][COLS];
+
+  __device__ __forceinline__ void push(int i, float (&leaf)[COLS]) {
+    bool carry = true;
+#pragma unroll
+    for (int l = 0; l < kLog; ++l) {
+      if (carry && ((i >> l) & 1)) {
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) leaf[j] = acc[l][j] + leaf[j];
+      } else if (carry) {
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) acc[l][j] = leaf[j];
+        carry = false;
+      }
+    }
+    if (carry) {
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) acc[kLog][j] = leaf[j];
+    }
+  }
+};
+
 // Every lane of a warp: the halving tree's sum of n positions (a power of
 // two), lane l holding positions l + 32 m, m < max(1, n / 32), that
 // get(position) reads (-0.0 past n): the levels over m streamed, then xor

@@ -1,7 +1,7 @@
 // What the update's kernels share (csrc/update_useq.cu, the one-launch
 // kernel, and csrc/update_wide.cu, the wide path): the block and chunk
 // sizes, the order keys of beta (NaN first), torch.clamp's NaN rules, and
-// the pairwise and warp forms of the halving tree (tree_sum.cuh).
+// the warp form of the halving tree (tree_sum.cuh).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -39,34 +39,7 @@ __device__ __forceinline__ float clamp_like_torch(float v, float lo,
   return fminf(fmaxf(v, lo), hi);
 }
 
-// Leaves pushed in order i = 0 .. N - 1 (N a power of two, i a constant
-// after unrolling) summed pairwise: i with i ^ 1, then pairs of pairs, ...;
-// acc[log2 N] ends as the sum.  Held in bit-reversed order (leaf i the
-// position bit_reverse(i)), that is the halving tree's order over them.
-template <int N, int COLS>
-struct Pairwise {
-  static constexpr int kLog = tree::ilog2(N);
-  float acc[kLog + 1][COLS];
-
-  __device__ __forceinline__ void push(int i, float (&leaf)[COLS]) {
-    bool carry = true;
-#pragma unroll
-    for (int l = 0; l < kLog; ++l) {
-      if (carry && ((i >> l) & 1)) {
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) leaf[j] = acc[l][j] + leaf[j];
-      } else if (carry) {
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) acc[l][j] = leaf[j];
-        carry = false;
-      }
-    }
-    if (carry) {
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) acc[kLog][j] = leaf[j];
-    }
-  }
-};
+using tree::Pairwise;
 
 template <int C>
 __device__ __forceinline__ void cluster_sync() {

@@ -15,12 +15,16 @@ kernel and of the torch ops it replaced (``torch.topk(sorted=True)`` +
 ``mean`` for a static count, ``torch.sort`` + a masked sum for alpha,
 each plus the coupling's product and sum; the update's minimum, exp,
 sums, division, weighted noise sum, add and clamps), 50 calls in one
-CUDA graph on a card.
+CUDA graph on a card, each beside its bound (``tail_bound_ms``, which
+``chip_smoke.py`` uses too); past ``STAGED_T`` steps also the coupling
+kernel's own call (``coupling_sums``) beside its bound
+(``coupling_bound_ms``).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
@@ -46,8 +50,8 @@ N = 50
 # (a block a row): 2048, 4096, a ragged 5000, 8192 at the planner's alpha
 # and the Config's largest, 15,000, at the sweep's first and last alphas.
 # Then the shapes the kernels once refused: T = 4,097 and 20,000 (the
-# coupling streamed), the barebone engine's K = 40,000, 100,000 and its
-# Config's 1e6 (the wide update), and M = 16,384 (the last a team sorts),
+# coupling its own launch), the barebone engine's K = 40,000, 100,000 and
+# its Config's 1e6 (the wide update), and M = 16,384 (the last a team sorts),
 # 32,768 and 70,000 (the wide CVaR) at numel ceil(0.2 M) and at alpha 1.
 # Then the windowed sum's counts (XLA's CPU order, windows of 32): world
 # (a) at numel 33 (a window and one term) and at a static count of M (the
@@ -94,6 +98,76 @@ TAIL_CASES = (
 )
 
 
+# H100 SXM rates (NVIDIA data sheet; the ALU pipe's 64 INT32 lanes an SM a
+# clock at the 1,980 MHz boost clock on 132 SMs, Hopper white paper).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+ALU_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def tail_bound_ms(B, K, M, T, numel, unsorted=False):
+    """Least times of the solve's two tail calls at (B scenarios, K, M,
+    T), each the larger of its bytes over HBM bandwidth and its
+    operations: integer comparisons over the ALU pipe's rate plus float32
+    operations over the float32 peak.  What the functions need, not what
+    the kernels spend: the CVaR selects the worst ``numel`` of M costs
+    and orders them, M + numel log2 numel comparisons a row (a selection
+    and a comparison sort of what it selected), folds them and divides
+    once; the coupling is a division, a product and an
+    add a term (2T terms) and lambda's product; the update a subtraction,
+    a negation, a division, an exp (counted as one) and two sums' adds a
+    rollout, a product and an add a rollout and (t, c), and an add and a
+    clamp (2) a (t, c).  Bytes: each input read once, each output written
+    once: the CVaR call the costs, the noise, u, sigma, lambda and alpha
+    in, the (B, K) costs out; the update the costs, noise, u, lambda and
+    both ranges in, u and the weights out.  ``unsorted``: a static count
+    of M, whose sum takes the row as it is (no comparison).  Returns
+    ``((ms, bound_by) of cvar_costs, (ms, bound_by) of
+    update_useq_fused)``."""
+    rows = B * K
+    a_bytes = 4 * (rows * M + rows * T * 2 + B * T * 2 + 4 * B + rows)
+    a_int = 0 if unsorted else rows * (
+        M + numel * max(1.0, math.log2(max(numel, 1))))
+    a_flt = rows * (numel + 1 + 3 * 2 * T + 2)
+    b_bytes = 4 * (rows + rows * T * 2 + 2 * B * T * 2 + 5 * B + rows)
+    b_flt = rows * 7 + rows * T * 2 * 2 + B * T * 2 * 3
+    out = []
+    for nbytes, t_ops in ((a_bytes, a_int / ALU_OPS_PER_S
+                           + a_flt / FP32_OPS_PER_S),
+                          (b_bytes, b_flt / FP32_OPS_PER_S)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops *= 1e3
+        out.append((max(t_bytes, t_ops),
+                    "bytes" if t_bytes > t_ops else "operations"))
+    return tuple(out)
+
+
+def coupling_bound_ms(B, K, T):
+    """Least time of ``coupling_sums`` at (B, K, T): the larger of its
+    bytes over HBM bandwidth (the noise, u and sigma read once, the (B,
+    K) sums written once) and its float32 operations over the float32
+    peak (a division a scenario's (t, c), a product and an add a row's).
+    Returns ``(ms, bound_by)``."""
+    rows = B * K
+    nbytes = 4 * (rows * T * 2 + B * T * 2 + 2 * B + rows)
+    ops = B * T * 2 + rows * T * 2 * 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def case_count(case, kw):
+    """The fold's terms a row at a case (a static count, or the mean of
+    the scenarios' ceil(M alpha), at most M) and whether a static count
+    sums the row unsorted: ``tail_bound_ms``'s ``numel`` and
+    ``unsorted``."""
+    M = case[3]
+    if "numel" in kw:
+        return min(kw["numel"], M), kw["numel"] >= M
+    n = torch.ceil(M * kw["alpha"].float().cpu()).clamp(max=M)
+    return float(n.mean()), False
+
+
 def tail_case_inputs(case, device, seed=None):
     """One ``TAIL_CASES`` case's inputs on ``device``: rollout-like costs
     (a tenth of the (rollout, map) pairs crashed: the obstacle penalty
@@ -129,6 +203,13 @@ def tail_case_inputs(case, device, seed=None):
         kw = {k: v if isinstance(v, int) else v[0] for k, v in kw.items()}
     costs, noise, u, sigma, lam, vr, wr = ts
     return (costs, noise, u, sigma, lam), kw, (lam, vr, wr)
+
+
+def torch_coupling(noise, u, u_std):
+    """The coupling's sums as the torch ops the coupling kernel replaced:
+    u / sigma^2, the product and the sum over (t, c)."""
+    scaled = u / (u_std * u_std)[..., None, :]
+    return torch.sum(noise * scaled[..., None, :, :], dim=(-2, -1))
 
 
 def torch_cvar_costs(costs, noise, u, u_std, lam, numel=None, alpha=None):
@@ -188,7 +269,9 @@ def measure(case, device, n):
     costs_k = kc.cvar_costs(*a_args, **kw)
     b_args = (costs_k, noise, u, lam, vr, wr)
     name, B, K, M, T, count = case
-    return dict(
+    numel, unsorted = case_count(case, kw)
+    (a_ms, a_by), (b_ms, b_by) = tail_bound_ms(B, K, M, T, numel, unsorted)
+    line = dict(
         case=name, scenarios=B, K=K, M=M, T=T,
         count=count if isinstance(count, (int, str)) else list(count),
         cvar_bitwise=bitwise(costs_k, kc.cvar_costs_plain(*a_args, **kw)),
@@ -197,10 +280,24 @@ def measure(case, device, n):
         cvar_ms=time_call(lambda: kc.cvar_costs(*a_args, **kw), n, device),
         cvar_torch_ops_ms=time_call(
             lambda: torch_cvar_costs(*a_args, **kw), n, device),
+        cvar_bound_ms=a_ms, cvar_bound_by=a_by,
         update_ms=time_call(lambda: ku.update_useq_fused(*b_args), n,
                             device),
         update_torch_ops_ms=time_call(lambda: torch_update(*b_args), n,
-                                      device))
+                                      device),
+        update_bound_ms=b_ms, update_bound_by=b_by)
+    if kc.kernel_path(B, K, M, T)[3]:
+        c_args = (noise, u, a_args[3])
+        c_ms, c_by = coupling_bound_ms(B, K, T)
+        line.update(
+            coupling_bitwise=bitwise(kc.coupling_sums(*c_args),
+                                     kc.coupling_sums_plain(*c_args)),
+            coupling_ms=time_call(lambda: kc.coupling_sums(*c_args), n,
+                                  device),
+            coupling_torch_ops_ms=time_call(
+                lambda: torch_coupling(*c_args), n, device),
+            coupling_bound_ms=c_ms, coupling_bound_by=c_by)
+    return line
 
 
 def main(argv=None):
@@ -216,7 +313,8 @@ def main(argv=None):
         n = 2
     for case in cases:
         line = measure(case, device, n)
-        if not (line["cvar_bitwise"] and line["update_bitwise"]):
+        if not (line["cvar_bitwise"] and line["update_bitwise"]
+                and line.get("coupling_bitwise", True)):
             raise RuntimeError("tail_bench: a kernel differs from its plain "
                                "version: {}".format(line))
         emit(dict(line, card=card, clock=clock(device).replace(

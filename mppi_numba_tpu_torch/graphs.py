@@ -41,6 +41,7 @@ def counted_wrappers():
             rollout_byte.terrain_rollout_costs_byte,
             rollout_binned.terrain_rollout_costs_binned,
             cvar_costs.cvar_costs, cvar_costs.cvar_costs_wide,
+            cvar_costs.coupling_sums,
             update_useq.update_useq_fused, update_useq.update_useq_wide,
             *(chain for chain, _ in gather_probe.CHAINS.values()))
 

@@ -19,12 +19,16 @@ The kernel reads the run-time alpha on the card, so a solve with it
 captures into a CUDA graph.
 
 Every shape the JAX package solves launches: past ``SORTED_M`` map
-samples the wide kernel (``cvar_wide_kernel``, a block a row, rounds of a
-select from global memory), past ``STAGED_T`` steps the coupling streamed
-from global memory (the team kernel's streamed twin); both are built from
-``csrc/cvar_wide.cu`` into a library of their own.  The launcher picks
-them from the shapes (``kernel_path``); the shapes below them launch
-``csrc/cvar_costs.cu``'s library as before.
+samples the wide kernel (``cvar_wide_kernel``, a block a row: one
+histogram of the row, then rounds of whole bins gathered and sorted in
+shared memory); past ``STAGED_T`` steps the coupling is a launch of its
+own before the CVaR's (``coupling_sums``, ``cvar_coupling_kernel``: each
+row spread over 512 position classes, its noise staged through shared
+memory), whose sums the CVaR kernel (the team kernel's twin, or the wide
+kernel) reads back.  All three are built from ``csrc/cvar_wide.cu`` into
+a library of their own.  The launcher picks them from the shapes
+(``kernel_path``); the shapes below them launch ``csrc/cvar_costs.cu``'s
+library as before.
 """
 
 from __future__ import annotations
@@ -47,8 +51,18 @@ REPLACES = ("mppi_numba_tpu/ops/cvar.py:17-33,79-91 (cvar_from_costs, "
 # past it the wide kernel (the source's kSortedM).
 SORTED_M = 16384
 # The longest horizon whose coupling terms a team stages in shared memory
-# (2T padded to 8,192 words); past it they stream (kStagedT).
+# (2T padded to 8,192 words); past it the coupling is a launch of its own
+# (kStagedT).
 STAGED_T = 4096
+# The wide kernel's threads a row (kWideTPR).
+WIDE_THREADS = 1024
+# The coupling kernel's block: threads, rows of one scenario, position
+# classes a row, step indices a thread's group (kCoupleThreads,
+# kCoupleRows, kCoupleH, kCoupleLeaves).
+COUPLING_THREADS = 256
+COUPLING_ROWS = 2
+COUPLING_CLASSES = 2 * COUPLING_THREADS
+COUPLING_LEAVES = 4
 # Rows a launch: the kernel indexes them with 32-bit ints.
 MAX_ROWS = 2 ** 31 - 1
 # A card's resident threads an SM (H100: 2,048 on each of 132 SMs).
@@ -57,12 +71,15 @@ H100_SMS = 132
 
 
 def threads_per_row(B, K, M, sms=H100_SMS):
-    """The kernel's team a (scenario, rollout) row, from the shapes: a
-    block past M = 1024 (512 threads, 1,024 past M = 8192: at most 16 keys
-    a thread), 128 threads where the B * K rows of 128 take at most half
-    the card's ``sms`` SMs' threads (world (a): a warp a row would leave
-    most of the card idle), else a warp (the rows fill the card, and a
-    warp needs no block barrier)."""
+    """The kernel's team a (scenario, rollout) row, from the shapes: past
+    ``SORTED_M`` the wide kernel's block (``WIDE_THREADS``), a block past
+    M = 1024 (512 threads, 1,024 past M = 8192: at most 16 keys a thread),
+    128 threads where the B * K rows of 128 take at most half the card's
+    ``sms`` SMs' threads (world (a): a warp a row would leave most of the
+    card idle), else a warp (the rows fill the card, and a warp needs no
+    block barrier)."""
+    if M > SORTED_M:
+        return WIDE_THREADS
     L = padded_length(M)
     if L > 8192:
         return 1024
@@ -74,15 +91,41 @@ def threads_per_row(B, K, M, sms=H100_SMS):
 
 
 def kernel_path(B, K, M, T, sms=H100_SMS):
-    """The kernel and instantiation a launch at these shapes runs:
-    ``("cvar_wide_kernel", 1024, None, True)`` past ``SORTED_M``, else
-    ``("cvar_costs_kernel", threads a row, keys a thread, streamed)``,
-    streamed past ``STAGED_T`` steps."""
+    """The kernel and instantiation a launch at these shapes runs, and
+    whether the coupling is a launch of its own before it (past
+    ``STAGED_T`` steps): ``("cvar_wide_kernel", 1024, None, coupled)``
+    past ``SORTED_M``, else ``("cvar_costs_kernel", threads a row, keys a
+    thread, coupled)``."""
     tpr = threads_per_row(B, K, M, sms)
     if M > SORTED_M:
-        return "cvar_wide_kernel", tpr, None, True
+        return "cvar_wide_kernel", tpr, None, T > STAGED_T
     return ("cvar_costs_kernel", tpr, max(padded_length(M), tpr) // tpr,
             T > STAGED_T)
+
+
+def uses_wide_library(M, T):
+    """Whether a launch at these shapes goes to ``csrc/cvar_wide.cu``'s
+    library (past either cap) rather than ``csrc/cvar_costs.cu``'s."""
+    return M > SORTED_M or T > STAGED_T
+
+
+def coupling_launch_shape(B, K, T):
+    """``cvar_coupling_kernel``'s launch: ``(blocks, threads, groups)``, a
+    block of 256 threads a pair of rows of one scenario, and the groups
+    of 4 step indices each thread sums (a power of two: 4 x groups x 256 >=
+    T), as the source's ``coupling_log_groups``."""
+    groups = 1
+    while COUPLING_LEAVES * groups * COUPLING_THREADS < T:
+        groups *= 2
+    return B * -(-K // COUPLING_ROWS), COUPLING_THREADS, groups
+
+
+def coupling_sums_plain(noise, u, u_std):
+    """Plain PyTorch version of ``coupling_sums``: ``control_coupling`` at
+    lambda 1 (the halving tree of ``noise * (u / u_std^2)`` over the (t,
+    c) terms; times 1.0, which changes no float)."""
+    return control_coupling(u, noise, u_std,
+                            u_std.new_ones(u_std.shape[:-1]))
 
 
 def cvar_costs_plain(costs_km, noise, u, u_std, lambda_weight, numel=None,
@@ -115,9 +158,9 @@ def _entry_points():
 
 @functools.lru_cache(maxsize=None)
 def _wide_entry_points():
-    """``csrc/cvar_wide.cu``'s launch and prepare entry points (the
-    streamed twins and the wide kernel, a library of their own), built and
-    loaded on first use."""
+    """``csrc/cvar_wide.cu``'s launch, prepare and coupling-launch entry
+    points (the twins past ``STAGED_T``, the wide kernel and the coupling
+    kernel, a library of their own), built and loaded on first use."""
     from ._build import load
 
     lib = load("cvar_wide")
@@ -125,8 +168,12 @@ def _wide_entry_points():
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    coupling = lib.cvar_coupling_launch
+    coupling.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    coupling.restype = ctypes.c_int
     lib.cvar_wide_prepare.restype = ctypes.c_int
-    return fn, lib.cvar_wide_prepare
+    return fn, lib.cvar_wide_prepare, coupling
 
 
 @functools.lru_cache(maxsize=None)
@@ -220,8 +267,10 @@ def cvar_costs(costs_km, noise, u, u_std, lambda_weight, numel=None,
 
     On CUDA tensors this launches the kernel once (once for every
     ``MAX_ROWS`` scenario rows) and adds one to ``cvar_costs.launches`` a
-    launch; past ``SORTED_M`` map samples it is ``cvar_costs_wide``.  On
-    CPU tensors it runs ``cvar_costs_plain``.
+    launch; past ``SORTED_M`` map samples it is ``cvar_costs_wide``; past
+    ``STAGED_T`` steps the coupling kernel launches before it (counted in
+    ``coupling_sums.launches``).  On CPU tensors it runs
+    ``cvar_costs_plain``.
     """
     if not costs_km.is_cuda:
         return cvar_costs_plain(costs_km, noise, u, u_std, lambda_weight,
@@ -240,14 +289,16 @@ def cvar_costs_wide(costs_km, noise, u, u_std, lambda_weight, numel=None,
                     alpha=None):
     """``cvar_costs`` past ``SORTED_M`` map samples: the wide kernel
     (``cvar_wide_kernel``), a block of 1,024 threads a row, the worst
-    costs selected from global memory and sorted in rounds of at most
-    ``SORTED_M``.  Arguments and result as for ``cvar_costs``, M >
-    ``SORTED_M``.
+    costs in rounds of at most ``SORTED_M``: whole bins of the row's key
+    histogram, gathered from global memory and sorted in shared memory
+    (a radix sort past 8,192 keys, the bitonic network below).  Arguments
+    and result as for ``cvar_costs``, M > ``SORTED_M``.
 
     On CUDA tensors this launches the kernel once (once for every
     ``MAX_ROWS`` scenario rows) and adds one to
-    ``cvar_costs_wide.launches`` a launch; on CPU tensors it runs
-    ``cvar_costs_plain``.
+    ``cvar_costs_wide.launches`` a launch (past ``STAGED_T`` steps after
+    the coupling kernel, counted in ``coupling_sums.launches``); on CPU
+    tensors it runs ``cvar_costs_plain``.
     """
     if not costs_km.is_cuda:
         return cvar_costs_plain(costs_km, noise, u, u_std, lambda_weight,
@@ -276,14 +327,19 @@ def _launch(counted, costs_km, noise, u, u_std, lambda_weight, numel,
                                     lambda_weight)]
     alpha = None if alpha is None else alpha.contiguous()
     out = torch.empty(lead + (K,), dtype=torch.float32, device=dev)
-    _, tpr, _, streamed = kernel_path(B, K, M, T, _prepared(dev.index))
-    if streamed:
+    _, tpr, _, coupled = kernel_path(B, K, M, T, _prepared(dev.index))
+    wide = uses_wide_library(M, T)
+    if wide:
         _prepared(dev.index, staged=False)
-    launch = _wide_entry_points()[0] if streamed else _entry_points()[0]
+    launch = _wide_entry_points()[0] if wide else _entry_points()[0]
     if not lead:
         ins = [t.reshape((1,) + tuple(t.shape)) for t in ins]
         alpha = None if alpha is None else alpha.reshape(1)
     rows = out.view(B, K)
+    if coupled:
+        # Each row's coupling first, into out, where the CVaR kernel reads
+        # it back.
+        _coupling_launch(ins[1], ins[2], ins[3], rows)
     step = max(1, MAX_ROWS // K)
     # The runtime launches on its current device: make it the tensors'.
     with torch.cuda.device(dev):
@@ -300,6 +356,72 @@ def _launch(counted, costs_km, noise, u, u_std, lambda_weight, numel,
                                    "{}".format(counted.__name__, err))
             counted.launches += 1
     return out
+
+
+def coupling_sums(noise, u, u_std):
+    """Each rollout's coupling sum before lambda, ``sum_{t,c} eps * u /
+    sigma^2`` in the halving tree's order: the kernel that ``cvar_costs``
+    launches before the CVaR past ``STAGED_T`` steps
+    (``cvar_coupling_kernel``), callable on its own.
+
+    Args:
+      noise: float32 ``(K, T, 2)`` (or ``(B, K, T, 2)``).
+      u: float32 ``(T, 2)`` (``(B, T, 2)``).
+      u_std: float32 ``(2,)`` (``(B, 2)``).
+
+    Returns float32 ``(K,)`` (``(B, K)``).  On CUDA tensors this launches
+    the kernel once (once for every ``MAX_ROWS`` scenario rows) and adds
+    one to ``coupling_sums.launches`` a launch; on CPU tensors it runs
+    ``coupling_sums_plain``.
+    """
+    if not noise.is_cuda:
+        return coupling_sums_plain(noise, u, u_std)
+    dev = noise.device
+    if noise.dim() not in (3, 4):
+        raise ValueError("coupling_sums: noise must be float32 (K, T, 2) or "
+                         "(B, K, T, 2), got {}".format(_describe(noise)))
+    lead = tuple(noise.shape[:-3])
+    K, T = noise.shape[-3], noise.shape[-2]
+    check_tensor("coupling_sums: noise", noise, lead + (K, T, 2), dev)
+    check_tensor("coupling_sums: u", u, lead + (T, 2), dev)
+    check_tensor("coupling_sums: u_std", u_std, lead + (2,), dev)
+    if K < 1 or T < 1 or K > MAX_ROWS:
+        raise ValueError("coupling_sums: {} rollouts x {} steps out of "
+                         "range".format(K, T))
+    _prepared(dev.index, staged=False)
+    ins = [t.contiguous() for t in (noise, u, u_std)]
+    if not lead:
+        ins = [t.reshape((1,) + tuple(t.shape)) for t in ins]
+    out = torch.empty(lead + (K,), dtype=torch.float32, device=dev)
+    B = ins[0].shape[0]
+    _coupling_launch(*ins, out.view(B, K))
+    return out
+
+
+coupling_sums.launches = 0
+
+
+def _coupling_launch(noise, u, u_std, rows):
+    """``cvar_coupling_kernel`` into ``rows`` (B, K), once for every
+    ``MAX_ROWS`` scenario rows, adding one to ``coupling_sums.launches`` a
+    launch; the inputs contiguous with a scenario axis, on ``rows``'s
+    device."""
+    B, K = rows.shape
+    T = u.shape[-2]
+    dev = rows.device
+    step = max(1, MAX_ROWS // K)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for b0 in range(0, B, step):
+            part = slice(b0, min(B, b0 + step))
+            err = _wide_entry_points()[2](
+                noise[part].data_ptr(), u[part].data_ptr(),
+                u_std[part].data_ptr(), rows[part].data_ptr(),
+                part.stop - b0, K, T, stream)
+            if err != 0:
+                raise RuntimeError("coupling_sums kernel launch failed: CUDA "
+                                   "error {}".format(err))
+            coupling_sums.launches += 1
 
 
 def empty_launch(device):

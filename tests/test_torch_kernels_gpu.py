@@ -1884,10 +1884,13 @@ def _edge_costs(dev, kind, B, K, M, seed=0):
     of a row the same, one value a row), ``ties`` (most costs the crash
     penalty 1e5 and the rest spread around it, so the count's threshold
     lands among equal costs), ``specials`` (NaN, +-inf, +0.0 beside -0.0
-    among ordinary costs)."""
+    among ordinary costs), ``one_bin`` (costs in [256, 288): every key's
+    top 12 bits alike, one bin of the wide kernel's first histogram)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     costs = torch.rand((B, K, M), generator=g, device=dev) * 300
-    if kind == "equal":
+    if kind == "one_bin":
+        costs = costs * (31.9 / 300.0) + 256.0
+    elif kind == "equal":
         costs = costs[..., :1].expand(B, K, M).contiguous()
     elif kind == "ties":
         pick = torch.rand((B, K, M), generator=g, device=dev)
@@ -2134,21 +2137,28 @@ def test_solve_past_the_old_cvar_cap_graph_equals_eager_on_card(dynamic):
 
 
 # The shapes past the tail kernels' former caps: T past the 4,096 steps a
-# team stages (the coupling streamed) at every team size, M past the
-# 16,384 keys a team sorts (the wide kernel), and at 16,384 itself.
+# team stages (the coupling its own launch) at every team size, M past the
+# 16,384 keys a team sorts (the wide kernel), and at 16,384 itself; then
+# three scenarios (each its own alpha) at T = 4,097, 8,193 and 20,000 (the
+# coupling kernel's one to four groups a thread) and M = 16 (a warp team),
+# 1,024 and 20,000 (the wide kernel after the coupling).
 LIFTED_CVAR = [(None, 64, 16, 4097), (None, 37, 16, 20000),
                (3, 37, 300, 4100), (None, 37, 2000, 5000),
                (None, 16, 10000, 4097), (2, 9, 16384, 20),
                (None, 8, 32768, 20), (2, 7, 70000, 20),
-               (None, 8, 20000, 4097)]
+               (None, 8, 20000, 4097)] + [
+                   (3, 37, M, T) for M in (16, 1024, 20000)
+                   for T in (4097, 8193, 20000)]
 
 
 @pytest.mark.parametrize("B,K,M,T", LIFTED_CVAR)
 def test_cvar_costs_past_the_former_caps_on_card(B, K, M, T):
     """The CVaR plus coupling at shapes the kernel refused before, against
     its plain version, bit for bit, at numel ceil(0.2 M), 1 and M and at
-    alphas 0.2 and 1 (ties, crashes and a NaN among the costs), and at
-    each static count's alpha."""
+    alphas 0.2 and 1 (ties, crashes and a NaN among the costs), three
+    scenarios also at alphas 0.2, 0.6 and 1 (one each), and at each
+    static count's alpha; past 4,096 steps each call launches the coupling
+    kernel once before the CVaR's."""
     import math
 
     from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
@@ -2159,11 +2169,14 @@ def test_cvar_costs_past_the_former_caps_on_card(B, K, M, T):
     n = 1 if B is None else B
     wide = M > kc.SORTED_M
     counted = kc.cvar_costs_wide if wide else kc.cvar_costs
-    before = counted.launches
+    before = (counted.launches, kc.coupling_sums.launches)
     calls = 0
+    per_scenario = ([dict(alpha=torch.tensor([0.2, 0.6, 1.0][:n],
+                                             device=dev))]
+                    if B is not None else [])
     for kw in ([dict(numel=v) for v in (math.ceil(0.2 * M), 1, M)]
                + [dict(alpha=torch.full((n,) if B else (), a, device=dev))
-                  for a in (0.2, 1.0)]):
+                  for a in (0.2, 1.0)] + per_scenario):
         want = kc.cvar_costs_plain(costs, noise, u, u_std, lam, **kw)
         got = kc.cvar_costs(costs, noise, u, u_std, lam, **kw)
         calls += 1
@@ -2176,27 +2189,62 @@ def test_cvar_costs_past_the_former_caps_on_card(B, K, M, T):
             calls += 1
             assert torch.equal(_bits(same), _bits(kc.cvar_costs_plain(
                 costs, noise, u, u_std, lam, alpha=alpha))), kw
-    assert counted.launches == before + calls
+    coupled = calls if T > kc.STAGED_T else 0
+    assert (counted.launches, kc.coupling_sums.launches) == (
+        before[0] + calls, before[1] + coupled)
 
 
-@pytest.mark.parametrize("kind", ["equal", "ties", "specials"])
-def test_cvar_wide_kernel_edges_on_card(kind):
-    """The wide kernel on rows of equal costs, of ties at the threshold
-    and of NaN / +-inf / +-0.0, at counts 1, 16,384 (one round), 16,385
-    and M (rounds that end among equal keys), past M and <= 0."""
+@pytest.mark.parametrize("B,K,T", [(None, 1, 4097), (None, 37, 8193),
+                                   (3, 1024, 20000), (2, 5, 40000),
+                                   (None, 3, 100)])
+def test_coupling_sums_on_card(B, K, T):
+    """The coupling kernel on its own against its plain version (the
+    halving tree of noise * u / sigma^2), bit for bit: one row (a block's
+    second row idle), an odd K, the flagship's K at 20,000 steps, 40,000
+    steps (super-groups past the register stack) and a short horizon."""
     from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
 
     dev = _cuda_or_skip()
-    B, K, M, T = 2, 5, 40000, 9
-    costs = _edge_costs(dev, kind, B, K, M)
-    _, noise, u, u_std, lam, _, _, _ = _tail_inputs(dev, B, K, 8, T)
-    counts = [dict(numel=v) for v in (1, 16384, 16385, 33000, M, M + 5)] + [
-        dict(alpha=torch.full((B,), a, device=dev)) for a in (1.3, 0.0, -0.5)]
-    for kw in counts:
-        want = kc.cvar_costs_plain(costs, noise, u, u_std, lam, **kw)
-        got = kc.cvar_costs(costs, noise, u, u_std, lam, **kw)
-        torch.cuda.synchronize()
-        assert torch.equal(_bits(got), _bits(want)), kw
+    g = torch.Generator(device=dev).manual_seed(T)
+    lead = () if B is None else (B,)
+    noise = torch.randn(lead + (K, T, 2), generator=g, device=dev)
+    u = torch.rand(lead + (T, 2), generator=g, device=dev) * 3 - 1
+    u_std = torch.rand(lead + (2,), generator=g, device=dev) + 0.5
+    before = kc.coupling_sums.launches
+    got = kc.coupling_sums(noise, u, u_std)
+    want = kc.coupling_sums_plain(noise, u, u_std)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want))
+    assert kc.coupling_sums.launches == before + 1
+
+
+@pytest.mark.parametrize("kind", ["equal", "ties", "specials", "one_bin"])
+def test_cvar_wide_kernel_edges_on_card(kind):
+    """The wide kernel on rows of equal costs, of ties at the threshold,
+    of NaN / +-inf / +-0.0 and of costs whose keys share their top 12 bits
+    (one bin of the first histogram), at counts 1, 16,384 (one round),
+    16,385 and M (rounds that end among equal keys), past M and <= 0, and
+    at alphas 0.2 and 1, one a scenario; at M = 40,000 and just past
+    16,384, with the coupling summed in the block (T = 9) and launched
+    before it (T = 4,097)."""
+    from mppi_numba_tpu_torch.ops.kernels import cvar_costs as kc
+
+    dev = _cuda_or_skip()
+    B, K = 2, 5
+    for M, T in ((40000, 9), (16385, 9), (40000, 4097)):
+        costs = _edge_costs(dev, kind, B, K, M)
+        _, noise, u, u_std, lam, _, _, _ = _tail_inputs(dev, B, K, 8, T)
+        counts = [dict(numel=v)
+                  for v in (1, 16384, 16385, 33000, M, M + 5) if v <= M + 5]
+        counts += [dict(alpha=torch.full((B,), a, device=dev))
+                   for a in (1.3, 0.0, -0.5)]
+        counts += [dict(alpha=torch.tensor([0.2, 1.0], device=dev))]
+        for kw in counts:
+            want = kc.cvar_costs_plain(costs, noise, u, u_std, lam, **kw)
+            got = kc.cvar_costs(costs, noise, u, u_std, lam, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), _bits(want)), (M, T, kw)
 
 
 @pytest.mark.parametrize("B,K,T", [(None, 32769, 9), (None, 40000, 50),

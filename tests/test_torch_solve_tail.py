@@ -422,27 +422,32 @@ def test_every_launch_shape_the_launchers_pick_is_compiled(B, K):
     """Whatever the launchers pick (host arithmetic on the shapes) is an
     instantiation the kernels' sources compile, with at most 8 own rows a
     thread for the update: a shape past them would return
-    cudaErrorInvalidValue.  Past T = 4,096 every CVaR instantiation's
-    streamed twin, past M = 16,384 the wide CVaR kernel (1,024 threads),
-    past K = 32,768 the wide update (256 position groups a scenario, each
-    at least 256 positions, whole stages of 32 leaves a thread)."""
+    cudaErrorInvalidValue.  Past T = 4,096 the coupling kernel's launch
+    first, then every CVaR instantiation's twin that reads it, past M =
+    16,384 the wide CVaR kernel (1,024 threads), past K = 32,768 the wide
+    update (256 position groups a scenario, each at least 256 positions,
+    whole stages of 32 leaves a thread)."""
     cvar_shapes = _compiled("cvar_common.cuh", "CVAR_SHAPES")
     update_shapes = _compiled("update_useq.cu", "UPDATE_SHAPES")
     assert all(a // c <= 8 for a, c in update_shapes)
     # Each (threads, keys) shape's launch instantiates both twins, the
-    # staged one in cvar_costs.cu's library, the streamed in cvar_wide.cu's.
+    # staged one in cvar_costs.cu's library, the one that reads the
+    # coupling launched before it in cvar_wide.cu's.
     assert _source_has("cvar_costs.cu",
                        r"cvar_costs_kernel<TPR_, E_, false><<<")
     assert _source_has("cvar_wide.cu", r"cvar_costs_kernel<TPR_, E_, true><<<",
-                       r"cvar_wide_kernel<<<")
-    assert _source_has("cvar_common.cuh", r"kSortedM = kWideTPR \* 16",
-                       r"kStagedT = 4096")
+                       r"cvar_wide_kernel<true><<<", r"cvar_wide_kernel<false><<<",
+                       r"cvar_coupling_kernel<<<")
+    assert _source_has("cvar_common.cuh", r"kSortedM = 1024 \* 16",
+                       r"kWideTPR = 1024", r"kStagedT = 4096")
     for M in (1, 2, 64, 65, 512, 1000, 1024, 1025, 4096, 5000, 8192,
               15000, 16384, 16385, 32768, 70000):
         for T in (1, 100, 4096, 4097, 20000):
             for sms in (132, 114, 8):
-                path, tpr, E, streamed = kcvar.kernel_path(B, K, M, T, sms)
-                assert streamed == (T > kcvar.STAGED_T or M > kcvar.SORTED_M)
+                path, tpr, E, coupled = kcvar.kernel_path(B, K, M, T, sms)
+                assert coupled == (T > kcvar.STAGED_T)
+                assert kcvar.uses_wide_library(M, T) == (
+                    T > kcvar.STAGED_T or M > kcvar.SORTED_M)
                 if M > kcvar.SORTED_M:
                     assert (path, tpr) == ("cvar_wide_kernel", 1024), M
                 else:
