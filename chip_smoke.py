@@ -10,12 +10,12 @@ Phases (any failure exits non-zero; no error is swallowed):
 1. Build ``csrc/rollout_byte.cu``, ``csrc/rollout_binned.cu``,
    ``csrc/map_sample.cu``, ``csrc/gather_probe.cu``,
    ``csrc/cvar_costs.cu``, ``csrc/cvar_wide.cu``,
-   ``csrc/update_useq.cu``, ``csrc/update_wide.cu`` and
-   ``csrc/barebone_rollout.cu`` with nvcc for sm_90a, all at once, and
-   print
+   ``csrc/update_useq.cu``, ``csrc/update_wide.cu``,
+   ``csrc/barebone_rollout.cu`` and ``csrc/vis_rollout.cu`` with nvcc for
+   sm_90a, all at once, and print
    the build time, each ptxas report (registers, spills: none allowed
-   in the barebone rollout's, the wide update's and ``cvar_wide.cu``'s
-   instantiations), each
+   in the barebone rollout's, the wide update's, ``cvar_wide.cu``'s and
+   the vis kernels' instantiations), each
    rollout kernel's SASS instructions per lane-step by class
    (``sass_counts``, where the toolkit has ``cuobjdump``) and the card's
    name and power limit.
@@ -95,7 +95,16 @@ Phases (any failure exits non-zero; no error is swallowed):
    1,048,577 and 2,097,153, B = 1 and 3, T = 1, 3, 50 and 4,097 (its
    chunks' edges and the eta kernel's streamed groups; K from 1e6 at T =
    4,097 left out: the plain version's temporaries pass the card's 80 GB),
-   a NaN cost among them.  Launches past one grid
+   a NaN cost among them.  The visualisation rollouts
+   (``ops/kernels/vis_rollout.py``: ``terrain_vis_fused``,
+   ``barebone_vis_fused``) against their plain versions, bit for bit
+   (the 2.7 m bicycle within rtol 1e-4 / atol 1e-4 m): the terrain vis in
+   tdm, det_dyn, speed_map and the costmap x the unicycle, the bicycle
+   and the car's bicycle x crop on and off x grids with and without
+   -128 draws, at V = 20, T = 100 on an 88 x 144 map (a 45 x 45 window
+   when cropped), then V = 1, 31, 32, 33, 100 and 4,225 (a warp a block)
+   at T = 1 and 100; the barebone vis at V = 1, 20, 31, 32, 33, 100 and
+   4,225 x T = 1, 50 and 100 (``check_vis_cases``).  Launches past one grid
    (``check_launch_chunks``): 65,539 scenarios through the map sampler
    (byte and 8-bit cells), both rollout kernels and the update, each two
    launches bit for bit with the calls on their slices and the plain
@@ -111,7 +120,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    planner's CUDA graphs, each held bit for bit (controls, every
    ``SolveAux`` field, the last vis) against an eager solve of the same
    solver from a generator of the same seed (``EagerMirror``; its
-   launches are not counted), in each world of
+   launches are not counted), the vis also against the plain loop
+   (``backend="eager"``), its vis graph one launch of the vis kernel and
+   at most ``VIS_MAX_NODES`` kernels a replay, in each world of
    ``WORLDS`` -- the flagship 11x11 (byte kernel), a 250x250 external PMF
    (8-bit cells), a forest-size 140x84 learned-model PMF under tdm (4-bit
    cells), det_dyn and speed_map (2- or 4-bit cells, M = 1), the forest
@@ -157,9 +168,10 @@ Phases (any failure exits non-zero; no error is swallowed):
    and the shapes the kernels once refused, through the planners' entry
    points, 3 solves each, every replay bit for bit with an eager solve:
    the flagship planner at ``Config(T=409.7)`` (4,097 steps) and at
-   ``num_grid_samples`` 20,000 and 70,000 (the wide CVaR), the barebone
-   planner at K = 100,000 and 1e6 (the wide update), their launches
-   counted (the ``kernels`` line's ``launches_lifted_solves``).
+   ``num_grid_samples`` 20,000 and 70,000 (the wide CVaR), at most
+   ``LIFTED_MAX_NODES`` kernels a replay, the barebone planner at K =
+   100,000 and 1e6 (the wide update), their launches counted (the
+   ``kernels`` line's ``launches_lifted_solves``).
 4. Timing with CUDA events: each rollout kernel over launches captured in
    a CUDA graph and over eager launches, in turns, against its plain
    version; the binned kernel in turns with the byte kernel on the same
@@ -185,9 +197,11 @@ Phases (any failure exits non-zero; no error is swallowed):
    (``torch.profiler``) at K = 40,000, 1e5 and 1e6; the barebone rollout
    kernel at K = 1,000 and 1e6 (graph and eager, in turns) against its
    bound and the plain loop; the
-   visualisation rollouts of worlds (a) and (c) and of the barebone
-   planner, one vis graph replay on the device clock and
-   ``get_state_rollout()`` on the host's, with the graph's kernels; then
+   visualisation rollouts of worlds (a), (c), (k), (d), (e), (f) and (h)
+   and of the barebone planner, one vis graph replay (the vis kernel) on
+   the device clock and ``get_state_rollout()`` on the host's, with the
+   graph's kernels, beside the plain loop's own vis graph and the bytes
+   and latency bounds (``time_vis_rollouts``); then
    per timed world, in turns, chained solves replayed from a CUDA graph
    and eager (``profiling.chained_solve_time``) on the device clock
    beside the host's time to enqueue them, and planner ``solve()`` times
@@ -277,7 +291,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    same inputs (``held_against_plain``: the map sampler, the rollout, the
    CVaR and the update kernels); and for the animation's worlds
    each step's frame rollouts (``get_state_rollout()`` before the shift)
-   bit for bit with the eager vis.  Phase 2's cases hold the kernels at
+   bit for bit with the eager vis and the plain loop, the subprocess's
+   per-frame ``get_state_rollout()`` time beside its solves printed.
+   Phase 2's cases hold the kernels at
    these shapes too.  Their launches and the subprocesses' are the
    ``kernels`` line's ``launches_phase7``.
 
@@ -377,6 +393,32 @@ BAREBONE_KS = (1, 255, 256, 257, 1000, 40000, 1000000)
 BAREBONE_TS = (1, 7, 50, 100, 257)
 BAREBONE_NS = (0, 1, 2, 5, 9)
 BAREBONE_TIMED = ((1000, 50, 2), (1000000, 50, 2))
+# The kernels a vis graph replays at most: the vis kernel alone (the torch
+# loops it replaced replayed 3,716 at T = 100 and 557 at T = 50).
+VIS_MAX_NODES = 3
+# The lifted tdm planners' solve graphs, kernels a replay at most: world
+# (a)'s 26; past T = 4,096 the coupling kernel's launch more; at M =
+# 20,000 the wide CVaR in the CVaR's place; at M = 70,000 a second rollout
+# launch past 65,535 map samples and the copy of each launch's columns
+# into the costs (rollout_byte.chunked_launches).  The counts of an H100
+# run of this script (PERF.md section 6).
+LIFTED_MAX_NODES = {"flagship_T4097": 27, "flagship_M20000": 26,
+                    "flagship_M70000": 29}
+# Phase 2's vis cases: every mode, model and crop of the planners' vis
+# (the costmap is the speed-map vis on nominal grids; the bicycle at the
+# default and a car's wheelbase), on the forest's padded map or an
+# 45 x 45 window of it at VIS_OFFSET; then V of one rollout, a warp's
+# width and one either side, 100, and 4,225, past the rollouts an H100
+# holds a block each (vis_rollout.launch_shape: a warp a block there).
+VIS_MODES = ("tdm", "det_dyn", "speed_map", "costmap")
+VIS_MODELS = ("unicycle", "bicycle", "bicycle_car")
+VIS_VS = (1, 31, 32, 33, 100, 4225)
+VIS_MAP, VIS_ROI, VIS_OFFSET = (88, 144), (45, 45), (20, 37)
+# Phase 4's timed vis: worlds (a), (c), (k), (d), (e), (f), (h); and the
+# barebone planner.
+VIS_TIMED_WORLDS = ("flagship_11x11", "forest_140x84", "bigmap_250x250_roi",
+                    "forest_140x84_det_dyn", "forest_140x84_speed_map",
+                    "costmap_140x84", "forest_140x84_bicycle")
 # Phase 2's wide update cases (K x B x T): just past the fused path's
 # 32,768, the lifted 40,000, just past a power of two, the Config's 1e6,
 # and just past 2^20 and 2^21 (update_wide_eta's 32 and 64 positions a
@@ -936,27 +978,251 @@ def time_barebone_kernel(torch, dev, time_kernels, time_cuda, emit):
     return out
 
 
-def time_vis_rollouts(torch, time_cuda, planners, emit):
-    """The planners' visualisation rollouts (``get_state_rollout()``,
-    replayed from the planner's vis graph; their torch loops): each on the
-    host clock (the call, its copy to the host included) and its graph's
-    replay on the device clock, with the graph's kernels a replay.
-    ``planners``: ``{world: planner}``, each solved at least once."""
+def vis_terrain_case(torch, dev, mode, V, T, crop, past_last, seed,
+                     hw=VIS_MAP, M=None):
+    """``terrain_vis_fused``'s positional arguments on the card: int8 grids
+    of ``M`` samples (V + 2 in tdm, else 1) at ``hw``, or at ``VIS_ROI``
+    when cropping (-128 among them with ``past_last``; all 100 for the
+    costmap), controls that turn and clip, noise rows (sigma 1, 0.6), the
+    window's offset and a task at 0.5 m whose robot crosses cell edges;
+    steering within +-``STEER``."""
+    from mppi_numba_tpu_torch.types import TerrainTask
+
+    rng = np.random.RandomState(seed)
+
+    def t(a, dtype=None):
+        return torch.tensor(np.asarray(a, dtype), device=dev)
+
+    M = (V + 2 if mode == "tdm" else 1) if M is None else M
+    H, W = VIS_ROI if crop else hw
+    if mode == "costmap":
+        lin = np.full((M, H, W), 100, np.int8)
+        ang = lin.copy()
+    else:
+        lin = rng.randint(0, 101, (M, H, W)).astype(np.int8)
+        ang = rng.randint(0, 101, (M, H, W)).astype(np.int8)
+    if past_last:
+        lin[rng.rand(*lin.shape) < 0.3] = -128
+        ang[rng.rand(*ang.shape) < 0.3] = -128
+    u_cur = np.stack([rng.uniform(0.5, 2.0, T), rng.uniform(-0.5, 0.5, T)],
+                     axis=-1)
+    u_prev = np.stack([rng.uniform(0.5, 2.0, T),
+                       rng.uniform(-0.5, 0.5, T)], axis=-1)
+    noise = rng.randn(V, T, 2) * [1.0, 0.6]
+    oy, ox = VIS_OFFSET if crop else (0, 0)
+    res, lim0 = 0.5, -0.5
+    f = np.float32
+    task = TerrainTask(
+        x0=t([lim0 + (ox + 0.3 * W) * res, lim0 + (oy + 0.4 * H) * res,
+              0.7], f),
+        xgoal=t([0.0, 0.0], f), goal_tolerance=t(0.5, f),
+        v_post_rollout=t(0.5, f), lambda_weight=t(1.0, f),
+        u_std=t([1.0, 0.6], f), vrange=t([0.0, 2.0], f),
+        wrange=t([-STEER, STEER], f), dt=t(0.1, f), dist_weight=t(1.0, f),
+        obs_penalty=t(1e4, f), unknown_penalty=t(1e2, f),
+        alpha_dyn=t(1.0, f), res=t(res, f), xlim0=t(lim0, f),
+        ylim0=t(lim0, f), lin_lb=t(0.05, f), lin_ratio=t(0.0093, f),
+        ang_lb=t(0.1, f), ang_ratio=t(0.0071, f))
+    return (t(lin), t(ang), t(u_cur, f), t(u_prev, f), t(noise, f),
+            t([oy, ox], np.int32), task)
+
+
+def vis_step_fn(model):
+    """The step function of a ``VIS_MODELS`` name."""
+    from mppi_numba_tpu_torch.models import (make_bicycle_step,
+                                             unicycle_step)
+
+    return {"unicycle": unicycle_step,
+            "bicycle": make_bicycle_step(WHEELBASE),
+            "bicycle_car": make_bicycle_step(CAR_WHEELBASE)}[model]
+
+
+def vis_barebone_case(torch, dev, V, T, seed):
+    """``barebone_vis_fused``'s arguments: ``barebone_case``'s task (the
+    example's), controls that clip, and V noise rows (sigma 1.5)."""
+    task, u, noise = barebone_case(torch, dev, V, T, 2, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    u_prev = torch.stack([torch.rand((T,), generator=g, device=dev) * 2.5,
+                          torch.rand((T,), generator=g, device=dev) * 8 - 4],
+                         -1)
+    return task, u, u_prev, noise
+
+
+def check_vis_cases(torch, dev):
+    """Phase 2's vis cases: each vis kernel against its plain version on
+    the same CUDA tensors, bit for bit (the 2.7 m bicycle within rtol 1e-4
+    / atol 1e-4 m, its first row bit for bit): the terrain vis in every
+    ``VIS_MODES`` x ``VIS_MODELS`` x crop on and off x grids with and
+    without -128 draws at V = 20, T = 100; then each ``VIS_VS`` at T = 1
+    and 100 in tdm and det_dyn; the barebone vis at each ``VIS_VS`` and
+    20 x T = 1, 50 and 100.  One JSON line a case;
+    returns the records."""
+    from mppi_numba_tpu_torch.ops.kernels import vis_rollout
+    from mppi_numba_tpu_torch.ops.rollout import (barebone_vis_fused_plain,
+                                                  terrain_vis_fused_plain)
+
+    cases = [(m, model, crop, past, 20, 100)
+             for m in VIS_MODES for model in VIS_MODELS
+             for crop in (False, True) for past in (False, True)]
+    cases += [(m, "unicycle", False, True, V, T) for m in ("tdm", "det_dyn")
+              for V in VIS_VS for T in (1, 100)]
+    results = []
+    for i, (mode, model, crop, past, V, T) in enumerate(cases):
+        args = vis_terrain_case(torch, dev, mode, V, T, crop, past, seed=i)
+        kw = dict(V=V, det=mode != "tdm", crop=crop,
+                  step_fn=vis_step_fn(model))
+        got = vis_rollout.terrain_vis_fused(*args, **kw)
+        want = terrain_vis_fused_plain(*args, **kw)
+        torch.cuda.synchronize()
+        bitwise = model != "bicycle_car"
+        rec = vis_record(torch, "terrain_vis", got, want, bitwise, mode=mode,
+                         model=model, crop=crop, past_last=past, V=V, T=T,
+                         hw=list(args[0].shape[1:]))
+        results.append(rec)
+    for V in VIS_VS[:1] + (20,) + VIS_VS[1:]:
+        for T in (1, 50, 100):
+            args = vis_barebone_case(torch, dev, V, T, seed=V + T)
+            got = vis_rollout.barebone_vis_fused(*args)
+            want = barebone_vis_fused_plain(*args)
+            torch.cuda.synchronize()
+            results.append(vis_record(torch, "barebone_vis", got, want, True,
+                                      V=V, T=T))
+    return results
+
+
+def vis_record(torch, name, got, want, bitwise, **info):
+    """Hold vis states against the plain version's: finite, the shape,
+    bit for bit where ``bitwise``, else within rtol 1e-4 / atol 1e-4 m
+    with the first row bit for bit.  Prints and returns the record."""
+    check(got.shape == want.shape and bool(got.isfinite().all()),
+          "{} {}: states {} not finite or not {}".format(
+              name, info, tuple(got.shape), tuple(want.shape)))
+    differ = bits_differ(torch, got, want)
+    err = float((got - want).abs().max())
+    rec = dict(case=name, **info, bitwise=bitwise, entries_differing=differ,
+               max_abs_err=err)
+    print(json.dumps(rec), flush=True)
+    if bitwise:
+        check(differ == 0, "{} {}: {} entries differ from the plain "
+              "version".format(name, info, differ))
+    else:
+        check(torch.equal(got[:, 0], want[:, 0]) and np.allclose(
+            got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-4),
+            "{} {}: states beyond rtol 1e-4 / atol 1e-4 (max {})".format(
+                name, info, err))
+    return rec
+
+
+def vis_cells(states, task, det, crop, roi_offset, hw):
+    """The distinct (grid, cell) pairs a terrain vis read: each step's
+    cell of the pre-update state (a float64 recomputation from the
+    states: a count, not a parity check)."""
+    H, W = hw
+    x = states[:, :-1, 0].astype(np.float64)
+    y = states[:, :-1, 1].astype(np.float64)
+    res = float(task.res)
+    xlim0, ylim0 = float(task.xlim0), float(task.ylim0)
+    if crop:
+        oy, ox = (int(v) for v in roi_offset)
+        xlim0, ylim0 = xlim0 + ox * res, ylim0 + oy * res
+    xi = np.clip(np.floor((x - xlim0) / res), 0, W - 1)
+    yi = np.clip(np.floor((y - ylim0) / res), 0, H - 1)
+    grid = 0 if det else np.arange(states.shape[0])[:, None]
+    return len(np.unique((grid * H + yi) * W + xi))
+
+
+def vis_bound_ms(V, T, cells, det, model):
+    """Least time of a vis call at V rollouts x T steps, the larger of its
+    bytes over HBM bandwidth and its float32 operations over the float32
+    peak.  Bytes: the ``cells`` distinct cells read (an int8 of each
+    plane; None: the barebone vis, no map), u_cur (and in the det modes
+    u_prev and the V - 1 noise rows) read once, the task's values, the
+    (V, T+1, 3) states written once.  Operations a rollout-step: the cell
+    index 10 and the decode 4 (terrain), the dynamics (unicycle 11,
+    bicycle 13 and its tanf, the barebone's 8), and the noisy rows' add
+    and clamp 6."""
+    noisy = V - 1 if det else 0
+    nbytes = (2 * (cells or 0) + 4 * (T * 2 * (2 if det else 1)
+                                      + noisy * T * 2 + 20)
+              + 4 * V * (T + 1) * 3)
+    step = 8 if cells is None else 14 + (14 if model == "bicycle" else 11)
+    ops = V * T * step + noisy * T * 6
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def time_vis_rollouts(torch, time_cuda, planners, step_ns, emit):
+    """The planners' visualisation rollouts: ``get_state_rollout()``
+    (replayed from the planner's vis graph: the vis kernel) on the host
+    clock, its graph's replay on the device clock, with its kernels a
+    replay, beside the plain loop's (``backend="eager"``) captured in a
+    ``VisGraph`` on the same buffers (bit for bit with it), and both
+    bounds: bytes or operations (``vis_bound_ms``, this run's cells) and
+    latency, T dependent steps: a terrain step waits on its cell's load,
+    at least ``step_ns`` (the gather probe's quickest L1 chain step, this
+    run); a barebone step on its heading's add (4 cycles at 1,980 MHz).
+    ``planners``: ``{world: planner}``, each solved at least once.
+    Returns ``{world: record}``."""
+    from mppi_numba_tpu_torch.graphs import VisGraph
+    from mppi_numba_tpu_torch.solver import get_barebone_vis, get_terrain_vis
+
+    out = {}
     for world, planner in planners.items():
         planner.get_state_rollout()
-        graph = list(planner._vis_graphs.values())[-1]._call
+        static = planner._last_static
+        graph = planner._vis_graphs[static]._call
+        aux = planner._last_aux
+        plain_static = dataclasses.replace(static, backend="eager")
+        barebone = static.mode == "barebone"
+        if barebone:
+            head, tail = (planner._task_device,), (aux.noise_vis,)
+            plain_vis = get_barebone_vis(plain_static)
+        else:
+            head = (planner._map_inputs(), planner._task_device)
+            tail = (aux.noise_vis, aux.lin_grids, aux.ang_grids,
+                    aux.roi_offset)
+            plain_vis = get_terrain_vis(plain_static)
+        plain_graph = VisGraph(plain_vis, head, tail, planner.u_cur)
         host = []
         for _ in range(6):
             t0 = time.perf_counter()
             states = planner.get_state_rollout()
             host.append((time.perf_counter() - t0) * 1e3)
+        plain_states = plain_graph(planner.u_cur, planner.u_prev)
+        check(np.array_equal(states, plain_states.cpu().numpy()),
+              "{}: the vis kernel's graph differs from the plain loop's"
+              .format(world))
         device = [time_cuda(graph.replay, 20, 2) for _ in range(3)]
-        emit("vis_rollout_graph_ms", min(device), "ms", world=world,
-             device_runs=device, host_ms_median=float(np.median(host[1:])),
-             host_runs=host, kernels_per_replay=graph.kernel_nodes,
-             states_shape=list(states.shape),
-             timing="device clock: one vis graph replay; host clock: "
-                    "get_state_rollout()")
+        plain = [time_cuda(plain_graph._call.replay, 3, 1) for _ in range(2)]
+        V, T1, _ = states.shape
+        det = barebone or static.mode != "tdm"
+        cells = None if barebone else vis_cells(
+            states, planner._task_device, det, bool(static.roi_shape),
+            aux.roi_offset.tolist(), tuple(aux.lin_grids.shape[1:]))
+        bound = vis_bound_ms(V, T1 - 1, cells, det, static.model)
+        latency = (T1 - 1) * (4 / 1.98e9 * 1e3 if barebone
+                              else step_ns * 1e-6)
+        rec = dict(world=world, ms=min(device), device_runs=device,
+                   kernels_per_replay=graph.kernel_nodes,
+                   host_ms_median=float(np.median(host[1:])), host_runs=host,
+                   plain_ms=min(plain), plain_runs=plain,
+                   plain_kernels_per_replay=plain_graph._call.kernel_nodes,
+                   bound_ms=bound[0], bound_by=bound[1], cells_read=cells,
+                   latency_bound_ms=latency,
+                   latency_share=latency / min(device),
+                   V=V, T=T1 - 1, mode=static.mode, model=static.model,
+                   roi=static.roi_shape, states_shape=list(states.shape),
+                   timing="device clock: one vis graph replay (the plain "
+                          "loop's: its own VisGraph); host clock: "
+                          "get_state_rollout()")
+        check(graph.kernel_nodes <= VIS_MAX_NODES,
+              "{}: {} kernels a vis replay".format(world, graph.kernel_nodes))
+        emit("vis_rollout_graph_ms", rec["ms"], "ms", **{
+            k: v for k, v in rec.items() if k != "ms"})
+        out[world] = rec
+        del plain_graph
+    return out
 
 
 CHUNK_SCENARIOS = 65535 + 4       # past one launch's 65,535 scenarios
@@ -1200,7 +1466,8 @@ def time_tail_kernels(torch, dev, time_kernels, time_cuda, emit):
 
 
 # Libraries whose every instantiation must build without a ptxas spill.
-NO_SPILL_LIBRARIES = ("barebone_rollout", "update_wide", "cvar_wide")
+NO_SPILL_LIBRARIES = ("barebone_rollout", "update_wide", "cvar_wide",
+                      "vis_rollout")
 _SPILL = re.compile(r"(\d+) bytes spill (?:stores|loads)")
 
 
@@ -1363,7 +1630,8 @@ def main():
     from mppi_numba_tpu_torch.ops.kernels import (_build, barebone_rollout,
                                                   cvar_costs, map_sample,
                                                   rollout_binned,
-                                                  rollout_byte, update_useq)
+                                                  rollout_byte, update_useq,
+                                                  vis_rollout)
     from mppi_numba_tpu_torch.ops import packing
     from mppi_numba_tpu_torch.probes import gather_probe
     from mppi_numba_tpu_torch import device_sim, sim
@@ -1393,8 +1661,10 @@ def main():
     wide_b = update_useq.update_useq_wide
     coupling = cvar_costs.coupling_sums
     bb_kernel = barebone_rollout.barebone_rollout_fused
+    vis_a = vis_rollout.terrain_vis_fused
+    vis_b = vis_rollout.barebone_vis_fused
     counted = (kernel, bkernel, sampler, fused, cropper, tail_a, tail_b,
-               wide_a, wide_b, coupling, bb_kernel,
+               wide_a, wide_b, coupling, bb_kernel, vis_a, vis_b,
                *(chain for chain, _ in chains.values()))
 
     def set_counts(value=0):
@@ -1415,13 +1685,15 @@ def main():
                 "update_useq_wide": wide_b.launches,
                 "cvar_coupling": coupling.launches,
                 "barebone_rollout": bb_kernel.launches,
+                "terrain_vis": vis_a.launches,
+                "barebone_vis": vis_b.launches,
                 "gather_probe": sum(c.launches for c, _ in chains.values())}
 
     # -- phase 1: build -------------------------------------------------------
     build_kernels(_build, ("rollout_byte", "rollout_binned", "map_sample",
                            "gather_probe", "cvar_costs", "cvar_wide",
                            "update_useq", "update_wide",
-                           "barebone_rollout"))
+                           "barebone_rollout", "vis_rollout"))
     print_sass_counts([_build.library_path(name)
                        for name in ("rollout_byte", "rollout_binned")])
     card = card_line()
@@ -2092,6 +2364,11 @@ def main():
     barebone_results = check_barebone_cases(torch, dev)
     wide_update_results = check_wide_update_cases(torch, dev)
 
+    # Both vis kernels against their plain versions, bit for bit (the
+    # 2.7 m bicycle within 1e-4), in every mode, model and crop, on grids
+    # with -128 draws, at V's edges.
+    vis_results = check_vis_cases(torch, dev)
+
     # Launches past what one grid holds: 65,539 scenarios and 70,000 map
     # samples, each in chunks, bit for bit with the chunks' own calls and
     # the plain versions.
@@ -2122,7 +2399,9 @@ def main():
               and launches["map_sample_bins"] == run["sample_grids_calls"]
               and launches["cvar_costs"] == launches["update_useq"]
               == launches[used]
-              and launches[other] == launches["gather_probe"] == 0,
+              and launches["terrain_vis"] == 1
+              and launches[other] == launches["gather_probe"]
+              == launches["barebone_vis"] == 0,
               "{}: launches {} for {} solves on {}".format(
                   world, launches, run["solves"], backend))
         for k in totals:
@@ -2144,7 +2423,7 @@ def main():
                               roi_shape=run["static"].roi_shape,
                               state_rollout_shape=run["vis_shape"],
                               **run.get("trial", {}))))
-        if world not in TIMED_WORLDS:
+        if world not in TIMED_WORLDS + VIS_TIMED_WORLDS:
             del run["planner"]
     a = planner_runs["flagship_11x11"]
     check(a["dist_end"] < a["dist0"], "flagship: goal distance did not shrink")
@@ -2191,9 +2470,10 @@ def main():
     tail = barebone["solves"] * barebone["num_opt"]
     check(launches["cvar_costs"] == launches["update_useq"]
           == launches["barebone_rollout"] == tail
+          and launches["barebone_vis"] == 1
           and not any(n for k, n in launches.items()
                       if k not in ("cvar_costs", "update_useq",
-                                   "barebone_rollout")),
+                                   "barebone_rollout", "barebone_vis")),
           "barebone: launched {}".format(launches))
     check(barebone["kernel_nodes"] <= BAREBONE_MAX_NODES,
           "barebone: {} kernels a replay".format(barebone["kernel_nodes"]))
@@ -2350,15 +2630,20 @@ def main():
               and launches["cvar_costs_wide" if wide else "cvar_costs"]
               == launches["update_useq"] == tail
               and launches["cvar_coupling"] == (tail if coupled else 0)
+              and launches["terrain_vis"] == 1
               and launches["cvar_costs" if wide else "cvar_costs_wide"]
               == launches["update_useq_wide"] == 0,
               "lifted {}: launches {}".format(name, launches))
+        check(run["kernel_nodes"] <= LIFTED_MAX_NODES[name],
+              "lifted {}: {} kernels a replay".format(name,
+                                                     run["kernel_nodes"]))
         for k in totals:
             totals[k] += launches[k]
         lifted[name] = dict(
             T=run["T"], M=run["static"].num_grid_samples, K=run["K"],
             solves=run["solves"], graph_equals_eager=True,
-            solve_ms_median=run["solve_ms_median"], kernel_launches=launches)
+            solve_ms_median=run["solve_ms_median"],
+            kernels_per_replay=run["kernel_nodes"], kernel_launches=launches)
         print(json.dumps(dict(check="lifted_solve", world=name,
                               **lifted[name])), flush=True)
         del run
@@ -2369,9 +2654,10 @@ def main():
         tail = run["solves"] * run["num_opt"]
         check(launches["cvar_costs"] == launches["barebone_rollout"] == tail
               and launches["update_useq_wide"] == tail
+              and launches["barebone_vis"] == 1
               and not any(n for k, n in launches.items()
                           if k not in ("cvar_costs", "update_useq_wide",
-                                       "barebone_rollout")),
+                                       "barebone_rollout", "barebone_vis")),
               "lifted barebone K {}: launches {}".format(K, launches))
         check(run["kernel_nodes"] <= LIFTED_BAREBONE_MAX_NODES,
               "lifted barebone K {}: {} kernels a replay".format(
@@ -2587,13 +2873,15 @@ def main():
                                           time_cuda, emit)
     wide_launch_us = time_wide_update_launches(torch, dev, emit)
 
-    # The visualisation rollouts (torch loops in a vis graph) of worlds
-    # (a) and (c) and of the barebone planner: their device time and
-    # kernels a replay.
-    time_vis_rollouts(torch, time_cuda, {
-        "flagship_11x11": planner_runs["flagship_11x11"]["planner"],
-        "forest_140x84": planner_runs["forest_140x84"]["planner"],
-        "barebone": barebone["planner"]}, emit)
+    # The visualisation rollouts (the vis kernels in the planners' vis
+    # graphs) of every VIS_TIMED_WORLDS world and of the barebone planner
+    # beside the plain loops (in vis graphs of their own) and the bounds;
+    # the latency bound's step is the probe's quickest chain step in L1.
+    l1_step_ns = min(r["ns_per_step"] for r in probe_timed.values()
+                     if r["table_bytes"] <= L1_BYTES)
+    vis_timed = time_vis_rollouts(torch, time_cuda, dict(
+        {w: planner_runs[w]["planner"] for w in VIS_TIMED_WORLDS},
+        barebone=barebone["planner"]), l1_step_ns, emit)
 
     # The planner's visualisation rollouts on the host clock, world (c):
     # get_state_rollout() (replayed from its graph) in turns with the same
@@ -3171,7 +3459,43 @@ def main():
                            for k, v in barebone_timed.items()},
         "barebone_kernels_per_replay": barebone["kernel_nodes"],
         "cases": len(barebone_results),
-    }, {
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "kernel": kernel_desc,
+        "launches_phase7": phase7[name],
+        "source": vis_rollout.KERNEL_SOURCE,
+        "replaces": vis_rollout.REPLACES,
+        "launches": totals[name],
+        "max_abs_err": max(r["max_abs_err"] for r in vis_results
+                           if r["case"] == name),
+        "ms": vis_timed[at]["ms"],
+        "plain_ms": vis_timed[at]["plain_ms"],
+        "bound_ms": vis_timed[at]["bound_ms"],
+        "bound_by": vis_timed[at]["bound_by"],
+        "library_ms": None,
+        "library": "none: no one PyTorch call computes the rollout",
+        "latency_bound_ms": vis_timed[at]["latency_bound_ms"],
+        "timed_at": "{}: V {} x T {}, one vis graph replay".format(
+            at, vis_timed[at]["V"], vis_timed[at]["T"]),
+        "kernels_per_replay": vis_timed[at]["kernels_per_replay"],
+        "plain_kernels_per_replay": vis_timed[at][
+            "plain_kernels_per_replay"],
+        "ms_at": {w: r["ms"] for w, r in worlds.items()},
+        "plain_ms_at": {w: r["plain_ms"] for w, r in worlds.items()},
+        "bound_ms_at": {w: r["bound_ms"] for w, r in worlds.items()},
+        "latency_bound_ms_at": {w: r["latency_bound_ms"]
+                                for w, r in worlds.items()},
+        "host_ms_at": {w: r["host_ms_median"] for w, r in worlds.items()},
+        "cases": sum(r["case"] == name for r in vis_results),
+    } for name, kernel_desc, at, worlds in (
+        ("terrain_vis", "terrain_vis_kernel<unicycle | bicycle>: the "
+         "terrain planner's whole vis, a thread a rollout; "
+         "get_terrain_vis launches it", "forest_140x84",
+         {w: r for w, r in vis_timed.items() if w != "barebone"}),
+        ("barebone_vis", "barebone_vis_kernel: the barebone planner's "
+         "whole vis; get_barebone_vis launches it", "barebone",
+         {"barebone": vis_timed["barebone"]}))), {
         "name": "update_useq",
         "route": "cuda",
         "launches_phase7": phase7["update_useq"],
@@ -4173,7 +4497,9 @@ def run_planner(world, solves=SOLVES, **shape):
                 fast_trig=static.fast_trig, dist0=dist0,
                 dist_end=float(np.hypot(*(goal - x[:2]))),
                 planner=planner, static=static, trial=trial_info,
-                sample_grids_calls=sample_grids_calls)
+                sample_grids_calls=sample_grids_calls,
+                kernel_nodes=max(g.kernel_nodes
+                                 for g in planner._solve_graphs.values()))
 
 
 def check_sample_grids(tdm):
@@ -4261,16 +4587,19 @@ class EagerMirror:
         self.u = torch.cat([want_u[1:], want_u[-1:]])
         self.solves += 1
 
-    def vis(self, u=None):
+    def vis(self, u=None, plain=False):
         """The eager vis rollouts on the planner's present inputs, of the
         shifted controls (``u``: of these, e.g. ``u_solved`` before the
-        shift)."""
+        shift); ``plain``: the plain loop (``backend="eager"``), not the
+        kernel."""
         from mppi_numba_tpu_torch.solver import get_terrain_vis
 
         maps, task = self._inputs()
         a = self.aux
         u = self.u if u is None else u
-        return self._uncounted(lambda: get_terrain_vis(self.static)(
+        static = (dataclasses.replace(self.static, backend="eager") if plain
+                  else self.static)
+        return self._uncounted(lambda: get_terrain_vis(static)(
             maps, task, u, self.u_prev, a.noise_vis, a.lin_grids,
             a.ang_grids, a.roi_offset)).cpu().numpy()
 
@@ -4441,14 +4770,21 @@ def bigmap_crop_equals_full(torch, n):
 
 def check_state_rollout(world, planner, x, mirror=None):
     """``get_state_rollout()`` after the last solve: ``(V, T+1, 3)``, finite,
-    every row 0 the current state ``x`` (float32), and with an
-    ``EagerMirror`` bit for bit its eager vis.  Returns the shape."""
+    every row 0 the current state ``x`` (float32), its vis graph at most
+    ``VIS_MAX_NODES`` kernels a replay, and with an ``EagerMirror`` bit
+    for bit its eager vis (the kernel) and the plain loop
+    (``backend="eager"``) on the same inputs.  Returns the shape."""
     states = planner.get_state_rollout()
     if mirror is not None:
-        want = mirror.vis()
-        check(np.array_equal(states, want), "{}: the vis replayed from its "
-              "graph differs from the eager vis by {}".format(
-                  world, float(np.abs(states - want).max())))
+        for plain in (False, True):
+            want = mirror.vis(plain=plain)
+            check(np.array_equal(states, want), "{}: the vis replayed from "
+                  "its graph differs from the eager vis ({}) by {}".format(
+                      world, "plain loop" if plain else "kernel",
+                      float(np.abs(states - want).max())))
+    nodes = planner._vis_graphs[planner._last_static]._call.kernel_nodes
+    check(nodes <= VIS_MAX_NODES, "{}: {} kernels a vis replay".format(
+        world, nodes))
     V, T = planner.num_vis_state_rollouts, planner.num_steps
     check(isinstance(states, np.ndarray) and states.shape == (V, T + 1, 3)
           and np.isfinite(states).all(), "{}: state rollout {}".format(
@@ -4539,11 +4875,13 @@ class BareboneMirror(EagerMirror):
         self.u = torch.cat([want_u[1:], want_u[-1:]])
         self.solves += 1
 
-    def vis(self):
+    def vis(self, plain=False):
         from mppi_numba_tpu_torch.solver import get_barebone_vis
 
         _, task = self._inputs()
-        return self._uncounted(lambda: get_barebone_vis(self.static)(
+        static = (dataclasses.replace(self.static, backend="eager") if plain
+                  else self.static)
+        return self._uncounted(lambda: get_barebone_vis(static)(
             task, self.u, self.u_prev, self.aux.noise_vis)).cpu().numpy()
 
 
@@ -5538,6 +5876,8 @@ WRAPPER_KERNELS = {
     "update_useq_wide": ("update_useq_wide",),
     "coupling_sums": ("cvar_coupling",),
     "barebone_rollout_fused": ("barebone_rollout",),
+    "terrain_vis_fused": ("terrain_vis",),
+    "barebone_vis_fused": ("barebone_vis",),
 }
 
 
@@ -5774,11 +6114,13 @@ def check_new_shape(name, w, frames):
             mirror.after_solve(u, name)
         if frames:
             states = planner.get_state_rollout()
-            want = mirror.vis(mirror.u_solved)
-            check(np.array_equal(states, want), "{}: frame {} differs from "
-                  "the eager vis by {}".format(
-                      name, checked_frames,
-                      float(np.abs(states - want).max())))
+            for plain in (False, True):
+                want = mirror.vis(mirror.u_solved, plain=plain)
+                check(np.array_equal(states, want), "{}: frame {} differs "
+                      "from the eager vis ({}) by {}".format(
+                          name, checked_frames,
+                          "plain loop" if plain else "kernel",
+                          float(np.abs(states - want).max())))
             checked_frames += 1
         if truth is not None:
             x = simulate_step(x, u[0], *truth.get(x[0], x[1]), planner.dt)
@@ -5829,6 +6171,7 @@ def run_phase7(card, emit):
                               "map_sample_crop", "cvar_costs", "update_useq",
                               "cvar_costs_wide", "update_useq_wide",
                               "cvar_coupling", "barebone_rollout",
+                              "terrain_vis", "barebone_vis",
                               "gather_probe"), 0)
     out, seconds, dirs, outcomes = {}, {}, {}, {}
     for name, argv, terrain in phase7_commands():
@@ -5861,6 +6204,10 @@ def run_phase7(card, emit):
             solve_ms=rec["solve_ms"], kernel_nodes=rec["kernel_nodes"],
             final_state=rec.get("final_state"),
             final_traction=rec.get("final_traction"))
+        if "vis_ms" in rec:
+            # planner_animation: each frame's get_state_rollout() beside
+            # the solves, host clock.
+            outcomes[name]["vis_ms"] = rec["vis_ms"]
         if name == "external_pmf_planning":
             outcomes[name]["first_controls"] = rec["outcome"][
                 "first_controls"]

@@ -218,7 +218,8 @@ class BareboneMPPI:
     def get_state_rollout(self):
         """Visualisation rollouts of the last solve: host float32
         ``(num_vis, T+1, 3)``; on a card replayed from a CUDA graph (one
-        for each ``SolverStatic``)."""
+        for each ``SolverStatic``): one launch of the vis kernel
+        (``ops/kernels/vis_rollout.py``)."""
         assert self.params_set, "MPPI parameters are not set"
         if self._last_aux is None:
             print("No solve has produced rollout data yet. Cannot visualize.")

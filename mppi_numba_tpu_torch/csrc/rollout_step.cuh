@@ -1,5 +1,7 @@
 // The rollout kernels' shared step loop (csrc/rollout_byte.cu,
-// csrc/rollout_binned.cu), for Hopper (sm_90a).
+// csrc/rollout_binned.cu), for Hopper (sm_90a).  The visualisation
+// rollouts (csrc/vis_rollout.cu) take its cell index, byte decode and
+// exact-trig step (biased_cell, decode_byte, exact_step).
 //
 // Each kernel supplies a map decoder; this header holds everything else:
 // the task scalars, the cell index, the dynamics, the stage cost, the
@@ -133,6 +135,35 @@ struct Cell {
   uint32_t risk;          // the risk byte (speed-map mode only)
 };
 
+// One exact-trig step of the dynamics model from (x, y, th): the new
+// position in (x_new, y_new), the heading updated in place, in the
+// float32 operations and order of the plain step functions
+// (models/unicycle.py, models/bicycle.py).  Unicycle: (dt * lin_tr) * v,
+// heading th + (dt * ang_tr) * w.  Bicycle: dt * (lin_tr * v), heading
+// th + ((dt * ang_tr * v) * tan_w) / wheelbase, tan_w = tanf(w) taken by
+// the caller (once a step, shared by the samples it walks).  sin and cos
+// of the heading come from one sincosf (one range reduction).
+template <int MODEL>
+__device__ __forceinline__ void exact_step(float x, float y, float& th,
+                                           float v, float w, float tan_w,
+                                           float lin_tr, float ang_tr,
+                                           float dt, float wheelbase,
+                                           float& x_new, float& y_new) {
+  float sn, cs;
+  sincosf(th, &sn, &cs);
+  if (MODEL == kBicycle) {
+    const float step = dt * (lin_tr * v);
+    x_new = x + step * cs;
+    y_new = y + step * sn;
+    th = th + dt * ang_tr * v * tan_w / wheelbase;
+  } else {
+    const float step = dt * lin_tr * v;
+    x_new = x + step * cs;
+    y_new = y + step * sn;
+    th = th + dt * ang_tr * w;
+  }
+}
+
 // Fills the block's speed-map step-time table: entry r is
 // dt / ((lin_lb + lin_ratio * r) + 1e-6), the plain version's step time
 // at risk byte r.  Call before any early return; ends in a barrier.
@@ -215,21 +246,8 @@ __device__ __forceinline__ void rollout_loop(
         cth[s] = c_new;
         sth[s] = s_new;
       } else {
-        float sn, cs;
-        sincosf(th[s], &sn, &cs);
-        if (MODEL == kBicycle) {
-          // dt * (lin_tr * v), not the unicycle's (dt * lin_tr) * v;
-          // heading ((dt * ang_tr * v) * tan(w)) / wheelbase.
-          const float step = tk.dt * (c.lin_tr * v);
-          x_new = x[s] + step * cs;
-          y_new = y[s] + step * sn;
-          th[s] = th[s] + tk.dt * c.ang_tr * v * tan_w / wheelbase;
-        } else {
-          const float step = tk.dt * c.lin_tr * v;
-          x_new = x[s] + step * cs;
-          y_new = y[s] + step * sn;
-          th[s] = th[s] + tk.dt * c.ang_tr * w;
-        }
+        exact_step<MODEL>(x[s], y[s], th[s], v, w, tan_w, c.lin_tr, c.ang_tr,
+                          tk.dt, wheelbase, x_new, y_new);
       }
 
       const float dx = tk.gx - x_new, dy = tk.gy - y_new;

@@ -19,13 +19,15 @@ goal, T = 100, rendered reference-styled
 
 Prints the card line, then JSON lines: the solver's shape and layout, and
 the outcome (``success``, ``time_to_goal``, ``steps``) with the solve
-times, the kernel launches, the graphs and the frames.  The GIF goes to
+times, each frame's ``get_state_rollout()`` time (``vis_ms``), the kernel
+launches, the graphs and the frames.  The GIF goes to
 ``--out-dir`` (``planner_<mode>_cvar_{obj,dyn}_alpha_<alpha>.gif``, or
 ``planner_example_vis.gif``) where matplotlib imports.
 """
 
 from __future__ import annotations
 
+import time
 import types
 
 import numpy as np
@@ -183,10 +185,13 @@ def main(argv=None):
     w = build(args.mode, args.alpha, device, args.small)
     planner = w.planner
     ex.describe(EXAMPLE, args.mode, planner, alpha=w.alpha)
-    frames = []
+    frames, vis_ms = [], []
 
     def frame(t, states):
-        frames.append((np.array(states), planner.get_state_rollout()))
+        t0 = time.perf_counter()
+        rollouts = planner.get_state_rollout()
+        vis_ms.append(1e3 * (time.perf_counter() - t0))
+        frames.append((np.array(states), rollouts))
 
     before = launch_counts()
     timed = ex.TimedPlanner(planner)
@@ -198,6 +203,8 @@ def main(argv=None):
     figures = plot(w, args.mode, frames, args.out_dir)
     ex.report(EXAMPLE, args.mode, planner, timed, outcome, before, device,
               alpha=w.alpha, frames=len(frames),
+              vis_ms=dict(first=vis_ms[0], median=float(np.median(vis_ms)),
+                          calls=len(vis_ms), clock=ex.clock(device)),
               vis_shape=list(frames[-1][1].shape), figures=figures,
               **ex.final(states, w.truth))
     return 0

@@ -31,7 +31,8 @@ _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
 def counted_wrappers():
     """The kernel wrappers that count their launches in ``.launches``."""
     from .ops.kernels import (barebone_rollout, cvar_costs, map_sample,
-                              rollout_binned, rollout_byte, update_useq)
+                              rollout_binned, rollout_byte, update_useq,
+                              vis_rollout)
     from .probes import gather_probe
 
     return (barebone_rollout.barebone_rollout_fused,
@@ -43,6 +44,7 @@ def counted_wrappers():
             cvar_costs.cvar_costs, cvar_costs.cvar_costs_wide,
             cvar_costs.coupling_sums,
             update_useq.update_useq_fused, update_useq.update_useq_wide,
+            vis_rollout.terrain_vis_fused, vis_rollout.barebone_vis_fused,
             *(chain for chain, _ in gather_probe.CHAINS.values()))
 
 
@@ -188,7 +190,9 @@ class VisGraph:
     solve graph's outputs), the two control sequences copied into the
     graph's own buffers at each call: the terrain planner's (``head`` the
     maps and the task; ``tail`` the noise rows, the grids and the window's
-    offset) and the barebone planner's (the task; the noise rows)."""
+    offset) and the barebone planner's (the task; the noise rows).  On a
+    card either vis is one kernel node (``ops/kernels/vis_rollout.py``)
+    unless the planner's backend is ``"eager"``."""
 
     def __init__(self, vis, head, tail, u_like):
         self.head, self.tail = tuple(head), tuple(tail)

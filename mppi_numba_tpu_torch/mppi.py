@@ -425,7 +425,9 @@ class MPPIPlanner:
 
         On a card the rollouts are replayed from a CUDA graph captured on
         the planner's buffers and the last solve's outputs (one for each
-        ``SolverStatic``).
+        ``SolverStatic``): one launch of the vis kernel
+        (``ops/kernels/vis_rollout.py``), or the plain loop under
+        ``backend = "eager"``.
         """
         assert self.params_set, "MPPI parameters are not set"
         assert self.tdm_set, "MPPI has not received TDMs"

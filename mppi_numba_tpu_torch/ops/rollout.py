@@ -15,16 +15,21 @@ Semantics match ``mppi_numba_tpu.ops.rollout`` exactly:
 The CUDA kernel (``ops/kernels/rollout_byte.py``) is held against this
 module in the tests.  The module also holds the visualisation rollouts and
 the barebone (terrain-free, circle-obstacle) engine's rollout, plain
-PyTorch ops on the device as the JAX package has them in XLA.
+PyTorch ops on the device as the JAX package has them in XLA, and the
+planners' whole vis functions in plain ops (``terrain_vis_fused_plain``,
+``barebone_vis_fused_plain``: the plain versions of
+``ops/kernels/vis_rollout.py``'s kernels).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..models import unicycle_step
+from ..models import clip_controls, unicycle_step
 from .costs import (barebone_stage_cost, barebone_term_cost, stage_cost,
                     term_cost)
+from .packing import pack_map_words
+from .roi import shift_task_limits
 from .tree import tree_sum
 
 
@@ -236,3 +241,69 @@ def barebone_vis_states(task, controls):
         th = th + dt * w
         states.append(torch.stack([x, y, th], dim=-1))
     return torch.stack(states, dim=1)
+
+
+def vis_controls(u_cur, u_prev, noise_vis, task):
+    """The det modes' and the barebone engine's vis controls: ``u_cur``,
+    then ``u_prev`` plus the last iteration's noise rows 1.., clipped:
+    ``(max(1, N), T, 2)`` from ``N`` noise rows."""
+    noisy = torch.stack(clip_controls(u_prev[None] + noise_vis, task.vrange,
+                                      task.wrange), dim=-1)
+    return torch.cat([u_cur[None], noisy[1:]], dim=0)
+
+
+def terrain_vis_fused_plain(lin_grids, ang_grids, u_cur, u_prev, noise_vis,
+                            roi_offset, task, *, V, det, crop=False,
+                            step_fn=unicycle_step):
+    """The terrain planner's whole vis function in plain ops: the plain
+    version of ``ops/kernels/vis_rollout.py::terrain_vis_fused`` (the JAX
+    package's ``solver.get_terrain_vis``'s ``vis_fn``).
+
+    Args:
+      lin_grids / ang_grids: int8 ``(M, H, W)`` sampled grids of the last
+        solve (the window's when it cropped).
+      u_cur / u_prev: float32 ``(T, 2)`` controls.
+      noise_vis: float32 ``(N, T, 2)`` noise rows of the last iteration
+        (read in the det modes).
+      roi_offset: int32 ``(2,)`` window start ``(oy, ox)``, read when
+        ``crop``: the task's limits are shifted to the window's corner.
+      task: ``TerrainTask`` (x0, dt, res, the limits, the decode and, in
+        the det modes, vrange and wrange read).
+      V: the vis rollouts of tdm (``det`` False), which rolls ``u_cur``
+        across grids ``[:V]``; the det modes roll ``u_cur`` and the noisy
+        copies of ``u_prev`` (``vis_controls``, one a noise row past the
+        first) on grid 0.
+      step_fn: dynamics step.
+
+    Returns:
+      float32 ``(V', T+1, 3)`` states: V' = min(V, M) in tdm, max(1, N)
+      in the det modes.
+
+    The words hold no mask bits: the vis decodes bytes 0 and 1 alone, and
+    ``pack_map_words`` puts the masks at bit 16 and above, so the JAX
+    package's cropped masks change nothing the vis reads.
+    """
+    if crop:
+        task = shift_task_limits(task, roi_offset[0], roi_offset[1])
+    if det:
+        controls = vis_controls(u_cur, u_prev, noise_vis, task)
+        shape = (controls.shape[0],) + tuple(lin_grids.shape[1:])
+        grids_l = lin_grids[0].expand(shape)
+        grids_a = ang_grids[0].expand(shape)
+    else:
+        grids_l, grids_a = lin_grids[:V], ang_grids[:V]
+        controls = u_cur[None].expand((grids_l.shape[0],)
+                                      + tuple(u_cur.shape))
+    none = torch.zeros((), dtype=torch.int8, device=lin_grids.device)
+    packed = pack_map_words(grids_l, grids_a, none, none)
+    return terrain_vis_states(packed, task, controls, step_fn=step_fn)
+
+
+def barebone_vis_fused_plain(task, u_cur, u_prev, noise_vis):
+    """The barebone planner's whole vis function in plain ops: the plain
+    version of ``ops/kernels/vis_rollout.py::barebone_vis_fused``
+    (``u_cur`` and the noisy, clipped copies of ``u_prev``,
+    ``vis_controls``, rolled under nominal dynamics): float32
+    ``(max(1, N), T+1, 3)`` from ``N`` noise rows ``(N, T, 2)``."""
+    return barebone_vis_states(task,
+                               vis_controls(u_cur, u_prev, noise_vis, task))

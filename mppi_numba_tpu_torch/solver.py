@@ -39,7 +39,7 @@ import torch
 
 from .config import SolverStatic
 from .graphs import Captured, same_tensors
-from .models import clip_controls, get_step_fn
+from .models import get_step_fn
 from .ops.kernels.barebone_rollout import barebone_rollout_fused
 from .ops.kernels.cvar_costs import cvar_costs
 from .ops.kernels.map_sample import (sample_and_pack_crop,
@@ -48,10 +48,11 @@ from .ops.kernels.rollout_binned import (MAX_BINS, build_bin_luts,
                                          terrain_rollout_costs_binned)
 from .ops.kernels.rollout_byte import build_task_vec, terrain_rollout_costs_byte
 from .ops.kernels.update_useq import update_useq_fused
-from .ops.packing import pack_map_words, pack_payload
-from .ops.roi import crop_maps, crop_window_plain, shift_task_limits
-from .ops.rollout import (_clipped_controls_tk, barebone_vis_states,
-                          terrain_rollout_costs, terrain_vis_states)
+from .ops.kernels.vis_rollout import barebone_vis_fused, terrain_vis_fused
+from .ops.packing import pack_payload
+from .ops.roi import crop_window_plain
+from .ops.rollout import (_clipped_controls_tk, barebone_vis_fused_plain,
+                          terrain_rollout_costs, terrain_vis_fused_plain)
 from .ops.sampling import (decode_bins, draw_map_key,
                            traction_bins_from_uniforms)
 from .types import SolveAux, per_scenario
@@ -393,14 +394,6 @@ def get_terrain_solver(static: SolverStatic, device="cuda"):
     return _cached_solver(static, torch.device(device))
 
 
-def _vis_controls(u_cur, u_prev, noise_vis, task):
-    """The det modes' vis controls: ``u_cur``, then V-1 copies of
-    ``u_prev`` plus the last iteration's noise rows 1.., clipped."""
-    noisy = torch.stack(clip_controls(u_prev[None] + noise_vis, task.vrange,
-                                      task.wrange), dim=-1)
-    return torch.cat([u_cur[None], noisy[1:]], dim=0)
-
-
 def get_terrain_vis(static: SolverStatic):
     """The visualisation rollouts of the last solve.
 
@@ -410,29 +403,26 @@ def get_terrain_vis(static: SolverStatic):
     and V-1 noisy, clipped copies of ``u_prev`` on map 0 (the planner
     aliases ``u_prev`` to the solved controls, as the reference does).
     When the solve cropped, the grids are the window's and ``roi_offset``
-    (the solve's ``SolveAux.roi_offset``) places it: the masks are cropped
-    and the limits shifted to the same window.
+    (the solve's ``SolveAux.roi_offset``) places it: the limits are
+    shifted to the same window.  The vis reads no mask, so ``maps`` is
+    not read.
+
+    On CUDA tensors the whole function is one launch of
+    ``ops/kernels/vis_rollout.py::terrain_vis_fused``'s kernel (a custom
+    ``register_model`` step raises there); ``static.backend == "eager"``
+    runs its plain version, the torch loop, on the card too.
     """
     V = static.num_vis_state_rollouts
     det = static.mode in ("det_dyn", "speed_map")
     step_fn = get_step_fn(static.model)
+    rollout = (terrain_vis_fused_plain if static.backend == "eager"
+               else terrain_vis_fused)
 
     def vis(maps, task, u_cur, u_prev, noise_vis, lin_grids, ang_grids,
             roi_offset=None):
-        if static.roi_shape:
-            oy, ox = roi_offset[0], roi_offset[1]
-            maps = crop_maps(maps, oy, ox, *static.roi_shape)
-            task = shift_task_limits(task, oy, ox)
-        if det:
-            shape = (V,) + tuple(lin_grids.shape[1:])
-            grids_l = lin_grids[0].expand(shape)
-            grids_a = ang_grids[0].expand(shape)
-            controls = _vis_controls(u_cur, u_prev, noise_vis, task)
-        else:
-            grids_l, grids_a = lin_grids[:V], ang_grids[:V]
-            controls = u_cur[None].expand((V,) + tuple(u_cur.shape))
-        packed = pack_map_words(grids_l, grids_a, maps.obstacle, maps.unknown)
-        return terrain_vis_states(packed, task, controls, step_fn=step_fn)
+        return rollout(lin_grids, ang_grids, u_cur, u_prev, noise_vis,
+                       roi_offset, task, V=V, det=det,
+                       crop=bool(static.roi_shape), step_fn=step_fn)
 
     return vis
 
@@ -504,10 +494,10 @@ def get_barebone_solver(static: SolverStatic, device="cuda"):
 def get_barebone_vis(static: SolverStatic):
     """The barebone engine's visualisation rollouts: ``(task, u_cur, u_prev,
     noise_vis) -> (V, T+1, 3)``, rolling ``u_cur`` and V-1 noisy, clipped
-    copies of ``u_prev``."""
-
-    def vis(task, u_cur, u_prev, noise_vis):
-        return barebone_vis_states(
-            task, _vis_controls(u_cur, u_prev, noise_vis, task))
-
-    return vis
+    copies of ``u_prev``: one launch of
+    ``ops/kernels/vis_rollout.py::barebone_vis_fused``'s kernel on CUDA
+    tensors; ``static.backend == "eager"`` runs its plain version, the
+    torch loop, on the card too."""
+    if static.backend == "eager":
+        return barebone_vis_fused_plain
+    return barebone_vis_fused

@@ -109,6 +109,7 @@ _CPU_SOLVE = textwrap.dedent("""
     for name in ("mppi_numba_tpu_torch.density",
                  "mppi_numba_tpu_torch.ops.kernels.rollout_binned",
                  "mppi_numba_tpu_torch.ops.kernels.map_sample",
+                 "mppi_numba_tpu_torch.ops.kernels.vis_rollout",
                  "mppi_numba_tpu_torch.ops.roi",
                  "mppi_numba_tpu_torch.sim",
                  "mppi_numba_tpu_torch.device_sim",

@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from mppi_numba_tpu_torch import Config, MPPIPlanner, TDM
-from mppi_numba_tpu_torch.models import bicycle_step, make_bicycle_step
+from mppi_numba_tpu_torch.models import (bicycle_step, make_bicycle_step,
+                                         unicycle_step)
 from mppi_numba_tpu_torch.probes import gather_probe
 from mppi_numba_tpu_torch.ops import packing
 from mppi_numba_tpu_torch.ops.kernels import (map_sample, rollout_binned,
@@ -812,10 +813,11 @@ def test_map_sample_crop_rejects_bad_inputs():
     assert map_sample.sample_and_pack_crop.launches == before
 
 
-def _roi_planner(dev, roi):
+def _roi_planner(dev, roi, mode="tdm"):
     cfg = Config(T=2.0, dt=0.1, num_grid_samples=16,
                  num_control_rollouts=256, max_speed_padding=1.0,
-                 max_map_dim=(64, 64), seed=3, use_tdm=True)
+                 max_map_dim=(64, 64), seed=3, use_tdm=mode == "tdm",
+                 use_det_dynamics=mode == "det_dyn")
     rng = np.random.RandomState(0)
     raw = rng.randint(1, 50, size=(6, 48, 48))
     pmf = np.floor(100 * raw / raw.sum(0)).astype(np.int8)
@@ -2479,3 +2481,207 @@ def test_lifted_barebone_solves_graph_equals_eager_on_card(K):
         assert torch.equal(u_g, u_e)
         assert torch.equal(aux_g.weights, aux_e.weights)
         assert bool(torch.isfinite(u_g).all())
+
+
+# -- the visualisation rollouts (csrc/vis_rollout.cu) -------------------------------
+
+# Kernels a vis graph replays at most: the vis kernel (the torch loop
+# replayed 3,716 at T = 100 and 557 at the barebone planner's T = 50).
+VIS_MAX_NODES = 3
+# The full map, the cropped window and its start (oy, ox) of the vis cases.
+VIS_MAP, VIS_ROI, VIS_OFFSET = (21, 30), (13, 15), (4, 9)
+
+
+def _vis_case(dev, mode, V, T, crop, past_last, seed=0, M=None):
+    """``terrain_vis_fused``'s positional arguments on ``dev``: int8 grids
+    (the window's when cropping; -128 among them with ``past_last``, the
+    costmap's all 100), controls, noise rows, the offset and the task."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    M = (V + 2 if mode == "tdm" else 1) if M is None else M
+    hw = VIS_ROI if crop else VIS_MAP
+    if mode == "costmap":
+        lin = np.full((M,) + hw, 100, np.int8)
+        ang = lin.copy()
+    else:
+        lin = rng.randint(0, 101, (M,) + hw).astype(np.int8)
+        ang = rng.randint(0, 101, (M,) + hw).astype(np.int8)
+    if past_last:
+        lin[rng.rand(*lin.shape) < 0.3] = -128
+        ang[rng.rand(*ang.shape) < 0.3] = -128
+    u_cur = np.stack([rng.uniform(0.5, 2.0, T), rng.uniform(-0.5, 0.5, T)],
+                     axis=-1).astype(np.float32)
+    u_prev = np.stack([rng.uniform(0.5, 2.0, T), rng.uniform(-0.5, 0.5, T)],
+                      axis=-1).astype(np.float32)
+    noise = (rng.randn(V, T, 2) * [1.0, 0.6]).astype(np.float32)
+    task = _task(dev, steer=0.5)
+    if crop:
+        task = task._replace(x0=t(np.array([6.1, 3.4, 0.4], np.float32)))
+    return (t(lin), t(ang), t(u_cur), t(u_prev), t(noise),
+            t(np.array(VIS_OFFSET if crop else (0, 0), np.int32)), task)
+
+
+def _vis_kw(mode, V, crop, model):
+    return dict(V=V, det=mode != "tdm", crop=crop,
+                step_fn=dict(_STEPS, unicycle=unicycle_step)[model])
+
+
+def _vis_held(got, want, model):
+    """Bit for bit, but the 2.7 m bicycle within 1e-4 (PyTorch multiplies
+    by the wheelbase's inexact reciprocal where the kernel divides)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if model == "bicycle_2.7":
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        assert torch.equal(got[:, 0], want[:, 0])
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("past_last", [False, True])
+@pytest.mark.parametrize("crop", [False, True])
+@pytest.mark.parametrize("model", ["unicycle", "bicycle", "bicycle_2.7"])
+@pytest.mark.parametrize("mode", ["tdm", "det_dyn", "speed_map", "costmap"])
+def test_terrain_vis_kernel_matches_plain_on_card(mode, model, crop,
+                                                  past_last):
+    from mppi_numba_tpu_torch.ops.kernels import vis_rollout
+    from mppi_numba_tpu_torch.ops.rollout import terrain_vis_fused_plain
+
+    dev = _cuda_or_skip()
+    V, T = 20, 100
+    args = _vis_case(dev, mode, V, T, crop, past_last, seed=3)
+    kw = _vis_kw(mode, V, crop, model)
+    before = vis_rollout.terrain_vis_fused.launches
+    got = vis_rollout.terrain_vis_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert vis_rollout.terrain_vis_fused.launches == before + 1
+    want = terrain_vis_fused_plain(*args, **kw)
+    assert got.shape == (V, T + 1, 3)
+    _vis_held(got, want, model)
+
+
+@pytest.mark.parametrize("T", [1, 7, 100])
+@pytest.mark.parametrize("V", [1, 31, 32, 33, 100, 4225])
+@pytest.mark.parametrize("mode", ["tdm", "det_dyn"])
+def test_terrain_vis_kernel_edges_on_card(mode, V, T):
+    """V of one rollout, a warp's width and one either side, many blocks,
+    and past the rollouts an H100 holds a block each (a warp a block:
+    ``vis_rollout.launch_shape``); one step; tdm with more grids than
+    rollouts."""
+    from mppi_numba_tpu_torch.ops.kernels import vis_rollout
+    from mppi_numba_tpu_torch.ops.rollout import terrain_vis_fused_plain
+
+    dev = _cuda_or_skip()
+    args = _vis_case(dev, mode, V, T, False, True, seed=V + T)
+    kw = _vis_kw(mode, V, False, "unicycle")
+    got = vis_rollout.terrain_vis_fused(*args, **kw)
+    torch.cuda.synchronize()
+    want = terrain_vis_fused_plain(*args, **kw)
+    assert got.shape == (V, T + 1, 3)
+    assert torch.equal(got, want)
+
+
+def _barebone_vis_case(dev, V, T, seed=0):
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    planner_task = _barebone_planner(dev)._task_device
+    u_cur, u_prev = (t(rng.uniform(-1.0, 2.5, (T, 2)).astype(np.float32))
+                     for _ in range(2))
+    noise = t(rng.randn(V, T, 2).astype(np.float32))
+    return planner_task, u_cur, u_prev, noise
+
+
+@pytest.mark.parametrize("T", [1, 50, 100])
+@pytest.mark.parametrize("V", [1, 20, 31, 32, 33, 4225])
+def test_barebone_vis_kernel_matches_plain_on_card(V, T):
+    from mppi_numba_tpu_torch.ops.kernels import vis_rollout
+    from mppi_numba_tpu_torch.ops.rollout import barebone_vis_fused_plain
+
+    dev = _cuda_or_skip()
+    args = _barebone_vis_case(dev, V, T, seed=V * T)
+    before = vis_rollout.barebone_vis_fused.launches
+    got = vis_rollout.barebone_vis_fused(*args)
+    torch.cuda.synchronize()
+    assert vis_rollout.barebone_vis_fused.launches == before + 1
+    assert got.shape == (V, T + 1, 3)
+    assert torch.equal(got, barebone_vis_fused_plain(*args))
+
+
+def test_vis_kernels_refuse_what_they_do_not_take_on_card():
+    """A custom model raises (pointing at the eager backend) and wrong
+    dtypes, shapes and devices raise ValueError, nothing launched; a
+    NaN noise entry passes through the barebone vis's clamps as through
+    torch.clamp (the terrain plain loop cannot index a NaN state's
+    cell)."""
+    from mppi_numba_tpu_torch.ops.kernels import vis_rollout
+    from mppi_numba_tpu_torch.ops.rollout import barebone_vis_fused_plain
+
+    dev = _cuda_or_skip()
+    args = _vis_case(dev, "det_dyn", 4, 10, False, False)
+    kw = _vis_kw("det_dyn", 4, False, "custom")
+    before = vis_rollout.terrain_vis_fused.launches
+    with pytest.raises(NotImplementedError, match="eager"):
+        vis_rollout.terrain_vis_fused(*args, **kw)
+    kw["step_fn"] = unicycle_step
+    bad = [(args[0].to(torch.int32),) + args[1:],
+           args[:2] + (args[2][:5],) + args[3:],
+           args[:4] + (args[4].cpu(),) + args[5:],
+           args[:6] + (args[6]._replace(dt=args[6].dt.double()),)]
+    for b in bad:
+        with pytest.raises(ValueError):
+            vis_rollout.terrain_vis_fused(*b, **kw)
+    with pytest.raises(ValueError, match="roi_offset"):
+        vis_rollout.terrain_vis_fused(*args[:5], None, args[6],
+                                      **dict(kw, crop=True))
+    assert vis_rollout.terrain_vis_fused.launches == before
+    task, u_cur, u_prev, noise = _barebone_vis_case(dev, 4, 10)
+    noise[1, 3, 0] = float("nan")
+    noise[2, 5, 1] = float("nan")
+    got = vis_rollout.barebone_vis_fused(task, u_cur, u_prev, noise)
+    want = barebone_vis_fused_plain(task, u_cur, u_prev, noise)
+    assert bool(got.isnan().any())
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("mode", ["tdm", "det_dyn"])
+def test_planner_vis_graph_is_one_kernel_on_card(mode):
+    """``get_state_rollout()`` replays a vis graph of at most
+    ``VIS_MAX_NODES`` kernels that launches the vis kernel once, bit for
+    bit with the eager kernel call and its plain version; the barebone
+    planner's too.  ``backend="eager"`` keeps the plain loop on the card,
+    bit for bit with it."""
+    from mppi_numba_tpu_torch.ops.kernels import vis_rollout
+    from mppi_numba_tpu_torch.solver import get_barebone_vis, get_terrain_vis
+
+    dev = _cuda_or_skip()
+    planner = _roi_planner(dev, True, mode)
+    assert planner._static().roi_shape is not None
+    planner.solve()
+    before = vis_rollout.terrain_vis_fused.launches
+    states = planner.get_state_rollout()
+    assert vis_rollout.terrain_vis_fused.launches == before + 1
+    (graph,) = planner._vis_graphs.values()
+    assert graph._call.kernel_nodes <= VIS_MAX_NODES
+    assert graph._call.captured_launches == {"terrain_vis_fused": 1}
+    static, aux = planner._last_static, planner._last_aux
+    head = (planner._map_inputs(), planner._task_device)
+    tail = (aux.noise_vis, aux.lin_grids, aux.ang_grids, aux.roi_offset)
+    for backend in ("auto", "eager"):
+        vis = get_terrain_vis(dataclasses.replace(static, backend=backend))
+        eager = vis(*head, planner.u_cur, planner.u_prev, *tail)
+        assert np.array_equal(states, eager.cpu().numpy()), backend
+
+    bb = _barebone_planner(dev)
+    bb.solve()
+    before = vis_rollout.barebone_vis_fused.launches
+    states = bb.get_state_rollout()
+    assert vis_rollout.barebone_vis_fused.launches == before + 1
+    (graph,) = bb._vis_graphs.values()
+    assert graph._call.kernel_nodes <= VIS_MAX_NODES
+    for backend in ("auto", "eager"):
+        vis = get_barebone_vis(dataclasses.replace(bb._last_static,
+                                                   backend=backend))
+        eager = vis(bb._task_device, bb.u_cur, bb.u_prev,
+                    bb._last_aux.noise_vis)
+        assert np.array_equal(states, eager.cpu().numpy()), backend
