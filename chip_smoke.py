@@ -17,8 +17,10 @@ Phases (any failure exits non-zero; no error is swallowed):
    in the barebone rollout's, the wide update's, ``cvar_wide.cu``'s and
    the vis kernels' instantiations), each
    rollout kernel's SASS instructions per lane-step by class
-   (``sass_counts``, where the toolkit has ``cuobjdump``) and the card's
-   name and power limit.
+   (``sass_counts``, where the toolkit has ``cuobjdump``), each vis
+   kernel's registers, stack, static and dynamic shared memory
+   (``vis_rollout.kernel_attributes``) and its chain in cycles from its
+   SASS (``vis_sass_chain``), and the card's name and power limit.
 2. Each kernel against its plain version, bit for bit (the 2.7 m bicycle
    within rtol 1e-4), each row with its instantiation's tiling: the byte
    layout cases of the JAX package's on-chip parity record; the binned
@@ -98,13 +100,18 @@ Phases (any failure exits non-zero; no error is swallowed):
    a NaN cost among them.  The visualisation rollouts
    (``ops/kernels/vis_rollout.py``: ``terrain_vis_fused``,
    ``barebone_vis_fused``) against their plain versions, bit for bit
-   (the 2.7 m bicycle within rtol 1e-4 / atol 1e-4 m): the terrain vis in
+   (the 2.7 m bicycle too): the terrain vis in
    tdm, det_dyn, speed_map and the costmap x the unicycle, the bicycle
    and the car's bicycle x crop on and off x grids with and without
    -128 draws, at V = 20, T = 100 on an 88 x 144 map (a 45 x 45 window
-   when cropped), then V = 1, 31, 32, 33, 100 and 4,225 (a warp a block)
-   at T = 1 and 100; the barebone vis at V = 1, 20, 31, 32, 33, 100 and
-   4,225 x T = 1, 50 and 100 (``check_vis_cases``).  Launches past one grid
+   when cropped), then V = 1, 31, 32, 33, 100 and 4,225 at T = 1 and
+   100; each route of the terrain kernel (the grid in shared memory where
+   the shape lets it, and global memory at every shape) at 11 x 11 planes
+   at odd byte offsets, odd T, T = 4,097 (five chunks of the control
+   ring), 250 x 250, 340 x 340 (past the shared-memory budget) and V =
+   4,225, in tdm and det_dyn x the unicycle and the bicycle; the barebone
+   vis at V = 1, 20, 31, 32, 33, 100 and 4,225 x T = 1, 7, 33, 50, 100 and
+   4,097 (``check_vis_cases``).  Launches past one grid
    (``check_launch_chunks``): 65,539 scenarios through the map sampler
    (byte and 8-bit cells), both rollout kernels and the update, each two
    launches bit for bit with the calls on their slices and the plain
@@ -201,7 +208,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    and of the barebone planner, one vis graph replay (the vis kernel) on
    the device clock and ``get_state_rollout()`` on the host's, with the
    graph's kernels, beside the plain loop's own vis graph and the bytes
-   and latency bounds (``time_vis_rollouts``); then
+   and latency bounds (``time_vis_rollouts``), and the terrain vis kernel
+   on a 250 x 250 grid at V past the blocks the card holds at once, both
+   routes (``time_vis_queue``); then
    per timed world, in turns, chained solves replayed from a CUDA graph
    and eager (``profiling.chained_solve_time``) on the device clock
    beside the host's time to enqueue them, and planner ``solve()`` times
@@ -409,11 +418,32 @@ LIFTED_MAX_NODES = {"flagship_T4097": 27, "flagship_M20000": 26,
 # default and a car's wheelbase), on the forest's padded map or an
 # 45 x 45 window of it at VIS_OFFSET; then V of one rollout, a warp's
 # width and one either side, 100, and 4,225, past the rollouts an H100
-# holds a block each (vis_rollout.launch_shape: a warp a block there).
+# holds at once (a block a rollout: vis_rollout.vis_route).
 VIS_MODES = ("tdm", "det_dyn", "speed_map", "costmap")
 VIS_MODELS = ("unicycle", "bicycle", "bicycle_car")
 VIS_VS = (1, 31, 32, 33, 100, 4225)
 VIS_MAP, VIS_ROI, VIS_OFFSET = (88, 144), (45, 45), (20, 37)
+# Phase 2's route cases of the terrain vis kernel (grid, T, V): 11 x 11
+# planes at every byte offset, odd T, T = 4,097 (five chunks of the
+# control ring), 250 x 250 (dynamic shared memory past 48 KB), 340 x 340
+# (the global route by its shape: its grid does not fit), 250 x 250 past
+# the 132 blocks an H100 holds at once with the grid shared (the global
+# route by its waves) and V past the blocks the card holds at once; each
+# on the route its shape takes and on each route it fits.
+VIS_ROUTE_CASES = (((11, 11), 1, 20), ((11, 11), 7, 20), ((11, 11), 101, 20),
+                   ((11, 11), 4097, 5), ((250, 250), 101, 20),
+                   ((250, 250), 4097, 3), ((340, 340), 101, 20),
+                   ((250, 250), 100, 133), ((140, 84), 100, 4225))
+VIS_BAREBONE_TS = (1, 7, 33, 50, 100, 4097)
+# Headings past the terrain chain's fast sine (|th| < 105,615): the chunk
+# is stepped again with sincosf.
+VIS_FAR_HEADINGS = (1.2e5, -3.5e5, 2.0e7)
+# The float32 inputs the fast sine is checked on: every magnitude below
+# 105,615 (bit patterns 0 .. 0x47ce477f, each sign) and every NaN.
+FAST_SINCOS_INPUTS = 2 * 0x47ce4780 + 2 * (2 ** 23 - 1)
+# Phase 4's timed queue: tdm on a 250 x 250 grid (one block an SM on the
+# shared route), T = 100, at V = 132, just past and twice.
+VIS_QUEUE_VS = (132, 133, 264)
 # Phase 4's timed vis: worlds (a), (c), (k), (d), (e), (f), (h); and the
 # barebone planner.
 VIS_TIMED_WORLDS = ("flagship_11x11", "forest_140x84", "bigmap_250x250_roi",
@@ -1048,68 +1078,140 @@ def vis_barebone_case(torch, dev, V, T, seed):
     return task, u, u_prev, noise
 
 
+def vis_route_case(torch, dev, mode, hw, V, T, seed):
+    """``terrain_vis_fused``'s arguments on an ``hw`` grid whose planes lie
+    at an odd byte offset (a view one byte into its memory), -128 among
+    the draws, the robot mid-map."""
+    rng = np.random.RandomState(seed)
+    args = list(vis_terrain_case(torch, dev, mode, V, T, False, False, seed,
+                                 hw=(1, 1)))
+    M = V + 2 if mode == "tdm" else 1
+    for i in range(2):
+        g = rng.randint(0, 101, M * hw[0] * hw[1] + 1).astype(np.int8)
+        g[rng.rand(*g.shape) < 0.3] = -128
+        args[i] = torch.tensor(g, device=dev)[1:].view((M,) + hw)
+    res = float(args[6].res)
+    args[6] = args[6]._replace(x0=torch.tensor(
+        [0.45 * hw[1] * res, 0.55 * hw[0] * res, 0.3], device=dev),
+        xlim0=torch.tensor(0.0, device=dev),
+        ylim0=torch.tensor(0.0, device=dev))
+    return tuple(args)
+
+
 def check_vis_cases(torch, dev):
     """Phase 2's vis cases: each vis kernel against its plain version on
-    the same CUDA tensors, bit for bit (the 2.7 m bicycle within rtol 1e-4
-    / atol 1e-4 m, its first row bit for bit): the terrain vis in every
-    ``VIS_MODES`` x ``VIS_MODELS`` x crop on and off x grids with and
-    without -128 draws at V = 20, T = 100; then each ``VIS_VS`` at T = 1
-    and 100 in tdm and det_dyn; the barebone vis at each ``VIS_VS`` and
-    20 x T = 1, 50 and 100.  One JSON line a case;
-    returns the records."""
+    the same CUDA tensors, bit for bit (the 2.7 m bicycle too): the
+    terrain vis in every ``VIS_MODES`` x ``VIS_MODELS`` x crop on and off
+    x grids with and without -128 draws at V = 20, T = 100; then each
+    ``VIS_VS`` at T = 1 and 100 in tdm and det_dyn; each
+    ``VIS_ROUTE_CASES`` in tdm and det_dyn x the unicycle and the bicycle,
+    on the route its shape takes (``route_on_card``), on the global route
+    and, where the grid fits, on the shared route (the wrapper's
+    ``route``); ``VIS_FAR_HEADINGS`` (the chunk stepped again
+    with sincosf) in tdm and det_dyn x ``VIS_MODELS``; the barebone vis at
+    each ``VIS_VS`` and 20 x ``VIS_BAREBONE_TS``.  First the chain's fast
+    sine and cosine against sincosf on every float32 it takes
+    (``FAST_SINCOS_INPUTS``).  Each terrain record names the route its launch
+    counted under.  One JSON line a case; returns the records."""
     from mppi_numba_tpu_torch.ops.kernels import vis_rollout
     from mppi_numba_tpu_torch.ops.rollout import (barebone_vis_fused_plain,
                                                   terrain_vis_fused_plain)
+
+    fused = vis_rollout.terrain_vis_fused
+
+    def held(args, kw, model, route=None, want=None, **info):
+        before = dict(fused.route_launches)
+        got = fused(*args, **kw, route=route)
+        if want is None:
+            want = terrain_vis_fused_plain(*args, **kw)
+        torch.cuda.synchronize()
+        (route,) = [r for r, n in fused.route_launches.items()
+                    if n != before[r]]
+        return vis_record(torch, "terrain_vis", got, want, model=model,
+                          route=route,
+                          hw=list(args[0].shape[1:]), **info)
 
     cases = [(m, model, crop, past, 20, 100)
              for m in VIS_MODES for model in VIS_MODELS
              for crop in (False, True) for past in (False, True)]
     cases += [(m, "unicycle", False, True, V, T) for m in ("tdm", "det_dyn")
               for V in VIS_VS for T in (1, 100)]
-    results = []
+    bad, checked = vis_rollout.check_fast_sincos(dev.index or 0)
+    rec = dict(case="fast_sincos", mismatches=bad, checked=checked)
+    print(json.dumps(rec), flush=True)
+    check(bad == 0 and checked == FAST_SINCOS_INPUTS,
+          "fast_sincos: {} of {} inputs differ from sincosf".format(
+              bad, checked))
+    results = [rec]
     for i, (mode, model, crop, past, V, T) in enumerate(cases):
         args = vis_terrain_case(torch, dev, mode, V, T, crop, past, seed=i)
         kw = dict(V=V, det=mode != "tdm", crop=crop,
                   step_fn=vis_step_fn(model))
-        got = vis_rollout.terrain_vis_fused(*args, **kw)
-        want = terrain_vis_fused_plain(*args, **kw)
-        torch.cuda.synchronize()
-        bitwise = model != "bicycle_car"
-        rec = vis_record(torch, "terrain_vis", got, want, bitwise, mode=mode,
-                         model=model, crop=crop, past_last=past, V=V, T=T,
-                         hw=list(args[0].shape[1:]))
-        results.append(rec)
+        results.append(held(args, kw, model, mode=mode, crop=crop,
+                            past_last=past, V=V, T=T))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, (hw, T, V) in enumerate(VIS_ROUTE_CASES):
+        for mode in ("tdm", "det_dyn"):
+            args = vis_route_case(torch, dev, mode, hw, V, T, seed=100 + i)
+            for model in ("unicycle", "bicycle"):
+                kw = dict(V=V, det=mode != "tdm", step_fn=vis_step_fn(model))
+                det, bike = mode != "tdm", model == "bicycle"
+                want_route = vis_rollout.route_on_card(
+                    V, T, *hw, det, bike, dev.index or 0).route
+                fits = (vis_rollout.smem_bytes(T, *hw, det, bike, True)
+                        <= vis_rollout._prepared(dev.index or 0))
+                if hw == (340, 340) or (hw == (250, 250) and V > sms):
+                    expect = "global"   # no fit; one block an SM queues
+                else:
+                    expect = "shared" if V <= sms else want_route
+                check(fits == (hw != (340, 340)) and want_route == expect,
+                      "terrain_vis {} x {} at V {}: route {}".format(
+                          *hw, V, want_route))
+                want = terrain_vis_fused_plain(*args, **kw)
+                for route in (None, "global") + (("shared",) if fits
+                                                 else ()):
+                    rec = held(args, kw, model, route, want, mode=mode,
+                               crop=False, past_last=True, V=V, T=T,
+                               forced_route=route is not None)
+                    check(rec["route"] == (route or want_route),
+                          "terrain_vis {}: launched on the {} route".format(
+                              rec, rec["route"]))
+                    results.append(rec)
+    for th0 in VIS_FAR_HEADINGS:
+        for mode in ("tdm", "det_dyn"):
+            args = vis_route_case(torch, dev, mode, (11, 11), 6, 40, seed=7)
+            args = args[:6] + (args[6]._replace(x0=torch.tensor(
+                [2.5, 3.0, th0], device=dev)),)
+            for model in VIS_MODELS:
+                kw = dict(V=6, det=mode != "tdm", step_fn=vis_step_fn(model))
+                results.append(held(args, kw, model, mode=mode, crop=False,
+                                    past_last=True, V=6, T=40, th0=th0))
     for V in VIS_VS[:1] + (20,) + VIS_VS[1:]:
-        for T in (1, 50, 100):
+        for T in VIS_BAREBONE_TS:
             args = vis_barebone_case(torch, dev, V, T, seed=V + T)
             got = vis_rollout.barebone_vis_fused(*args)
             want = barebone_vis_fused_plain(*args)
             torch.cuda.synchronize()
-            results.append(vis_record(torch, "barebone_vis", got, want, True,
-                                      V=V, T=T))
+            results.append(vis_record(torch, "barebone_vis", got, want, V=V,
+                                      T=T))
     return results
 
 
-def vis_record(torch, name, got, want, bitwise, **info):
+def vis_record(torch, name, got, want, **info):
     """Hold vis states against the plain version's: finite, the shape,
-    bit for bit where ``bitwise``, else within rtol 1e-4 / atol 1e-4 m
-    with the first row bit for bit.  Prints and returns the record."""
+    bit for bit (the 2.7 m bicycle too: the kernel multiplies by the
+    wheelbase's float32 reciprocal, as PyTorch divides by a Python scalar
+    on CUDA).  Prints and returns the record."""
     check(got.shape == want.shape and bool(got.isfinite().all()),
           "{} {}: states {} not finite or not {}".format(
               name, info, tuple(got.shape), tuple(want.shape)))
     differ = bits_differ(torch, got, want)
     err = float((got - want).abs().max())
-    rec = dict(case=name, **info, bitwise=bitwise, entries_differing=differ,
+    rec = dict(case=name, **info, bitwise=True, entries_differing=differ,
                max_abs_err=err)
     print(json.dumps(rec), flush=True)
-    if bitwise:
-        check(differ == 0, "{} {}: {} entries differ from the plain "
-              "version".format(name, info, differ))
-    else:
-        check(torch.equal(got[:, 0], want[:, 0]) and np.allclose(
-            got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-4),
-            "{} {}: states beyond rtol 1e-4 / atol 1e-4 (max {})".format(
-                name, info, err))
+    check(differ == 0, "{} {}: {} entries differ from the plain "
+          "version".format(name, info, differ))
     return rec
 
 
@@ -1152,19 +1254,28 @@ def vis_bound_ms(V, T, cells, det, model):
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
-def time_vis_rollouts(torch, time_cuda, planners, step_ns, emit):
+def time_vis_rollouts(torch, time_cuda, time_cuda_graph, planners, step_ns,
+                      chain, emit):
     """The planners' visualisation rollouts: ``get_state_rollout()``
     (replayed from the planner's vis graph: the vis kernel) on the host
-    clock, its graph's replay on the device clock, with its kernels a
-    replay, beside the plain loop's (``backend="eager"``) captured in a
-    ``VisGraph`` on the same buffers (bit for bit with it), and both
-    bounds: bytes or operations (``vis_bound_ms``, this run's cells) and
-    latency, T dependent steps: a terrain step waits on its cell's load,
-    at least ``step_ns`` (the gather probe's quickest L1 chain step, this
-    run); a barebone step on its heading's add (4 cycles at 1,980 MHz).
-    ``planners``: ``{world: planner}``, each solved at least once.
-    Returns ``{world: record}``."""
+    clock, its graph's replay on the device clock (20 back to back, and
+    20 single replays each behind a spin kernel, ``time_single_calls``),
+    with its kernels a replay, and the vis kernel alone (20 launches in
+    one graph; a terrain world's in turns with the same call on the other
+    route, where its grid fits), beside the plain loop's (``backend="eager"``) captured in a ``VisGraph`` on
+    the same buffers (bit for bit with it), and the bounds: bytes or
+    operations (``vis_bound_ms``, this run's cells); latency, T dependent
+    steps: a terrain step waits on its cell's load, at least ``step_ns``
+    (the gather probe's quickest L1 chain step, this run), a barebone step
+    on its heading's add (4 cycles at 1,980 MHz); and the chain of the
+    kernel's own SASS (``chain``: ``vis_sass_chain``) at the SM clock
+    nvidia-smi reads while the vis replays: T critical cycles of a terrain
+    step on the route the world takes, and T heading adds, T position adds
+    and one sincosf for the barebone vis; ``latency_share`` and
+    ``chain_latency_share``: each bound over the kernel alone.  ``planners``: ``{world:
+    planner}``, each solved at least once.  Returns ``{world: record}``."""
     from mppi_numba_tpu_torch.graphs import VisGraph
+    from mppi_numba_tpu_torch.ops.kernels import vis_rollout
     from mppi_numba_tpu_torch.solver import get_barebone_vis, get_terrain_vis
 
     out = {}
@@ -1178,11 +1289,13 @@ def time_vis_rollouts(torch, time_cuda, planners, step_ns, emit):
         if barebone:
             head, tail = (planner._task_device,), (aux.noise_vis,)
             plain_vis = get_barebone_vis(plain_static)
+            vis = get_barebone_vis(static)
         else:
             head = (planner._map_inputs(), planner._task_device)
             tail = (aux.noise_vis, aux.lin_grids, aux.ang_grids,
                     aux.roi_offset)
             plain_vis = get_terrain_vis(plain_static)
+            vis = get_terrain_vis(static)
         plain_graph = VisGraph(plain_vis, head, tail, planner.u_cur)
         host = []
         for _ in range(6):
@@ -1194,34 +1307,161 @@ def time_vis_rollouts(torch, time_cuda, planners, step_ns, emit):
               "{}: the vis kernel's graph differs from the plain loop's"
               .format(world))
         device = [time_cuda(graph.replay, 20, 2) for _ in range(3)]
+        single = time_single_calls(torch, graph.replay, 20)
+        args = head + (planner.u_cur, planner.u_prev) + tail
+        other = None if barebone else other_route_call(vis_rollout, static,
+                                                       args)
+        kernel, other_runs = [], []
+        for _ in range(2):
+            kernel.append(time_cuda_graph(lambda: vis(*args), 20, 2))
+            if other:
+                other_runs.append(time_cuda_graph(other[1], 20, 2))
         plain = [time_cuda(plain_graph._call.replay, 3, 1) for _ in range(2)]
+        clock = sm_clock_mhz_under(torch, graph.replay)
         V, T1, _ = states.shape
+        T = T1 - 1
         det = barebone or static.mode != "tdm"
         cells = None if barebone else vis_cells(
             states, planner._task_device, det, bool(static.roi_shape),
             aux.roi_offset.tolist(), tuple(aux.lin_grids.shape[1:]))
-        bound = vis_bound_ms(V, T1 - 1, cells, det, static.model)
-        latency = (T1 - 1) * (4 / 1.98e9 * 1e3 if barebone
-                              else step_ns * 1e-6)
+        bound = vis_bound_ms(V, T, cells, det, static.model)
+        latency = T * (4 / 1.98e9 * 1e3 if barebone else step_ns * 1e-6)
+        if barebone:
+            kname, route, per_sm = "barebone_vis_kernel", None, None
+            c = (chain or {}).get(kname)
+            cycles = c and 2 * T * c["add_cycles"] + c["sincos_cycles"]
+        else:
+            H, W = aux.lin_grids.shape[1:]
+            r = vis_rollout.route_on_card(V, T, H, W, det,
+                                          static.model == "bicycle",
+                                          torch.cuda.current_device())
+            route = r.route
+            kname = vis_rollout.kernel_name(static.model == "bicycle", route)
+            per_sm = vis_rollout.blocks_per_sm(kname, r.smem_bytes,
+                                               torch.cuda.current_device())
+            c = (chain or {}).get(kname)
+            cycles = c and T * c["cycles_per_step"]
+        chain_ms = cycles / (clock * 1e3) if cycles else None
         rec = dict(world=world, ms=min(device), device_runs=device,
+                   replay_device_ms=float(np.median(single)),
+                   replay_device_min_ms=min(single),
+                   kernel_in_graph_ms=min(kernel), kernel_runs=kernel,
                    kernels_per_replay=graph.kernel_nodes,
                    host_ms_median=float(np.median(host[1:])), host_runs=host,
                    plain_ms=min(plain), plain_runs=plain,
                    plain_kernels_per_replay=plain_graph._call.kernel_nodes,
                    bound_ms=bound[0], bound_by=bound[1], cells_read=cells,
                    latency_bound_ms=latency,
-                   latency_share=latency / min(device),
-                   V=V, T=T1 - 1, mode=static.mode, model=static.model,
+                   latency_share=latency / min(kernel),
+                   chain_bound_ms=chain_ms,
+                   chain_latency_share=chain_ms and chain_ms / min(kernel),
+                   chain_cycles=cycles, chain_kernel=kname,
+                   chain_model=c, sm_clock_mhz=clock, route=route,
+                   other_route=other and other[0],
+                   other_route_kernel_ms=min(other_runs, default=None),
+                   other_route_runs=other_runs,
+                   chain_bound_is="a model: the SASS chain's cycles under "
+                                  "SASS_LATENCY's assumed latencies (not "
+                                  "measured) at the SM clock read in this "
+                                  "run",
+                   blocks_per_sm=per_sm,
+                   V=V, T=T, mode=static.mode, model=static.model,
                    roi=static.roi_shape, states_shape=list(states.shape),
-                   timing="device clock: one vis graph replay (the plain "
-                          "loop's: its own VisGraph); host clock: "
-                          "get_state_rollout()")
+                   timing="device clock: ms, 20 vis graph replays back "
+                          "to back (the plain loop's: its own VisGraph; "
+                          "host-bound where a replay is shorter than the "
+                          "host's graph launch); replay_device_ms: the "
+                          "median of 20 single replays behind a spin kernel; "
+                          "kernel_in_graph_ms: 20 vis launches in one graph; "
+                          "host clock: get_state_rollout()")
         check(graph.kernel_nodes <= VIS_MAX_NODES,
               "{}: {} kernels a vis replay".format(world, graph.kernel_nodes))
         emit("vis_rollout_graph_ms", rec["ms"], "ms", **{
             k: v for k, v in rec.items() if k != "ms"})
         out[world] = rec
         del plain_graph
+    return out
+
+
+def other_route_call(vis_rollout, static, args):
+    """``(route, call)``: the terrain vis of ``static`` on ``args`` (the
+    vis function's) through ``terrain_vis_fused`` on the route its shape
+    does not take, or None where that is the shared route and the grid
+    does not fit."""
+    from mppi_numba_tpu_torch.models import get_step_fn
+
+    _, task, u_cur, u_prev, noise_vis, lin, ang, roi_offset = args
+    kw = dict(V=static.num_vis_state_rollouts,
+              det=static.mode in ("det_dyn", "speed_map"),
+              crop=bool(static.roi_shape), step_fn=get_step_fn(static.model))
+    rows = vis_rollout.vis_rows(kw["V"], kw["det"], lin, noise_vis)
+    T, (H, W) = u_cur.shape[0], lin.shape[1:]
+    bike = static.model == "bicycle"
+    dev = lin.device.index
+    route = {"shared": "global", "global": "shared"}[
+        vis_rollout.route_on_card(rows, T, H, W, kw["det"], bike, dev).route]
+    if (route == "shared" and vis_rollout.smem_bytes(T, H, W, kw["det"], bike,
+                                                     True)
+            > vis_rollout._prepared(dev)):
+        return None
+    return route, functools.partial(
+        vis_rollout.terrain_vis_fused, lin, ang, u_cur, u_prev, noise_vis,
+        roi_offset, task, route=route, **kw)
+
+
+def time_single_calls(torch, fn, reps):
+    """Device time (ms) of each of ``reps`` single calls of ``fn``, CUDA
+    events around the call alone, each call enqueued behind a spin kernel
+    (``torch.cuda._sleep``, some 0.1 ms) so that the device is not left
+    waiting on the host's launch."""
+    pairs = []
+    for _ in range(reps):
+        torch.cuda._sleep(200000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in pairs]
+
+
+def time_vis_queue(torch, dev, time_cuda_graph, emit):
+    """The terrain vis kernel in tdm on a 250 x 250 grid at T = 100 and each
+    ``VIS_QUEUE_VS``: the shared route (one block an SM: the card holds
+    ``blocks_per_sm`` x SMs rollouts at once, the rest queue) in turns with
+    the global route, 10 launches in one graph each, beside the route its
+    shape takes (``route_on_card``).  Returns ``{V: record}``."""
+    from mppi_numba_tpu_torch.ops.kernels import vis_rollout
+
+    index = dev.index or 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for V in VIS_QUEUE_VS:
+        args = vis_route_case(torch, dev, "tdm", (250, 250), V, 100,
+                              seed=V)
+        kw = dict(V=V, det=False, step_fn=vis_step_fn("unicycle"))
+        runs = {"shared": [], "global": []}
+        for _ in range(2):
+            for route in runs:
+                runs[route].append(time_cuda_graph(
+                    lambda: vis_rollout.terrain_vis_fused(*args, **kw,
+                                                          route=route),
+                    10, 1))
+        r = vis_rollout.route_on_card(V, 100, 250, 250, False, False, index)
+        smem = vis_rollout.smem_bytes(100, 250, 250, False, False, True)
+        per_sm = vis_rollout.blocks_per_sm(
+            vis_rollout.kernel_name(False, "shared"), smem, index)
+        rec = dict(V=V, T=100, hw=[250, 250], shared_ms=min(runs["shared"]),
+                   global_ms=min(runs["global"]), runs=runs, route=r.route,
+                   smem_bytes=smem, blocks_per_sm=per_sm, sms=sms,
+                   blocks_at_once=per_sm * sms,
+                   waves=vis_rollout.waves(V, per_sm * sms))
+        emit("vis_queue_kernel_ms", rec["shared_ms"], "ms", **{
+            k: v for k, v in rec.items() if k != "shared_ms"})
+        out[V] = rec
+        del args
     return out
 
 
@@ -1584,6 +1824,258 @@ def print_sass_counts(lib_paths):
             print(json.dumps(dict(sass=str(path).rsplit("/", 1)[-1], **c)))
 
 
+# Dependent-issue latency, in cycles, that the vis kernels' chain bound
+# assumes of an H100 SM (vis_chain_cycles): a model, of the order that
+# microbenchmarks of Hopper report, not a measurement of this run.  Any
+# opcode not listed is a fixed-latency ALU instruction, 4 cycles.
+SASS_LATENCY = {"LDS": 30, "LDG": 33, "LDL": 33, "LD": 33, "SHFL": 24,
+                "MUFU": 14, "F2I": 6, "I2F": 6, "F2F": 6, "FRND": 6,
+                "DADD": 8, "DMUL": 8, "DFMA": 8}
+_SASS_STORES = ("STS", "STG", "STL", "ST", "RED", "ATOM", "ATOMS", "BAR",
+                "BRA", "EXIT", "CALL", "RET", "BSSY", "BSYNC", "NOP",
+                "DEPBAR", "LDGDEPBAR", "WARPSYNC", "MEMBAR")
+_TWO_OVER_PI = "0.63661974668502807617"
+
+
+def sass_functions(text):
+    """``{mangled name: [(address, guard, opcode, operands)]}`` of a
+    ``cuobjdump -sass`` listing."""
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        body = []
+        for a, ins in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", chunk):
+            ins = ins.strip()
+            guard = None
+            if ins.startswith("@"):
+                guard, ins = ins.split(None, 1)
+            op, _, rest = ins.partition(" ")
+            body.append((int(a, 16), guard, op,
+                         [o.strip() for o in rest.split(",") if o.strip()]))
+        out[name] = body
+    return out
+
+
+def _regs(operand):
+    """The registers an operand names (a 64-bit address ``R2.64``: R2 and
+    R3); RZ, PT and uniform registers are constants here."""
+    regs = []
+    for r, wide in re.findall(r"(?<![A-Z])(R\d+|P\d)(\.64)?", operand):
+        regs.append(r)
+        if wide and r[0] == "R":
+            regs.append("R{}".format(int(r[1:]) + 1))
+    return regs
+
+
+def _defs_uses(guard, op, operands):
+    """The registers an instruction writes and reads."""
+    base = op.split(".")[0]
+    uses = _regs(guard) if guard else []
+    if base in _SASS_STORES:
+        return [], uses + [r for o in operands for r in _regs(o)]
+    defs, i = [], 0
+    while i < len(operands) and re.fullmatch(r"!?(P\d|PT)", operands[i]):
+        defs += _regs(operands[i])
+        i += 1
+    if not base.endswith("SETP") and i < len(operands):
+        d = _regs(operands[i].split("[")[0])
+        if d and d[0][0] == "R":
+            width = (4 if ".128" in op else
+                     2 if (".64" in op or op.startswith("IMAD.WIDE")
+                           or base in ("DADD", "DMUL", "DFMA")
+                           or ".F64" in op.split(".", 1)[-1][:4]) else 1)
+            defs += ["R{}".format(int(d[0][1:]) + k) for k in range(width)]
+        i += 1
+        while i < len(operands) and re.fullmatch(r"P\d", operands[i]):
+            defs += _regs(operands[i])
+            i += 1
+    if guard:
+        uses += defs      # a predicated write keeps the old value
+    return defs, uses + [r for o in operands[i:] for r in _regs(o)]
+
+
+def _hot_path(body, j, i):
+    """Instructions j..i of a loop on its fast path: a forward branch over
+    a block holding a slow path (local memory, a loop or a call: sinf's
+    large-argument reduction, division's subroutine) is taken as taken."""
+    index = {a: k for k, (a, _, _, _) in enumerate(body)}
+    hot, k = [], j
+    while k <= i:
+        a, guard, op, ops = body[k]
+        if op.startswith("BRA") and ops:
+            target = int(ops[-1], 16)
+            if target > a and target in index and index[target] <= i + 1:
+                skipped = body[k + 1:index[target]]
+                slow = any(o.split(".")[0] in ("STL", "LDL", "CALL")
+                           or (o.startswith("BRA") and q
+                               and int(q[-1], 16) < b)
+                           for b, _, o, q in skipped)
+                if slow or guard is None:
+                    k = index[target]
+                    continue
+        else:
+            hot.append(body[k])
+        k += 1
+    return hot
+
+
+def _latency(op):
+    return SASS_LATENCY.get(op.split(".")[0], 4)
+
+
+def _dataflow(hot, ready):
+    """Each register's ready time after the straight-line ``hot`` code,
+    from ``ready`` (register -> cycle; a register absent is no dependence)
+    at its start; also each instruction's start time (None: it depends on
+    none of them)."""
+    ready, starts = dict(ready), []
+    for _, guard, op, ops in hot:
+        defs, uses = _defs_uses(guard, op, ops)
+        t = max((ready[r] for r in uses if r in ready), default=None)
+        starts.append(t)
+        if t is not None:
+            for r in defs:
+                ready[r] = max(ready.get(r, t), t + _latency(op))
+        else:
+            for r in defs:
+                ready.pop(r, None)
+    return ready, starts
+
+
+def _max_cycle_mean(nodes, weight):
+    """Karp's maximum mean cycle of the graph ``weight[(u, v)]``."""
+    n = len(nodes)
+    if not n:
+        return 0.0
+    neg = float("-inf")
+    F = [{v: 0.0 for v in nodes}]
+    for _ in range(n):
+        F.append({v: max((F[-1][u] + w for (u, x), w in weight.items()
+                          if x == v and F[-1][u] > neg), default=neg)
+                  for v in nodes})
+    best = neg
+    for v in nodes:
+        if F[n][v] == neg:
+            continue
+        best = max(best, min((F[n][v] - F[k][v]) / (n - k)
+                             for k in range(n) if F[k][v] > neg))
+    return best
+
+
+def vis_chain_cycles(text):
+    """The vis kernels' chain, in cycles, from a ``cuobjdump -sass``
+    listing of the vis library, under ``SASS_LATENCY``: each terrain
+    instantiation's critical cycle a step (the maximum mean cycle of its
+    fast chain loop's loop-carried registers, slow-path blocks skipped,
+    over the steps the unrolled loop covers: its round-down adds, two a
+    step), and for
+    the barebone kernel the latency of one sincosf (its heading's first
+    product to the sine's and cosine's products) and of a float add.
+    ``{kernel: dict}``."""
+    out = {}
+    for name, body in sass_functions(text).items():
+        m = re.search(r"(terrain|barebone)_vis_kernel(?:ILi(\d)ELb(\d))?",
+                      name)
+        if not m:
+            continue
+        index = {a: k for k, (a, _, _, _) in enumerate(body)}
+        loops = [(index[int(ops[-1], 16)], k)
+                 for k, (a, _, op, ops) in enumerate(body)
+                 if op.startswith("BRA") and ops
+                 and int(ops[-1], 16) < a and int(ops[-1], 16) in index]
+        if m.group(1) == "terrain":
+            # The chain's loop: round-down adds, no barrier; the fast one
+            # (no reconvergence for sincosf's slow path) before the loop
+            # that steps a flagged chunk again.
+            best = None
+            for j, i in loops:
+                hot = _hot_path(body, j, i)
+                rounds = sum(op == "FADD.RM" for _, _, op, _ in hot)
+                fast = not any(op.startswith("BSSY")
+                               for _, _, op, _ in body[j:i + 1])
+                if rounds and not any(op.startswith("BAR")
+                                      for _, _, op, _ in hot):
+                    if best is None or (fast, rounds) > best[:2]:
+                        best = (fast, rounds, hot)
+            if best is None:
+                continue
+            _, rounds, hot = best
+            carried = sorted({r for _, g, op, ops in hot
+                              for r in _defs_uses(g, op, ops)[0]})
+            weight = {}
+            for r in carried:
+                after, _ = _dataflow(hot, {r: 0})
+                for q in carried:
+                    if q in after:
+                        weight[(r, q)] = after[q]
+            cycle = _max_cycle_mean(carried, weight)
+            model = "bicycle" if m.group(2) == "1" else "unicycle"
+            route = "shared" if m.group(3) == "1" else "global"
+            out["terrain_vis_kernel<{}, {}>".format(model, route)] = dict(
+                steps_in_loop=rounds // 2, cycles_per_loop=cycle,
+                cycles_per_step=cycle / (rounds // 2))
+        else:
+            j, i = max(loops, key=lambda l: l[1] - l[0])
+            hot = _hot_path(body, j, i)
+            first = next((k for k, (_, _, op, ops) in enumerate(hot)
+                          if op == "FMUL" and _TWO_OVER_PI in ops), None)
+            if first is None:
+                continue
+            head = hot[first]
+            seed = {r: _latency(head[2]) for r in _defs_uses(*head[1:])[0]}
+            ready = dict(seed)
+            sincos = 0
+            for _, guard, op, ops in hot[first + 1:]:
+                defs, uses = _defs_uses(guard, op, ops)
+                dep = [ready[r] for r in uses if r in ready]
+                if op == "FMUL" and dep and len(dep) < len(
+                        [r for r in uses if r[0] == "R"]):
+                    sincos = max(sincos, max(dep))
+                if dep:
+                    for r in defs:
+                        ready[r] = max(ready.get(r, 0),
+                                       max(dep) + _latency(op))
+            out["barebone_vis_kernel"] = dict(sincos_cycles=sincos,
+                                              add_cycles=_latency("FADD"))
+    return out
+
+
+def vis_sass_chain(lib_path):
+    """``vis_chain_cycles`` of the built vis library, or None without
+    cuobjdump."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+    from mppi_numba_tpu_torch.ops.kernels import _build
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc_path()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        return None
+    return vis_chain_cycles(subprocess.run(
+        [tool, "-sass", str(lib_path)], check=True, capture_output=True,
+        text=True).stdout)
+
+
+def sm_clock_mhz_under(torch, fn):
+    """The SM clock (MHz) that ``nvidia-smi --query-gpu=clocks.sm`` reads
+    while ``fn`` runs back to back on the card (an idle card reads its
+    idle clock)."""
+    import subprocess
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"], stdout=subprocess.PIPE,
+        text=True)
+    t0 = time.perf_counter()
+    while proc.poll() is None and time.perf_counter() - t0 < 60:
+        for _ in range(20):
+            fn()
+    text = proc.communicate(timeout=60)[0]
+    torch.cuda.synchronize()
+    return float(text.split()[0])
+
+
 def compare(name, got, want, fast_trig, penalties, bitwise=True, **info):
     """Hold a kernel's (K, M) costs against its plain version: bit for bit
     where ``bitwise`` (every case but the 2.7 m bicycle, where PyTorch
@@ -1670,6 +2162,7 @@ def main():
     def set_counts(value=0):
         for wrapper in counted:
             wrapper.launches = value
+        vis_a.route_launches = dict.fromkeys(vis_a.route_launches, value)
 
     def read_counts():
         return {"rollout_byte": kernel.launches,
@@ -1696,6 +2189,11 @@ def main():
                            "barebone_rollout", "vis_rollout"))
     print_sass_counts([_build.library_path(name)
                        for name in ("rollout_byte", "rollout_binned")])
+    for name, attrs in vis_rollout.kernel_attributes(0).items():
+        print(json.dumps(dict(kernel=name, **attrs)))
+    vis_chain = vis_sass_chain(_build.library_path("vis_rollout"))
+    print(json.dumps(dict(vis_chain_cycles=vis_chain,
+                          latency_model=SASS_LATENCY)))
     card = card_line()
     print(card)
     card_name, _, power_limit = card.rpartition(", ")
@@ -2365,7 +2863,7 @@ def main():
     wide_update_results = check_wide_update_cases(torch, dev)
 
     # Both vis kernels against their plain versions, bit for bit (the
-    # 2.7 m bicycle within 1e-4), in every mode, model and crop, on grids
+    # 2.7 m bicycle too), in every mode, model and crop, on grids
     # with -128 draws, at V's edges.
     vis_results = check_vis_cases(torch, dev)
 
@@ -2379,6 +2877,7 @@ def main():
     planner_runs = {}
     set_counts(0)
     totals = dict.fromkeys(read_counts(), 0)
+    vis_routes = dict.fromkeys(vis_a.route_launches, 0)
     for world, (_, want_backend) in WORLDS.items():
         torch.cuda.reset_peak_memory_stats()
         set_counts(0)
@@ -2400,12 +2899,15 @@ def main():
               and launches["cvar_costs"] == launches["update_useq"]
               == launches[used]
               and launches["terrain_vis"] == 1
+              and vis_a.route_launches == {"shared": 1, "global": 0}
               and launches[other] == launches["gather_probe"]
               == launches["barebone_vis"] == 0,
               "{}: launches {} for {} solves on {}".format(
                   world, launches, run["solves"], backend))
         for k in totals:
             totals[k] += launches[k]
+        for k in vis_routes:
+            vis_routes[k] += vis_a.route_launches[k]
         run.update(backend=backend, launches=launches)
         planner_runs[world] = run
         emit("planner_solve_host_ms_median", run["solve_ms_median"], "ms",
@@ -2879,9 +3381,10 @@ def main():
     # the latency bound's step is the probe's quickest chain step in L1.
     l1_step_ns = min(r["ns_per_step"] for r in probe_timed.values()
                      if r["table_bytes"] <= L1_BYTES)
-    vis_timed = time_vis_rollouts(torch, time_cuda, dict(
+    vis_timed = time_vis_rollouts(torch, time_cuda, time_cuda_graph, dict(
         {w: planner_runs[w]["planner"] for w in VIS_TIMED_WORLDS},
-        barebone=barebone["planner"]), l1_step_ns, emit)
+        barebone=barebone["planner"]), l1_step_ns, vis_chain, emit)
+    vis_queue = time_vis_queue(torch, dev, time_cuda_graph, emit)
 
     # The planner's visualisation rollouts on the host clock, world (c):
     # get_state_rollout() (replayed from its graph) in turns with the same
@@ -3469,33 +3972,49 @@ def main():
         "launches": totals[name],
         "max_abs_err": max(r["max_abs_err"] for r in vis_results
                            if r["case"] == name),
-        "ms": vis_timed[at]["ms"],
+        "ms": vis_timed[at]["kernel_in_graph_ms"],
         "plain_ms": vis_timed[at]["plain_ms"],
         "bound_ms": vis_timed[at]["bound_ms"],
         "bound_by": vis_timed[at]["bound_by"],
         "library_ms": None,
         "library": "none: no one PyTorch call computes the rollout",
         "latency_bound_ms": vis_timed[at]["latency_bound_ms"],
-        "timed_at": "{}: V {} x T {}, one vis graph replay".format(
+        "replay_ms": vis_timed[at]["ms"],
+        "replay_device_ms": vis_timed[at]["replay_device_ms"],
+        "launches_by_route": routes,
+        "queue_250x250_T100": queue,
+        "timed_at": "{}: V {} x T {}, 20 launches in one graph".format(
             at, vis_timed[at]["V"], vis_timed[at]["T"]),
         "kernels_per_replay": vis_timed[at]["kernels_per_replay"],
         "plain_kernels_per_replay": vis_timed[at][
             "plain_kernels_per_replay"],
-        "ms_at": {w: r["ms"] for w, r in worlds.items()},
+        "ms_at": {w: r["kernel_in_graph_ms"] for w, r in worlds.items()},
+        "replay_ms_at": {w: r["ms"] for w, r in worlds.items()},
+        "replay_device_ms_at": {w: r["replay_device_ms"]
+                                for w, r in worlds.items()},
+        "other_route_ms_at": {w: [r["other_route"],
+                                  r["other_route_kernel_ms"]]
+                              for w, r in worlds.items()},
         "plain_ms_at": {w: r["plain_ms"] for w, r in worlds.items()},
         "bound_ms_at": {w: r["bound_ms"] for w, r in worlds.items()},
         "latency_bound_ms_at": {w: r["latency_bound_ms"]
                                 for w, r in worlds.items()},
         "host_ms_at": {w: r["host_ms_median"] for w, r in worlds.items()},
         "cases": sum(r["case"] == name for r in vis_results),
-    } for name, kernel_desc, at, worlds in (
-        ("terrain_vis", "terrain_vis_kernel<unicycle | bicycle>: the "
-         "terrain planner's whole vis, a thread a rollout; "
-         "get_terrain_vis launches it", "forest_140x84",
-         {w: r for w, r in vis_timed.items() if w != "barebone"}),
+    } for name, kernel_desc, at, worlds, routes, queue in (
+        ("terrain_vis", "terrain_vis_kernel<unicycle | bicycle, shared | "
+         "global>: the terrain planner's whole vis, a block a rollout, its "
+         "grid (the shared route), controls and states staged in shared "
+         "memory; get_terrain_vis launches it", "forest_140x84",
+         {w: r for w, r in vis_timed.items() if w != "barebone"},
+         vis_routes, {V: {k: r[k] for k in ("route", "shared_ms",
+                                            "global_ms", "blocks_at_once",
+                                            "waves")}
+                      for V, r in vis_queue.items()}),
         ("barebone_vis", "barebone_vis_kernel: the barebone planner's "
-         "whole vis; get_barebone_vis launches it", "barebone",
-         {"barebone": vis_timed["barebone"]}))), {
+         "whole vis, a warp a rollout, 32 steps at a time; "
+         "get_barebone_vis launches it", "barebone",
+         {"barebone": vis_timed["barebone"]}, None, None))), {
         "name": "update_useq",
         "route": "cuda",
         "launches_phase7": phase7["update_useq"],
@@ -4558,13 +5077,16 @@ class EagerMirror:
 
     def _uncounted(self, fn):
         from mppi_numba_tpu_torch.graphs import counted_wrappers
+        from mppi_numba_tpu_torch.ops.kernels import vis_rollout
 
         counts = [(w, w.launches) for w in counted_wrappers()]
+        routes = dict(vis_rollout.terrain_vis_fused.route_launches)
         try:
             return fn()
         finally:
             for w, n in counts:
                 w.launches = n
+            vis_rollout.terrain_vis_fused.route_launches = routes
 
     def after_solve(self, u, world):
         from mppi_numba_tpu_torch.solver import get_terrain_solver

@@ -75,8 +75,10 @@ class Captured:
     the kernels' libraries and entry points; the generator's state and
     ``keep`` are then put back, so the first replay does what an eager call
     made instead of the capture would.  Launch counts (the wrappers of
-    ``counted_wrappers``): the warm-up call and the capture are set-up and
-    leave them as they were; each replay adds the launches it captured.
+    ``counted_wrappers``, and a wrapper's counts by route where it keeps
+    them in ``route_launches``): the warm-up call and the capture are
+    set-up and leave them as they were; each replay adds the launches it
+    captured.
     ``node_counts`` counts the graph's nodes by kind (``"kernel"``: every
     kernel a replay launches, torch's own included).  A capture that fails
     raises; nothing falls back to eager calls.
@@ -101,7 +103,7 @@ class Captured:
                 "(CUDAGraph.register_generator_state): every replay would "
                 "repeat the captured draws".format(torch.__version__))
         wrappers = counted_wrappers()
-        counts = [w.launches for w in wrappers]
+        counts = _launch_counts(wrappers)
         state = None if generator is None else generator.get_state()
         kept = [t.clone() for t in keep]
 
@@ -115,7 +117,7 @@ class Captured:
         for t, k in zip(keep, kept):
             t.copy_(k)
 
-        warmed = [w.launches for w in wrappers]
+        warmed = _launch_counts(wrappers)
         if generator is not None:
             graph.register_generator_state(generator)
         # Capture on the side stream, on this device: torch.cuda.graph's
@@ -127,17 +129,20 @@ class Captured:
             self.outputs = fn()
         self.node_counts = _node_counts(graph.raw_cuda_graph())
         graph.instantiate()
-        self._captured = [(w, w.launches - n)
-                          for w, n in zip(wrappers, warmed)
-                          if w.launches != n]
-        for w, n in zip(wrappers, counts):
+        self._captured = [
+            (w, w.launches - n, {r: k - routes[r] for r, k in
+                                 getattr(w, "route_launches", {}).items()})
+            for w, (n, routes) in zip(wrappers, warmed) if w.launches != n]
+        for w, (n, routes) in zip(wrappers, counts):
             w.launches = n
+            if routes:
+                w.route_launches = routes
         self._graph = graph
 
     @property
     def captured_launches(self):
         """``{wrapper name: launches}`` of one replay."""
-        return {w.__name__: n for w, n in self._captured}
+        return {w.__name__: n for w, n, _ in self._captured}
 
     @property
     def kernel_nodes(self):
@@ -149,9 +154,17 @@ class Captured:
         ``outputs``, which this replay has overwritten."""
         with torch.cuda.device(self.device):
             self._graph.replay()
-        for w, n in self._captured:
+        for w, n, routes in self._captured:
             w.launches += n
+            for r, k in routes.items():
+                w.route_launches[r] += k
         return self.outputs
+
+
+def _launch_counts(wrappers):
+    """Each wrapper's ``(launches, launches by route)``."""
+    return [(w.launches, dict(getattr(w, "route_launches", {})))
+            for w in wrappers]
 
 
 def _node_counts(raw_graph):

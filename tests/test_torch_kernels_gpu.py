@@ -2527,15 +2527,11 @@ def _vis_kw(mode, V, crop, model):
 
 
 def _vis_held(got, want, model):
-    """Bit for bit, but the 2.7 m bicycle within 1e-4 (PyTorch multiplies
-    by the wheelbase's inexact reciprocal where the kernel divides)."""
-    assert got.shape == want.shape and got.dtype == want.dtype
-    if model == "bicycle_2.7":
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                                   rtol=1e-4, atol=1e-4)
-        assert torch.equal(got[:, 0], want[:, 0])
-    else:
-        assert torch.equal(got, want)
+    """Bit for bit for every model, the 2.7 m bicycle too: the kernel
+    multiplies by the wheelbase's float32 reciprocal, as PyTorch divides
+    by a Python scalar on CUDA."""
+    assert got.shape == want.shape and got.dtype == want.dtype, model
+    assert torch.equal(got, want), model
 
 
 @pytest.mark.parametrize("past_last", [False, True])
@@ -2565,8 +2561,8 @@ def test_terrain_vis_kernel_matches_plain_on_card(mode, model, crop,
 @pytest.mark.parametrize("mode", ["tdm", "det_dyn"])
 def test_terrain_vis_kernel_edges_on_card(mode, V, T):
     """V of one rollout, a warp's width and one either side, many blocks,
-    and past the rollouts an H100 holds a block each (a warp a block:
-    ``vis_rollout.launch_shape``); one step; tdm with more grids than
+    and past the rollouts an H100 holds at once (a block a rollout:
+    ``vis_rollout.vis_route``); one step; tdm with more grids than
     rollouts."""
     from mppi_numba_tpu_torch.ops.kernels import vis_rollout
     from mppi_numba_tpu_torch.ops.rollout import terrain_vis_fused_plain
@@ -2581,6 +2577,132 @@ def test_terrain_vis_kernel_edges_on_card(mode, V, T):
     assert torch.equal(got, want)
 
 
+# The route cases (grid, T, V): 11 x 11 planes at every byte offset, odd
+# T, T = 4,097 (five chunks of the control ring); 250 x 250 (dynamic shared
+# memory past 48 KB); 340 x 340, whose grid does not fit beside the ring
+# (the global route by its shape); 250 x 250 past the 132 blocks an H100
+# holds at once with the grid shared (the global route by its waves); and
+# V past the rollouts the card holds at once.
+VIS_ROUTE_CASES = (((11, 11), 1, 20), ((11, 11), 7, 20), ((11, 11), 101, 20),
+                   ((11, 11), 4097, 5), ((250, 250), 101, 20),
+                   ((250, 250), 4097, 3), ((340, 340), 101, 20),
+                   ((250, 250), 100, 133), ((140, 84), 100, 4225))
+
+
+def _vis_route_case(dev, mode, hw, V, T, seed):
+    """``terrain_vis_fused``'s arguments on an ``hw`` grid whose planes lie
+    at an odd byte offset (a view one byte into its memory), the robot
+    mid-map."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    M = V + 2 if mode == "tdm" else 1
+    grids = []
+    for _ in range(2):
+        g = rng.randint(0, 101, M * hw[0] * hw[1] + 1).astype(np.int8)
+        g[rng.rand(*g.shape) < 0.3] = -128
+        grids.append(t(g)[1:].view((M,) + hw))
+    u_cur, u_prev = (t(np.stack([rng.uniform(0.5, 2.0, T),
+                                 rng.uniform(-0.5, 0.5, T)], -1)
+                       .astype(np.float32)) for _ in range(2))
+    noise = t((rng.randn(V, T, 2) * [1.0, 0.6]).astype(np.float32))
+    task = _task(dev, steer=0.5)._replace(x0=t(np.array(
+        [0.45 * hw[1] * 0.5, 0.55 * hw[0] * 0.5, 0.3], np.float32)))
+    return (*grids, u_cur, u_prev, noise, t(np.zeros(2, np.int32)), task)
+
+
+@pytest.mark.parametrize("route", ["by_shape", "global", "shared"])
+@pytest.mark.parametrize("model", ["unicycle", "bicycle", "bicycle_2.7"])
+@pytest.mark.parametrize("mode", ["tdm", "det_dyn"])
+@pytest.mark.parametrize("case", VIS_ROUTE_CASES,
+                         ids=["{}x{}_T{}_V{}".format(*hw, T, V)
+                              for hw, T, V in VIS_ROUTE_CASES])
+def test_terrain_vis_routes_match_plain_on_card(case, mode, model, route):
+    """Each route of the terrain vis kernel against the plain version: the
+    route ``route_on_card`` takes from the shape, and each route named
+    (the wrapper's ``route``), each launch counted under its route; a
+    shared grid that does not fit is refused before any launch."""
+    from mppi_numba_tpu_torch.ops.kernels import vis_rollout
+    from mppi_numba_tpu_torch.ops.rollout import terrain_vis_fused_plain
+
+    dev = _cuda_or_skip()
+    hw, T, V = case
+    args = _vis_route_case(dev, mode, hw, V, T, seed=T + V)
+    assert args[0].data_ptr() % 4 != 0
+    kw = _vis_kw(mode, V, False, model)
+    det, bike = mode != "tdm", model != "unicycle"
+    by_shape = vis_rollout.route_on_card(V, T, *hw, det, bike,
+                                         dev.index or 0).route
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if hw == (340, 340) or (hw == (250, 250) and V > sms):
+        assert by_shape == "global"
+    elif V <= sms:
+        assert by_shape == "shared"
+    before = dict(vis_rollout.terrain_vis_fused.route_launches)
+    if route == "shared" and hw == (340, 340):
+        with pytest.raises(ValueError, match="does not fit"):
+            vis_rollout.terrain_vis_fused(*args, **kw, route=route)
+        assert vis_rollout.terrain_vis_fused.route_launches == before
+        return
+    got = vis_rollout.terrain_vis_fused(
+        *args, **kw, route=None if route == "by_shape" else route)
+    torch.cuda.synchronize()
+    after = vis_rollout.terrain_vis_fused.route_launches
+    want_route = by_shape if route == "by_shape" else route
+    assert {k: after[k] - before[k] for k in after} == {
+        r: int(r == want_route) for r in after}
+    want = terrain_vis_fused_plain(*args, **kw)
+    assert got.shape == (V, T + 1, 3)
+    _vis_held(got, want, model)
+
+
+def test_fast_sincos_matches_sincosf_on_card():
+    """The terrain chain's branch-free sine and cosine equal ``sincosf``'s
+    bits on every float32 below 105,615 in magnitude and every NaN."""
+    from mppi_numba_tpu_torch.ops.kernels import vis_rollout
+
+    dev = _cuda_or_skip()
+    bad, checked = vis_rollout.check_fast_sincos(dev.index or 0)
+    assert bad == 0
+    assert checked == 2 * (0x47ce4780 - 0) + 2 * (2 ** 23 - 1)
+
+
+@pytest.mark.parametrize("th0", [1.2e5, -3.5e5, 2.0e7])
+@pytest.mark.parametrize("model", ["unicycle", "bicycle", "bicycle_2.7"])
+@pytest.mark.parametrize("mode", ["tdm", "det_dyn"])
+def test_terrain_vis_far_heading_matches_plain_on_card(mode, model, th0):
+    """Headings past the fast sine's range: the chunk is stepped again with
+    ``sincosf``, bit for bit with the plain version."""
+    from mppi_numba_tpu_torch.ops.kernels import vis_rollout
+    from mppi_numba_tpu_torch.ops.rollout import terrain_vis_fused_plain
+
+    dev = _cuda_or_skip()
+    V, T = 6, 40
+    args = _vis_route_case(dev, mode, (11, 11), V, T, seed=5)
+    task = args[6]._replace(x0=torch.tensor([2.5, 3.0, th0], device=dev))
+    args = args[:6] + (task,)
+    kw = _vis_kw(mode, V, False, model)
+    got = vis_rollout.terrain_vis_fused(*args, **kw)
+    torch.cuda.synchronize()
+    _vis_held(got, terrain_vis_fused_plain(*args, **kw), model)
+
+
+def test_vis_kernel_attributes_on_card():
+    """Each vis kernel's registers, stack and shared memory: no stack (no
+    spill), no static shared memory, and the terrain kernels may take the
+    card's whole opt-in dynamic shared memory."""
+    from mppi_numba_tpu_torch.ops.kernels import vis_rollout
+
+    dev = _cuda_or_skip()
+    attrs = vis_rollout.kernel_attributes(dev.index or 0)
+    optin = vis_rollout._prepared(dev.index or 0)
+    assert list(attrs) == list(vis_rollout.KERNEL_NAMES)
+    for name, a in attrs.items():
+        assert a["static_smem_bytes"] == 0, (name, a)
+        assert 0 < a["registers"] <= 255, (name, a)
+        if name.startswith("terrain"):
+            assert a["max_dynamic_smem_bytes"] == optin, (name, a)
+
+
 def _barebone_vis_case(dev, V, T, seed=0):
     rng = np.random.RandomState(seed)
     t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
@@ -2591,7 +2713,7 @@ def _barebone_vis_case(dev, V, T, seed=0):
     return planner_task, u_cur, u_prev, noise
 
 
-@pytest.mark.parametrize("T", [1, 50, 100])
+@pytest.mark.parametrize("T", [1, 7, 33, 50, 100, 4097])
 @pytest.mark.parametrize("V", [1, 20, 31, 32, 33, 4225])
 def test_barebone_vis_kernel_matches_plain_on_card(V, T):
     from mppi_numba_tpu_torch.ops.kernels import vis_rollout
