@@ -32,6 +32,7 @@ import torch
 
 from .config import SolverStatic
 from .graphs import Captured
+from .profiling import span
 from .solver import draw_solve, get_terrain_solver
 
 # Replays between two reads of ``reached`` on the host.
@@ -239,7 +240,8 @@ class _Engine:
                     self._generator_solve(solver, draws), draws, maps, task,
                     gt, self.static.num_steps)
                 self.captures += 1
-            g.load(maps, task, gt)
+            with span("device_sim.load"):
+                g.load(maps, task, gt)
             ep, task, one_step = g.ep, g.task, g.call.replay
         else:
             ep = _Episodes(task.x0, self.static.num_steps)
@@ -269,10 +271,14 @@ class _Engine:
                     t_box[0] = t
                 one_step()
                 t += 1
-            if self.early_exit and bool(ep.reached.all()):
-                break
+            if self.early_exit:
+                with span("device_sim.poll"):
+                    reached = bool(ep.reached.all())
+                if reached:
+                    break
         self.steps_run = t
-        return ep.result(task)
+        with span("device_sim.result"):
+            return ep.result(task)
 
 
 def _single(engine):

@@ -22,6 +22,8 @@ import ctypes
 
 import torch
 
+from .profiling import span
+
 # CUgraphNodeType (CUDA's cuda.h): the node kinds a capture makes.
 _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
                4: "graph", 5: "empty", 6: "wait_event", 7: "event_record",
@@ -89,7 +91,7 @@ class Captured:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), span("graphs.capture"):
             self._capture(fn, generator, keep)
 
     def _capture(self, fn, generator, keep):
@@ -152,7 +154,7 @@ class Captured:
     def replay(self):
         """Rerun the captured launches on the current stream; returns
         ``outputs``, which this replay has overwritten."""
-        with torch.cuda.device(self.device):
+        with torch.cuda.device(self.device), span("graphs.replay"):
             self._graph.replay()
         for w, n, routes in self._captured:
             w.launches += n

@@ -31,6 +31,7 @@ from .graphs import VisGraph, same_tensors
 from .models import has_displacement_bound
 from .ops.costs import (DEFAULT_DIST_WEIGHT, DEFAULT_OBS_COST,
                         DEFAULT_UNKNOWN_COST)
+from .profiling import span
 from .solver import DYNAMIC_CVAR, get_terrain_solver, get_terrain_vis
 from .terrain import resolve_device
 from .types import MapInputs, TerrainTask
@@ -106,23 +107,28 @@ class MPPIPlanner:
         return v >= vbounds[0] and v <= vbounds[1]
 
     def set_params(self, params):
-        if not self.is_within_bound(params['x0'][0], self.lin_tdm.xlimits):
-            print("ERROR: When setting mppi params, x0[0] is not within xlimits!")
-            assert False
-        if not self.is_within_bound(params['x0'][1], self.lin_tdm.ylimits):
-            print("ERROR: When setting mppi params, x0[1] is not within ylimits!")
-            assert False
-        self.params = copy.deepcopy(params)
-        self.params_set = True
-        # Stage the task once per params change, into the planner's task
-        # buffer; per-replan updates touch only its x0 (see
-        # shift_and_update).
-        flat = self._build_task_flat()
-        if self._task_flat is None:
-            self._task_flat = flat
-            self._task_device = _unpack_task(flat)
-        else:
-            self._task_flat.copy_(flat)
+        with span("mppi.set_params"):
+            if not self.is_within_bound(params['x0'][0],
+                                        self.lin_tdm.xlimits):
+                print("ERROR: When setting mppi params, x0[0] is not "
+                      "within xlimits!")
+                assert False
+            if not self.is_within_bound(params['x0'][1],
+                                        self.lin_tdm.ylimits):
+                print("ERROR: When setting mppi params, x0[1] is not "
+                      "within ylimits!")
+                assert False
+            self.params = copy.deepcopy(params)
+            self.params_set = True
+            # Stage the task once per params change, into the planner's
+            # task buffer; per-replan updates touch only its x0 (see
+            # shift_and_update).
+            flat = self._build_task_flat()
+            if self._task_flat is None:
+                self._task_flat = flat
+                self._task_device = _unpack_task(flat)
+            else:
+                self._task_flat.copy_(flat)
 
     def set_tdm(self, lin_tdm, ang_tdm):
         self.lin_tdm = lin_tdm
@@ -357,37 +363,42 @@ class MPPIPlanner:
         TDMs' ``sample_grid_batch``, then live in the graph's memory: the
         next solve overwrites them (``get_state_rollout()`` reads them
         before it)."""
-        if not self.check_solve_conditions():
-            print("MPPI solve condition not met. Cannot solve. Return")
-            return
+        with span("mppi.solve"):
+            with span("mppi.solve.prepare"):
+                if not self.check_solve_conditions():
+                    print("MPPI solve condition not met. Cannot solve. "
+                          "Return")
+                    return
+                static = self._static()
+                maps, task = self._map_inputs(), self._task_device
+                solver = get_terrain_solver(static, self.device)
+                if self.device.type == "cuda":
+                    graph = self._solve_graphs.get(static)
+                    if graph is None:
+                        graph = solver.capture(self._generator, maps, task,
+                                               self._u_in)
+                        self._solve_graphs[static] = graph
+                    solver = graph
+            u_new, aux = solver(self._generator, maps, task, self.u_cur)
+            self.u_cur = u_new
+            self._last_aux = aux
+            self._last_static = static
+            # The TDMs expose the batch the solve actually used.
+            self.lin_tdm.sample_grid_batch = aux.lin_grids
+            self.ang_tdm.sample_grid_batch = aux.ang_grids
 
-        static = self._static()
-        maps, task = self._map_inputs(), self._task_device
-        solver = get_terrain_solver(static, self.device)
-        if self.device.type == "cuda":
-            graph = self._solve_graphs.get(static)
-            if graph is None:
-                graph = solver.capture(self._generator, maps, task,
-                                       self._u_in)
-                self._solve_graphs[static] = graph
-            solver = graph
-        u_new, aux = solver(self._generator, maps, task, self.u_cur)
-        self.u_cur = u_new
-        self._last_aux = aux
-        self._last_static = static
-        # The TDMs expose the batch the solve actually used.
-        self.lin_tdm.sample_grid_batch = aux.lin_grids
-        self.ang_tdm.sample_grid_batch = aux.ang_grids
+            if self.det_dyn:
+                # The reference's quirk, kept as the JAX package keeps it:
+                # the "previous" controls alias the freshly updated ones.
+                self.u_prev = u_new
 
-        if self.det_dyn:
-            # The reference's quirk, kept as the JAX package keeps it: the
-            # "previous" controls alias the freshly updated ones.
-            self.u_prev = u_new
-
-        self._last_useq_np = u_new.cpu().numpy()
-        # Hand the caller a copy, so that caller edits cannot defeat
-        # shift_and_update's is-this-the-solved-sequence comparison.
-        return self._last_useq_np.copy()
+            with span("mppi.solve.fetch"):
+                # The wait for the device, then the copy to the host.
+                self._last_useq_np = u_new.cpu().numpy()
+                # Hand the caller a copy, so that caller edits cannot
+                # defeat shift_and_update's is-this-the-solved-sequence
+                # comparison.
+                return self._last_useq_np.copy()
 
     # -- receding horizon -------------------------------------------------------
 
@@ -395,15 +406,17 @@ class MPPIPlanner:
         """Receding-horizon update: one small upload (the new x0); the
         control shift runs on the device when ``u_cur`` is the sequence the
         last solve returned, else the shifted host array is uploaded."""
-        new_x0 = np.asarray(new_x0).copy()
-        self.params["x0"] = new_x0
-        self._task_device.x0.copy_(torch.from_numpy(
-            new_x0.astype(np.float32)))
-        u_np = np.asarray(u_cur, dtype=np.float32)
-        self._u_in.copy_(shifted_useq(self.u_cur, self._last_useq_np, u_np,
-                                      num_shifts))
-        self.u_cur = self._u_in
-        self._last_useq_np = None
+        with span("mppi.update"):
+            new_x0 = np.asarray(new_x0).copy()
+            self.params["x0"] = new_x0
+            with span("mppi.update.upload"):
+                self._task_device.x0.copy_(torch.from_numpy(
+                    new_x0.astype(np.float32)))
+            u_np = np.asarray(u_cur, dtype=np.float32)
+            self._u_in.copy_(shifted_useq(self.u_cur, self._last_useq_np,
+                                          u_np, num_shifts))
+            self.u_cur = self._u_in
+            self._last_useq_np = None
 
     def shift_optimal_control_sequence(self, u_cur, num_shifts=1):
         """Set the nominal controls to the host array ``u_cur`` shifted by

@@ -1,8 +1,28 @@
 """Profiling and timing utilities: the JAX package's ``profiling.py`` for
 PyTorch.
 
+* ``span``: names a stretch of the port's host work for
+  ``torch.profiler``.  While a profiler records (``trace`` below, or any
+  ``torch.profiler.profile``), ``span(name)`` is a
+  ``torch.profiler.record_function``: a ``user_annotation`` record in the
+  same trace as the kernels, on the same clock, whose parent is the span
+  around it on the same thread; a span's count is the number of its
+  records.  Each then costs tens of microseconds of host time, and a CUDA
+  graph's launch reads several times longer under CUDA activity, so a
+  profiled stretch runs slower than an unprofiled one.  While none
+  records, a span is one shared do-nothing context (a flag read and a
+  ``with``: under a microsecond).  The planner
+  (``mppi.solve``, ``mppi.solve.prepare``, ``mppi.solve.fetch``,
+  ``mppi.update``, ``mppi.update.upload``, ``mppi.set_params``), the graphs
+  (``graphs.replay``, ``graphs.capture``) and the device simulator
+  (``device_sim.load``, ``device_sim.poll``, ``device_sim.result``) name
+  their steps this way.  An operator reads them by wrapping a loop in
+  ``trace()`` and opening its ``trace.json`` (Perfetto, or
+  ``chrome://tracing``), or by reading ``key_averages()`` of their own
+  ``torch.profiler.profile``.
 * ``trace``: ``torch.profiler`` around a block, writing a Chrome trace
-  file (per-kernel device time where a card is present).
+  file (per-kernel device time where a card is present; the spans above
+  beside the kernels).
 * ``chained_solve_time`` and ``chained_kernel_time``: per-call latency
   from chains of calls, each fed the last one's output, so that nothing
   overlaps and the host need not wait inside the chain: timed with CUDA
@@ -21,9 +41,25 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # Where ``trace`` writes by default: the repository's build directory.
 DEFAULT_TRACE_DIR = Path(__file__).resolve().parents[1] / "build" / "trace"
+
+
+# What ``span`` returns while no profiler records: one context, shared.
+_OFF = contextlib.nullcontext()
+
+
+def span(name):
+    """A context naming a stretch of host work ``name`` in a profiler's
+    trace: ``torch.profiler.record_function(name)`` while a profiler
+    records (``torch.autograd.profiler._is_profiler_enabled``, which
+    ``torch.profiler.profile`` sets while it runs), else a shared context
+    that does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def _sync(device):
@@ -35,7 +71,10 @@ def _sync(device):
 def trace(log_dir=DEFAULT_TRACE_DIR):
     """Profile a block with ``torch.profiler`` (the CPU, and the card's
     kernels where one is present) and write its Chrome trace to
-    ``log_dir/trace.json``.  Yields ``log_dir``."""
+    ``log_dir/trace.json``.  Yields ``log_dir``.  The port's ``span``
+    records of the block are in the trace, as ``user_annotation`` events
+    beside the kernels: wrap a control loop in it to see where its host
+    time goes."""
     from torch.profiler import ProfilerActivity, profile
 
     log_dir = Path(log_dir)
