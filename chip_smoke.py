@@ -521,6 +521,12 @@ SWEEP_GRID, SWEEP_MARGIN, SWEEP_RES = (9, 9), 1, 1.0
 SWEEP_ALPHA, SWEEP_CHUNK = 0.6, 30
 # The scenario-axis cases of phase 2: scenarios a launch.
 SCENARIOS = 3
+# The skip mask: phase 4 times the sweep's B = 30 byte launch with these
+# many of its scenarios skipped; phase 2 holds the masked launches at the
+# sweep's shape and at the fleet's (16 robots' 65x65 windows of the
+# 250x250 map, 8-bit cells) against the masked plain versions.
+SKIP_COUNTS = (0, 8, 15, 22, 29)
+FLEET_ROBOTS, FLEET_WINDOW = 16, (65, 65)
 # Chunk sizes whose peak device memory phase 4 records (noisy_dyn, M = K =
 # 1024; 120 is the whole sweep in one batch).
 PEAK_CHUNKS = (10, 30, 60, 120)
@@ -2849,6 +2855,22 @@ def main():
                             tv=sweep_tv, v=v_all, w=w_all, kw=sweep_kw)
     del got, want, single, noise
 
+    # The skip mask at the sweep's shape (the byte kernel, B = 30) and at
+    # the fleet's (binned8, 16 windows of 65x65): none, some and all of
+    # the scenarios skipped, bit for bit against the masked plain version.
+    fH, fW = FLEET_WINDOW
+    fleet = [make_binned_case(K, M, T, fH, fW, 1.0, 8, 22, True, False,
+                              1000 + b, past_last=False)[0]
+             for b in range(FLEET_ROBOTS)]
+    fleet = stack_scenarios(torch, [(*p[:3], vary_task(p[3], b), *p[4:])
+                                    for b, p in enumerate(fleet)])
+    skip_results = check_skip_masks(torch, dev, [
+        ("sweep_shape_byte", kernel, plain,
+         (sweep_words, sweep_tv, v_all, w_all), sweep_kw),
+        ("fleet_shape_binned8", bkernel, bplain, fleet,
+         dict(H=fH, W=fW, T=T, cell_bits=8, fast_trig=True))])
+    del fleet
+
     small_solve_witness(torch, dev, plain)
 
     # The solve's tail at every path's shape: the CVaR plus coupling
@@ -3607,6 +3629,7 @@ def main():
              singles_runs=runs["singles"]["graph"],
              singles_eager_runs=runs["singles"]["eager"],
              bound_ms=bound[0], bound_by=bound[1])
+    skip_timed = time_skip_masks(torch, dev, time_kernels, kernel, st, emit)
     del st, sweep_timed_args, m1
 
     # The sweep's trials per second for each method on one chunk of 30
@@ -3711,6 +3734,9 @@ def main():
         "scenario_cases": len(scenario_results["rollout_byte"]),
         "scenarios_b30": scenario_timed["rollout_byte"],
         "scenarios_b30_M1": scenario_timed["rollout_byte_M1"],
+        "skip_mask_cases": len(skip_results),
+        "scenarios_b30_skipped_ms": {str(n): ms
+                                     for n, ms in skip_timed.items()},
     }, {
         "name": "rollout_binned",
         "route": "cuda",
@@ -4362,11 +4388,12 @@ def small_solve_witness(torch, dev, plain):
     eps = [gen.randn(static.num_control_rollouts, T, 2).astype(np.float32)
            for _ in range(2)]
 
-    def plain_rollout(words, task, u, noise):
+    def plain_rollout(words, task, u, noise, skip=None):
         v_all, w_all = _clipped_controls_tk(u, noise, task.vrange,
                                             task.wrange)
         return plain(words, build_task_vec(task), v_all.contiguous(),
-                     w_all.contiguous(), H=H, W=W, T=T, fast_trig=True)
+                     w_all.contiguous(), H=H, W=W, T=T, fast_trig=True,
+                     skip=skip)
 
     def solve(num_opt, d, swap_plain=False):
         solver = TerrainSolver(dataclasses.replace(static, num_opt=num_opt),
@@ -4667,6 +4694,73 @@ def check_batched_solve_step(torch, dev, fused, scenario):
     return res
 
 
+def skip_mask(torch, dev, B, n, seed=0):
+    """A ``(B,)`` bool skip mask with ``n`` scenarios marked, picked by a
+    seeded permutation."""
+    mask = torch.zeros(B, dtype=torch.bool)
+    mask[torch.randperm(B, generator=torch.Generator().manual_seed(seed))
+         [:n]] = True
+    return mask.to(dev)
+
+
+def check_skip_masks(torch, dev, cases):
+    """Phase 2's skip-mask cases: each ``(name, kernel, plain, args, kw)``
+    launched with none, some and all of its scenarios marked, bit for bit
+    against the masked plain version, its unmarked scenarios against the
+    unmasked launch and its marked ones zeros.  Returns the records."""
+    records = []
+    for name, kernel, plain, args, kw in cases:
+        B = args[0].shape[0]
+        full = kernel(*args, **kw)
+        for n in (0, B // 3, B):
+            skip = skip_mask(torch, dev, B, n, seed=n)
+            before = kernel.launches
+            got = kernel(*args, skip=skip, **kw)
+            want = plain(*args, skip=skip, **kw)
+            torch.cuda.synchronize()
+            rec = dict(case="skip_mask_" + name, scenarios=B, skipped=n,
+                       launches=kernel.launches - before,
+                       plain_differing=int((got != want).sum()),
+                       unmasked_differing=int((got[~skip]
+                                               != full[~skip]).sum()),
+                       skipped_nonzero=int((got[skip] != 0).sum()))
+            print(json.dumps(rec), flush=True)
+            check(rec["launches"] == 1 and not rec["plain_differing"]
+                  and not rec["unmasked_differing"]
+                  and not rec["skipped_nonzero"],
+                  "skip mask {}: {}".format(name, rec))
+            records.append(rec)
+            del got, want
+        del full
+    return records
+
+
+def time_skip_masks(torch, dev, time_kernels, kernel, st, emit):
+    """Phase 4: the sweep's B = 30 byte launch with ``SKIP_COUNTS`` of its
+    scenarios skipped, and without a mask, in turns, each over launches
+    captured in a CUDA graph; beside each, (30 - n) / 30 of the unmasked
+    launch, and the excess over it.  Returns ``{n: ms}`` (``None``: no
+    mask)."""
+    B = st["words"].shape[0]
+    masks = {n: skip_mask(torch, dev, B, n, seed=n) for n in SKIP_COUNTS}
+    masks[None] = None
+    fns = {n: (lambda m=m: kernel(st["words"], st["tv"], st["v"], st["w"],
+                                  skip=m, **st["kw"]))
+           for n, m in masks.items()}
+    runs = time_kernels(fns, 3)
+    full = min(runs[None]["graph"])
+    out = {}
+    for n in masks:
+        ms = min(runs[n]["graph"])
+        out[n] = ms
+        share = None if n is None else full * (B - n) / B
+        emit("rollout_skip_mask_ms", ms, "ms", scenarios=B, skipped=n,
+             runs=runs[n]["graph"], eager_runs=runs[n]["eager"],
+             unmasked_ms=full, active_share_ms=share,
+             over_active_share_ms=None if n is None else ms - share)
+    return out
+
+
 def check_checkpoint_round_trip(torch):
     """``checkpoint.save_planner_state`` / ``load_planner_state`` on a
     planner whose solves replay a CUDA graph (world (g), tdm): saved after
@@ -4712,7 +4806,8 @@ def time_sweep_chunk(torch, device_sim, static, maps, task, gt):
     (its capture and its run), its second call (replays only), and the
     in-turn engine (one ``make_device_trial`` a scenario, each capturing
     its graph on its first call) over the same episodes; host seconds,
-    each ending in a synchronize.  Returns the record."""
+    each ending in a synchronize, and the share of the batch's scenario
+    solves whose rollouts the skip mask took off.  Returns the record."""
     from mppi_numba_tpu_torch.types import scenario
 
     B = task.x0.shape[0]
@@ -4730,7 +4825,8 @@ def time_sweep_chunk(torch, device_sim, static, maps, task, gt):
             out = engine(g, maps, task, *gt)
             out.steps.cpu()
             times.append(time.perf_counter() - t0)
-        return times, engine.steps_run, int(out.success.sum())
+        return (times, engine.steps_run, int(out.success.sum()),
+                engine.skipped_solves)
 
     def in_turn():
         torch.cuda.synchronize()
@@ -4753,6 +4849,8 @@ def time_sweep_chunk(torch, device_sim, static, maps, task, gt):
                 batched_replay_s=replay, batched_first_call_s=first,
                 capture_s=[f - r for f, r in zip(first, replay)],
                 batched_steps=b1[1], batched_successes=b1[2],
+                batched_skipped_solves=b1[3],
+                batched_skip_share=b1[3] / (B * b1[1]),
                 in_turn_episodes_per_s=B / min(turns), in_turn_s=turns,
                 in_turn_steps=[turn1[1], turn2[1]],
                 in_turn_captures=B, batched_captures=1)

@@ -25,7 +25,8 @@
 //
 // Scenario axis: blockIdx.z is the scenario b; cells (B, M, n_words), mask
 // (B, ceil(H*W/16)), risk (B, ceil(H*W/4)), lut (B, 2, 16), task
-// (B, task_stride), v / w (B, T, K), out (B, K, M) (rollout_step.cuh).
+// (B, task_stride), v / w (B, T, K), out (B, K, M), and the optional skip
+// mask (B,) (rollout_step.cuh).
 //
 // Design: the byte kernel's (csrc/rollout_step.cuh holds the step loop
 // and its tiling).  For 2- and 4-bit cells each block expands the 2 x 16
@@ -100,6 +101,7 @@ rollout_binned_kernel(const int32_t* __restrict__ cells,
                       const float* __restrict__ v_all,
                       const float* __restrict__ w_all,
                       float* __restrict__ cost_out,
+                      const uint8_t* __restrict__ skip,
                       int K, int M, int H, int W, int T, int n_words,
                       int task_stride, float wheelbase) {
   constexpr int S = Tiling<MODEL>::kSamples;
@@ -110,6 +112,7 @@ rollout_binned_kernel(const int32_t* __restrict__ cells,
   __shared__ float2 s_pairs[kPairs];
   __shared__ float s_step[SPEED_MAP ? kStepTable : 1];
   const int b = blockIdx.z;                       // the scenario
+  if (skip_scenario(skip, cost_out, b, K, M)) return;
   const Task tk(task + (size_t)b * task_stride);
   if (CELL_BITS != 8) {
     const float* lut_b = lut + b * 2 * kLutBins;
@@ -152,6 +155,7 @@ struct Args {
   const float* v;
   const float* w;
   float* out;
+  const uint8_t* skip;
   int K, M, H, W, T, n_words, B, task_stride;
   float wheelbase;
   cudaStream_t stream;
@@ -170,8 +174,8 @@ struct Launch {
     const dim3 grid((a.K + Tl::kBlock - 1) / Tl::kBlock,
                     (a.M + Tl::kSamples - 1) / Tl::kSamples, a.B);
     kernel<<<grid, Tl::kBlock, 0, a.stream>>>(
-        a.cells, a.mask, a.lut, a.risk, a.task, a.v, a.w, a.out, a.K, a.M,
-        a.H, a.W, a.T, a.n_words, a.task_stride, a.wheelbase);
+        a.cells, a.mask, a.lut, a.risk, a.task, a.v, a.w, a.out, a.skip, a.K,
+        a.M, a.H, a.W, a.T, a.n_words, a.task_stride, a.wheelbase);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -218,16 +222,18 @@ int dispatch(int cell_bits, int speed_map, int fast_trig, int model, A arg) {
 // (B, ceil(H*W/16)), lut float32 (B, 2, 16) (unused, may be null, for
 // cell_bits 8), risk int32 (B, ceil(H*W/4)) (read only when speed_map),
 // task float32 (B, task_stride) (task_stride >= 18), v / w float32
-// (B, T, K), out float32 (B, K, M).  model: 0 unicycle, 1 bicycle
-// (wheelbase read only then).  Launches on `stream`, does not synchronise,
-// and returns cudaGetLastError() so the caller sees a refused launch; an
-// unknown cell_bits or model, fast trig with a model other than the
-// unicycle, or an instantiation whose shared memory exceeds 48 KB returns
-// cudaErrorInvalidValue.
+// (B, T, K), out float32 (B, K, M), skip bytes (B,) or null: a scenario
+// whose byte is non-zero gets zero costs and no rollout.  model: 0
+// unicycle, 1 bicycle (wheelbase read only then).  Launches on `stream`,
+// does not synchronise, and returns cudaGetLastError() so the caller sees
+// a refused launch; an unknown cell_bits or model, fast trig with a model
+// other than the unicycle, or an instantiation whose shared memory exceeds
+// 48 KB returns cudaErrorInvalidValue.
 extern "C" int rollout_binned_launch(const void* cells, const void* mask,
                                      const void* lut, const void* risk,
                                      const void* task, const void* v,
-                                     const void* w, void* out, int K, int M,
+                                     const void* w, void* out,
+                                     const void* skip, int K, int M,
                                      int H, int W, int T, int n_words,
                                      int B, int task_stride, int cell_bits,
                                      int speed_map, int fast_trig, int model,
@@ -240,6 +246,7 @@ extern "C" int rollout_binned_launch(const void* cells, const void* mask,
                static_cast<const float*>(v),
                static_cast<const float*>(w),
                static_cast<float*>(out),
+               static_cast<const uint8_t*>(skip),
                K, M, H, W, T, n_words, B, task_stride, wheelbase,
                static_cast<cudaStream_t>(stream)};
   return dispatch<Launch>(cell_bits, speed_map, fast_trig, model, a);

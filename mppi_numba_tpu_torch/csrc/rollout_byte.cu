@@ -17,7 +17,8 @@
 // or t_unroll exists here: the ragged edges of K and M are masked.
 //
 // Scenario axis: blockIdx.z is the scenario b; words (B, M, H, W), task
-// (B, task_stride), v / w (B, T, K), out (B, K, M) (rollout_step.cuh).
+// (B, task_stride), v / w (B, T, K), out (B, K, M), and the optional
+// skip mask (B,) (rollout_step.cuh).
 //
 // Decode: one int32 word per cell, lin | ang << 8 | obs << 16 | unk << 17
 // | risk << 18 (ops/packing.py::pack_map_words; bytes sign-extended when
@@ -60,11 +61,13 @@ rollout_byte_kernel(const int32_t* __restrict__ words,
                     const float* __restrict__ v_all,
                     const float* __restrict__ w_all,
                     float* __restrict__ cost_out,
+                    const uint8_t* __restrict__ skip,
                     int K, int M, int H, int W, int T, int task_stride,
                     float wheelbase) {
   constexpr int S = Tiling<MODEL>::kSamples;
   __shared__ float s_step[SPEED_MAP ? kStepTable : 1];
   const int b = blockIdx.z;                       // the scenario
+  if (skip_scenario(skip, cost_out, b, K, M)) return;
   const Task tk(task + (size_t)b * task_stride);
   if (SPEED_MAP) {
     fill_step_table(s_step, tk);
@@ -108,9 +111,9 @@ int dispatch(int speed_map, int fast_trig, int model, Args... args) {
 template <bool FAST_TRIG, bool SPEED_MAP, int MODEL>
 struct Launch {
   static int run(const int32_t* words, const float* task, const float* v,
-                 const float* w, float* out, int K, int M, int H, int W,
-                 int T, int B, int task_stride, float wheelbase,
-                 cudaStream_t stream) {
+                 const float* w, float* out, const uint8_t* skip, int K,
+                 int M, int H, int W, int T, int B, int task_stride,
+                 float wheelbase, cudaStream_t stream) {
     constexpr auto kernel = rollout_byte_kernel<FAST_TRIG, SPEED_MAP, MODEL>;
     const int err = cached_check<kernel>();
     if (err != 0) return err;
@@ -118,8 +121,9 @@ struct Launch {
     if (B < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((K + Tl::kBlock - 1) / Tl::kBlock,
                     (M + Tl::kSamples - 1) / Tl::kSamples, B);
-    kernel<<<grid, Tl::kBlock, 0, stream>>>(words, task, v, w, out, K, M, H,
-                                            W, T, task_stride, wheelbase);
+    kernel<<<grid, Tl::kBlock, 0, stream>>>(words, task, v, w, out, skip, K,
+                                            M, H, W, T, task_stride,
+                                            wheelbase);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -136,23 +140,26 @@ struct Info {
 
 // Plain C entry point, bound with ctypes.  Pointers are device pointers
 // of B scenarios: words int32 (B, M, H, W), task float32 (B, task_stride)
-// (task_stride >= 18), v / w float32 (B, T, K), out float32 (B, K, M).
-// model: 0 unicycle, 1 bicycle (wheelbase read only then).  Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError() so the
-// caller sees a refused launch; fast trig with a model other than the
-// unicycle, an unknown model, B outside 1..65535, or an instantiation
-// whose shared memory exceeds 48 KB returns cudaErrorInvalidValue.
+// (task_stride >= 18), v / w float32 (B, T, K), out float32 (B, K, M),
+// skip bytes (B,) or null: a scenario whose byte is non-zero gets zero
+// costs and no rollout.  model: 0 unicycle, 1 bicycle (wheelbase read only
+// then).  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() so the caller sees a refused launch; fast trig with a
+// model other than the unicycle, an unknown model, B outside 1..65535, or
+// an instantiation whose shared memory exceeds 48 KB returns
+// cudaErrorInvalidValue.
 extern "C" int rollout_byte_launch(const void* words, const void* task,
                                    const void* v, const void* w, void* out,
-                                   int K, int M, int H, int W, int T,
-                                   int B, int task_stride, int speed_map,
-                                   int fast_trig, int model, float wheelbase,
-                                   void* stream) {
+                                   const void* skip, int K, int M, int H,
+                                   int W, int T, int B, int task_stride,
+                                   int speed_map, int fast_trig, int model,
+                                   float wheelbase, void* stream) {
   return dispatch<Launch>(
       speed_map, fast_trig, model, static_cast<const int32_t*>(words),
       static_cast<const float*>(task), static_cast<const float*>(v),
-      static_cast<const float*>(w), static_cast<float*>(out), K, M, H, W, T,
-      B, task_stride, wheelbase, static_cast<cudaStream_t>(stream));
+      static_cast<const float*>(w), static_cast<float*>(out),
+      static_cast<const uint8_t*>(skip), K, M, H, W, T, B, task_stride,
+      wheelbase, static_cast<cudaStream_t>(stream));
 }
 
 // The tiling and resources of the instantiation a launch with these

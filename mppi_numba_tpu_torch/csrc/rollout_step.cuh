@@ -45,6 +45,14 @@
 // vector, the controls (T, K), the map planes); this loop writes
 // cost_out[b, k, m].  Offsets are size_t: B * M * H * W passes 2^31 at
 // B = 120, M = 1024 and 250 x 250.
+//
+// The skip mask: a launch may take a (B,) byte mask, read at run time (a
+// captured graph reads the buffer as it stands at each replay).  The
+// blocks of a scenario whose byte is set write zeros over their share of
+// its costs (skip_scenario) and return before any other work: the
+// rollouts of an episode already at its goal, whose solve the caller
+// throws away.  The exit is uniform across a block (blockIdx.z is the
+// scenario), so it comes before any __syncthreads.
 
 #pragma once
 
@@ -173,6 +181,25 @@ __device__ __forceinline__ void fill_step_table(float* s_step,
     const float eff = tk.lin_lb + tk.lin_ratio * (float)r;
     s_step[r] = tk.dt / (eff + 1e-6f);
   }
+}
+
+// Whether scenario b's rollouts are skipped; if so, this block has written
+// zeros over its share of b's (K, M) costs: the grid's x-y blocks take
+// contiguous runs of out_b = cost_out + b * K * M in their linear order,
+// so each run is written coalesced and every cost of b once.
+__device__ __forceinline__ bool skip_scenario(
+    const uint8_t* __restrict__ skip, float* __restrict__ cost_out, int b,
+    int K, int M) {
+  if (skip == nullptr || !skip[b]) return false;
+  const size_t n = (size_t)K * M;
+  const size_t blocks = (size_t)gridDim.x * gridDim.y;
+  const size_t per = (n + blocks - 1) / blocks;
+  const size_t start = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * per;
+  const size_t end = start + per < n ? start + per : n;
+  float* out_b = cost_out + (size_t)b * n;
+  for (size_t i = start + threadIdx.x; i < end; i += blockDim.x)
+    out_b[i] = 0.0f;
+  return true;
 }
 
 // The T-step loop of thread (k, samples m0 .. m0 + S - 1) of scenario b,

@@ -21,10 +21,18 @@ noise from it, as ``TerrainSolver.__call__`` does), or a callable
 ``TerrainSolver.solve_from_key`` (the tests inject the JAX package's own).
 A card with a generator replays graphs; a callable, or the CPU, runs the
 same step eagerly.
+
+Each step's solve takes the episodes' ``reached`` buffer as its skip mask
+(``TerrainSolver.solve_from_key``): the rollouts of episodes already at
+their goal, whose solve the masked step throws away, are not computed.
+The draws, the CVaR and the update still cover the whole batch, so every
+active episode's step is the unmasked one's, bit for bit.  In a graph the
+rollout kernel reads the buffer at each replay.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -159,7 +167,8 @@ class _Graphed:
                                  for t in task))
         self.gt = tuple(t.clone() for t in gt)
         self.ep = _Episodes(self.task.x0, num_steps)
-        step_core = _make_step_core(solve)
+        step_core = _make_step_core(functools.partial(solve,
+                                                      skip=self.ep.reached))
 
         def one_step():
             self.ep.step(step_core, self.maps, self.task, self.gt)
@@ -206,6 +215,19 @@ class _Engine:
         self._graphed = None
         self.steps_run = 0      # steps the last run stepped (host count)
         self.captures = 0       # graphs captured by this engine
+        self._steps = None      # the last run's per-episode steps
+
+    @property
+    def skipped_solves(self):
+        """The scenario solves of the last run whose rollouts were skipped
+        (episodes already at their goal): ``B * steps_run - sum(steps)``,
+        worked out from the returned steps when read, not in the loop (0
+        before any run).  Over ``B * steps_run`` it is the share of the
+        rollout launches' scenarios that the skip mask took off."""
+        if self._steps is None:
+            return 0
+        return (self._steps.numel() * self.steps_run
+                - int(self._steps.sum()))
 
     def _slice(self, b):
         """The rows of a ``b``-episode slice in the whole batch, and its
@@ -214,17 +236,18 @@ class _Engine:
         return slice(index * b, (index + 1) * b), b * count
 
     def _generator_solve(self, solver, generator):
-        """``solve(maps, task, u)`` drawing from ``generator``."""
+        """``solve(maps, task, u, skip)`` drawing from ``generator``."""
         if self.shard is None:
-            return lambda m, tk, u: solver(generator, m, tk, u)
+            return lambda m, tk, u, skip: solver(generator, m, tk, u,
+                                                 skip=skip)
 
-        def solve(m, tk, u):
+        def solve(m, tk, u, skip):
             rows, n = self._slice(u.shape[0])
             map_keys, eps_list = draw_solve(generator, self.static, u.device,
                                             (n,))
             return solver.solve_from_key(map_keys[rows],
                                          [e[rows] for e in eps_list], m, tk,
-                                         u)
+                                         u, skip=skip)
 
         return solve
 
@@ -249,16 +272,17 @@ class _Engine:
             if isinstance(draws, torch.Generator):
                 solve = self._generator_solve(solver, draws)
             else:
-                def solve(m, tk, u):
+                def solve(m, tk, u, skip):
                     map_keys, eps_list = draws(t_box[0])
                     if self.shard is not None:
                         rows, _ = self._slice(u.shape[0])
                         map_keys = map_keys[rows]
                         eps_list = [e[rows] for e in eps_list]
                     return solver.solve_from_key(map_keys, eps_list, m, tk,
-                                                 u)
+                                                 u, skip=skip)
 
-            step_core = _make_step_core(solve)
+            step_core = _make_step_core(functools.partial(solve,
+                                                          skip=ep.reached))
 
             def one_step():
                 ep.step(step_core, maps, task, gt)
@@ -278,7 +302,9 @@ class _Engine:
                     break
         self.steps_run = t
         with span("device_sim.result"):
-            return ep.result(task)
+            result = ep.result(task)
+        self._steps = result.steps
+        return result
 
 
 def _single(engine):
@@ -346,6 +372,8 @@ def make_device_trial_batch(static: SolverStatic, max_steps: int):
     generator one step of the batch is one CUDA graph, captured at the
     first call and replayed by every later call on the same generator and
     shapes (the inputs are copied into its buffers): ``batch_fn.captures``
-    counts the captures, ``batch_fn.steps_run`` the last call's steps.
+    counts the captures, ``batch_fn.steps_run`` the last call's steps,
+    ``batch_fn.skipped_solves`` its scenario solves whose rollouts the
+    finished episodes' skip mask took off.
     """
     return _Engine(static, max_steps, early_exit=True)

@@ -14,7 +14,8 @@ decoded inline as ``lb + ratio * value``.  Like the byte kernel it is
 bound by instruction issue; see ``csrc/rollout_step.cuh``.  Every plane,
 the LUT, the task vector and the controls may carry a leading scenario
 axis B, as the byte kernel's arguments do: one launch, costs ``(B, K,
-M)``.
+M)``; ``skip`` zeroes the costs of the scenarios it marks and skips their
+rollouts, as the byte kernel's does.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ def build_bin_luts(task, lin_qbins, ang_qbins):
 def terrain_rollout_costs_binned_plain(cells, mask, lut, task_vec, v_all,
                                        w_all, risk=None, *, H, W, T,
                                        cell_bits, fast_trig=False,
-                                       step_fn=None):
+                                       step_fn=None, skip=None):
     """Plain PyTorch version of the kernel: the same interface and the same
     float32 arithmetic, step by step, over ``(K, M)`` planes.
 
@@ -78,6 +79,7 @@ def terrain_rollout_costs_binned_plain(cells, mask, lut, task_vec, v_all,
       task_vec / v_all / w_all: as for the byte kernel.
       risk: int32 ``(ceil(H*W/4),)`` from ``pack_risk_bytes`` in speed-map
         mode, else None.
+      skip: None, or a bool of the scenarios' shape: True gives zeros.
 
       With a leading scenario axis on every given argument (``cells (B,
       M, words)``, ``mask (B, words)``, ``lut (B, 2, LUT_BINS)``, the
@@ -91,7 +93,8 @@ def terrain_rollout_costs_binned_plain(cells, mask, lut, task_vec, v_all,
         return per_scenario(terrain_rollout_costs_binned_plain,
                             (cells, mask, lut, task_vec, v_all, w_all, risk),
                             dict(H=H, W=W, T=T, cell_bits=cell_bits,
-                                 fast_trig=fast_trig, step_fn=step_fn))
+                                 fast_trig=fast_trig, step_fn=step_fn,
+                                 skip=skip))
     f32, i32 = torch.float32, torch.int32
     M, n_words = cells.shape
     flat = cells.reshape(-1)
@@ -126,7 +129,8 @@ def terrain_rollout_costs_binned_plain(cells, mask, lut, task_vec, v_all,
         return lin_tr, ang_tr, obs, unk, rbyte
 
     return plain_rollout(decode, task_vec, v_all, w_all, M=M, H=H, W=W,
-                         T=T, fast_trig=fast_trig, step_fn=step_fn)
+                         T=T, fast_trig=fast_trig, step_fn=step_fn,
+                         skip=skip)
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,7 +141,7 @@ def _entry_points():
 
     lib = load("rollout_binned")
     return bind(lib.rollout_binned_launch,
-                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
+                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
                 + [ctypes.c_float, ctypes.c_void_p],
                 lib.rollout_binned_info, 4)
 
@@ -156,7 +160,7 @@ def kernel_tiling(*, cell_bits, speed_map=False, fast_trig=False,
 
 
 def _launch(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
-            cell_bits, fast_trig, model, wheelbase):
+            cell_bits, fast_trig, model, wheelbase, skip):
     fn = _entry_points()[0]
     M, n_words = cells.shape[-2:]
     K = v_all.shape[-1]
@@ -164,12 +168,14 @@ def _launch(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
     out = torch.empty(lead + (K, M), dtype=torch.float32, device=cells.device)
 
     def launch(scen, samples, out_part, n, m):
-        mask_p, lut_p, risk_p, tv, v, w = scen
+        mask_p, lut_p, risk_p, tv, v, w, skip_p = scen
         err = fn(samples[0].data_ptr(), mask_p.data_ptr(),
                  0 if lut is None else lut_p.data_ptr(),
                  0 if risk is None else risk_p.data_ptr(),
                  tv.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 out_part.data_ptr(), K, m, H, W, T, n_words, n,
+                 out_part.data_ptr(),
+                 0 if skip is None else skip_p.data_ptr(),
+                 K, m, H, W, T, n_words, n,
                  task_vec.shape[-1], cell_bits, int(risk is not None),
                  int(fast_trig), model, wheelbase, stream)
         if err != 0:
@@ -178,7 +184,7 @@ def _launch(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
         terrain_rollout_costs_binned.launches += 1
 
     def one(t):
-        if t is None:   # an absent plane: the mask stands in, never read
+        if t is None:   # an absent plane or mask: `mask` stands in, unread
             t = mask
         return t if lead else t[None]
 
@@ -186,13 +192,13 @@ def _launch(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
     with torch.cuda.device(cells.device):
         stream = torch.cuda.current_stream(cells.device).cuda_stream
         chunked_launches(launch, [one(t) for t in (mask, lut, risk, task_vec,
-                                                   v_all, w_all)],
+                                                   v_all, w_all, skip)],
                          [one(cells)], one(out))
     return out
 
 
 def _check_cuda_args(cells, mask, lut, task_vec, v_all, w_all, risk, H, W,
-                     T, cell_bits):
+                     T, cell_bits, skip):
     dev = cells.device
     hw = H * W
     lead = tuple(cells.shape[:-2])
@@ -218,7 +224,7 @@ def _check_cuda_args(cells, mask, lut, task_vec, v_all, w_all, risk, H, W,
         (risk is None or words(torch.int32, (-(-hw // 4),), risk),
          "risk must be contiguous int32 (ceil(H*W/4),), with the cells' "
          "scenarios"),
-        *check_scenario_args(lead, task_vec, v_all, w_all, T, K),
+        *check_scenario_args(lead, task_vec, v_all, w_all, T, K, skip),
         (all(a.device == dev for a in (task_vec, v_all, w_all)),
          "all inputs must be on one device"),
         (M >= 1 and K >= 1 and hw >= 1,
@@ -231,7 +237,7 @@ def _check_cuda_args(cells, mask, lut, task_vec, v_all, w_all, risk, H, W,
 
 def terrain_rollout_costs_binned(cells, mask, lut, task_vec, v_all, w_all,
                                  risk=None, *, H, W, T, cell_bits,
-                                 fast_trig=False, step_fn=None):
+                                 fast_trig=False, step_fn=None, skip=None):
     """Rollout costs ``(K, M)`` over a binned cell plane (``(B, K, M)``
     for B scenarios in one launch: every argument with a leading B).
 
@@ -245,13 +251,14 @@ def terrain_rollout_costs_binned(cells, mask, lut, task_vec, v_all, w_all,
     if not cells.is_cuda:
         return terrain_rollout_costs_binned_plain(
             cells, mask, lut, task_vec, v_all, w_all, risk, H=H, W=W, T=T,
-            cell_bits=cell_bits, fast_trig=fast_trig, step_fn=step_fn)
+            cell_bits=cell_bits, fast_trig=fast_trig, step_fn=step_fn,
+            skip=skip)
     model, wheelbase = kernel_model(step_fn)
     check_fast_trig(fast_trig, step_fn)
     _check_cuda_args(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
-                     cell_bits)
+                     cell_bits, skip)
     return _launch(cells, mask, lut, task_vec, v_all, w_all, risk, H, W, T,
-                   cell_bits, fast_trig, model, wheelbase)
+                   cell_bits, fast_trig, model, wheelbase, skip)
 
 
 terrain_rollout_costs_binned.launches = 0

@@ -14,6 +14,13 @@ W)``, the task vector ``(B, 19)``, the controls ``(B, T, K)``; costs
 ``(B, K, M)``): the JAX kernel under ``jax.vmap``, one launch for all B
 scenarios.  Without it the call is the single scenario, B = 1 of the same
 launch.
+
+``skip``, a bool tensor of the scenarios' shape (``(B,)``, or 0-d for one
+scenario), marks scenarios whose rollouts are not needed (a batch's
+episodes already at their goal): their costs are zeros, and the kernel's
+blocks of such a scenario write those zeros and return.  The kernel reads
+the mask when it runs, so a captured graph follows the buffer's values at
+each replay.
 """
 
 from __future__ import annotations
@@ -62,7 +69,7 @@ def build_task_vec(task):
 
 def terrain_rollout_costs_byte_plain(words, task_vec, v_all, w_all, *, H, W,
                                      T, speed_map=False, fast_trig=False,
-                                     step_fn=None):
+                                     step_fn=None, skip=None):
     """Plain PyTorch version of the kernel: the same interface and the same
     float32 arithmetic, step by step, over ``(K, M)`` planes.
 
@@ -72,8 +79,10 @@ def terrain_rollout_costs_byte_plain(words, task_vec, v_all, w_all, *, H, W,
       v_all / w_all: float32 ``(T, K)`` pre-clipped noisy controls.
       step_fn: dynamics for exact mode (default the unicycle); fast_trig
         hard-codes the unicycle rotation.
+      skip: None, or a bool of the scenarios' shape: True gives zeros.
       With a leading scenario axis on all four (``(B, M, H, W)``, ``(B,
-      19)``, ``(B, T, K)``) each scenario is rolled out in turn.
+      19)``, ``(B, T, K)``; ``skip (B,)``) each scenario is rolled out in
+      turn.
 
     Returns:
       float32 ``(K, M)`` rollout costs incl. terminal, excl. coupling
@@ -83,7 +92,8 @@ def terrain_rollout_costs_byte_plain(words, task_vec, v_all, w_all, *, H, W,
         return per_scenario(terrain_rollout_costs_byte_plain,
                             (words, task_vec, v_all, w_all),
                             dict(H=H, W=W, T=T, speed_map=speed_map,
-                                 fast_trig=fast_trig, step_fn=step_fn))
+                                 fast_trig=fast_trig, step_fn=step_fn,
+                                 skip=skip))
     f32 = torch.float32
     M = words.shape[0]
     flat = words.reshape(-1)
@@ -103,11 +113,12 @@ def terrain_rollout_costs_byte_plain(words, task_vec, v_all, w_all, *, H, W,
         return lin_tr, ang_tr, obs, unk, risk
 
     return plain_rollout(decode, task_vec, v_all, w_all, M=M, H=H, W=W,
-                         T=T, fast_trig=fast_trig, step_fn=step_fn)
+                         T=T, fast_trig=fast_trig, step_fn=step_fn,
+                         skip=skip)
 
 
 def plain_rollout(decode, task_vec, v_all, w_all, *, M, H, W, T,
-                  fast_trig=False, step_fn=None):
+                  fast_trig=False, step_fn=None, skip=None):
     """The rollout kernels' shared step loop in plain PyTorch, over
     ``(K, M)`` planes.
 
@@ -115,7 +126,7 @@ def plain_rollout(decode, task_vec, v_all, w_all, *, M, H, W, T,
     pre-update state to ``(lin_tr, ang_tr, obs, unk, risk)`` float32
     planes, ``risk`` being the raw risk byte in speed-map mode and None
     otherwise.  Returns float32 ``(K, M)`` costs incl. terminal, excl.
-    coupling.
+    coupling; zeros where ``skip`` (a 0-d bool) is True.
     """
     step_fn = unicycle_step if step_fn is None else step_fn
     check_fast_trig(fast_trig, step_fn)
@@ -181,7 +192,8 @@ def plain_rollout(decode, task_vec, v_all, w_all, *, M, H, W, T,
         reachedf = torch.maximum(reachedf,
                                  active * (dist2_new <= tol2).to(f32))
         x, y, hd = x_new, y_new, hd_new
-    return cost + (1.0 - reachedf) * torch.sqrt(dist2) / (v_post + 1e-6)
+    cost = cost + (1.0 - reachedf) * torch.sqrt(dist2) / (v_post + 1e-6)
+    return cost if skip is None else torch.where(skip, 0.0, cost)
 
 
 def check_fast_trig(fast_trig, step_fn):
@@ -225,7 +237,7 @@ def _entry_points():
 
     lib = load("rollout_byte")
     return bind(lib.rollout_byte_launch,
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                 + [ctypes.c_float, ctypes.c_void_p],
                 lib.rollout_byte_info, 3)
 
@@ -247,9 +259,11 @@ def chunked_launches(launch, per_scenario, per_sample, out):
     """Launch a rollout kernel over scenario-leading tensors in as many
     launches as its grid needs: ``launch(scenario_parts, sample_parts,
     out_part, scenarios, samples)`` launches once.  ``per_scenario``:
-    tensors ``(B, ...)``; ``per_sample``: ``(B, M, ...)``; ``out``: ``(B,
-    K, M)``.  Up to ``MAX_SAMPLES`` samples, chunks of ``MAX_SCENARIOS``
-    scenarios (slices of every tensor); past it, a scenario and a run of
+    tensors ``(B, ...)`` (the skip mask ``(B,)`` among them, so that each
+    chunk reads its own scenarios' bytes); ``per_sample``: ``(B, M,
+    ...)``; ``out``: ``(B, K, M)``.  Up to ``MAX_SAMPLES`` samples, chunks
+    of ``MAX_SCENARIOS`` scenarios (slices of every tensor); past it, a
+    scenario and a run of
     ``MAX_SAMPLES`` samples a launch, written to a buffer and copied into
     ``out``'s columns.  Every (rollout, sample) cost is computed alone, so
     the chunks give the same bits as one launch."""
@@ -271,7 +285,7 @@ def chunked_launches(launch, per_scenario, per_sample, out):
 
 
 def _launch(words, task_vec, v_all, w_all, H, W, T, speed_map, fast_trig,
-            model, wheelbase):
+            model, wheelbase, skip):
     fn = _entry_points()[0]
     M = words.shape[-3]
     K = v_all.shape[-1]
@@ -279,9 +293,10 @@ def _launch(words, task_vec, v_all, w_all, H, W, T, speed_map, fast_trig,
     out = torch.empty(lead + (K, M), dtype=torch.float32, device=words.device)
 
     def launch(scen, samples, out_part, n, m):
-        tv, v, w = scen
+        tv, v, w, skip_p = scen
         err = fn(samples[0].data_ptr(), tv.data_ptr(), v.data_ptr(),
-                 w.data_ptr(), out_part.data_ptr(), K, m, H, W, T, n,
+                 w.data_ptr(), out_part.data_ptr(),
+                 0 if skip is None else skip_p.data_ptr(), K, m, H, W, T, n,
                  task_vec.shape[-1], int(speed_map), int(fast_trig), model,
                  wheelbase, stream)
         if err != 0:
@@ -289,11 +304,16 @@ def _launch(words, task_vec, v_all, w_all, H, W, T, speed_map, fast_trig,
                                "error {}".format(err))
         terrain_rollout_costs_byte.launches += 1
 
-    one = (lambda t: t) if lead else (lambda t: t[None])
+    def one(t):
+        if t is None:   # no mask: the task vector stands in, never read
+            t = task_vec
+        return t if lead else t[None]
+
     # The runtime launches on its current device: make it the tensors'.
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        chunked_launches(launch, [one(task_vec), one(v_all), one(w_all)],
+        chunked_launches(launch, [one(t) for t in (task_vec, v_all, w_all,
+                                                   skip)],
                          [one(words)], one(out))
     return out
 
@@ -303,10 +323,11 @@ def scenarios(lead):
     return lead[0] if lead else 1
 
 
-def check_scenario_args(lead, task_vec, v_all, w_all, T, K):
+def check_scenario_args(lead, task_vec, v_all, w_all, T, K, skip=None):
     """Checks shared by both rollout kernels: the task vector ``lead +
-    (>= 18,)`` and the controls ``lead + (T, K)``, with ``lead`` the
-    map's leading scenario axis (``()`` or ``(B,)``, B >= 1)."""
+    (>= 18,)``, the controls ``lead + (T, K)`` and the skip mask ``lead``
+    (or None), with ``lead`` the map's leading scenario axis (``()`` or
+    ``(B,)``, B >= 1)."""
     return [
         (len(lead) <= 1 and 1 <= scenarios(lead),
          "need one scenario axis of B >= 1"),
@@ -319,10 +340,16 @@ def check_scenario_args(lead, task_vec, v_all, w_all, T, K):
              and a.is_contiguous() for a in (v_all, w_all)),
          "v_all / w_all must be contiguous float32 (T, K), or (B, T, K) "
          "with the maps' scenarios"),
+        (skip is None or (skip.dtype == torch.bool
+                          and tuple(skip.shape) == lead
+                          and skip.is_contiguous()
+                          and skip.device == task_vec.device),
+         "skip must be a contiguous bool of the maps' scenarios (0-d, or "
+         "(B,)), on their device"),
     ]
 
 
-def _check_cuda_args(words, task_vec, v_all, w_all, H, W, T):
+def _check_cuda_args(words, task_vec, v_all, w_all, H, W, T, skip):
     dev = words.device
     lead = tuple(words.shape[:-3])
     M = words.shape[-3] if words.dim() in (3, 4) else -1
@@ -331,7 +358,7 @@ def _check_cuda_args(words, task_vec, v_all, w_all, H, W, T):
         (words.dtype == torch.int32 and tuple(words.shape) == lead + (M, H, W)
          and words.is_contiguous(),
          "words must be contiguous int32 (M, H, W) or (B, M, H, W)"),
-        *check_scenario_args(lead, task_vec, v_all, w_all, T, K),
+        *check_scenario_args(lead, task_vec, v_all, w_all, T, K, skip),
         (all(a.device == dev for a in (task_vec, v_all, w_all)),
          "all inputs must be on one device"),
         (M >= 1 and K >= 1 and H >= 1 and W >= 1,
@@ -343,7 +370,8 @@ def _check_cuda_args(words, task_vec, v_all, w_all, H, W, T):
 
 
 def terrain_rollout_costs_byte(words, task_vec, v_all, w_all, *, H, W, T,
-                               speed_map=False, fast_trig=False, step_fn=None):
+                               speed_map=False, fast_trig=False, step_fn=None,
+                               skip=None):
     """Rollout costs ``(K, M)`` over byte-packed map words (``(B, K, M)``
     for B scenarios in one launch: every argument with a leading B).
 
@@ -352,17 +380,18 @@ def terrain_rollout_costs_byte(words, task_vec, v_all, w_all, *, H, W, T,
     models (``models.kernel_model``), and a custom registered step function
     raises ``NotImplementedError``.  On CPU tensors it runs
     ``terrain_rollout_costs_byte_plain``.  Arguments as for the plain
-    version.
+    version; ``skip`` as the module says.
     """
     if not words.is_cuda:
         return terrain_rollout_costs_byte_plain(
             words, task_vec, v_all, w_all, H=H, W=W, T=T,
-            speed_map=speed_map, fast_trig=fast_trig, step_fn=step_fn)
+            speed_map=speed_map, fast_trig=fast_trig, step_fn=step_fn,
+            skip=skip)
     model, wheelbase = kernel_model(step_fn)
     check_fast_trig(fast_trig, step_fn)
-    _check_cuda_args(words, task_vec, v_all, w_all, H, W, T)
+    _check_cuda_args(words, task_vec, v_all, w_all, H, W, T, skip)
     return _launch(words, task_vec, v_all, w_all, H, W, T, speed_map,
-                   fast_trig, model, wheelbase)
+                   fast_trig, model, wheelbase, skip)
 
 
 terrain_rollout_costs_byte.launches = 0

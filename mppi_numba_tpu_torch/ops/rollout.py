@@ -56,7 +56,7 @@ def cell_index(x, y, xlim0, ylim0, inv_res, H, W):
 
 
 def terrain_rollout_costs(packed_words, task, u_cur, noise, *, speed_map=False,
-                          step_fn=unicycle_step):
+                          step_fn=unicycle_step, skip=None):
     """Roll out K noisy control sequences over M sampled traction maps.
 
     Args:
@@ -66,6 +66,8 @@ def terrain_rollout_costs(packed_words, task, u_cur, noise, *, speed_map=False,
       noise: float32 ``(K, T, 2)`` control perturbations.
       speed_map: scale the time cost by the CVaR speed map.
       step_fn: dynamics step ``(x, y, th, v, w, lin_tr, ang_tr, dt)``.
+      skip: None, or a 0-d bool: True (an episode already at its goal)
+        gives zero costs, as the rollout kernels' skip mask does.
 
     Returns:
       float32 ``(K, M)`` rollout costs including the terminal cost but
@@ -123,7 +125,8 @@ def terrain_rollout_costs(packed_words, task, u_cur, noise, *, speed_map=False,
         cost = cost + torch.where(active, step_cost, 0.0)
         dist2 = torch.where(active, dist2_new, dist2)
         reached = reached | (active & (dist2_new <= tol2))
-    return cost + term_cost(dist2, task.v_post_rollout, reached.to(f32))
+    cost = cost + term_cost(dist2, task.v_post_rollout, reached.to(f32))
+    return cost if skip is None else torch.where(skip, 0.0, cost)
 
 
 def control_coupling(u_cur, noise, u_std, lambda_weight):

@@ -124,7 +124,9 @@ def make_rollout_backend(static: SolverStatic, device):
       layouts ``(cells, mask, lut, risk)``, the (2, 16) LUT built here for
       2- and 4-bit cells (whose cells hold bin indices; 8-bit cells hold
       decoded values);
-    * ``rollout(payload, task, u, noise) -> (K, M)`` costs.
+    * ``rollout(payload, task, u, noise, skip=None) -> (K, M)`` costs;
+      ``skip``, a bool of the scenarios' shape, zeroes the costs of the
+      scenarios it marks (the kernels skip their rollouts).
     """
     backend = resolve_backend(static, device)
     H, W = solver_map_shape(static)
@@ -146,19 +148,18 @@ def make_rollout_backend(static: SolverStatic, device):
         return (cells, mask,
                 build_bin_luts(task, maps.lin_qbins, maps.ang_qbins), riskw)
 
-    def rollout(payload, task, u, noise):
+    def rollout(payload, task, u, noise, skip=None):
         if backend == "eager":
+            kw = dict(speed_map=speed_map, step_fn=step_fn, skip=skip)
             if u.dim() == 3:        # the plain oracle, one scenario a call
                 return per_scenario(terrain_rollout_costs,
-                                    (payload, task, u, noise),
-                                    dict(speed_map=speed_map,
-                                         step_fn=step_fn))
-            return terrain_rollout_costs(payload, task, u, noise,
-                                         speed_map=speed_map, step_fn=step_fn)
+                                    (payload, task, u, noise), kw)
+            return terrain_rollout_costs(payload, task, u, noise, **kw)
         v_all, w_all = _clipped_controls_tk(u, noise, task.vrange,
                                             task.wrange)
         args = (build_task_vec(task), v_all.contiguous(), w_all.contiguous())
-        kw = dict(H=H, W=W, T=T, fast_trig=fast_trig, step_fn=step_fn)
+        kw = dict(H=H, W=W, T=T, fast_trig=fast_trig, step_fn=step_fn,
+                  skip=skip)
         if cell_bits is None:
             return terrain_rollout_costs_byte(payload, *args,
                                               speed_map=speed_map, **kw)
@@ -205,24 +206,26 @@ class TerrainSolver:
         self.backend, self._layout, self._finish, self._rollout = (
             make_rollout_backend(static, self.device))
 
-    def __call__(self, generator, maps, task, u0):
+    def __call__(self, generator, maps, task, u0, skip=None):
         """Draw this solve's map key and noise from ``generator`` and solve.
 
         Returns ``(u_new (T, 2), SolveAux)``.  With a leading scenario axis
         (``u0`` ``(B, T, 2)``, the maps and the task batched) it draws B
         map keys ``(B, 2)`` and the noise ``(B, K, T, 2)``, and returns
         ``u_new (B, T, 2)`` and a ``SolveAux`` of batched fields.
+        ``skip``: as for ``solve_from_key``.
         """
         map_key, eps_list = draw_solve(generator, self.static, self.device,
                                        tuple(u0.shape[:-2]))
-        return self.solve_from_key(map_key, eps_list, maps, task, u0)
+        return self.solve_from_key(map_key, eps_list, maps, task, u0,
+                                   skip=skip)
 
     def capture(self, generator, maps, task, u0):
         """This solve captured in a CUDA graph on these tensors: a
         ``SolveGraph``, called as the solver is."""
         return SolveGraph(self, generator, maps, task, u0)
 
-    def solve_from_key(self, map_key, eps_list, maps, task, u0):
+    def solve_from_key(self, map_key, eps_list, maps, task, u0, skip=None):
         """The solve after the draws of the map key and the noise.
 
         Args:
@@ -233,6 +236,13 @@ class TerrainSolver:
           maps / task: ``MapInputs`` / ``TerrainTask`` on the device, of the
             full padded map.
           u0: float32 ``(T, 2)`` nominal control sequence.
+          skip: None, or a bool of the scenarios' shape (``(B,)``) on the
+            device, read when the rollout runs: a marked scenario's
+            rollouts are skipped and its costs are zeros, so its result is
+            meaningless (the caller's to discard: the batch engine's
+            finished episodes).  The draws, the map samples, the CVaR and
+            the update still cover every scenario, so the others' results
+            are the unmasked solve's, bit for bit.
 
         Scenarios: map keys ``(B, 2)``, noise ``(B, K, T, 2)``, every field
         of the maps and the task and ``u0`` with the same leading B solve B
@@ -259,7 +269,7 @@ class TerrainSolver:
         # The packed payload holds the window's planes; the rest of the
         # solve reads only the maps' bin values (not spatial).
         return self._solve_packed(packed, lin_grids, ang_grids, eps_list,
-                                  maps, task, u0, offset)
+                                  maps, task, u0, offset, skip)
 
     def solve_from_draws(self, uniforms, eps_list, maps, task, u0):
         """The solve after the draws of the map's uniforms and the noise.
@@ -289,10 +299,11 @@ class TerrainSolver:
                                   maps, task, u0, offset)
 
     def _solve_packed(self, packed, lin_grids, ang_grids, eps_list, maps,
-                      task, u0, offset):
+                      task, u0, offset, skip=None):
         """The solve after the packed map planes and the decoded grids, on
         the (cropped) maps and task.  The grids feed SolveAux (and
-        TDM.sample_grid_batch) on every backend."""
+        TDM.sample_grid_batch) on every backend; ``skip`` reaches the
+        rollout."""
         s = self.static
         V = s.num_vis_state_rollouts
         payload = self._finish(packed, maps, task)
@@ -301,7 +312,7 @@ class TerrainSolver:
         noise = costs = weights = None
         for i in range(s.num_opt):
             noise = eps_list[i] * task.u_std[..., None, None, :]
-            costs_km = self._rollout(payload, task, u, noise)
+            costs_km = self._rollout(payload, task, u, noise, skip)
             costs = cvar_costs(costs_km, noise, u, task.u_std,
                                task.lambda_weight, **cvar_count(s, task))
             u, weights = update_useq_fused(costs, noise, u,

@@ -11,6 +11,8 @@ softmax).
 """
 
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -199,6 +201,74 @@ def test_batch_stops_once_every_episode_has_arrived():
               else x[i:i + 1] for x in batch_in))
         for a, b in zip(alone, got):
             assert torch.equal(a[0], b[i])
+
+
+class _MaskSpy:
+    """A solver that records the skip mask each solve is handed (as it
+    stands at the call) and, with ``drop``, solves without it."""
+
+    def __init__(self, solver, drop):
+        self.solver, self.drop, self.masks = solver, drop, []
+
+    def __call__(self, generator, maps, task, u0, skip=None):
+        self.masks.append(skip.clone())
+        return self.solver(generator, maps, task, u0,
+                           skip=None if self.drop else skip)
+
+
+@pytest.mark.parametrize("backend", ["eager", "byte", "binned8"])
+def test_batch_skip_mask_changes_no_result(backend, monkeypatch):
+    """Three episodes (two reach their goals at different steps, one times
+    out), a generator's draws: with the finished episodes' rollouts
+    skipped and with every rollout run, every ``TrialResult`` field is bit
+    for bit the same and the generator ends in the same state; each solve
+    is handed ``reached`` as it stood before the step, and
+    ``skipped_solves`` is ``B * steps_run - sum(steps)``, the masks' sum."""
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+
+    tstatic = dataclasses.replace(_statics()[1], backend=backend)
+    worlds = [_world(GOALS["reached"], 0), _world(GOALS["timeout"], 1),
+              _world(GOALS["reached"], 2)]
+    _, batch_in = _batch_inputs(worlds)
+    runs = []
+    for drop in (False, True):
+        spy = _MaskSpy(get_terrain_solver(tstatic, "cpu"), drop)
+        monkeypatch.setattr(tsim, "get_terrain_solver",
+                            lambda static, dev, spy=spy: spy)
+        engine = tsim.make_device_trial_batch(tstatic, MAX_STEPS)
+        g = torch.Generator().manual_seed(3)
+        runs.append((engine(g, *batch_in), g.get_state(), engine, spy))
+    (got, state, engine, spy), (want, want_state, _, _) = runs
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), (got, want)
+    assert torch.equal(state, want_state)
+    assert engine.steps_run == MAX_STEPS == len(spy.masks)
+    assert [int(s) < MAX_STEPS for s in got.steps] == [True, False, True]
+    assert not spy.masks[0].any()
+    for t, mask in enumerate(spy.masks):
+        assert torch.equal(mask, got.steps <= t), t
+    assert (engine.skipped_solves == 3 * MAX_STEPS - int(got.steps.sum())
+            == sum(int(m.sum()) for m in spy.masks) > 0)
+
+
+def test_episode_fn_equals_its_batch_row():
+    """``make_episode_fn`` (every step run, none exits early) gives each
+    episode of a batch its row of the batch's result, bit for bit, JAX's
+    draws injected, with the finished episode's rollouts skipped in
+    both."""
+    _, tstatic = _statics()
+    worlds = [_world(GOALS["reached"], 0), _world(GOALS["timeout"], 1)]
+    keys = [jax.random.PRNGKey(7), jax.random.PRNGKey(8)]
+    ports, batch_in = _batch_inputs(worlds)
+    batch = tsim.make_device_trial_batch(tstatic, MAX_STEPS)(
+        _jax_batch_draws(keys), *batch_in)
+    for i in range(2):
+        one = tsim.make_episode_fn(tstatic, MAX_STEPS)
+        got = one(_jax_draws(keys[i]), *ports[i])
+        for a, b in zip(got, batch):
+            assert torch.equal(a, b[i]), (i, got, batch)
+        assert one.engine.skipped_solves == MAX_STEPS - int(got.steps)
+    assert int(batch.steps[0]) < MAX_STEPS
 
 
 def test_batch_step_follows_jax_step_along_its_trajectory():

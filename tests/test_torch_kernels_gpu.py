@@ -1194,6 +1194,73 @@ def test_rollout_scenarios_reject_mismatched_axes_on_card():
     assert kernel.launches == before
 
 
+SKIP_SCENARIOS = 30      # a sweep chunk's episodes
+SKIPPED = {"none": (), "some": (0, 3, 4, 5, 13, 21, 28, 29),
+           "all": tuple(range(SKIP_SCENARIOS))}
+
+
+@pytest.mark.parametrize("skipped", sorted(SKIPPED))
+@pytest.mark.parametrize("speed_map", [False, True])
+@pytest.mark.parametrize("layout", ["byte", 8])
+def test_rollout_skip_mask_matches_plain_on_card(layout, speed_map, skipped):
+    """B = 30 scenarios with 0, some or all of them marked in the skip
+    mask (unicycle, fast trig): the launch equals the masked plain
+    version bit for bit, its unmarked scenarios the unmasked launch's and
+    its marked ones zeros, in one launch."""
+    dev = _cuda_or_skip()
+    K, M, T, H, W = 300, 5, 40, 21, 30
+    if layout == "byte":
+        parts = [_inputs(dev, K, M, T, H, W, True, speed_map, seed=s)
+                 for s in range(SKIP_SCENARIOS)]
+        tvs = _vary_task_vecs([p[1] for p in parts])
+        parts = [(p[0], tv, *p[2:]) for p, tv in zip(parts, tvs)]
+        kernel = rollout_byte.terrain_rollout_costs_byte
+        plain = rollout_byte.terrain_rollout_costs_byte_plain
+        kw = dict(H=H, W=W, T=T, speed_map=speed_map, fast_trig=True)
+    else:
+        parts = [_binned_inputs(dev, layout, K, M, T, H, W, speed_map,
+                                past_last=True, seed=s)[0]
+                 for s in range(SKIP_SCENARIOS)]
+        tvs = _vary_task_vecs([p[3] for p in parts])
+        parts = [(*p[:3], tv, *p[4:]) for p, tv in zip(parts, tvs)]
+        kernel = rollout_binned.terrain_rollout_costs_binned
+        plain = rollout_binned.terrain_rollout_costs_binned_plain
+        kw = dict(H=H, W=W, T=T, cell_bits=layout, fast_trig=True)
+    args = _stack(parts)
+    skip = torch.zeros(SKIP_SCENARIOS, dtype=torch.bool, device=dev)
+    skip[list(SKIPPED[skipped])] = True
+    full = kernel(*args, **kw)
+    before = kernel.launches
+    got = kernel(*args, skip=skip, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and got.shape == full.shape
+    assert torch.equal(got, plain(*args, skip=skip, **kw))
+    assert torch.equal(got[~skip], full[~skip])
+    assert not got[skip].any() and bool(full.all())
+
+
+def test_rollout_skip_mask_rejects_bad_masks_on_card():
+    dev = _cuda_or_skip()
+    K, M, T, H, W = 64, 3, 10, 9, 9
+    args = _stack([_inputs(dev, K, M, T, H, W, False, False, seed=s)
+                   for s in range(2)])
+    kernel = rollout_byte.terrain_rollout_costs_byte
+    before = kernel.launches
+    for bad in (torch.zeros(2, dtype=torch.uint8, device=dev),
+                torch.zeros(3, dtype=torch.bool, device=dev),
+                torch.zeros((2, 1), dtype=torch.bool, device=dev),
+                torch.zeros(2, dtype=torch.bool)):
+        with pytest.raises(ValueError, match="skip"):
+            kernel(*args, H=H, W=W, T=T, skip=bad)
+    binned, _ = _binned_inputs(dev, 8, K, M, T, H, W, False, False)
+    with pytest.raises(ValueError, match="skip"):
+        rollout_binned.terrain_rollout_costs_binned(
+            *(None if a is None else a[None] for a in binned), H=H, W=W,
+            T=T, cell_bits=8, skip=torch.zeros(2, dtype=torch.bool,
+                                               device=dev))
+    assert kernel.launches == before
+
+
 def _sweep_chunk(dev, method, B, K=1024, M=1024, T=10.0):
     """The first B episodes of the reference benchmark sweep at alpha 0.6
     (``benchmark.DeviceSweep``: 9x9 grids padded to 11x11, 22 bins):
@@ -1287,6 +1354,66 @@ def test_device_trial_batch_graph_equals_eager_on_card():
     for got in results:
         for a, b in zip(got, want):
             assert torch.equal(a, b), (got, want)
+
+
+def test_device_trial_batch_graph_reads_reached_at_each_replay_on_card(
+        monkeypatch):
+    """A graphed batch engine (noisy_dyn, B = 6, K = 256, M = 64) whose
+    episodes reach their goals at different steps: after every replay the
+    rollout's zero rows are exactly the episodes that had arrived before
+    it (the kernel read ``reached`` as it stood at that replay, not as it
+    stood at the capture), some replay has arrived and active episodes
+    side by side, ``skipped_solves`` counts the zero rows, and the results
+    equal the eager loop's, bit for bit."""
+    from mppi_numba_tpu_torch import device_sim, graphs
+    from mppi_numba_tpu_torch.ops.sampling import draw_map_key
+    from mppi_numba_tpu_torch.solver import get_terrain_solver
+
+    dev = _cuda_or_skip()
+    B, K, M = 6, 256, 64
+    static, maps, task, gt = _sweep_chunk(dev, "noisy_dyn", B, K=K, M=M)
+    # The engine's own (cached) solver: it asks for the maps' device.
+    solver = get_terrain_solver(static, maps.lin_pmf.device)
+    spy = torch.full((B, K, M), math.nan, device=dev)
+    rollout = solver._rollout
+
+    def spied(*args):
+        out = rollout(*args)
+        spy.copy_(out)
+        return out
+
+    monkeypatch.setattr(solver, "_rollout", spied)
+    engine = device_sim.make_device_trial_batch(static, 150)
+    seen = []
+    replay = graphs.Captured.replay
+
+    def replayed(self, *a, **kw):
+        before = engine._graphed.ep.reached.clone()
+        out = replay(self, *a, **kw)
+        seen.append((before.cpu(), (spy == 0).flatten(1).all(1).cpu()))
+        return out
+
+    monkeypatch.setattr(graphs.Captured, "replay", replayed)
+    got = engine(torch.Generator(device=dev).manual_seed(3), maps, task,
+                 *gt)
+    monkeypatch.setattr(graphs.Captured, "replay", replay)
+    assert engine.captures == 1 and len(seen) == engine.steps_run
+    for t, (arrived, zero) in enumerate(seen):
+        assert torch.equal(arrived, zero), t
+    assert any(a.any() and not a.all() for a, _ in seen)
+    assert engine.skipped_solves == sum(int(a.sum()) for a, _ in seen) > 0
+    assert engine.skipped_solves == (B * engine.steps_run
+                                     - int(got.steps.sum()))
+    g2 = torch.Generator(device=dev).manual_seed(3)
+
+    def draws(t):
+        return (draw_map_key(g2, dev, (B,)),
+                [torch.randn((B, K, static.num_steps, 2), generator=g2,
+                             device=dev)])
+
+    want = engine(draws, maps, task, *gt)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), (got, want)
 
 
 def test_checkpoint_round_trip_of_a_graphed_planner_on_card(tmp_path):

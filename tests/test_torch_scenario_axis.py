@@ -235,6 +235,66 @@ def test_rollout_plain_scenarios_equal_singles(layout, fast_trig, speed_map):
     assert torch.equal(got, torch.stack([fn(*p, **kw) for p in parts]))
 
 
+SKIP_MASKS = {"none": (False, False, False), "one": (False, True, False),
+              "all": (True, True, True)}
+
+
+def _rollout_fn(layout, fast_trig, speed_map):
+    if layout == "byte":
+        return (rollout_byte.terrain_rollout_costs_byte,
+                dict(H=H, W=W, T=T, speed_map=speed_map, fast_trig=fast_trig))
+    return (rollout_binned.terrain_rollout_costs_binned,
+            dict(H=H, W=W, T=T, fast_trig=fast_trig,
+                 cell_bits={"binned2": 2, "binned": 4, "binned8": 8}[layout]))
+
+
+@pytest.mark.parametrize("mask", sorted(SKIP_MASKS))
+@pytest.mark.parametrize("speed_map", [False, True])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_rollout_plain_skip_mask_zeroes_only_its_scenarios(layout, speed_map,
+                                                           mask):
+    """The plain versions with a skip mask: the unmarked scenarios' costs
+    are the unmasked call's bit for bit, the marked ones' zeros; a single
+    scenario takes a 0-d mask."""
+    parts = [_rollout_parts(layout, s, speed_map) for s in range(B)]
+    fn, kw = _rollout_fn(layout, True, speed_map)
+    args = _stack(parts)
+    skip = torch.tensor(SKIP_MASKS[mask])
+    full = fn(*args, **kw)
+    got = fn(*args, skip=skip, **kw)
+    assert torch.equal(got[~skip], full[~skip])
+    assert not got[skip].any() and bool(full.all())
+    for b in range(B):
+        assert torch.equal(fn(*parts[b], skip=skip[b], **kw), got[b])
+
+
+@pytest.mark.parametrize("mask", sorted(SKIP_MASKS))
+def test_eager_rollout_skip_mask_zeroes_only_its_scenarios(mask):
+    """``ops/rollout.py::terrain_rollout_costs`` (the eager backend, one
+    scenario a call) with the skip mask, through the solver's rollout:
+    the unmarked scenarios' costs bit for bit, the marked ones' zeros."""
+    from mppi_numba_tpu_torch.solver import make_rollout_backend
+
+    static = SolverStatic(mode="tdm", backend="eager", num_steps=T,
+                          num_control_rollouts=K, num_grid_samples=M,
+                          map_shape=(H, W), num_obstacles=0, num_opt=1,
+                          num_vis_state_rollouts=1, cvar_numel=M // 2)
+    _, _, _, rollout = make_rollout_backend(static, "cpu")
+    _, _, _, tmaps, ttask = _batched_worlds(12)
+    g = torch.Generator().manual_seed(9)
+    words = torch.stack([packing.pack_map_words(
+        *(torch.randint(0, 101, (M, H, W), generator=g, dtype=torch.int8)
+          for _ in range(2)), tmaps.obstacle[b], tmaps.unknown[b], None)
+        for b in range(B)])
+    u = torch.rand((B, T, 2), generator=g) * 2 - 0.5
+    noise = torch.randn((B, K, T, 2), generator=g)
+    skip = torch.tensor(SKIP_MASKS[mask])
+    full = rollout(words, ttask, u, noise)
+    got = rollout(words, ttask, u, noise, skip)
+    assert torch.equal(got[~skip], full[~skip])
+    assert not got[skip].any() and bool(full.all())
+
+
 def test_task_vectors_luts_and_reductions_are_per_scenario():
     """The batched task vector and LUTs are the single ones stacked, bit
     for bit; the CVaR, the coupling and the update reduce each scenario
